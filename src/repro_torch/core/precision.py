@@ -3,9 +3,11 @@
 
 ``compute_dtype`` is the activation dtype inside the encoder layers;
 LayerNorm statistics and the readout stay float32, parameters stay float32.
-The default policy is pure float32 and every cast is an identity.  The
-JAX policy's master-param dtype and loss scale serve training and come
-with the training slice.
+``loss_scale`` is the static loss scale of training: the trainer
+multiplies the loss before differentiation and ``optim.adamw_update``
+divides the gradients back out.  The default policy is pure float32 with
+scale 1.0, and every cast is an identity.  The JAX policy's master-param
+dtype is left out: parameters are always float32 here.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 @dataclass(frozen=True)
 class Policy:
     compute_dtype: str = "float32"
+    loss_scale: float = 1.0
 
     @property
     def compute(self) -> torch.dtype:

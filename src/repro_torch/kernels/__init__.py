@@ -1,7 +1,11 @@
 """Hand-written Hopper kernels of the port, built at first use.
 
 rgcn_fused     K1: one-pass RGCN message + degree norm + scatter + basis
-               contraction (replaces ``repro/kernels/rgcn_fused``)
+               contraction (replaces ``repro/kernels/rgcn_fused``), as an
+               autograd function whose backward is K1b (``jax.vjp`` of the
+               oracle in the JAX package) plus two ``torch.matmul``s
+rgcn_spmm      K5: the flat pre-basis aggregate (replaces
+               ``repro/kernels/rgcn_spmm``, flat variant)
 kmeans_assign  K2: fused masked K-Means assignment + per-cluster sums;
                K3: blocked silhouette sums (replace
                ``repro/kernels/kmeans_assign``)
@@ -29,8 +33,9 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -47,6 +52,9 @@ SIGNATURES = {
     "kmeans_assign_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _P],
     "silhouette_sums": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "rgcn_spmm_flat": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rgcn_fused_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -169,3 +177,42 @@ def route(t: torch.Tensor) -> str:
         return t.device.type
     raise ValueError(f"repro_torch kernels run on cuda or cpu, not "
                      f"{t.device}")
+
+
+class EdgeCSR(NamedTuple):
+    """CSR view of a flat edge list by one endpoint: ``perm`` (Q,) int32 is
+    the stable order of the live edges by that endpoint, ``rowptr`` (P+1,)
+    int32 the offsets of each node's run in ``perm``."""
+    perm: torch.Tensor
+    rowptr: torch.Tensor
+
+
+def edge_csr(index: torch.Tensor, live: torch.Tensor, num_nodes: int
+             ) -> EdgeCSR:
+    """CSR of the edges by ``index`` (dst or src).  Dead edges (``live``
+    False: zero weight, which adds exactly zero for finite inputs) are
+    keyed past the last row, so no warp walks them — left in, pack_graphs'
+    padded tail (src = dst = 0) would all land in row 0.  No host sync."""
+    P = int(num_nodes)
+    key = torch.where(live, index, torch.full_like(index, P))
+    sorted_key, perm = torch.sort(key, stable=True)
+    rowptr = torch.searchsorted(
+        sorted_key, torch.arange(P + 1, dtype=index.dtype,
+                                 device=index.device), out_int32=True)
+    return EdgeCSR(perm.to(torch.int32), rowptr)
+
+
+def check_endpoints(src, dst, num_nodes: int, name: str = "edges") -> None:
+    """Raise IndexError unless every edge endpoint lies in [0, num_nodes).
+    Numpy arrays are checked on the host (the trainer and the embedder do
+    so once per staged batch, before upload); a CUDA tensor costs one
+    device-to-host sync, which is why the staged paths skip it."""
+    P = int(num_nodes)
+    if isinstance(src, np.ndarray):
+        bad = src.size and (src.min() < 0 or src.max() >= P
+                            or dst.min() < 0 or dst.max() >= P)
+    else:
+        bad = src.numel() and bool(
+            ((src < 0) | (src >= P) | (dst < 0) | (dst >= P)).any())
+    if bad:
+        raise IndexError(f"{name}: edge endpoint outside [0, {P})")

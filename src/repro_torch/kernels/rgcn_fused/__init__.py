@@ -1,5 +1,8 @@
-"""K1: fused RGCN encode front-end (kernel wrapper, plain version, readout)."""
+"""K1 / K1b: fused RGCN encode front-end and its backward (kernel wrappers,
+plain versions, readout)."""
 
 from repro_torch.kernels.rgcn_fused.ops import (  # noqa: F401
-    fused_two_level_readout, rgcn_fused_agg_flat, rgcn_fused_agg_flat_plain,
+    EdgeIndex, edge_index, fused_two_level_readout, rgcn_fused_agg_flat,
+    rgcn_fused_agg_flat_plain, rgcn_fused_bwd, rgcn_fused_bwd_plain,
+    rgcn_fused_flat_fwd,
 )

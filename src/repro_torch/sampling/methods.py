@@ -1,12 +1,16 @@
 """The port's ``gcl`` sampling method (counterpart of ``GCLMethod`` in
 ``repro/sampling/methods.py``), registered in the port's own registry.
 
-This slice serves plans with an adopted encoder: ``adopt`` takes trained
-params (JAX-trained ones in ``flatten_tree`` layout, a nested pytree of
-arrays, or a port ``RGCNEncoder``), ``prepare`` traces and embeds the
-program, and ``plan`` / ``plan_request`` cluster through the PlanEngine.
-``prepare`` without an adopted encoder raises: contrastive training is the
-port's next slice.  The baselines (pka / sieve / stem_root) come later.
+``prepare`` fits the contrastive encoder on the program's graphs when none
+is adopted (on the method's device: ``cuda`` unless ``device="cpu"``), then
+traces and embeds the program; ``plan`` / ``plan_request`` cluster through
+the PlanEngine.  ``adopt`` takes trained params instead (JAX-trained ones
+in ``flatten_tree`` layout, a nested pytree of arrays, or a port
+``RGCNEncoder``), and one fitted encoder serves every later program.  Fit
+checkpoints under ``prepare`` need the JAX package's ``ArtifactStore``,
+which the port has not reached: ``checkpoint_every`` and ``resume`` are
+accepted and recorded, and ``GCLSampler.train(checkpoint_dir=...)`` is the
+resume entry point.  The baselines (pka / sieve / stem_root) come later.
 """
 
 from __future__ import annotations
@@ -52,16 +56,30 @@ class GCLMethod(SamplingMethod):
     STREAM_THRESHOLD = 512
 
     def __init__(self, cfg: Optional[GCLSamplerConfig] = None, *,
-                 seed: Optional[int] = None, device=None):
+                 steps: Optional[int] = None,
+                 batch_size: Optional[int] = None,
+                 seed: Optional[int] = None,
+                 checkpoint_every: Optional[int] = None,
+                 resume: bool = True, device=None):
         cfg = cfg or GCLSamplerConfig()
-        if seed is not None:
-            cfg = replace(cfg, train=replace(cfg.train, seed=seed))
+        train_kw = {k: v for k, v in
+                    [("steps", steps), ("batch_size", batch_size),
+                     ("seed", seed), ("checkpoint_every", checkpoint_every)]
+                    if v is not None}
+        if train_kw:
+            cfg = replace(cfg, train=replace(cfg.train, **train_kw))
+        #: False = refit from scratch even where a fit checkpoint exists
+        self.resume = resume
         self.cfg = cfg
         self.sampler = GCLSampler(self.cfg, device=device)
         self._trained_on: Optional[str] = None
 
     def config(self) -> dict:
-        return asdict(self.cfg)
+        """JSON-safe config hashed into the artifact key; the checkpoint
+        cadence is left out (it never changes the fitted encoder)."""
+        cfg = asdict(self.cfg)
+        cfg["train"].pop("checkpoint_every", None)
+        return cfg
 
     def _encoder_provenance(self, program_fp: str) -> str:
         if self._trained_on and self._trained_on != program_fp:
@@ -74,30 +92,45 @@ class GCLMethod(SamplingMethod):
         return f"{base}-{prov}" if prov else base
 
     def prepare(self, program: Program) -> Artifacts:
-        if self.sampler.params is None:
-            raise RuntimeError(
-                "gcl (PyTorch port): no encoder adopted.  Contrastive "
-                "training is the port's next slice; adopt trained params "
-                "first (GCLMethod.adopt with an Artifacts payload 'params')")
         stream = len(program) >= self.STREAM_THRESHOLD
         t0 = time.time()
+        graphs = None if stream else self.sampler.build_graphs(program)
+        t1 = time.time()
+        meta: dict = {"streaming": stream}
+        if self.sampler.params is None:
+            # n_total makes the streamed training subset the materialized
+            # path's: streaming changes memory, not results
+            info = (self.sampler.train_stream(
+                        self.sampler.iter_graphs(program),
+                        n_total=len(program), resume=self.resume)
+                    if stream else
+                    self.sampler.train(graphs, resume=self.resume))
+            self._trained_on = program_fingerprint(program)
+            meta["train"] = {
+                k: info[k] for k in
+                ("val_loss", "val_acc", "trunc_nodes", "engine",
+                 "resumed_from", "checkpoint_saves", "host_syncs", "fit_s")
+                if k in info}
+        else:
+            meta["encoder_reused"] = True
+        meta["trained_on"] = self._trained_on
+        t2 = time.time()
         if stream:
             emb = self.sampler.embed_stream(self.sampler.iter_graphs(program))
         else:
-            emb = self.sampler.embed(self.sampler.build_graphs(program))
-        t1 = time.time()
-        meta = {"streaming": stream, "encoder_reused": True,
-                "trained_on": self._trained_on,
-                "embed": {k: v for k, v in
-                          self.sampler.trainer.embed_stats.items()
-                          if k in ("cache_hits", "encoded", "microbatches")},
-                "ingest": dict(self.sampler.ingest_stats)}
+            emb = self.sampler.embed(graphs)
+        t3 = time.time()
+        meta["embed"] = {k: v for k, v in
+                         self.sampler.trainer.embed_stats.items()
+                         if k in ("cache_hits", "encoded", "microbatches")}
+        meta["ingest"] = dict(self.sampler.ingest_stats)
         payload = {"params": params_to_numpy(self.sampler.params),
                    "embeddings": emb, "seqs": _seqs(program)}
         return Artifacts(
             method=self.id, program=program_fingerprint(program),
             config_hash=config_hash(self.config()), payload=payload,
-            timings={"embed_s": t1 - t0}, meta=meta,
+            timings={"graphs_s": t1 - t0, "train_s": t2 - t1,
+                     "embed_s": t3 - t2}, meta=meta,
             provenance=self._encoder_provenance(program_fingerprint(program)))
 
     def plan(self, program: Program, artifacts: Artifacts) -> SamplingPlan:

@@ -1,4 +1,5 @@
-"""K1-K3 of the PyTorch port against the JAX package's Pallas kernels.
+"""K1-K3, K5 and K1b of the PyTorch port against the JAX package's Pallas
+kernels (K1b: against ``jax.vjp`` of the fused oracle, JAX's backward).
 
 On the CPU each port wrapper runs its kernel's plain PyTorch version; the
 JAX side runs the Pallas kernel in interpret mode (as the JAX package's own
@@ -22,6 +23,7 @@ near-tie between centroids.
 version on the card.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,11 +38,21 @@ from repro.kernels.kmeans_assign.ref import (
 )
 from repro.kernels.rgcn_fused.ops import rgcn_fused_agg_flat as jax_fused
 from repro.kernels.rgcn_fused.ref import rgcn_fused_agg_flat_ref
+from repro.kernels.rgcn_spmm.kernel import rgcn_spmm_flat_fwd
+from repro.kernels.rgcn_spmm.ops import (
+    rgcn_message_agg_flat as jax_message_agg_flat,
+)
+from repro.kernels.rgcn_spmm.ref import rgcn_message_agg_flat_ref
 from repro_torch.kernels import route
 from repro_torch.kernels.kmeans_assign.ops import (
     kmeans_assign_fused, silhouette_sums,
 )
-from repro_torch.kernels.rgcn_fused.ops import rgcn_fused_agg_flat
+from repro_torch.kernels.rgcn_fused.ops import (
+    rgcn_fused_agg_flat, rgcn_fused_bwd,
+)
+from repro_torch.kernels.rgcn_spmm.ops import (
+    rgcn_message_agg_flat, rgcn_spmm_flat,
+)
 
 RTOL = 1e-5
 
@@ -136,6 +148,117 @@ def test_rgcn_fused_plain_matches_jax(case, dtype):
 
 
 # ---------------------------------------------------------------------------
+# K5 rgcn_spmm (flat) and K1b, the backward of K1
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", K1_CASES, ids=[c[0] for c in K1_CASES])
+def test_rgcn_spmm_flat_plain_matches_jax(case, dtype):
+    """Port K5 (plain, CPU) vs the JAX Pallas kernel (interpret) and the
+    flat oracle's pre-basis sum, within 1e-6 of the largest |s|; the
+    unfused layer (K5 + matmul) vs ``rgcn_message_agg_flat_ref``."""
+    _, P, D, Q, nb, O, extra = case
+    h, basis, src, dst, coef, wnorm = _k1_inputs(P * 5 + Q, P, D, Q, nb, O,
+                                                 extra)
+    w = (coef * wnorm[:, None]).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    got = rgcn_spmm_flat(_t(h, tdt), _t(src), _t(dst), _t(w), P)
+    assert got.shape == (P, nb * D) and got.dtype == torch.float32
+    jh = jnp.asarray(h, jdt)
+    j_src, j_dst, j_w = jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w)
+    want = jax.ops.segment_sum(
+        jnp.take(jh, j_src, axis=0)[:, None, :] * j_w[..., None], j_dst,
+        num_segments=P).reshape(P, nb * D)
+    _close(got.numpy(), want, rtol=1e-6)
+    _close(got.numpy(), rgcn_spmm_flat_fwd(jh, j_src, j_dst, j_w,
+                                           num_nodes=P, interpret=True),
+           rtol=1e-6)
+    agg = rgcn_message_agg_flat(_t(h, tdt), _t(basis), _t(src), _t(dst),
+                                _t(w), P)
+    _close(agg.detach().numpy(),
+           rgcn_message_agg_flat_ref(jh, jnp.asarray(basis), j_src, j_dst,
+                                     j_w, P))
+
+
+def _vjp_inputs(case, seed):
+    _, P, D, Q, nb, O, extra = case
+    h, basis, src, dst, coef, wnorm = _k1_inputs(seed, P, D, Q, nb, O, extra)
+    g = np.random.default_rng(seed + 1).standard_normal((P, O)).astype(
+        np.float32)
+    return P, h, basis, src, dst, coef, wnorm, g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", K1_CASES, ids=[c[0] for c in K1_CASES])
+def test_rgcn_fused_backward_plain_matches_jax_vjp(case, dtype):
+    """The port's K1 backward on the CPU (K5 plain + K1b plain + the two
+    matmuls, through autograd) vs ``jax.vjp`` of the fused oracle, JAX's
+    own backward: dh, dbasis and dcoef within 1e-5 (float32 h) or 3e-2
+    (bfloat16 h: JAX scatters the per-edge cotangents of h in bfloat16,
+    the port sums them in float32 and rounds once) of the largest value."""
+    P, h, basis, src, dst, coef, wnorm, g = _vjp_inputs(case, 11 + case[1])
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    th = _t(h, tdt).requires_grad_()
+    tb, tc = _t(basis).requires_grad_(), _t(coef).requires_grad_()
+    out = rgcn_fused_agg_flat(th, tb, _t(src), _t(dst), tc, _t(wnorm), P)
+    dh, dbasis, dcoef = torch.autograd.grad(out, (th, tb, tc), _t(g),
+                                            allow_unused=True)
+    j_src, j_dst, j_w = jnp.asarray(src), jnp.asarray(dst), jnp.asarray(wnorm)
+    _, vjp = jax.vjp(
+        lambda h_, b_, c_: rgcn_fused_agg_flat_ref(h_, b_, j_src, j_dst, c_,
+                                                   j_w, P),
+        jnp.asarray(h, jdt), jnp.asarray(basis), jnp.asarray(coef))
+    want = vjp(jnp.asarray(g))
+    assert dh.dtype == tdt
+    rtol = 1e-5 if dtype == "float32" else 3e-2
+    for got_, want_ in zip((dh, dbasis, dcoef), want):
+        _close(got_.float().numpy(), np.asarray(want_, np.float32), rtol=rtol)
+    if case[-1] == "masked":
+        assert not dcoef[-13:].any()                    # wnorm = 0 rows
+
+
+@pytest.mark.parametrize("case", K1_CASES[:4], ids=[c[0] for c in K1_CASES[:4]])
+def test_message_agg_backward_plain_matches_jax(case):
+    """The unfused layer's backward (K1b with the weights as coefficients
+    and unit norms) vs the JAX package's ``rgcn_message_agg_flat`` vjp."""
+    P, h, basis, src, dst, coef, wnorm, g = _vjp_inputs(case, 3 + case[1])
+    w = (coef * wnorm[:, None]).astype(np.float32)
+    th, tb, tw = (_t(a).requires_grad_() for a in (h, basis, w))
+    out = rgcn_message_agg_flat(th, tb, _t(src), _t(dst), tw, P)
+    got = torch.autograd.grad(out, (th, tb, tw), _t(g))
+    _, vjp = jax.vjp(
+        lambda h_, b_, w_: jax_message_agg_flat(
+            h_, b_, jnp.asarray(src), jnp.asarray(dst), w_, P, True),
+        jnp.asarray(h), jnp.asarray(basis), jnp.asarray(w))
+    for got_, want_ in zip(got, vjp(jnp.asarray(g))):
+        _close(got_.numpy(), want_)
+
+
+def test_rgcn_fused_bwd_plain_direct():
+    """K1b's plain version on its own: dh and dcoef from t, against the
+    formulas written out edge by edge in numpy (float64)."""
+    rng = np.random.default_rng(5)
+    P, D, Q, nb = 9, 6, 20, 2
+    h = rng.standard_normal((P, D)).astype(np.float32)
+    t = rng.standard_normal((P, nb * D)).astype(np.float32)
+    src = rng.integers(0, P, Q).astype(np.int32)
+    dst = rng.integers(0, P, Q).astype(np.int32)
+    coef = rng.standard_normal((Q, nb)).astype(np.float32)
+    wnorm = rng.random(Q).astype(np.float32)
+    dh, dcoef = rgcn_fused_bwd(_t(h), _t(t), _t(src), _t(dst), _t(coef),
+                               _t(wnorm), P)
+    t3 = t.reshape(P, nb, D).astype(np.float64)
+    want_dh = np.zeros((P, D))
+    want_dc = np.zeros((Q, nb))
+    for e in range(Q):
+        w = coef[e].astype(np.float64) * wnorm[e]
+        want_dh[src[e]] += (w[:, None] * t3[dst[e]]).sum(0)
+        want_dc[e] = wnorm[e] * (t3[dst[e]] @ h[src[e]].astype(np.float64))
+    _close(dh.numpy(), want_dh)
+    _close(dcoef.numpy(), want_dc)
+
+
+# ---------------------------------------------------------------------------
 # K2 kmeans_assign_fused, K3 silhouette_sums
 # ---------------------------------------------------------------------------
 
@@ -211,11 +334,15 @@ def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
     on any other non-CUDA device raises instead of being served."""
     x, cent, _ = _blobs(0, 20, 8, 3)
     before = (kmeans_assign_fused.launches, silhouette_sums.launches,
-              rgcn_fused_agg_flat.launches)
+              rgcn_fused_agg_flat.launches, rgcn_spmm_flat.launches,
+              rgcn_fused_bwd.launches)
     kmeans_assign_fused(_t(x), _t(cent), torch.ones(3), torch.ones(20))
     silhouette_sums(_t(x), torch.ones(20, 3))
+    rgcn_spmm_flat(_t(x), torch.zeros(2, dtype=torch.int32),
+                   torch.ones(2, dtype=torch.int32), torch.ones(2, 2), 20)
     assert (kmeans_assign_fused.launches, silhouette_sums.launches,
-            rgcn_fused_agg_flat.launches) == before
+            rgcn_fused_agg_flat.launches, rgcn_spmm_flat.launches,
+            rgcn_fused_bwd.launches) == before
     assert route(torch.empty(2)) == "cpu"
     with pytest.raises(ValueError):
         route(torch.empty(2, device="meta"))

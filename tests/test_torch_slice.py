@@ -69,9 +69,16 @@ def test_served_plans_match_jax_gcl(name, jparams):
 
 
 def test_prepare_without_encoder_raises():
-    tm = get_method("gcl", device="cpu")
-    with pytest.raises(RuntimeError, match="training"):
-        tm.prepare(get_program("3mm"))
+    """Embedding with no encoder raises and names the way out (train or
+    adopt); ``prepare`` is that way out: with no adopted encoder it fits
+    one (the port's training slice) instead of raising."""
+    tm = get_method("gcl", cfg=GCLSamplerConfig(rgcn=RGCNConfig(dims=DIMS)),
+                    steps=2, batch_size=4, device="cpu")
+    prog = get_program("nw")
+    with pytest.raises(RuntimeError, match="train"):
+        tm.sampler.embed(tm.sampler.build_graphs(prog)[:2])
+    art = tm.prepare(prog)
+    assert "train" in art.meta and tm.sampler.params is not None
 
 
 def test_entry_points_refuse_a_missing_card(monkeypatch):
