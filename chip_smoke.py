@@ -9,11 +9,12 @@ Phases, each reported on its own lines:
 2. build    the CUDA kernels built from ``src/repro_torch/csrc`` with nvcc
             for sm_90a, with the build time and ptxas's register /
             shared-memory report;
-3. kernels  every kernel of the serving and training paths (K1
+3. kernels  every kernel of the serving, training and sequential paths (K1
             rgcn_fused, K2 kmeans_assign_fused, K3 silhouette_sums, K5
-            rgcn_spmm_flat, K1b rgcn_fused_bwd) against its plain PyTorch
-            version on the card at the main-path shapes (K5 / K1b also at
-            the training batch's bucket), with its time, the plain
+            rgcn_spmm_flat, K1b rgcn_fused_bwd, K4 kmeans_assign) against
+            its plain PyTorch version on the card at the main-path shapes
+            (K5 / K1b also at the training batch's bucket; K2 / K3 / K4 also
+            at PKA's feature width d = 12), with its time, the plain
             version's, one library call's where there is one, and the least
             time the card could take (bound);
 4. reference the JAX-trained encoder committed in
@@ -38,8 +39,27 @@ Phases, each reported on its own lines:
             phi-2 and nw are served with it; K, eq. 5 and eq. 6 are printed
             beside the JAX-trained fixture's (reported, not held equal: the
             draws differ); every kernel's launch count over this run must
-            be > 0 and no request may fail.  This is the slice's main path:
-            its counts are the ``launches`` of the kernel table.
+            be > 0 and no request may fail;
+10. sequential the sequential K-Means reference on the card (K4 per Lloyd
+            step, K3 per candidate): ``select_k_and_cluster`` on the
+            fixture encoder's phi-2 and cfd embeddings must give the K,
+            labels and representatives JAX's sequential path gave
+            (``src/repro_torch/assets/reference_grid.json``), scores within
+            1e-3 of the exact silhouettes of JAX's labels; then
+            ``PlanEngine(engine="sequential")``; then the ``errors=
+            "isolate"`` retry with the sweep patched to fail one of three
+            requests, which the sequential path must serve (equal to the
+            sequential engine's plan, no error, K4 launched).  Its K4 count
+            is K4's ``launches`` in the kernel table;
+11. grid     the paper's comparison grid through ``repro_torch.launch.
+            sample.run_grid``: gcl (fitting its own encoder), pka, sieve and
+            stem_root over the 11 paper programs on P1-P3.  The results
+            validate, no cell fails, every pka / sieve / stem_root row
+            equals JAX's (fixture: K, representatives, eq. 5, eq. 6), the gcl
+            rows are printed beside JAX's; a second run on the same
+            directory replays (no fit, gcl prepare under a tenth of the
+            first run's).  This is the slice's main path: its counts are the
+            ``launches`` of K1, K1b, K2, K3 and K5 in the kernel table.
 
 Any mismatch or exception exits non-zero.  The last lines are the kernel
 table as one JSON object, the card's name and power limit, and
@@ -58,6 +78,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "src" / "repro_torch" / "assets" / "reference_phi2.npz"
+GRID_FIXTURE = FIXTURE.parent / "reference_grid.json"
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # outside the tensor cores (the kernels here run float32 FMAs)
@@ -92,6 +113,14 @@ FIT_SPLIT = (
 SERVE_KERNELS = ("rgcn_fused_flat", "kmeans_assign_fused", "silhouette_sums")
 EMBED_TOL = 1e-4        # card embeddings vs the JAX fixture, relative
 METRIC_TOL = 1e-6       # eq. 5 / eq. 6 vs the JAX fixture, absolute
+#: card sequential scores vs the exact float64 silhouette of JAX's labels
+#: (JAX's own float32 scores sit up to 7.6e-3 from it on phi-2, whose 1125
+#: points are copies of 15 rows; the gap to them is printed)
+SCORE_TOL = 1e-3
+#: K4: labels must equal plain's where plain's two smallest distances are
+#: further apart than this share of the row's distance scale |x|^2 + |c|^2
+TIE_TOL = 1e-6
+PLATFORMS = ["P1", "P2", "P3"]
 
 
 def log(*a):
@@ -129,32 +158,66 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def _spin_primed_ms(fn, iters):
+    """Device time of one call from CUDA events around ``iters`` calls that
+    the host queues while a spin kernel holds the stream, so the span holds
+    the calls' device work back to back and no host launch time; None when
+    the spin ended before the host had queued them (a call that waits for
+    the device)."""
+    import torch
+
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    primed = torch.cuda.Event()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # twice the host's queueing time at the card's top clock, <= 2 GHz
+    torch.cuda._sleep(int(max(host_s, 1e-3) * 4e9))
+    primed.record()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    starved = primed.query()
+    torch.cuda.synchronize()
+    return None if starved else start.elapsed_time(end) / iters
+
+
 def device_ms(fn, iters, own=()):
     """Device time of one call from torch.profiler (CUPTI): (all kernels
     and copies the call runs, the kernels whose names contain one of
-    ``own``), in ms per call."""
+    ``own``), in ms per call.  When CUPTI records nothing twice, both are
+    the call's whole device span from ``_spin_primed_ms``; when that too
+    cannot hold the host's time out, it raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = mine = 0.0
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        t = ev.self_cuda_time_total if t is None else t
-        total += t
-        if any(o in ev.key for o in own):
-            mine += t
-    if total <= 0:
-        log("[kernels] torch.profiler recorded no device time: reporting "
-            "CUDA-event call time instead")
-        t = time_ms(fn, iters)
-        return t, t
-    return total / 1e3 / iters, mine / 1e3 / iters
+    for _ in range(2):       # CUPTI now and then records nothing: retry once
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = mine = 0.0
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total", None)
+            t = ev.self_cuda_time_total if t is None else t
+            total += t
+            if any(o in ev.key for o in own):
+                mine += t
+        if total > 0:
+            return total / 1e3 / iters, mine / 1e3 / iters
+    t = _spin_primed_ms(fn, iters)
+    if t is None:
+        raise RuntimeError("no device time: torch.profiler recorded nothing "
+                           "and the call waits for the device")
+    log(f"[kernels] torch.profiler recorded no device time: {t:.4f} ms is "
+        f"the call's device span behind a spin kernel")
+    return t, t
 
 
 def bound(bytes_, ops):
@@ -175,6 +238,7 @@ def rel_err(got, want):
 # ---------------------------------------------------------------------------
 
 def phase_device():
+    import numpy as np
     import torch
 
     smi = subprocess.run(
@@ -183,8 +247,8 @@ def phase_device():
         capture_output=True, text=True, check=True).stdout.strip()
     smi_line = smi.splitlines()[0]
     log(f"[device] nvidia-smi: {smi_line}")
-    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)} "
+    log(f"[device] numpy {np.__version__} torch {torch.__version__} cuda "
+        f"{torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     return smi_line
 
@@ -366,6 +430,180 @@ def phase_kernels(rows, dev):
                  silhouette_sums,
                  dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                       bound_by=b_by, library_ms=lib_ms)))
+
+
+def _k4_inputs():
+    """K4's inputs: cfd's fixture embeddings (n = 2425, d = 256, 5
+    distinct rows; the table's row at k = 48) and PKA's cfd features
+    (d = 12), each with kmeans++ rows as centroids, as the sequential
+    reference seeds them; and standard normal points of the same shape,
+    where no two distances tie."""
+    import numpy as np
+
+    from repro_torch.core.baselines.pka import pka_features
+    from repro_torch.core.clustering import _kmeanspp_init
+    from repro_torch.tracing.programs import get_program
+
+    with np.load(FIXTURE) as z:
+        emb = z["cfd:emb_distinct"][z["cfd:index"]]
+    feats = pka_features(get_program("cfd"), "P1")
+    noise = np.random.default_rng(0).standard_normal(emb.shape, np.float32)
+    out = []
+    for label, x, k in (("standard normal", noise, 48),
+                        ("cfd embeddings", emb, 2), ("cfd embeddings", emb, 48),
+                        ("cfd PKA features", feats, 48)):
+        out.append((label, x, x[_kmeanspp_init(x, k, 0)]))
+    return out
+
+
+def _expected_labels(x, cent, cmask=None):
+    """What an argmin with ties to the lowest index must give, decided on
+    the distinct centroid rows (kmeans++ seeds duplicates: cfd has 5
+    distinct embeddings among 2425 points): (the lowest live index holding
+    the nearest distinct centroid, rows where the two nearest distinct
+    centroids are further apart than TIE_TOL of the row's distance scale,
+    that scale (n,): |x|^2 plus the larger |c|^2 of those two)."""
+    import torch
+
+    live = (torch.ones(len(cent), dtype=torch.bool, device=x.device)
+            if cmask is None else cmask > 0)
+    uniq, inv = torch.unique(cent[live], dim=0, return_inverse=True)
+    idx = torch.nonzero(live).flatten()
+    first = torch.full((len(uniq),), len(cent), dtype=torch.long,
+                       device=x.device)
+    first = first.scatter_reduce(0, inv, idx, reduce="amin")
+    x2 = (x * x).sum(1)
+    u2 = (uniq * uniq).sum(1)
+    dist = torch.clamp_min(x2[:, None] - 2 * x @ uniq.T + u2[None], 0)
+    if len(uniq) == 1:
+        scale = x2 + u2[0]
+        clear = torch.ones(len(x), dtype=torch.bool, device=x.device)
+    else:
+        top2 = torch.topk(dist, 2, dim=1, largest=False)
+        scale = x2 + u2[top2.indices].max(1).values
+        clear = top2.values[:, 1] - top2.values[:, 0] > TIE_TOL * scale
+    return (first[torch.argmin(dist, dim=1)].to(torch.int32), clear,
+            scale.clamp_min(1e-30))
+
+
+def phase_k4(rows, dev):
+    """K4 against its plain version at the sequential path's shapes; K2 /
+    K3 at PKA's width d = 12 (the pka sweep's padded bucket)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.kmeans_assign.ops import (
+        kmeans_assign, kmeans_assign_fused, kmeans_assign_fused_plain,
+        kmeans_assign_plain, silhouette_sums, silhouette_sums_plain,
+    )
+
+    k4 = None
+    for label, x_np, c_np in _k4_inputs():
+        x = torch.from_numpy(np.ascontiguousarray(x_np)).to(dev)
+        cent = torch.from_numpy(np.ascontiguousarray(c_np)).to(dev)
+        n, d = x.shape
+        k = cent.shape[0]
+        lab, mind = kmeans_assign(x, cent)
+        torch.cuda.synchronize()
+        plab, pmind = kmeans_assign_plain(x, cent)
+        expect, clear, scale = _expected_labels(x, cent)
+        flips = int((lab != plab).sum())
+        plain_off = int((plab != expect)[clear].sum())
+        require(torch.equal(lab[clear], expect[clear]),
+                f"K4 {label} k={k}: labels differ from the lowest-index "
+                f"argmin outside near-ties")
+        err = float((mind - pmind).abs().max())
+        rel = float(((mind - pmind).abs() / scale).max())
+        require(rel <= KERNEL_TOL,
+                f"K4 {label} k={k}: min_sq err {rel:.3e} of the row's scale "
+                f"> {KERNEL_TOL}")
+        args = (x, cent)
+        call_ms = time_ms(lambda: kmeans_assign(*args), 200)
+        _, ms = device_ms(lambda: kmeans_assign(*args), 50,
+                          own=("kmeans_assign_seq_kernel",))
+        span_ms = _spin_primed_ms(lambda: kmeans_assign(*args), 50)
+        plain_ms, _ = device_ms(lambda: kmeans_assign_plain(*args), 50)
+        lib_ms, _ = device_ms(
+            lambda: torch.min(torch.cdist(x, cent) ** 2, dim=1), 50)
+        bytes_ = n * d * 4 + k * d * 4 + n * 4 * 2
+        ops = 2 * n * k * d + 2 * n * d + 2 * k * d
+        b_ms, b_by = bound(bytes_, ops)
+        log(f"[kernels] K4 kmeans_assign {label} n={n} d={d} k={k} "
+            f"({len(torch.unique(cent, dim=0))} distinct centroids): labels "
+            f"the lowest-index argmin on {int(clear.sum())} rows clear of "
+            f"near-ties (plain's differ there on {plain_off}; kernel vs "
+            f"plain differ on {flips} rows in all), max_abs_err min_sq "
+            f"{err:.3e}, {rel:.3e} of the row's scale (tol {KERNEL_TOL}) "
+            f"kernel device ms {ms:.4f} (call ms {call_ms:.4f}, device "
+            f"span behind a spin kernel {span_ms:.4f}) plain device ms "
+            f"{plain_ms:.4f} library device ms {lib_ms:.4f} (cdist^2 + min) "
+            f"bound_us "
+            f"{b_ms * 1e3:.2f} ({b_by})")
+        if (d, k) == (256, 48):
+            k4 = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=lib_ms)
+    rows.append(("kmeans_assign", "src/repro_torch/csrc/kmeans_assign_seq.cu",
+                 "src/repro/kernels/kmeans_assign/kernel.py:43",
+                 kmeans_assign, k4))
+
+    # ---- K2 / K3 at d = 12: the pka sweep's bucket for cfd -------------
+    _, feats, _ = _k4_inputs()[-1]
+    n, n_real, d, k, k_live = 4096, len(feats), feats.shape[1], 48, 40
+    xb = np.zeros((n, d), np.float32)
+    xb[:n_real] = feats
+    x = torch.from_numpy(xb).to(dev)
+    cent = x[torch.arange(k, device=dev) * 50].contiguous()
+    cmask = (torch.arange(k, device=dev) < k_live).float()
+    pmask = (torch.arange(n, device=dev) < n_real).float()
+    args = (x, cent, cmask, pmask)
+    got = kmeans_assign_fused(*args)
+    torch.cuda.synchronize()
+    want = kmeans_assign_fused_plain(*args)
+    expect, clear, scale = _expected_labels(x, cent, cmask)
+    flips = int((got[0] != want[0]).sum())
+    require(torch.equal(got[0][clear], expect[clear]),
+            "K2 d=12: labels differ from the lowest-index argmin outside "
+            "near-ties")
+    err = float((got[1] - want[1]).abs().max())
+    rel = float(((got[1] - want[1]).abs() / scale).max())
+    require(rel <= KERNEL_TOL,
+            f"K2 d=12: min_sq err {rel:.3e} of the row's scale")
+    sums = want[2:]
+    if flips:       # the sums follow the kernel's labels: the plain sums of those
+        onehot = (torch.nn.functional.one_hot(got[0].long(), k).float()
+                  * pmask[:, None])
+        sums = (onehot.T @ x, onehot.sum(0))
+    sums_rel = max(rel_err(g, w)[1] for g, w in zip(got[2:], sums))
+    require(sums_rel <= KERNEL_TOL, f"K2 d=12: sums rel err {sums_rel:.3e}")
+    _, ms = device_ms(lambda: kmeans_assign_fused(*args), 50,
+                      own=("kmeans_assign_kernel", "kmeans_reduce_kernel"))
+    plain_ms, _ = device_ms(lambda: kmeans_assign_fused_plain(*args), 50)
+    bytes_ = n * d * 4 + k * d * 4 + k * 4 + n * 4 + n * 8 + k * d * 4 + k * 4
+    b_ms, b_by = bound(bytes_, 2 * n * k_live * d + 2 * n * d + n_real * d)
+    log(f"[kernels] K2 kmeans_assign_fused d=12 n={n} k={k} (cfd PKA "
+        f"features): labels the lowest-index argmin on {int(clear.sum())} "
+        f"rows clear of near-ties ({flips} differ from plain in all), "
+        f"max_abs_err min_sq {err:.3e}, {rel:.3e} of the row's scale, sums "
+        f"rel err {sums_rel:.3e} (tol {KERNEL_TOL}) kernel device ms "
+        f"{ms:.4f} plain device ms {plain_ms:.4f} bound_us {b_ms * 1e3:.2f} "
+        f"({b_by})")
+    sil = (torch.arange(n, device=dev) < 1200).float()
+    onehot = (torch.nn.functional.one_hot(want[0].long(), k).float()
+              * sil[:, None]).contiguous()
+    got3 = silhouette_sums(x, onehot)
+    torch.cuda.synchronize()
+    want3 = silhouette_sums_plain(x, onehot)
+    err, rel = rel_err(got3, want3)
+    require(rel <= KERNEL_TOL, f"K3 d=12: rel err {rel:.3e} > {KERNEL_TOL}")
+    _, ms = device_ms(lambda: silhouette_sums(x, onehot), 10,
+                      own=("silhouette_sums_kernel", "sqnorm_kernel"))
+    plain_ms, _ = device_ms(lambda: silhouette_sums_plain(x, onehot), 10)
+    b_ms, b_by = bound(n * d * 4 + n * k * 4 * 2,
+                       2 * n * 1200 * d + 2 * n * 1200)
+    log(f"[kernels] K3 silhouette_sums d=12 n={n} k={k} live rows 1200: "
+        f"max_abs_err {err:.3e} rel {rel:.3e} (tol {KERNEL_TOL}) kernel "
+        f"device ms {ms:.4f} plain device ms {plain_ms:.4f} bound_us "
+        f"{b_ms * 1e3:.2f} ({b_by})")
 
 
 def _training_batches(n_steps):
@@ -801,15 +1039,11 @@ def phase_fit(dev):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.sampler import GCLSampler
-    from repro_torch.kernels.rgcn_fused.ops import (
-        rgcn_fused_agg_flat, rgcn_fused_bwd,
-    )
-    from repro_torch.kernels.rgcn_spmm.ops import rgcn_spmm_flat
 
     graphs = _phi2_training_graphs()
-    wrappers = {"rgcn_fused_flat": rgcn_fused_agg_flat,
-                "rgcn_fused_bwd": rgcn_fused_bwd,
-                "rgcn_spmm_flat": rgcn_spmm_flat}
+    wrappers = {k: w for k, w in _all_wrappers().items()
+                if k in ("rgcn_fused_flat", "rgcn_fused_bwd",
+                         "rgcn_spmm_flat")}
     for w in wrappers.values():
         w.launches = 0
     sampler = GCLSampler(device=dev)
@@ -909,6 +1143,281 @@ def phase_fit_serve(rows, dev):
     return launches
 
 
+def _all_wrappers():
+    from repro_torch.kernels.kmeans_assign.ops import (
+        kmeans_assign, kmeans_assign_fused, silhouette_sums,
+    )
+    from repro_torch.kernels.rgcn_fused.ops import (
+        rgcn_fused_agg_flat, rgcn_fused_bwd,
+    )
+    from repro_torch.kernels.rgcn_spmm.ops import rgcn_spmm_flat
+
+    return {"rgcn_fused_flat": rgcn_fused_agg_flat,
+            "rgcn_fused_bwd": rgcn_fused_bwd,
+            "rgcn_spmm_flat": rgcn_spmm_flat,
+            "kmeans_assign_fused": kmeans_assign_fused,
+            "silhouette_sums": silhouette_sums,
+            "kmeans_assign": kmeans_assign}
+
+
+def _zero_counts():
+    for w in _all_wrappers().values():
+        w.launches = 0
+
+
+def _counts():
+    return {k: w.launches for k, w in _all_wrappers().items()}
+
+
+def phase_sequential(dev):
+    """The sequential reference on the card: the fixture encoder's phi-2
+    and cfd embeddings through ``select_k_and_cluster``, the sequential
+    engine, and the isolate retry.  Returns the path's launch counts."""
+    import numpy as np
+
+    from repro_torch.core.clustering import select_k_and_cluster
+    from repro_torch.sampling import engine as engine_mod
+    from repro_torch.sampling import plan_from_labels
+    from repro_torch.sampling.engine import PlanEngine, PlanRequest
+    from repro_torch.tracing.programs import get_program
+
+    with open(GRID_FIXTURE) as f:
+        jax_seq = json.load(f)["sequential"]
+    method, _ = _reference_method(dev)
+    names = ("phi-2", "cfd", "nw")
+    embs = {n: np.asarray(method.prepare(get_program(n)).payload["embeddings"])
+            for n in names}
+    seqs = {n: np.array([k.seq for k in get_program(n).kernels])
+            for n in names}
+    _zero_counts()
+    t_path = time.perf_counter()
+    for name in ("phi-2", "cfd"):
+        want = jax_seq[name]
+        t0 = time.perf_counter()
+        labels, info = select_k_and_cluster(embs[name], device=dev)
+        secs = time.perf_counter() - t0
+        reps = plan_from_labels(labels, seqs[name], "x").rep_indices()
+        exact = {int(k): v for k, v in want["scores_exact"].items()}
+        jax = {int(k): v for k, v in want["scores"].items()}
+        gap = max(abs(info["scores"][k] - exact[k]) for k in exact)
+        jgap = max(abs(info["scores"][k] - jax[k]) for k in jax)
+        jself = max(abs(jax[k] - exact[k]) for k in jax)
+        log(f"[sequential] {name}: n={len(labels)} K {info['k']} (jax "
+            f"{want['k']}) labels equal "
+            f"{bool(np.array_equal(labels, want['labels']))} reps {reps} "
+            f"(jax {want['reps']}) max |card - exact| over K {gap:.3e} (tol "
+            f"{SCORE_TOL}) max |card - jax| {jgap:.3e} (jax's own float32 "
+            f"gap to exact {jself:.3e}) {secs:.3f} s")
+        require(info["k"] == want["k"], f"sequential {name}: K differs")
+        require(np.array_equal(labels, want["labels"]),
+                f"sequential {name}: labels differ from JAX")
+        require(reps == want["reps"], f"sequential {name}: reps differ")
+        require(sorted(info["scores"]) == sorted(exact),
+                f"sequential {name}: scored K differ")
+        require(gap <= SCORE_TOL, f"sequential {name}: score gap {gap:.3e}")
+
+    reqs = [PlanRequest(embs[n], seqs[n], "x") for n in names]
+    t0 = time.perf_counter()
+    seq_eng = PlanEngine(engine="sequential", device=dev)
+    seq_plans = seq_eng.plan_many(reqs)
+    log(f"[sequential] PlanEngine(engine='sequential').plan_many {names}: K "
+        f"{[p.num_clusters for p in seq_plans]} errors "
+        f"{seq_eng.stats['errors']} ({time.perf_counter() - t0:.3f} s)")
+    require(seq_eng.stats["errors"] == 0, "sequential engine: errors")
+
+    real = engine_mod.sweep_cluster_stack
+    poison = embs["cfd"]
+
+    def flaky(xs, **kw):
+        if xs[0].shape == poison.shape and np.array_equal(xs[0], poison):
+            raise RuntimeError("injected sweep failure")
+        return real(xs, **kw)
+
+    before = _counts()["kmeans_assign"]
+    engine_mod.sweep_cluster_stack = flaky
+    try:
+        t0 = time.perf_counter()
+        eng = PlanEngine(device=dev)
+        plans = eng.plan_many(reqs, errors="isolate")
+    finally:
+        engine_mod.sweep_cluster_stack = real
+    k4_retry = _counts()["kmeans_assign"] - before
+    i = names.index("cfd")
+    log(f"[sequential] isolate retry (sweep fails on cfd): K "
+        f"{[p.num_clusters for p in plans]} cfd equal to the sequential "
+        f"engine's {bool(np.array_equal(plans[i].labels, seq_plans[i].labels))}"
+        f" errors {eng.stats['errors']} K4 launches in the retry {k4_retry} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    require(eng.stats["errors"] == 0, "isolate retry: errors")
+    require(k4_retry > 0, "isolate retry: K4 was not launched")
+    require(np.array_equal(plans[i].labels, seq_plans[i].labels)
+            and plans[i].reps == seq_plans[i].reps,
+            "isolate retry: plan differs from the sequential engine's")
+    counts = _counts()
+    log(f"[sequential] path {time.perf_counter() - t_path:.2f} s launches "
+        f"{json.dumps(counts)}")
+    for name in ("kmeans_assign", "silhouette_sums"):
+        require(counts[name] > 0, f"sequential: {name} was never launched")
+    return counts
+
+
+def _grid_rows(out, doc):
+    from repro_torch.sampling import ArtifactStore
+
+    store = ArtifactStore(str(Path(out) / "artifacts"))
+    rows = {}
+    for r in doc["results"]:
+        plan = store.load_plan(r["method_id"], r["artifact_key"])
+        rows[(r["method_id"], r["program"], r["platform"])] = dict(
+            k=r["num_clusters"], reps=plan.rep_indices(),
+            eq5=r["error_pct"]["cycles"], eq6=r["speedup"])
+    return rows
+
+
+def _same_up_to_ties(key, reps, jax_reps):
+    """Whether two representative lists of a baseline row pick the same
+    kernels with bit-equal profiled times on the row's platform, pairwise
+    in sorted order: STEM+ROOT spreads its picks over each cluster's
+    members sorted by time with numpy's default (unstable) argsort, whose
+    order among equal times depends on the host CPU's sort routine."""
+    import numpy as np
+
+    from repro_torch.core.baselines.stem_root import stem_root_times
+    from repro_torch.tracing.programs import get_program
+
+    prog = get_program(key[1])
+    times = stem_root_times(prog, key[2])
+    names = [k.name for k in prog.kernels]
+
+    def sig(rs):
+        return sorted((names[i], times[i].tobytes()) for i in rs)
+
+    return len(reps) == len(jax_reps) and sig(reps) == sig(jax_reps) \
+        and np.isfinite(times).all()
+
+
+def phase_grid(dev):
+    """The slice's main path: the four-method grid over the 11 paper
+    programs on P1-P3, then a replay on the same directory.  Returns the
+    first run's launch counts."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.sample import run_grid, validate_results
+    from repro_torch.tracing.programs import PAPER_PROGRAMS
+
+    with open(GRID_FIXTURE) as f:
+        jax_rows = {(r["method_id"], r["program"], r["platform"]): r
+                    for r in json.load(f)["grid"]}
+    methods = ["gcl", "pka", "sieve", "stem_root"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        _zero_counts()
+        t0 = time.perf_counter()
+        doc = run_grid(methods, list(PAPER_PROGRAMS), PLATFORMS, out,
+                       device=dev, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        validate_results(doc)
+        log(f"[grid] {len(methods)} methods x {len(PAPER_PROGRAMS)} programs x "
+            f"{len(PLATFORMS)} platforms: {len(doc['results'])} rows in "
+            f"{wall:.2f} s, failures {doc['failures']} batch_plan_errors "
+            f"{doc['batch_plan_errors']}")
+        for m, t in doc["method_wall_s"].items():
+            log(f"[grid] wall {m}: prepare {t['prepare_s']:.3f} s plan "
+                f"{t['plan_s']:.3f} s evaluate {t['evaluate_s']:.3f} s")
+        log(f"[grid] launches {json.dumps(counts)}")
+        require(not doc["failures"] and not doc["batch_plan_errors"],
+                "grid: failed cells or plan_batch fallbacks")
+        rows = _grid_rows(out, doc)
+        require(sorted(rows) == sorted(jax_rows), "grid: cells differ")
+        bad, tied = [], []
+        for key in sorted(rows):
+            got, want = rows[key], jax_rows[key]
+            same = (got["k"] == want["k"]
+                    and abs(got["eq5"] - want["eq5"]) <= METRIC_TOL
+                    and abs(got["eq6"] - want["eq6"]) <= METRIC_TOL)
+            if same and got["reps"] != want["reps"] and key[0] != "gcl" \
+                    and _same_up_to_ties(key, got["reps"], want["reps"]):
+                tied.append(key)
+                log(f"[grid] {key}: reps {got['reps']} vs JAX's "
+                    f"{want['reps']}: the same kernels with bit-equal "
+                    f"profiled times (numpy's unstable argsort orders "
+                    f"ties by the host CPU's sort)")
+            else:
+                same = same and got["reps"] == want["reps"]
+            if key[0] == "gcl":
+                if key[2] == "P1":
+                    log(f"[grid] gcl {key[1]}: K {got['k']} eq5 "
+                        f"{got['eq5']!r} eq6 {got['eq6']!r} (jax gcl K "
+                        f"{want['k']} eq5 {want['eq5']!r} eq6 "
+                        f"{want['eq6']!r})")
+            elif not same:
+                bad.append(key)
+                log(f"[grid] MISMATCH {key}: card {got} jax "
+                    f"{ {k: want[k] for k in got} }")
+        n_base = sum(1 for k in rows if k[0] != "gcl")
+        log(f"[grid] pka / sieve / stem_root rows equal to JAX's: "
+            f"{n_base - len(bad) - len(tied)} of {n_base}, {len(tied)} more "
+            f"equal up to invocations with equal profiled times")
+        require(not bad, f"grid: {len(bad)} baseline rows differ from JAX")
+        for name in ("rgcn_fused_flat", "rgcn_fused_bwd", "rgcn_spmm_flat",
+                     "kmeans_assign_fused", "silhouette_sums"):
+            require(counts[name] > 0, f"grid: kernel {name} never launched")
+
+        _zero_counts()
+        t0 = time.perf_counter()
+        again = run_grid(methods, list(PAPER_PROGRAMS), PLATFORMS, out,
+                         device=dev, verbose=False)
+        wall2 = time.perf_counter() - t0
+        replay = _counts()
+        g1 = doc["method_wall_s"]["gcl"]["prepare_s"]
+        g2 = again["method_wall_s"]["gcl"]["prepare_s"]
+        log(f"[grid] replay on the same directory: {wall2:.2f} s (first "
+            f"{wall:.2f} s), gcl prepare {g2:.3f} s vs {g1:.3f} s, launches "
+            f"{json.dumps(replay)}")
+        require(not again["failures"] and not again["batch_plan_errors"],
+                "grid replay: failed cells")
+        require(replay["rgcn_fused_bwd"] == 0 and replay["rgcn_spmm_flat"] == 0,
+                "grid replay: the encoder was refitted")
+        require(g2 < g1 / 10, f"grid replay: gcl prepare {g2:.3f} s is not "
+                f"under a tenth of {g1:.3f} s")
+        require(_grid_rows(out, again) == rows, "grid replay: rows differ")
+    profile_grid(dev, methods)
+    return counts
+
+
+def profile_grid(dev, methods):
+    """The cold grid once more (fresh directory) under torch.profiler: the
+    device's busy share of the run and the top device ops."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.sample import run_grid
+    from repro_torch.tracing.programs import PAPER_PROGRAMS
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            doc = run_grid(methods, list(PAPER_PROGRAMS), PLATFORMS, out,
+                           device=dev, verbose=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    busy_s, top = _device_profile(prof)
+    log(f"[grid] profiled cold grid: wall_s {wall:.3f} device busy_s "
+        f"{busy_s:.4f} busy share {busy_s / wall:.4f} idle share "
+        f"{1 - busy_s / wall:.4f}; " + ", ".join(
+            f"{m} prepare {t['prepare_s']:.2f} s plan {t['plan_s']:.2f} s"
+            for m, t in doc["method_wall_s"].items()))
+    for t, key, count in top[:10]:
+        log(f"[grid]   {t / 1e3:9.3f} ms {100 * t / 1e6 / busy_s:5.1f} %  "
+            f"x{count:<7d} {key[:70]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -919,7 +1428,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir() or not FIXTURE.exists():
+    if not (ROOT / "src" / "repro_torch").is_dir() or not FIXTURE.exists() \
+            or not GRID_FIXTURE.exists():
         print("chip_smoke: src/repro_torch (and its reference fixture) must "
               "sit beside this script", file=sys.stderr)
         return 2
@@ -935,6 +1445,7 @@ def main() -> int:
     rows: list = []
     t0 = time.perf_counter()
     phase_kernels(rows, dev)
+    phase_k4(rows, dev)
     log(f"[phase] kernels {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_reference(dev)
@@ -948,8 +1459,15 @@ def main() -> int:
         phase(dev)
         log(f"[phase] {name} {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    launches = phase_fit_serve(rows, dev)
+    phase_fit_serve([r for r in rows if r[0] != "kmeans_assign"], dev)
     log(f"[phase] fit+serve {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    sequential = phase_sequential(dev)
+    log(f"[phase] sequential {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    launches = phase_grid(dev)
+    log(f"[phase] grid {time.perf_counter() - t0:.2f} s")
+    launches["kmeans_assign"] = sequential["kmeans_assign"]
     log(f"[phase] total {time.perf_counter() - t_all:.2f} s")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": repl,

@@ -1,22 +1,27 @@
-"""K-Means + silhouette K selection (paper §3.4), swept path.
-Counterpart of the sweep in ``repro/core/clustering.py``.
+"""K-Means + silhouette K selection (paper §3.4).
+Counterpart of ``repro/core/clustering.py``.
 
 For one program's embeddings, every candidate K in 2..k_max is fitted with
-masked Lloyd iterations from a shared kmeans++ seeding (drawn on the host
-with numpy, as the JAX default ``init="host"`` does), scored with a masked
-silhouette on a deterministic subsample, and the K-selection rule picks the
-result: maximise silhouette, prefer the smaller K on near-ties, collapse to
-K=1 below the floor.  Tiny programs (n <= 4) fall back to distance-threshold
-agglomeration on the host.
+Lloyd iterations from a kmeans++ seeding drawn on the host with numpy (the
+JAX default ``init="host"``), scored with a silhouette on a deterministic
+subsample, and the K-selection rule picks the result: maximise silhouette,
+prefer the smaller K on near-ties, collapse to K=1 below the floor.  Tiny
+programs (n <= 4) fall back to distance-threshold agglomeration on the
+host.  Two implementations share that rule:
 
-Where JAX ``vmap``s the candidates and ``lax.scan``s the Lloyd steps inside
-one executable, the port writes the candidate axis out as a Python loop:
-each Lloyd step is one ``kmeans_assign_fused`` call (K2) plus a plain
-centroid update, each candidate's score one ``silhouette_sums`` call (K3);
-the silhouette arithmetic over all candidates is plain torch.  Points are
-padded to a power-of-two bucket with masks exactly as in JAX, so padding
-never moves a result.  The sequential reference and on-device kmeans++
-(``init="device"``) wait for later slices.
+- the sequential reference (``select_k_and_cluster``): one K-Means fit per
+  candidate K, each Lloyd step one ``kmeans_assign`` call (K4) plus a
+  one-hot matmul centroid update, and one silhouette per candidate from
+  ``silhouette_sums`` (K3);
+- the swept engine (``sweep_cluster_stack``): centroids padded to k_max
+  with masked Lloyd steps (K2 per step, K3 per candidate).  Where JAX
+  ``vmap``s the candidates and ``lax.scan``s the Lloyd steps inside one
+  executable, the port writes the candidate axis out as a Python loop; the
+  silhouette arithmetic over all candidates is plain torch.  Points are
+  padded to a power-of-two bucket with masks exactly as in JAX, so padding
+  never moves a result.
+
+On-device kmeans++ (``init="device"``) is not ported: it raises.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.kmeans_assign.ops import (
-    kmeans_assign_fused, silhouette_sums,
+    kmeans_assign, kmeans_assign_fused, silhouette_sums,
 )
 from repro_torch.utils.device import resolve_device
 
@@ -56,6 +61,81 @@ def _kmeanspp_init(x, k, seed):
         idx.append(nxt)
         d = np.minimum(d, np.sum((x - x[nxt]) ** 2, axis=1))
     return np.array(idx)
+
+
+def _no_device_init(init: str) -> None:
+    if init != "host":
+        raise NotImplementedError(
+            f"init={init!r}: on-device kmeans++ is not in the PyTorch port "
+            f"yet; the host seeding (init='host') is")
+
+
+# ---------------------------------------------------------------------------
+# sequential reference path (one fit per candidate K)
+# ---------------------------------------------------------------------------
+
+def _kmeans_run(x, init_idx, k: int, iters: int = 50):
+    """Lloyd's algorithm on the device of ``x`` (n, d) from the rows
+    ``init_idx``: ``iters`` K4 assigns, each followed by a one-hot matmul
+    centroid update (a fixed-order sum, as JAX's ``onehot.T @ x``; empty
+    clusters keep their centroid), then one final assign.  Returns
+    (labels (n,) int32, centroids (k, d), inertia) as tensors."""
+    cent = x[init_idx.long()].contiguous()
+    slots = torch.arange(k, device=x.device)
+    for _ in range(iters):
+        lab, _ = kmeans_assign(x, cent)
+        onehot = (lab[:, None].long() == slots[None, :]).to(x.dtype)
+        sums = onehot.T @ x
+        cnts = onehot.sum(0)[:, None]
+        cent = torch.where(cnts > 0, sums / torch.clamp_min(cnts, 1),
+                           cent).contiguous()
+    lab, mind = kmeans_assign(x, cent)
+    return lab, cent, torch.sum(mind)
+
+
+def kmeans(x: np.ndarray, k: int, seed: int = 0, iters: int = 50,
+           init_idx=None, device=None):
+    """Returns (labels (n,), centroids (k,d), inertia) as numpy / float.
+    ``init_idx`` overrides the kmeans++ seeding."""
+    x = np.asarray(x, np.float32)
+    if k >= len(x):
+        return np.arange(len(x)), x.copy(), 0.0
+    dev = resolve_device(device)
+    init = _kmeanspp_init(x, k, seed) if init_idx is None else init_idx[:k]
+    lab, cent, inertia = _kmeans_run(
+        torch.from_numpy(x).to(dev),
+        torch.from_numpy(np.asarray(init, np.int64)).to(dev), k, iters)
+    return lab.cpu().numpy(), cent.cpu().numpy(), float(inertia)
+
+
+def _silhouette_t(x, labels, k: int):
+    """Mean silhouette (a 0-d tensor) of ``labels`` (n,) in [0, k) over
+    ``x`` (n, d) on one device, clusters of one contributing 0.  The (n, k)
+    distance totals come from K3, whose self-distances are exactly 0 (JAX
+    takes a dense sqrt of the expanded distance instead, which leaves
+    float32 noise there)."""
+    onehot = torch.nn.functional.one_hot(labels.long(), k).to(torch.float32)
+    sums = silhouette_sums(x, onehot.contiguous())
+    cnt = onehot.sum(0)
+    own_cnt = onehot @ cnt
+    own_sum = torch.sum(sums * onehot, dim=1)
+    a = own_sum / torch.clamp_min(own_cnt - 1, 1)
+    inf = torch.tensor(float("inf"), device=x.device)
+    mean_other = sums / torch.clamp_min(cnt[None, :], 1)
+    mean_other = torch.where(onehot > 0, inf, mean_other)
+    mean_other = torch.where(cnt[None, :] > 0, mean_other, inf)
+    b = torch.min(mean_other, dim=1).values
+    s = (b - a) / torch.clamp_min(torch.maximum(a, b), 1e-12)
+    s = torch.where(own_cnt > 1, s, torch.zeros_like(s))
+    return torch.mean(s)
+
+
+def silhouette(x: np.ndarray, labels: np.ndarray, device=None) -> float:
+    dev = resolve_device(device)
+    labels = np.asarray(labels, np.int64)
+    return float(_silhouette_t(
+        torch.from_numpy(np.asarray(x, np.float32)).to(dev),
+        torch.from_numpy(labels).to(dev), int(labels.max()) + 1))
 
 
 def _agglomerate_threshold(x, thresh=0.25):
@@ -97,6 +177,67 @@ def _host_preamble(x, seed, tiny_n, sil_cap):
         sil_idx = np.random.default_rng(seed).choice(n, sil_cap, replace=False)
     return None, sil_idx
 
+
+def select_k_and_cluster(
+    x: np.ndarray,
+    k_max: int = 48,
+    seed: int = 0,
+    sil_floor: float = 0.20,
+    tie_tol: float = 0.02,
+    tiny_n: int = 4,
+    sil_cap: int = 1200,
+    iters: int = 50,
+    init: str = "host",
+    device=None,
+):
+    """The sequential reference: one K-Means fit and one silhouette per
+    candidate K, on ``device`` (the card unless ``"cpu"`` is asked for);
+    returns (labels, info).  The silhouette is scored on a deterministic
+    subsample when n > sil_cap.  One host sync per candidate (the compact
+    relabel, as in JAX); the scores come back in one pull at the end."""
+    _no_device_init(init)
+    x = np.asarray(x, np.float32)
+    n = len(x)
+    done, sil_idx = _host_preamble(x, seed, tiny_n, sil_cap)
+    if done is not None:
+        return done
+    dev = resolve_device(device)
+    xt = torch.from_numpy(x).to(dev)
+    x_sil = xt if sil_idx is None else xt[torch.from_numpy(sil_idx).to(dev)]
+    results = {}
+    scores = {}
+    for k in range(2, min(k_max, n - 1) + 1):
+        init_idx = torch.from_numpy(_kmeanspp_init(x, k, seed)).to(dev)
+        lab, _, _ = _kmeans_run(xt, init_idx, k, iters)
+        # re-label compactly (empty clusters possible)
+        _, lab = np.unique(lab.cpu().numpy(), return_inverse=True)
+        if lab.max() == 0:
+            continue
+        results[k] = lab
+        if sil_idx is not None:
+            sl = lab[sil_idx]
+            if sl.max() == sl.min():
+                continue
+            _, sl = np.unique(sl, return_inverse=True)
+        else:
+            sl = lab
+        scores[k] = _silhouette_t(x_sil, torch.from_numpy(sl).to(dev),
+                                  int(sl.max()) + 1)
+    if not scores:
+        return np.zeros(n, int), {"k": 1, "sil": 0.0, "mode": "degenerate"}
+    scores = dict(zip(scores, torch.stack(list(scores.values())).tolist()))
+    chosen, best = _choose_k(scores, sil_floor, tie_tol)
+    if chosen is None:
+        return np.zeros(n, int), {"k": 1, "sil": best, "mode": "weak->K=1"}
+    return results[chosen], {
+        "k": int(results[chosen].max()) + 1, "sil": scores[chosen],
+        "mode": "silhouette", "scores": scores,
+    }
+
+
+# ---------------------------------------------------------------------------
+# swept engine: every candidate K of a program in one pass
+# ---------------------------------------------------------------------------
 
 def _sweep_core(x, pmask, init_idx, sil_mask, *, k_max: int, iters: int,
                 n_real: int):
@@ -184,10 +325,7 @@ def sweep_cluster_stack(
     on ``device`` (the card unless ``"cpu"`` is asked for).  Tiny/trivial
     programs take the host fallback.  Returns a list of (labels, info)
     aligned with ``xs``; ``seed`` is an int or a per-program sequence."""
-    if init != "host":
-        raise NotImplementedError(
-            f"init={init!r}: on-device kmeans++ is not in the PyTorch port "
-            f"yet; the host seeding (init='host') is")
+    _no_device_init(init)
     dev = resolve_device(device)
     xs = [np.asarray(x, np.float32) for x in xs]
     seeds = ([int(seed)] * len(xs) if np.isscalar(seed)

@@ -6,30 +6,35 @@
   representatives -> SamplingPlan.
 
 This class is the model behind the port's ``gcl`` sampling method.  Graphs
-are traced sequentially with an in-process memo over the trace identity
-(template, params, seed, window) — what the JAX ingestion engine does at
-``workers=0``; the parallel engine and its on-disk graph store are not
-ported.  ``train`` / ``train_stream`` fit the encoder on a subsample of at
+are traced through the ingestion engine (``repro_torch.ingest``: worker
+pool, dedup memo, optional on-disk graph store, program order kept), as in
+JAX.  ``train`` / ``train_stream`` fit the encoder on a subsample of at
 most ``train_subsample`` graphs (the same ``rng.choice`` draw as JAX);
 ``params`` may also be adopted (``repro_torch.interop.params_from_jax``).
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict
-from dataclasses import dataclass, field
-from typing import Optional
-
 import time
+from dataclasses import dataclass, field
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 
-from repro_torch.config import resolve_trace_caps
-from repro_torch.core.graphs import KernelGraph, build_kernel_graph
+from repro_torch.core.graphs import KernelGraph
 from repro_torch.core.rgcn import RGCNConfig, RGCNEncoder
 from repro_torch.core.train import ContrastiveTrainer, GCLTrainConfig
 from repro_torch.sim.simulate import SamplingPlan
 from repro_torch.tracing.programs import Program
+
+if TYPE_CHECKING:  # layering: ingest imports core, so core types it lazily
+    from repro_torch.ingest.engine import IngestConfig
+
+
+def _default_ingest():
+    from repro_torch.ingest.engine import IngestConfig
+
+    return IngestConfig()
 
 
 @dataclass(frozen=True)
@@ -42,12 +47,12 @@ class GCLSamplerConfig:
     train_subsample: int = 400  # cap graphs used for contrastive training
     rgcn: RGCNConfig = field(default_factory=RGCNConfig)
     train: GCLTrainConfig = field(default_factory=GCLTrainConfig)
+    #: trace->graph ingestion (workers/depth/cache): never changes results,
+    #: only how fast graphs arrive (left out of artifact content keys)
+    ingest: "IngestConfig" = field(default_factory=_default_ingest)
 
 
 class GCLSampler:
-    #: distinct traced graphs kept in the in-process memo
-    MEMO = 128
-
     def __init__(self, cfg: Optional[GCLSamplerConfig] = None, *,
                  device=None):
         self.cfg = cfg or GCLSamplerConfig()
@@ -55,33 +60,21 @@ class GCLSampler:
                                           device=device)
         self.device = self.trainer.device
         self.params: Optional[RGCNEncoder] = None
-        self._memo: OrderedDict[tuple, KernelGraph] = OrderedDict()
-        self.ingest_stats = {"kernels": 0, "traced": 0, "memo_hits": 0}
+        from repro_torch.ingest.engine import IngestEngine
+
+        self.ingest = IngestEngine(self.cfg.ingest)
 
     # -- stages --------------------------------------------------------------
-    def _graph(self, inv, cap_warps: int, cap_instr: int) -> KernelGraph:
-        key = (inv.template, repr(sorted(inv.params.items())), inv.seed,
-               cap_warps, cap_instr)
-        g = self._memo.get(key)
-        if g is not None:
-            self._memo.move_to_end(key)
-            self.ingest_stats["memo_hits"] += 1
-            return g
-        g = build_kernel_graph(inv.trace(cap_warps, cap_instr))
-        self.ingest_stats["traced"] += 1
-        self._memo[key] = g
-        while len(self._memo) > self.MEMO:
-            self._memo.popitem(last=False)
-        return g
+    def attach_graph_store(self, graph_store) -> None:
+        """Back the ingestion engine with an on-disk ``GraphStore``: warm
+        runs then trace nothing."""
+        self.ingest.store = graph_store
 
     def iter_graphs(self, program: Program):
-        """Lazy per-invocation trace + graph build, in program order;
-        identical invocations are traced once."""
-        cap_warps, cap_instr = resolve_trace_caps(
-            self.cfg.cap_warps, self.cfg.cap_instr, program)
-        self.ingest_stats["kernels"] += len(program.kernels)
-        for inv in program.kernels:
-            yield self._graph(inv, cap_warps, cap_instr)
+        """Lazy per-invocation trace + graph build through the ingestion
+        engine, in program order; identical invocations are built once."""
+        c = self.cfg
+        return self.ingest.iter_graphs(program, c.cap_warps, c.cap_instr)
 
     def build_graphs(self, program: Program) -> list[KernelGraph]:
         return list(self.iter_graphs(program))

@@ -7,7 +7,8 @@ rgcn_fused     K1: one-pass RGCN message + degree norm + scatter + basis
 rgcn_spmm      K5: the flat pre-basis aggregate (replaces
                ``repro/kernels/rgcn_spmm``, flat variant)
 kmeans_assign  K2: fused masked K-Means assignment + per-cluster sums;
-               K3: blocked silhouette sums (replace
+               K3: blocked silhouette sums; K4: the unmasked assignment of
+               the sequential reference (replace
                ``repro/kernels/kmeans_assign``)
 
 The CUDA C++ sources live in ``repro_torch/csrc/*.cu`` and expose a plain C
@@ -52,6 +53,7 @@ SIGNATURES = {
     "kmeans_assign_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _P],
     "silhouette_sums": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "kmeans_assign": [_P, _P, _P, _P, _I, _I, _I, _P],
     "rgcn_spmm_flat": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rgcn_fused_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _P],

@@ -1,6 +1,7 @@
-"""K2 / K3: fused K-Means assignment and blocked silhouette sums."""
+"""K2 / K3 / K4: fused K-Means assignment, blocked silhouette sums and the
+sequential reference's unmasked assignment."""
 
 from repro_torch.kernels.kmeans_assign.ops import (  # noqa: F401
-    kmeans_assign_fused, kmeans_assign_fused_plain, silhouette_sums,
-    silhouette_sums_plain,
+    kmeans_assign, kmeans_assign_fused, kmeans_assign_fused_plain,
+    kmeans_assign_plain, silhouette_sums, silhouette_sums_plain,
 )

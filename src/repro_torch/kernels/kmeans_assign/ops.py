@@ -1,7 +1,10 @@
-"""K2 and K3 wrappers with their plain PyTorch versions.
+"""K2, K3 and K4 wrappers with their plain PyTorch versions.
 
 Counterpart of ``repro/kernels/kmeans_assign/{ops,ref}.py``.
 
+``kmeans_assign``       the sequential reference's unmasked assignment
+                        (K4): CUDA tensors launch
+                        ``csrc/kmeans_assign_seq.cu``.
 ``kmeans_assign_fused`` one mask-aware Lloyd step's statistics: CUDA
                         tensors launch ``csrc/kmeans_assign.cu``.
 ``silhouette_sums``     per-(point, cluster) distance totals: CUDA tensors
@@ -18,6 +21,42 @@ from repro_torch.kernels import check, launch, route
 
 #: points per block of the K2 kernel (its partial-sum scratch is per block)
 _K2_POINTS = 32
+
+
+def kmeans_assign_plain(x, cent):
+    """(labels (n,) int32, min squared distance (n,)): the expanded
+    distance clamped at 0, first index on ties (``ref.py:kmeans_assign_ref``)."""
+    x2 = torch.sum(x * x, dim=1, keepdim=True)
+    c2 = torch.sum(cent * cent, dim=1)
+    d = torch.clamp_min(x2 - 2.0 * x @ cent.T + c2[None], 0.0)
+    mind, lab = torch.min(d, dim=1)
+    return lab.to(torch.int32), mind
+
+
+def kmeans_assign(x, cent):
+    """x (n,d), cent (k,d), float32 -> (labels (n,) int32, min_sq (n,))."""
+    if route(x) == "cpu":
+        return kmeans_assign_plain(x, cent)
+    dev = x.device
+    if x.dim() != 2 or cent.dim() != 2:
+        raise ValueError("kmeans_assign: x and cent must be 2-D")
+    n, d = x.shape
+    k = cent.shape[0]
+    check("x", x, dtype=torch.float32, shape=(n, d), device=dev)
+    check("cent", cent, dtype=torch.float32, shape=(k, d), device=dev)
+    if k < 1 or d < 1:
+        raise ValueError(f"kmeans_assign kernel takes k >= 1, d >= 1; got "
+                         f"k={k}, d={d}")
+    labels = torch.empty(n, dtype=torch.int32, device=dev)
+    mind = torch.empty(n, dtype=torch.float32, device=dev)
+    launch("kmeans_assign",
+           *(t.data_ptr() for t in (x, cent, labels, mind)), n, d, k)
+    kmeans_assign.launches += 1
+    return labels, mind
+
+
+#: kernel launches made through this wrapper (CUDA tensors only)
+kmeans_assign.launches = 0
 
 
 def kmeans_assign_fused_plain(x, cent, cmask, pmask):

@@ -1,13 +1,14 @@
 """repro_torch.sampling — the port's sampling API.
 
-    from repro_torch.sampling import get_method, evaluate
+    from repro_torch.sampling import ArtifactStore, evaluate, get_method
 
     method = get_method("gcl", device="cuda")
-    method.adopt(artifacts_with_trained_params)
-    plan, artifacts = method.run(program)
+    plan, artifacts = method.run(program, store=ArtifactStore("runs/x"))
     result = evaluate(plan, program, platform="P1")
 
-Only ``gcl`` is registered in this slice; it needs an adopted encoder.
+The four paper methods are registered: ``gcl`` (fits its encoder in
+``prepare`` unless one is adopted or replayed from the store), ``pka``,
+``sieve`` and ``stem_root``.
 """
 
 from repro_torch.sampling.base import (
@@ -21,11 +22,11 @@ from repro_torch.sampling.registry import (
     SAMPLING_METHODS, available_methods, get_method, register_method,
 )
 from repro_torch.sampling.store import (
-    flatten_tree, program_fingerprint, unflatten_tree,
+    ArtifactStore, flatten_tree, program_fingerprint, unflatten_tree,
 )
 
 __all__ = [
-    "Artifacts", "EvalResult", "PlanEngine", "PlanEngineConfig",
+    "ArtifactStore", "Artifacts", "EvalResult", "PlanEngine", "PlanEngineConfig",
     "PlanRequest", "SAMPLING_METHODS", "SamplingMethod",
     "available_methods", "config_hash", "evaluate", "evaluate_metrics",
     "flatten_tree", "get_method", "plan_from_labels", "program_fingerprint",

@@ -8,10 +8,12 @@ method.  Counterpart of ``repro/sampling/engine.py``.
 - trivial/tiny programs take the same host paths as the JAX engine;
 - ``plan_many`` builds program i's plan on a worker thread while program
   i+1 is clustered;
-- ``errors="isolate"`` turns a failing request into an Exception entry.
-  The JAX engine retries such a request through its sequential reference;
-  that path is not in the port, so the failure is the request's result —
-  never a quiet answer from another implementation.
+- ``errors="isolate"``: a request whose sweep fails is retried through the
+  sequential reference (``select_k_and_cluster``), as the JAX engine does;
+  a request that fails there too becomes an Exception entry and counts in
+  ``stats["errors"]``, a recovered one does not;
+- ``engine="sequential"`` serves every request through that reference
+  (the parity path).
 
 There are no compiled executables to cache: ``warmup`` builds (or loads)
 the kernel library, so the first request does not pay the ``nvcc`` build.
@@ -26,7 +28,9 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from repro_torch.core.clustering import bucket_points, sweep_cluster_stack
+from repro_torch.core.clustering import (
+    bucket_points, select_k_and_cluster, sweep_cluster_stack,
+)
 from repro_torch.sampling.base import plan_from_labels
 from repro_torch.sim.simulate import SamplingPlan
 from repro_torch.utils.device import resolve_device
@@ -43,7 +47,7 @@ class PlanEngineConfig:
     sil_cap: int = 1200
     iters: int = 50
     init: str = "host"           # host numpy kmeans++ (the only one ported)
-    engine: str = "sweep"        # 'sequential' is not ported: raises
+    engine: str = "sweep"        # 'sweep' | 'sequential' (parity reference)
     max_batch: int = 8           # requests per service flush
     record_timings: bool = False  # stamp per-request dispatch telemetry
 
@@ -80,10 +84,9 @@ class PlanEngine:
                  device=None, **overrides):
         cfg = cfg or PlanEngineConfig()
         self.cfg = replace(cfg, **overrides) if overrides else cfg
-        if self.cfg.engine != "sweep":
-            raise NotImplementedError(
-                f"engine={self.cfg.engine!r}: the sequential reference is not "
-                f"in the PyTorch port yet; engine='sweep' is")
+        if self.cfg.engine not in ("sweep", "sequential"):
+            raise ValueError(f"engine must be 'sweep'|'sequential': "
+                             f"{self.cfg.engine!r}")
         self.device = resolve_device(device)
         self.stats = {"programs": 0, "dispatches": 0, "errors": 0,
                       "warmed_executables": 0, "bucket_hist": []}
@@ -129,9 +132,12 @@ class PlanEngine:
                      on_chunk: Optional[Callable] = None):
         """Cluster many programs' embeddings; returns aligned
         [(labels, info)].  Requests are visited bucket by bucket, one sweep
-        dispatch per program.  ``errors="isolate"``: a failing request
-        becomes an Exception entry.  ``on_chunk(indices, results)`` fires
-        after every dispatch."""
+        dispatch per program (``engine="sequential"``: one sequential
+        reference call per program, in request order).
+        ``errors="isolate"``: a request whose sweep fails is retried
+        through the sequential reference; one that fails there too becomes
+        an Exception entry.  ``on_chunk(indices, results)`` fires after
+        every dispatch."""
         if errors not in ("raise", "isolate"):
             raise ValueError(f"errors must be 'raise'|'isolate': {errors!r}")
         out: list = [None] * len(embs)
@@ -148,30 +154,54 @@ class PlanEngine:
                     raise
                 out[i] = e
                 self.stats["errors"] += 1
-        groups: dict[tuple, list[int]] = {}
-        for i in range(len(embs)):
-            if norm[i] is not None:
+        live = [i for i in range(len(embs)) if norm[i] is not None]
+        if self.cfg.engine == "sequential":
+            order = [(bucket_key(norm[i]), i) for i in live]
+        else:
+            groups: dict[tuple, list[int]] = {}
+            for i in live:
                 groups.setdefault(bucket_key(norm[i]), []).append(i)
-        for key, idxs in sorted(groups.items()):
-            self._bump_bucket(key, len(idxs))
-            for i in idxs:
-                t0 = time.perf_counter()
-                try:
-                    res = sweep_cluster_stack([norm[i]], seed=[seeds[i]],
-                                              **self._cluster_kwargs())[0]
-                except Exception as e:
-                    if errors == "raise":
-                        raise
-                    res = e
-                    self.stats["errors"] += 1
-                if self.cfg.record_timings:
-                    self._stamp([res], key, time.perf_counter() - t0)
-                out[i] = res
-                self.stats["dispatches"] += 1
-                if on_chunk is not None:
-                    on_chunk([i], [res])
+            order = []
+            for key, idxs in sorted(groups.items()):
+                self._bump_bucket(key, len(idxs))
+                order += [(key, i) for i in idxs]
+        for key, i in order:
+            t0 = time.perf_counter()
+            res = self._cluster_one(norm[i], seeds[i], errors)
+            if self.cfg.record_timings:
+                self._stamp([res], key, time.perf_counter() - t0)
+            out[i] = res
+            self.stats["dispatches"] += 1
+            if on_chunk is not None:
+                on_chunk([i], [res])
         self.stats["programs"] += len(embs)
         return out
+
+    def _sequential(self, x, seed):
+        return select_k_and_cluster(x, seed=seed, **self._cluster_kwargs())
+
+    def _cluster_one(self, x, seed, errors: str):
+        """One program through the configured engine.  Under
+        ``errors="isolate"`` a failed sweep is retried through the
+        sequential reference, and a request that fails there too (or in
+        the sequential engine) comes back as its exception, counted in
+        ``stats["errors"]``."""
+        try:
+            if self.cfg.engine == "sequential":
+                return self._sequential(x, seed)
+            return sweep_cluster_stack([x], seed=[seed],
+                                       **self._cluster_kwargs())[0]
+        except Exception as e:
+            if errors == "raise":
+                raise
+            err = e
+        if self.cfg.engine == "sweep":
+            try:
+                return self._sequential(x, seed)
+            except Exception as e:
+                err = e
+        self.stats["errors"] += 1
+        return err
 
     # -- plans --------------------------------------------------------------
     def plan_many(self, requests: list[PlanRequest],

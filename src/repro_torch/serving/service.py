@@ -8,8 +8,9 @@
 - dispatches run through ``PlanEngine.plan_many(errors="isolate")``: a
   failing request fails only its own future;
 - ``submit_program`` prepares a program on the caller's thread (trace,
-  graphs, embeddings through the adopted encoder) and queues the method's
-  engine-ready request.
+  graphs, embeddings for gcl; features for pka) and queues the method's
+  engine-ready request; methods that do not plan through the engine
+  (sieve, stem_root) resolve at once through their own ``plan``.
 
 The dispatcher thread binds the engine's CUDA device before its first
 dispatch and launches on that thread's current (default) stream; results
@@ -108,9 +109,12 @@ class PlanService:
 
     def submit_program(self, method, program, store=None) -> Future:
         """Serve a traced program end to end: ``run_prepare`` on the
-        caller's thread, then the method's engine-ready request joins the
-        batch queues.  Plans come from this service's engine config; keep
-        its clustering knobs (k_max, ...) consistent with the method's."""
+        caller's thread (through ``store`` when given: a replayed gcl
+        encoder never refits), then the method's engine-ready request joins
+        the batch queues.  Methods without one (sieve, stem_root) resolve
+        at once through their own ``plan``.  Plans come from this service's
+        engine config; keep its clustering knobs (k_max, ...) consistent
+        with the method's."""
         artifacts = method.run_prepare(program, store)
         request = method.plan_request(program, artifacts)
         if request is None:

@@ -2,10 +2,9 @@
 ``repro_torch``; the port imports nothing of ``repro``).
 
 The paper's 11 workloads (PolyBench / Rodinia / Tango / LLM) as synthetic
-kernel-invocation streams.  The original's ``lm_program`` and its
-``scn:`` / ``lm:`` / ``model:`` name spaces are left out of this copy:
-``get_program`` raises ``KeyError`` for them until the port carries
-``workloads/`` and ``configs/``.
+kernel-invocation streams, plus ``lm_program`` which derives a workload from
+ANY assigned architecture config (the framework-integration path: the LM zoo
+is the simulation subject, exactly like the paper's qwen1.5/phi-2/pythia).
 
 Program structure encodes the behaviors the paper's evaluation hinges on:
 - nw:   255 invocations with DISTINCT names, 2 behavior groups
@@ -34,7 +33,7 @@ class Program:
     name: str
     kernels: list
     # extra content folded into `program_fingerprint` — generated programs
-    # (repro.workloads) put their ScenarioSpec hash there so two same-named
+    # (repro_torch.workloads) put their ScenarioSpec hash there so two same-named
     # programs built from different specs/seeds never share artifact keys,
     # and model-zoo programs record their trace window there (a caps change
     # must never replay another window's artifacts)
@@ -48,7 +47,9 @@ class Program:
         return len(self.kernels)
 
 
-# name -> zero-arg builder; the paper suite registers below
+# name -> zero-arg builder; the paper suite registers below.  Generated
+# scenario programs need no registration: their `scn:` names resolve
+# lazily in get_program (the name IS the spec)
 PROGRAMS: Registry = Registry("program")
 
 
@@ -338,22 +339,77 @@ for _name, _builder in _BUILDERS.items():
 PAPER_PROGRAMS = list(_BUILDERS)
 
 
-_cache: dict = {}
+def _model_builder(name):
+    def build():
+        from repro_torch.workloads.modelzoo import model_program
 
-#: name prefixes of the original's generated programs; their builders need
-#: ``workloads/`` and ``configs/``, which the port has not copied yet
-PENDING_PREFIXES = ("scn:", "lm:", "model:")
+        return model_program(name)
+    return build
+
+
+# the model-zoo trace-pack grid (repro_torch.workloads.modelzoo) — registered with
+# lazy builders so the names list in PROGRAMS without importing configs; the
+# grid mirrors modelzoo.MODEL_ZOO x modelzoo.PHASES (asserted by its tests)
+MODEL_ZOO_PROGRAMS = [
+    f"model:{_a}:{_p}"
+    for _a in ("llama3.2-3b", "mamba2-780m", "dbrx-132b")
+    for _p in ("prefill", "decode")
+]
+for _name in MODEL_ZOO_PROGRAMS:
+    PROGRAMS.add(_name, _model_builder(_name))
+
+_cache: dict = {}
 
 
 def get_program(name: str) -> Program:
-    if name.startswith(PENDING_PREFIXES):
-        raise KeyError(
-            f"program {name!r}: scenario, lm: and model: programs are not in "
-            f"the PyTorch port yet (ROADMAP.md, queue A: ingest/workloads/"
-            f"configs slice); the 11 paper programs are")
+    if name.startswith("scn:"):
+        # generated scenario programs (repro_torch.workloads) resolve lazily: the
+        # name IS the spec, no pre-registration needed.  Deliberately NOT
+        # memoized — the scn: name space is open-ended (a large scenario
+        # matrix would pin every generated Program for the process
+        # lifetime) and build_scenario is cheap and deterministic.
+        from repro_torch.workloads import scenario_program
+
+        return scenario_program(name)
     if name not in _cache:
         if name in PROGRAMS:
             _cache[name] = PROGRAMS.get(name)()
+        elif name.startswith("lm:"):
+            _cache[name] = lm_program(name[3:])
+        elif name.startswith("model:"):
+            from repro_torch.workloads.modelzoo import model_program
+
+            _cache[name] = model_program(name)
         else:
             raise KeyError(f"unknown program {name!r}")
     return _cache[name]
+
+
+def lm_program(arch_id: str, steps: int = 3, seq_len: int = 512) -> Program:
+    """Derive a sampled-simulation workload from an assigned architecture
+    config — the paper's LLM-workload path applied to the model zoo."""
+    from repro_torch.config import FFN_MOE, MIXER_MAMBA2
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch_id)
+    ks = []
+    s = 0
+    for step in range(steps):
+        decode = step > 0
+        for layer in range(cfg.num_layers):
+            spec = cfg.layer_specs()[layer % cfg.block_size]
+            moe = (
+                {"experts": cfg.num_experts, "top_k": cfg.top_k}
+                if spec.ffn == FFN_MOE else None
+            )
+            mamba = (
+                {"d_inner": cfg.d_inner} if spec.mixer == MIXER_MAMBA2 else None
+            )
+            lk, s = _lm_layer_kernels(
+                f"L{layer}", cfg.d_model, cfg.d_ff, max(cfg.num_heads, 1),
+                seq_len, decode, s, seed=101, moe=moe, mamba=mamba,
+            )
+            ks.extend(lk)
+    for i, k in enumerate(ks):
+        k.seq = i
+    return Program(f"lm:{arch_id}", ks)

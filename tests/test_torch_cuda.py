@@ -3,8 +3,9 @@
 Each hand-written kernel against its plain PyTorch version on the same
 CUDA tensors, at sizes that are not multiples of the kernels' tiles; the
 wrappers' input checks; one program served end to end on the card against
-the same program served on the CPU; and one training step on the card
-against the same step on the CPU, with the same draws.  This file imports no JAX (the
+the same program served on the CPU; one training step on the card against
+the same step on the CPU, with the same draws; the sequential reference
+(K4 + K3) on the card against the CPU.  This file imports no JAX (the
 machine with the card has none).  Without a card every test skips with a
 reason, decided inside the test.
 
@@ -22,8 +23,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.kmeans_assign.ops import (
-    kmeans_assign_fused, kmeans_assign_fused_plain, silhouette_sums,
-    silhouette_sums_plain,
+    kmeans_assign, kmeans_assign_fused, kmeans_assign_fused_plain,
+    kmeans_assign_plain, silhouette_sums, silhouette_sums_plain,
 )
 from repro_torch.kernels.rgcn_fused.ops import (
     rgcn_fused_agg_flat, rgcn_fused_agg_flat_plain, rgcn_fused_bwd,
@@ -268,3 +269,99 @@ def test_training_step_on_card_matches_cpu():
 
     assert gap(g_card, g_cpu) <= 1e-3
     assert gap(p_card, p_cpu) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(2425, 256, 2), (2425, 256, 48),
+                                   (1001, 12, 48), (37, 12, 2),
+                                   (70, 300, 130)])
+@pytest.mark.parametrize("dup", [False, True])
+def test_kmeans_assign_seq_kernel_matches_plain(n, d, k, dup):
+    """K4 against its plain version: labels equal wherever the plain
+    version's two smallest distances differ by more than 1e-6 of the
+    distance scale, min distance within TOL of that scale, and among
+    identical centroids (``dup``: the points are copies of 5 rows and the
+    centroids are points) the lowest index wins."""
+    dev = _card()
+    rng = np.random.default_rng(n + d + k)
+    if dup:
+        rows = rng.standard_normal((5, d)).astype(np.float32)
+        x_np = rows[rng.integers(0, 5, n)]
+    else:
+        x_np = rng.standard_normal((n, d)).astype(np.float32)
+    x = torch.from_numpy(x_np).to(dev)
+    cent = x[torch.from_numpy(rng.integers(0, n, k)).to(dev)].contiguous()
+    before = kmeans_assign.launches
+    lab, mind = kmeans_assign(x, cent)
+    torch.cuda.synchronize()
+    assert kmeans_assign.launches == before + 1
+    plab, pmind = kmeans_assign_plain(x, cent)
+    x2 = (x * x).sum(1, keepdim=True)
+    d2 = torch.clamp_min(x2 - 2 * x @ cent.T + (cent * cent).sum(1)[None], 0)
+    scale = float(x2.max() + (cent * cent).sum(1).max())
+    if k > 1:
+        top2 = torch.topk(d2, 2, dim=1, largest=False).values
+        clear = top2[:, 1] - top2[:, 0] > 1e-6 * scale
+        assert torch.equal(lab[clear], plab[clear])
+    assert float((mind - pmind).abs().max()) <= TOL * scale
+    if dup:
+        c = cent.cpu().numpy()
+        first = {}
+        for i, row in enumerate(map(bytes, c)):
+            first.setdefault(row, i)
+        assert all(first[bytes(c[i])] == i for i in lab.cpu().numpy())
+    assert torch.equal(lab, kmeans_assign(x, cent)[0])   # deterministic
+
+
+@pytest.mark.cuda
+def test_kmeans_assign_seq_wrapper_rejects_bad_inputs():
+    dev = _card()
+    x = torch.randn(40, 12, device=dev)
+    with pytest.raises(TypeError):
+        kmeans_assign(x.double(), x[:3].double())
+    with pytest.raises(ValueError):
+        kmeans_assign(x, x[:3].cpu())
+    with pytest.raises(ValueError):
+        kmeans_assign(x, x[:3, :5].contiguous())
+    with pytest.raises(ValueError):
+        kmeans_assign(x, x[:0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(2425, 48), (301, 2)])
+def test_k2_k3_at_pka_width_match_plain(n, k):
+    """K2 and K3 at PKA's feature width d = 12."""
+    dev = _card()
+    x, cent, lab = _blobs(dev, n, 12, k)
+    cmask = torch.ones(k, device=dev)
+    pmask = (torch.arange(n, device=dev) < n - 3).float()
+    got = kmeans_assign_fused(x, cent, cmask, pmask)
+    torch.cuda.synchronize()
+    want = kmeans_assign_fused_plain(x, cent, cmask, pmask)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        _close(g, w)
+    onehot = torch.nn.functional.one_hot(torch.from_numpy(lab), k).float()
+    onehot = onehot.to(dev).contiguous()
+    _close(silhouette_sums(x, onehot), silhouette_sums_plain(x, onehot))
+
+
+@pytest.mark.cuda
+def test_sequential_reference_on_card_matches_cpu():
+    """``select_k_and_cluster`` on the card (K4 + K3) and on the CPU:
+    same K and labels on separated blobs, scores within 1e-5, and K4 was
+    launched."""
+    _card()
+    from repro_torch.core.clustering import select_k_and_cluster
+
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((5, 16)) * 8
+    x = (centers[rng.integers(0, 5, 300)]
+         + rng.standard_normal((300, 16))).astype(np.float32)
+    before = kmeans_assign.launches
+    lab, info = select_k_and_cluster(x, k_max=10)
+    assert kmeans_assign.launches > before
+    clab, cinfo = select_k_and_cluster(x, k_max=10, device="cpu")
+    assert info["k"] == cinfo["k"] and np.array_equal(lab, clab)
+    for k, v in cinfo["scores"].items():
+        assert abs(info["scores"][k] - v) <= 1e-5

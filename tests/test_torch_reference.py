@@ -8,7 +8,15 @@ its invocations, K, labels, the per-K silhouette scores, representatives,
 and eq. 5 / eq. 6 on P1.  ``chip_smoke.py`` holds the port on the card
 against it.
 
-Regenerate (JAX on the CPU, a few minutes)::
+A second file, ``src/repro_torch/assets/reference_grid.json``, holds what
+the card cannot compute without JAX: the JAX sequential reference
+(``select_k_and_cluster``) on the fixture's phi-2 and cfd embeddings (K,
+labels, per-K scores, representatives), and the JAX comparison grid
+(``run_grid`` over the 11 paper programs on P1-P3): K, representatives,
+eq. 5 and eq. 6 of every pka / sieve / stem_root row, and the gcl rows at
+the default config for a side-by-side print.
+
+Regenerate both (JAX on the CPU, ~15 minutes)::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference.py --write
 
@@ -25,7 +33,9 @@ import pytest
 
 FIXTURE = os.path.join(os.path.dirname(__file__), os.pardir, "src",
                        "repro_torch", "assets", "reference_phi2.npz")
+GRID_FIXTURE = os.path.join(os.path.dirname(FIXTURE), "reference_grid.json")
 PROGRAMS = ("phi-2", "cfd")
+PLATFORMS = ("P1", "P2", "P3")
 
 
 def write_fixture(path: str = FIXTURE) -> dict:
@@ -69,6 +79,96 @@ def write_fixture(path: str = FIXTURE) -> dict:
         out[f"param:{key}"] = np.asarray(arr, np.float32)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, **out)
+    return out
+
+
+def fixture_embeddings(ref: dict, name: str):
+    """A program's per-invocation embeddings from the fixture."""
+    return ref[f"{name}:emb_distinct"][ref[f"{name}:index"]]
+
+
+def exact_silhouette(x, labels) -> float:
+    """Float64 mean silhouette (clusters of one contribute 0), distances
+    from the Gram matrix (no (n, n, d) intermediate)."""
+    x = np.asarray(x, np.float64)
+    lab = np.asarray(labels)
+    g = x @ x.T
+    sq = np.diag(g)
+    d = np.sqrt(np.maximum(sq[:, None] - 2 * g + sq[None, :], 0.0))
+    np.fill_diagonal(d, 0.0)
+    ks = np.unique(lab)
+    onehot = (lab[:, None] == ks[None, :]).astype(np.float64)
+    cnt = onehot.sum(0)
+    sums = d @ onehot
+    own = np.searchsorted(ks, lab)
+    own_cnt = cnt[own]
+    a = sums[np.arange(len(x)), own] / np.maximum(own_cnt - 1, 1)
+    mean = sums / cnt[None, :]
+    mean[np.arange(len(x)), own] = np.inf
+    b = mean.min(1)
+    s = np.where(own_cnt > 1, (b - a) / np.maximum(np.maximum(a, b), 1e-12),
+                 0.0)
+    return float(s.mean())
+
+
+def _exact_scores(x, seed=0, k_max=48, sil_cap=1200):
+    """Exact float64 silhouettes of the JAX sequential path's per-K labels
+    (the same fits, subsample and relabelling as
+    ``select_k_and_cluster``): what its float32 scores approximate."""
+    from repro.core.clustering import kmeans
+
+    n = len(x)
+    idx = (np.random.default_rng(seed).choice(n, sil_cap, replace=False)
+           if n > sil_cap else np.arange(n))
+    out = {}
+    for k in range(2, min(k_max, n - 1) + 1):
+        _, lab = np.unique(kmeans(x, k, seed=seed)[0], return_inverse=True)
+        if lab.max() == 0 or lab[idx].max() == lab[idx].min():
+            continue
+        out[str(k)] = exact_silhouette(x[idx], lab[idx])
+    return out
+
+
+def write_grid_fixture(path: str = GRID_FIXTURE) -> dict:
+    """Record the JAX sequential reference on the fixture embeddings and
+    the JAX comparison grid (11 paper programs x P1-P3) as JSON."""
+    import json
+    import tempfile
+
+    from repro.core.clustering import select_k_and_cluster
+    from repro.launch.sample import run_grid
+    from repro.sampling import ArtifactStore, plan_from_labels
+    from repro.tracing.programs import PAPER_PROGRAMS, get_program
+
+    ref = _load()
+    out: dict = {"sequential": {}, "grid": []}
+    for name in PROGRAMS:
+        x = fixture_embeddings(ref, name)
+        labels, info = select_k_and_cluster(x)
+        seqs = np.array([k.seq for k in get_program(name).kernels])
+        plan = plan_from_labels(labels, seqs, "x")
+        scores = info.get("scores", {})
+        out["sequential"][name] = {
+            "k": int(info["k"]), "mode": info["mode"],
+            "labels": [int(v) for v in labels],
+            "scores": {str(k): float(v) for k, v in sorted(scores.items())},
+            "scores_exact": _exact_scores(x),
+            "reps": [int(r) for r in plan.rep_indices()]}
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = run_grid(["gcl", "pka", "sieve", "stem_root"],
+                       list(PAPER_PROGRAMS), list(PLATFORMS), tmp,
+                       verbose=False)
+        store = ArtifactStore(os.path.join(tmp, "artifacts"))
+        for row in doc["results"]:
+            plan = store.load_plan(row["method_id"], row["artifact_key"])
+            out["grid"].append({
+                "method_id": row["method_id"], "program": row["program"],
+                "platform": row["platform"], "k": row["num_clusters"],
+                "reps": [int(r) for r in plan.rep_indices()],
+                "eq5": row["error_pct"]["cycles"], "eq6": row["speedup"]})
+    assert not doc["failures"] and not doc["batch_plan_errors"], doc
+    with open(path, "w") as f:
+        json.dump(out, f, sort_keys=True, separators=(",", ":"))
     return out
 
 
@@ -141,6 +241,9 @@ if __name__ == "__main__":
     if "--write" not in sys.argv:
         sys.exit("usage: python tests/test_torch_reference.py --write")
     ref = write_fixture()
+    grid = write_grid_fixture()
+    print("sequential K", {k: v["k"] for k, v in grid["sequential"].items()},
+          "grid rows", len(grid["grid"]), "->", os.path.abspath(GRID_FIXTURE))
     for name in PROGRAMS:
         print(name, "K", int(ref[f"{name}:k"]),
               "reps", ref[f"{name}:reps"].tolist(),
