@@ -9,14 +9,17 @@ Phases, each reported on its own lines:
 2. build    the CUDA kernels built from ``src/repro_torch/csrc`` with nvcc
             for sm_90a, with the build time and ptxas's register /
             shared-memory report;
-3. kernels  every kernel of the serving, training and sequential paths (K1
-            rgcn_fused, K2 kmeans_assign_fused, K3 silhouette_sums, K5
-            rgcn_spmm_flat, K1b rgcn_fused_bwd, K4 kmeans_assign) against
-            its plain PyTorch version on the card at the main-path shapes
-            (K5 / K1b also at the training batch's bucket; K2 / K3 / K4 also
-            at PKA's feature width d = 12), with its time, the plain
-            version's, one library call's where there is one, and the least
-            time the card could take (bound);
+3. kernels  every kernel of the serving, training, sequential and LM paths
+            (K1 rgcn_fused, K2 kmeans_assign_fused, K3 silhouette_sums, K5
+            rgcn_spmm_flat, K1b rgcn_fused_bwd, K4 kmeans_assign, K7
+            flash_attention, K8 ssd_intra_chunk) against its plain PyTorch
+            version on the card at the main-path shapes (K5 / K1b also at
+            the training batch's bucket; K2 / K3 / K4 also at PKA's feature
+            width d = 12; K7 also over hd 16/64/256, G 1/3/8, S
+            64/512/1536, f32 and bf16; K8 also at mamba's smoke shape and
+            a single 64-row chunk), with its time, the plain version's, one
+            library call's where there is one, and the least time the card
+            could take (bound);
 4. reference the JAX-trained encoder committed in
             ``src/repro_torch/assets/reference_phi2.npz``: the card embeds
             and plans phi-2 and cfd and must match the JAX results stored
@@ -59,7 +62,22 @@ Phases, each reported on its own lines:
             rows are printed beside JAX's; a second run on the same
             directory replays (no fit, gcl prepare under a tenth of the
             first run's).  This is the slice's main path: its counts are the
-            ``launches`` of K1, K1b, K2, K3 and K5 in the kernel table.
+            ``launches`` of K1, K1b, K2, K3 and K5 in the kernel table;
+12. lm_reference the JAX fixture ``src/repro_torch/assets/reference_lm.npz``
+            (smoke-width llama3.2-3b and mamba2-780m, two layers, f32, B=2,
+            a 1024-token prompt): the card's prefill logits and its decode
+            logits fed JAX's 16 greedy tokens within 1e-4 relative, and the
+            same greedy picks where JAX's top two logits are clear;
+13. lm_serve ``repro_torch.launch.serve.main`` for llama3.2-3b and
+            mamba2-780m at full width (2 batches x 4 requests of a 2048-token
+            prompt + 32 greedy tokens): prefill ms, decode tok/s, peak
+            memory, finite logits; K7 launched once per llama layer and
+            prefill, K8 once per mamba layer and prefill (these counts are
+            K7's and K8's ``launches``); then decode-vs-prefill at full
+            width (prefill 1536, decode 512 teacher-forced, against the
+            prefill of all 2048 at its last position) in bf16 at full
+            depth and in f32 at 4 layers, with 8 decode steps profiled for
+            the step's device / host split.
 
 Any mismatch or exception exits non-zero.  The last lines are the kernel
 table as one JSON object, the card's name and power limit, and
@@ -79,11 +97,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "src" / "repro_torch" / "assets" / "reference_phi2.npz"
 GRID_FIXTURE = FIXTURE.parent / "reference_grid.json"
+LM_FIXTURE = FIXTURE.parent / "reference_lm.npz"
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
 # outside the tensor cores (the kernels here run float32 FMAs)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12    # dense bf16 tensor-core rate
 
 KERNEL_TOL = 1e-5       # max |kernel - plain| / max |plain|
 # Training on the card against the CPU.  The encoder's gradient jumps where
@@ -121,6 +141,32 @@ SCORE_TOL = 1e-3
 #: further apart than this share of the row's distance scale |x|^2 + |c|^2
 TIE_TOL = 1e-6
 PLATFORMS = ["P1", "P2", "P3"]
+#: the LM serving path: both archs at full width, 2 batches x 4 requests of
+#: a 2048-token prompt + 32 greedy tokens
+LM_ARCHS = ("llama3.2-3b", "mamba2-780m")
+LM_BATCH, LM_PROMPT, LM_TOKENS, LM_REQUESTS = 4, 2048, 32, 2
+LLAMA_PREFILL = (LM_BATCH, LM_PROMPT, 8, 3, 128)     # K7: (B, S, K, G, hd)
+MAMBA_PREFILL = (LM_BATCH, LM_PROMPT // 256, 256, 48, 64, 128)  # K8
+BF16_TOL = 2 ** -7      # a bf16 kernel output vs plain: one bf16 rounding
+LM_TOL = 1e-4           # card (K7, K8, f32) vs the JAX fixture, relative
+#: decode-vs-prefill: a prefill length must be a multiple of K7's 512-row
+#: block and K8's 256-row chunk (1792 is not)
+DECODE_SPLIT = 1536
+#: decode-vs-prefill in bf16: twice the largest gap of the same check (4 x
+#: 2048 tokens, split at 1536) at smoke width and full depth in bf16 on the
+#: CPU, seeds 0 and 1 (``python tests/test_torch_lm.py --decode-gap``):
+#: llama3.2-3b (28 layers) 2.9e-2 / 2.2e-2; mamba2-780m (48 layers) 1.8e-1
+#: / 2.9e-1 — JAX's own bf16 decode differs from its prefill by 3.8e-1 /
+#: 3.2e-1 there: the decode path rounds the SSM state, the conv window and
+#: every projection to bf16 at each step.  In float32 the gap is 9.4e-6
+#: (mamba, 48 layers), and the f32 check — at full width, depth cut to
+#: DECODE_F32_LAYERS so that the random model's amplification of
+#: summation-order differences stays small — is the sharp one, at ten
+#: times that f32 gap.
+DECODE_TOL = {"llama3.2-3b": 0.06, "mamba2-780m": 0.6}
+DECODE_TOL_F32 = 1e-4
+DECODE_F32_LAYERS = 4
+LM_PROFILE_STEPS = 8    # decode steps under torch.profiler
 
 
 def log(*a):
@@ -220,8 +266,8 @@ def device_ms(fn, iters, own=()):
     return t, t
 
 
-def bound(bytes_, ops):
-    t_bytes, t_ops = bytes_ / PEAK_BYTES_S, ops / PEAK_F32_S
+def bound(bytes_, ops, peak=PEAK_F32_S):
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_S, ops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1150,14 +1196,18 @@ def _all_wrappers():
     from repro_torch.kernels.rgcn_fused.ops import (
         rgcn_fused_agg_flat, rgcn_fused_bwd,
     )
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.rgcn_spmm.ops import rgcn_spmm_flat
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
 
     return {"rgcn_fused_flat": rgcn_fused_agg_flat,
             "rgcn_fused_bwd": rgcn_fused_bwd,
             "rgcn_spmm_flat": rgcn_spmm_flat,
             "kmeans_assign_fused": kmeans_assign_fused,
             "silhouette_sums": silhouette_sums,
-            "kmeans_assign": kmeans_assign}
+            "kmeans_assign": kmeans_assign,
+            "flash_attention": flash_attention,
+            "ssd_intra_chunk": ssd_intra_chunk}
 
 
 def _zero_counts():
@@ -1418,6 +1468,340 @@ def profile_grid(dev, methods):
             f"x{count:<7d} {key[:70]}")
 
 
+# ---------------------------------------------------------------------------
+# the LM zoo's serving path (K7 flash attention, K8 SSD intra-chunk)
+# ---------------------------------------------------------------------------
+
+def _k7_inputs(dev, B, S, K, G, hd, dt, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dt)
+                 for shape in ((B, S, K, G, hd), (B, S, K, hd),
+                               (B, S, K, hd)))
+
+
+def _k7_check(dev, shape, dt, seed):
+    """K7 against its plain version; (err, rel, q, k, v, scale)."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain,
+    )
+
+    B, S, K, G, hd = shape
+    q, k, v = _k7_inputs(dev, B, S, K, G, hd, dt, seed)
+    scale = 1.0 / math.sqrt(hd)
+    got = flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, flash_attention_plain(q, k, v, scale))
+    tol = KERNEL_TOL if dt == torch.float32 else BF16_TOL
+    require(rel <= tol, f"K7 {shape} {dt}: rel err {rel:.3e} > {tol}")
+    return err, rel, q, k, v, scale
+
+
+def _k8_inputs(dev, B, nc, Q, nh, hp, ds, seed):
+    """K8's inputs as the mamba mixer makes them: dt a softplus, the
+    log-decay dt * A with A = -linspace(1, 16) over the heads, cumulated
+    over each chunk."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = randn(B, nc, Q, nh, hp)
+    dt = torch.nn.functional.softplus(randn(B, nc, nh, Q) - 1.0)
+    A = -torch.linspace(1.0, 16.0, nh, device=dev)
+    cum = torch.cumsum(dt * A[None, None, :, None], dim=-1).contiguous()
+    return x, cum, dt.contiguous(), randn(B, nc, Q, ds), randn(B, nc, Q, ds)
+
+
+def phase_lm_kernels(rows, dev):
+    """K7 and K8 against their plain versions at the LM serving path's
+    shapes (llama3.2-3b's and mamba2-780m's prefill) and around them."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain,
+    )
+    from repro_torch.kernels.ssd_scan.ops import (
+        ssd_intra_chunk, ssd_intra_chunk_plain,
+    )
+
+    # ---- K7: every hd x G x S x dtype around the main shape, then it ----
+    n = 0
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for hd in (16, 64, 256):
+        for G in (1, 3, 8):
+            for S in (64, 512, 1536):
+                for dt in (torch.float32, torch.bfloat16):
+                    _, rel, *_ = _k7_check(dev, (1, S, 2, G, hd), dt, n)
+                    worst[dt] = max(worst[dt], rel)
+                    n += 1
+    for S in (64, 512, 1536):
+        for dt in (torch.float32, torch.bfloat16):
+            _, rel, *_ = _k7_check(dev, (2, S, 8, 3, 128), dt, n)
+            worst[dt] = max(worst[dt], rel)
+            n += 1
+    log(f"[kernels] K7 flash_attention: {n} shapes (hd 16/64/128/256, G "
+        f"1/3/8, S 64/512/1536, f32 and bf16) within tolerance: worst rel "
+        f"f32 {worst[torch.float32]:.3e} (tol {KERNEL_TOL}) bf16 "
+        f"{worst[torch.bfloat16]:.3e} (tol {BF16_TOL:.3e})")
+    k7 = None
+    B, S, K, G, hd = LLAMA_PREFILL
+    H = K * G
+    for dt in (torch.bfloat16, torch.float32):
+        err, rel, q, k, v, scale = _k7_check(dev, LLAMA_PREFILL, dt, 99)
+        call_ms = time_ms(lambda: flash_attention(q, k, v, scale), 10)
+        _, ms = device_ms(lambda: flash_attention(q, k, v, scale), 5,
+                          own=("flash_attention_mma_kernel",
+                               "flash_attention_f32_kernel"))
+        plain_ms, _ = device_ms(
+            lambda: flash_attention_plain(q, k, v, scale), 3)
+        qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+        kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        lib_ms, _ = device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True), 5)
+        esz = q.element_size()
+        bytes_ = (2 * B * S * H * hd + 2 * B * S * K * hd) * esz
+        ops = 4 * B * H * hd * S * (S + 1) // 2
+        b_ms, b_by = bound(bytes_, ops, PEAK_BF16_S if dt == torch.bfloat16
+                           else PEAK_F32_S)
+        dname = "bf16" if dt == torch.bfloat16 else "f32"
+        log(f"[kernels] K7 flash_attention {LLAMA_PREFILL} {dname}: "
+            f"max_abs_err {err:.3e} rel {rel:.3e} kernel device ms {ms:.4f} "
+            f"(call ms {call_ms:.4f}) plain device ms {plain_ms:.4f} library "
+            f"device ms {lib_ms:.4f} (scaled_dot_product_attention, causal, "
+            f"GQA) bound ms {b_ms:.4f} ({b_by}; {ops:.3e} ops, "
+            f"{bytes_ / 1e6:.1f} MB) achieved {ops / ms / 1e9:.2f} TFLOP/s")
+        if dt == torch.bfloat16:
+            k7 = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=lib_ms)
+        del q, k, v, qh, kh, vh
+    rows.append(("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention/kernel.py:108",
+                 flash_attention, k7))
+
+    # ---- K8: the mamba prefill, mamba's smoke shape, one 64-row chunk
+    k8 = None
+    for label, (B, nc, Q, nh, hp, ds) in (
+            ("main path", MAMBA_PREFILL), ("smoke", (2, 32, 32, 8, 16, 16)),
+            ("S=64, one chunk", (4, 1, 64, 48, 64, 128))):
+        args = _k8_inputs(dev, B, nc, Q, nh, hp, ds, nc)
+        got = ssd_intra_chunk(*args)
+        torch.cuda.synchronize()
+        want = ssd_intra_chunk_plain(*args)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+        require(rel <= KERNEL_TOL,
+                f"K8 {label}: rel err {rel:.3e} > {KERNEL_TOL}")
+        call_ms = time_ms(lambda: ssd_intra_chunk(*args), 10)
+        _, ms = device_ms(lambda: ssd_intra_chunk(*args), 5,
+                          own=("ssd_cb_kernel", "ssd_intra_kernel"))
+        plain_ms, _ = device_ms(lambda: ssd_intra_chunk_plain(*args), 3)
+        tri = Q * (Q + 1) // 2
+        ops = B * nc * (2 * ds * tri + nh * (
+            4 * tri + 2 * hp * tri + 3 * Q + Q * ds + 2 * Q * ds * hp))
+        bytes_ = 4 * (2 * B * nc * Q * nh * hp + 2 * B * nc * nh * Q
+                      + 2 * B * nc * Q * ds + B * nc * nh * hp * ds)
+        b_ms, b_by = bound(bytes_, ops)
+        log(f"[kernels] K8 ssd_intra_chunk {label} (B, nc, Q, nh, hp, ds) = "
+            f"{(B, nc, Q, nh, hp, ds)}: max_abs_err {err:.3e} rel {rel:.3e} "
+            f"(tol {KERNEL_TOL}) kernel device ms {ms:.4f} (call ms "
+            f"{call_ms:.4f}) plain device ms {plain_ms:.4f} bound ms "
+            f"{b_ms:.4f} ({b_by}; {ops:.3e} ops, {bytes_ / 1e6:.1f} MB)")
+        if label == "main path":
+            k8 = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=None)
+        del args, got, want
+    rows.append(("ssd_intra_chunk", "src/repro_torch/csrc/ssd_intra_chunk.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:62",
+                 ssd_intra_chunk, k8))
+
+
+def _lm_fixture_cfg(arch):
+    from repro_torch.configs import smoke_arch
+
+    base = smoke_arch(arch)
+    return base.replace(num_layers=2 * base.block_size)
+
+
+def phase_lm_reference(dev):
+    """The JAX fixture ``reference_lm.npz`` on the card (K7, K8, f32):
+    prefill logits, and the decode logits fed JAX's greedy tokens, within
+    LM_TOL; the card's greedy picks equal JAX's where JAX's top two logits
+    differ by more than 1e-3 of their scale."""
+    import numpy as np
+    import torch
+
+    from repro_torch.interop import lm_params_from_jax
+    from repro_torch.launch.serve import _splice_prefill
+    from repro_torch.models import transformer as tf
+
+    with np.load(LM_FIXTURE) as f:
+        ref = {k: f[k] for k in f.files}
+    for arch in LM_ARCHS:
+        cfg = _lm_fixture_cfg(arch)
+        pre = f"{arch}:param:"
+        params = lm_params_from_jax({k[len(pre):]: v for k, v in ref.items()
+                                     if k.startswith(pre)}, cfg, device=dev)
+        toks = torch.from_numpy(ref[f"{arch}:prompts"]).to(dev)
+        greedy = ref[f"{arch}:tokens"]
+        B, P = toks.shape
+        T = greedy.shape[1]
+        before = _counts()
+        logits, caches, idx = tf.prefill(cfg, params, toks)
+        launched = {k: v - before[k] for k, v in _counts().items()}
+        worst = rel_err(logits.cpu(), torch.from_numpy(
+            ref[f"{arch}:prefill_logits"]))[1]
+        state = _splice_prefill(cfg, tf.init_decode_state(
+            cfg, B, P + T, idx, device=dev), caches, idx)
+        prev, checked, equal = ref[f"{arch}:prefill_logits"], 0, 0
+        for t in range(T):
+            top2 = np.sort(prev, axis=-1)[:, -2:]
+            clear = (top2[:, 1] - top2[:, 0]) > 1e-3 * np.abs(prev).max()
+            mine = logits.argmax(-1).cpu().numpy()
+            checked += int(clear.sum())
+            equal += int((mine[clear] == greedy[clear, t]).sum())
+            logits, state = tf.decode_step(
+                cfg, params, state,
+                torch.from_numpy(greedy[:, t:t + 1]).to(dev))
+            prev = ref[f"{arch}:decode_logits"][t]
+            worst = max(worst, rel_err(logits.cpu(),
+                                       torch.from_numpy(prev))[1])
+        log(f"[lm_reference] {arch} (smoke widths, {cfg.num_layers} layers, "
+            f"B={B}, prompt {P}, f32): prefill + {T} decode steps max rel "
+            f"err vs JAX {worst:.3e} (tol {LM_TOL}); greedy tokens equal on "
+            f"{equal} of {checked} clear picks; prefill launches "
+            f"K7 {launched['flash_attention']} K8 "
+            f"{launched['ssd_intra_chunk']}")
+        require(worst <= LM_TOL, f"lm_reference {arch}: rel err {worst:.3e}")
+        require(equal == checked, f"lm_reference {arch}: greedy tokens differ")
+        kernel = "flash_attention" if arch.startswith("llama") \
+            else "ssd_intra_chunk"
+        require(launched[kernel] == cfg.num_layers,
+                f"lm_reference {arch}: {kernel} launched "
+                f"{launched[kernel]} times, not once per layer")
+
+
+def _decode_vs_prefill(dev, arch, compute_dtype, tol, num_layers=None):
+    """At full width (``num_layers`` cuts the depth): prefill DECODE_SPLIT
+    prompt tokens, decode the rest teacher-forced, and hold the last logits
+    to the prefill of the whole prompt at its last position; a window of
+    decode steps is profiled."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import _splice_prefill
+    from repro_torch.models import transformer as tf
+
+    cfg = get_arch(arch).replace(compute_dtype=compute_dtype)
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = tf.compute_params(cfg, tf.init_params(cfg, gen, device=dev))
+    B, S, P = LM_BATCH, LM_PROMPT, DECODE_SPLIT
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    want, _, _ = tf.prefill(cfg, params, toks)
+    _, caches, idx = tf.prefill(cfg, params, toks[:, :P])
+    state = _splice_prefill(cfg, tf.init_decode_state(cfg, B, S, idx,
+                                                      device=dev), caches, idx)
+    del caches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(P, S - LM_PROFILE_STEPS):
+        logits, state = tf.decode_step(cfg, params, state, toks[:, t:t + 1])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (S - LM_PROFILE_STEPS - P)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(S - LM_PROFILE_STEPS, S):
+            logits, state = tf.decode_step(cfg, params, state,
+                                           toks[:, t:t + 1])
+        torch.cuda.synchronize()
+        prof_s = (time.perf_counter() - t0) / LM_PROFILE_STEPS
+    busy_s, top = _device_profile(prof)
+    busy_step = busy_s / LM_PROFILE_STEPS
+    kernels = sum(c for _, _, c in top) / LM_PROFILE_STEPS
+    err, rel = rel_err(logits, want)
+    agree = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"[lm_serve] {arch} ({cfg.num_layers} layers) {compute_dtype} "
+        f"decode vs prefill: prefill {P} "
+        f"+ decode {S - P} teacher-forced vs prefill {S}, last position: "
+        f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol}) argmax agree "
+        f"{agree:.2f}; decode step {step_s * 1e3:.3f} ms ({B / step_s:.1f} "
+        f"tok/s); profiled {LM_PROFILE_STEPS} steps: {prof_s * 1e3:.3f} ms a "
+        f"step, device busy {busy_step * 1e3:.3f} ms a step (busy share "
+        f"{busy_step / prof_s:.3f}), ~{kernels:.0f} device ops a step")
+    for t, key, count in top[:8]:
+        log(f"[lm_serve]   {t / 1e3 / LM_PROFILE_STEPS:8.3f} ms/step "
+            f"{100 * t / 1e6 / max(busy_s, 1e-12):5.1f} %  x{count:<6d} "
+            f"{key[:70]}")
+    require(rel <= tol, f"{arch} {compute_dtype} decode vs prefill: rel "
+            f"{rel:.3e} > {tol}")
+
+
+def phase_lm_serve(dev):
+    """This slice's main path: ``repro_torch.launch.serve.main`` for
+    llama3.2-3b and mamba2-780m at full width, then the decode-vs-prefill
+    check.  Returns the serve runs' launch counts."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import main as serve_main
+
+    _zero_counts()
+    per_arch = {}
+    for arch in LM_ARCHS:
+        before = _counts()
+        recs: list = []
+        t0 = time.perf_counter()
+        rc = serve_main(["--arch", arch, "--batch", str(LM_BATCH),
+                         "--prompt-len", str(LM_PROMPT), "--tokens",
+                         str(LM_TOKENS), "--requests", str(LM_REQUESTS)],
+                        out=recs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_arch[arch] = {k: v - before[k] for k, v in _counts().items()}
+        for r in recs:
+            log(f"[lm_serve] {arch} batch {r['batch']}: prefill "
+                f"{LM_BATCH}x{LM_PROMPT} {r['prefill_s'] * 1e3:.2f} ms, decode "
+                f"{LM_TOKENS} tokens {r['decode_s'] * 1e3:.2f} ms "
+                f"({r['tok_s']:.1f} tok/s), peak memory "
+                f"{r['peak_bytes'] / 2**30:.2f} GiB, finite logits "
+                f"{r['finite']}, sample {r['tokens'][0, :8].tolist()}")
+        log(f"[lm_serve] {arch}: rc {rc}, {len(recs)} batches in {wall:.2f} s "
+            f"(weights drawn on the card included); launches "
+            f"{json.dumps(per_arch[arch])}")
+        require(rc == 0 and len(recs) == LM_REQUESTS,
+                f"lm_serve {arch}: rc {rc}")
+        require(all(r["finite"] for r in recs),
+                f"lm_serve {arch}: non-finite logits")
+    counts = _counts()
+    llama, mamba = (get_arch(a) for a in LM_ARCHS)
+    require(per_arch["llama3.2-3b"]["flash_attention"]
+            == llama.num_layers * LM_REQUESTS,
+            "lm_serve: K7 was not launched once per llama layer and prefill")
+    require(per_arch["mamba2-780m"]["ssd_intra_chunk"]
+            == mamba.num_layers * LM_REQUESTS,
+            "lm_serve: K8 was not launched once per mamba layer and prefill")
+    for arch in LM_ARCHS:
+        _decode_vs_prefill(dev, arch, "bfloat16", DECODE_TOL[arch])
+        torch.cuda.empty_cache()
+        _decode_vs_prefill(dev, arch, "float32", DECODE_TOL_F32,
+                           num_layers=DECODE_F32_LAYERS)
+        torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1429,7 +1813,7 @@ def main() -> int:
               "card", file=sys.stderr)
         return 2
     if not (ROOT / "src" / "repro_torch").is_dir() or not FIXTURE.exists() \
-            or not GRID_FIXTURE.exists():
+            or not GRID_FIXTURE.exists() or not LM_FIXTURE.exists():
         print("chip_smoke: src/repro_torch (and its reference fixture) must "
               "sit beside this script", file=sys.stderr)
         return 2
@@ -1446,6 +1830,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_kernels(rows, dev)
     phase_k4(rows, dev)
+    phase_lm_kernels(rows, dev)
     log(f"[phase] kernels {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_reference(dev)
@@ -1459,7 +1844,8 @@ def main() -> int:
         phase(dev)
         log(f"[phase] {name} {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    phase_fit_serve([r for r in rows if r[0] != "kmeans_assign"], dev)
+    phase_fit_serve([r for r in rows if r[0] not in (
+        "kmeans_assign", "flash_attention", "ssd_intra_chunk")], dev)
     log(f"[phase] fit+serve {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     sequential = phase_sequential(dev)
@@ -1468,6 +1854,14 @@ def main() -> int:
     launches = phase_grid(dev)
     log(f"[phase] grid {time.perf_counter() - t0:.2f} s")
     launches["kmeans_assign"] = sequential["kmeans_assign"]
+    t0 = time.perf_counter()
+    phase_lm_reference(dev)
+    log(f"[phase] lm_reference {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    lm = phase_lm_serve(dev)
+    log(f"[phase] lm_serve {time.perf_counter() - t0:.2f} s")
+    for name in ("flash_attention", "ssd_intra_chunk"):
+        launches[name] = lm[name]
     log(f"[phase] total {time.perf_counter() - t_all:.2f} s")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": repl,

@@ -21,6 +21,11 @@ numpy.  The sequential K-Means reference (``select_k_and_cluster``: K4 per
 Lloyd step, K3 per candidate) serves ``PlanEngine(engine="sequential")``
 and the ``errors="isolate"`` retry.
 
+The LM zoo's serving entry point (``python -m repro_torch.launch.serve
+--arch <id>``) runs batched prefill — attention through K7, the Mamba-2
+SSD scan through K8 — and greedy KV / SSM-cache decode over ``models/``,
+for every arch without MoE layers.
+
 Entry points take ``device=``: they run on ``cuda`` unless the caller asks
 for ``"cpu"`` (as the tests do), and raise when no card is present.  A CUDA
 tensor always goes to the hand-written kernel, a CPU tensor to the kernel's

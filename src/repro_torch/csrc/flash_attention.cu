@@ -1,0 +1,492 @@
+// K7 — GQA causal flash attention (forward) for NVIDIA Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel `flash_attention_fwd`
+// (src/repro/kernels/flash_attention/kernel.py, body `_flash_kernel`).
+// It computes the same function: for each batch b, query head h = kv_head
+// * G + group and query position i,
+//
+//   out[b,i,kv,g,:] = sum_{j <= i} softmax_j(scale * q[b,i,kv,g,:].k[b,j,kv,:])
+//                     * v[b,j,kv,:]
+//
+// with q (B,S,K,G,hd) and k, v (B,S,K,hd), all float32 or all bfloat16.
+// Scores, the running max, the running sum and the accumulator are float32
+// (an online softmax, FlashAttention-2's schedule); masked scores are the
+// finite -1e30, the final divide guards with max(l, 1e-20), and the output
+// is rounded to q's dtype once.  Only the tiles at or below the diagonal
+// are visited (the TPU kernel's point: blocks above it are skipped, not
+// masked).
+//
+// What bounds it on this card: causal attention at the llama3.2-3b prefill
+// (B=4, S=2048, K=8, G=3, hd=128, bf16) needs 4*B*H*S^2*hd/2 ~ 1.0e11
+// operations against ~134 MB of q, k, v and output, so it is bound by
+// operations: ~0.10 ms at the bf16 tensor-core peak.  Design by input type:
+//
+// bfloat16 (the serving path): tensor cores.  One block of 4 warps per
+// (64 query rows, head, batch); each warp owns 16 rows.  The block stages
+// its q rows, then 64 keys of K and of V (V transposed) at a time in
+// shared memory as bfloat16, rows padded by 16 bytes so the fragment loads
+// hit 32 distinct banks.  S = q.K^T is `mma.sync` m16n8k16 (bf16 products
+// are exact in float32, the sums float32); the online softmax runs on the
+// accumulator fragments (row max and sum over the 4 lanes that share a row)
+// and the fragments become P.V's A operand in registers.  P is split into a
+// bf16 high part and a bf16 low part (p - hi), two MMAs, so P.V keeps ~16
+// bits of P — float32-grade, as the plain version's float32 P.V — at 1.5x
+// the MMA work.  No ldmatrix and no copy pipelining yet (later work).
+//
+// float32: the same schedule on float32 FMAs out of shared memory (tensor
+// cores would need TF32, which would change the numbers): one block of 256
+// threads per (64 query rows, head, batch), K / V staged 32 rows at a time,
+// each thread owning 4 rows and a 4x2 block of scores, the row max / sum
+// 16-lane shuffle reductions, P through shared memory for the P.V product.
+// Bound by shared-memory bandwidth (one 4-byte load per ~1.5 FMAs): ~18
+// TFLOP/s.
+//
+// Any hd that is a multiple of 16 up to 256 and any S run; the wrapper
+// enforces what the JAX kernel accepts.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float NEG_INF = -1e30f;
+
+// ---------------------------------------------------------------------------
+// float32: FMAs from shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 64;        // query rows per block
+constexpr int BK = 32;        // key / value rows per staged tile
+constexpr int THREADS = 256;  // 16 row groups x 16 column lanes
+constexpr int RPT = BQ / 16;  // query rows per thread
+constexpr int CPT = BK / 16;  // score columns per thread
+
+template <int HDMAX>
+__global__ void __launch_bounds__(THREADS)
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int S, int K, int G, int hd, float scale) {
+  extern __shared__ float smem[];
+  const int ld = hd + 1;               // padded row stride of the tiles
+  float* qs = smem;                    // BQ x ld
+  float* ks = qs + BQ * ld;            // BK x ld
+  float* vs = ks + BK * ld;            // BK x ld
+  float* ps = vs + BK * ld;            // BQ x (BK + 1)
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / G, g = h - kh * G;
+  const int tid = threadIdx.x;
+  const int rg = tid >> 4;             // row group: rows rg*RPT .. +RPT-1
+  const int cl = tid & 15;             // column lane
+  const size_t q_row = static_cast<size_t>(K) * G * hd;
+  const size_t kv_row = static_cast<size_t>(K) * hd;
+  const size_t q_off = static_cast<size_t>(b) * S * q_row +
+                       (static_cast<size_t>(kh) * G + g) * hd;
+  const size_t kv_off = static_cast<size_t>(b) * S * kv_row +
+                        static_cast<size_t>(kh) * hd;
+
+  for (int i = tid; i < BQ * hd; i += THREADS) {
+    const int r = i / hd, d = i - r * hd;
+    const int qp = q0 + r;
+    qs[r * ld + d] = qp < S ? q[q_off + static_cast<size_t>(qp) * q_row + d]
+                            : 0.f;
+  }
+
+  float m[RPT], l[RPT], acc[RPT][HDMAX / 16];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < HDMAX / 16; ++j) acc[i][j] = 0.f;
+  }
+
+  const int q_last = min(q0 + BQ, S) - 1;  // last real query row
+  for (int k0 = 0; k0 <= q_last; k0 += BK) {
+    __syncthreads();  // the previous tile's K, V and P are consumed
+    for (int i = tid; i < BK * hd; i += THREADS) {
+      const int r = i / hd, d = i - r * hd;
+      const int kp = k0 + r;
+      float kv = 0.f, vv = 0.f;
+      if (kp < S) {
+        const size_t at = kv_off + static_cast<size_t>(kp) * kv_row + d;
+        kv = k[at];
+        vv = v[at];
+      }
+      ks[r * ld + d] = kv;
+      vs[r * ld + d] = vv;
+    }
+    __syncthreads();
+
+    float s[RPT][CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < hd; ++d) {
+      float qv[RPT], kv[CPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) qv[i] = qs[(rg * RPT + i) * ld + d];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) kv[j] = ks[(cl + 16 * j) * ld + d];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int qp = q0 + rg * RPT + i;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int kp = k0 + cl + 16 * j;
+        const float x = (kp <= qp && kp < S) ? s[i][j] * scale : NEG_INF;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        s[i][j] = p;
+        rs += p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      const float corr = expf(m[i] - m_new);
+      l[i] = l[i] * corr + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < HDMAX / 16; ++j) acc[i][j] *= corr;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        ps[(rg * RPT + i) * (BK + 1) + cl + 16 * j] = s[i][j];
+    }
+    __syncwarp();  // a row group's P is read back by its own 16 lanes only
+
+#pragma unroll 2
+    for (int c = 0; c < BK; ++c) {
+      float pv[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) pv[i] = ps[(rg * RPT + i) * (BK + 1) + c];
+#pragma unroll
+      for (int j = 0; j < HDMAX / 16; ++j) {
+        const int d = cl + 16 * j;
+        if (d < hd) {
+          const float vv = vs[c * ld + d];
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qp = q0 + rg * RPT + i;
+    if (qp >= S) continue;
+    const float denom = fmaxf(l[i], 1e-20f);
+    float* orow = o + q_off + static_cast<size_t>(qp) * q_row;
+#pragma unroll
+    for (int j = 0; j < HDMAX / 16; ++j) {
+      const int d = cl + 16 * j;
+      if (d < hd) orow[d] = acc[i][j] / denom;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: mma.sync m16n8k16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int MQ = 64;          // query rows per block: 4 warps x 16
+constexpr int MK = 64;          // keys per staged tile
+constexpr int MTHREADS = 128;
+constexpr int PAD = 8;          // bf16 elements of row padding (16 bytes)
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// the pair (x0, x1) as bf16 (x0 in the low half) and what rounding lost
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// c += a (16x16, row) . b (16x8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int HDMAX>
+__global__ void __launch_bounds__(MTHREADS)
+flash_attention_mma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                           int S, int K, int G, int hd, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldq = hd + PAD;            // q / K tile row stride
+  const int ldv = MK + PAD;            // V^T tile row stride
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // MQ x ldq
+  bf16* ks = qs + MQ * ldq;                       // MK x ldq
+  bf16* vt = ks + MK * ldq;                       // hd x ldv (V transposed)
+
+  const int q0 = blockIdx.x * MQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / G, grp = h - kh * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
+  const size_t q_row = static_cast<size_t>(K) * G * hd;
+  const size_t kv_row = static_cast<size_t>(K) * hd;
+  const size_t q_off = static_cast<size_t>(b) * S * q_row +
+                       (static_cast<size_t>(kh) * G + grp) * hd;
+  const size_t kv_off = static_cast<size_t>(b) * S * kv_row +
+                        static_cast<size_t>(kh) * hd;
+  const int cpr = hd / 8;              // 16-byte chunks per row
+
+  for (int i = tid; i < MQ * cpr; i += MTHREADS) {
+    const int r = i / cpr, c = i - r * cpr;
+    const int qp = q0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (qp < S)
+      val = *reinterpret_cast<const uint4*>(
+          q + q_off + static_cast<size_t>(qp) * q_row + c * 8);
+    *reinterpret_cast<uint4*>(qs + r * ldq + c * 8) = val;
+  }
+
+  constexpr int NT = HDMAX / 8;        // output n-tiles of 8 features
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const bf16* qa_base = qs + (warp * 16 + g) * ldq + 2 * t;
+
+  const int q_last = min(q0 + MQ, S) - 1;
+  for (int k0 = 0; k0 <= q_last; k0 += MK) {
+    __syncthreads();  // the previous tile's K and V are consumed
+    for (int i = tid; i < MK * cpr; i += MTHREADS) {
+      const int r = i / cpr, c = i - r * cpr;  // coalesced along the row
+      const int kp = k0 + r;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
+      if (kp < S)
+        kv = *reinterpret_cast<const uint4*>(
+            k + kv_off + static_cast<size_t>(kp) * kv_row + c * 8);
+      *reinterpret_cast<uint4*>(ks + r * ldq + c * 8) = kv;
+    }
+    // V transposed: neighbouring threads take neighbouring keys, so their
+    // 2-byte stores into a row of V^T share banks without conflicts
+    for (int i = tid; i < MK * cpr; i += MTHREADS) {
+      const int c = i / MK, r = i - c * MK;
+      const int kp = k0 + r;
+      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+      if (kp < S)
+        vv = *reinterpret_cast<const uint4*>(
+            v + kv_off + static_cast<size_t>(kp) * kv_row + c * 8);
+      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vt[(c * 8 + e) * ldv + r] = ve[e];
+    }
+    __syncthreads();
+
+    // S = q.K^T for the warp's 16 rows x 64 keys: 8 n-tiles
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    for (int kk = 0; kk < hd; kk += 16) {
+      uint32_t a[4];
+      a[0] = ld32(qa_base + kk);
+      a[1] = ld32(qa_base + 8 * ldq + kk);
+      a[2] = ld32(qa_base + kk + 8);
+      a[3] = ld32(qa_base + 8 * ldq + kk + 8);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bf16* kb = ks + (8 * j + g) * ldq + kk + 2 * t;
+        mma16816(s[j], a, ld32(kb), ld32(kb + 8));
+      }
+    }
+
+    // online softmax on the fragments: e = 0, 1 -> row0; e = 2, 3 -> row1
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * j + 2 * t + (e & 1);
+        const int qp = e < 2 ? row0 : row1;
+        s[j][e] = (kp <= qp && kp < S) ? s[j][e] * scale : NEG_INF;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = expf(s[j][0] - mn0);
+      s[j][1] = expf(s[j][1] - mn0);
+      s[j][2] = expf(s[j][2] - mn1);
+      s[j][3] = expf(s[j][3] - mn1);
+      rs0 += s[j][0] + s[j][1];
+      rs1 += s[j][2] + s[j][3];
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
+    }
+    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
+    l0 = l0 * c0 + rs0;
+    l1 = l1 * c1 + rs1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= c0;
+      acc[n][1] *= c0;
+      acc[n][2] *= c1;
+      acc[n][3] *= c1;
+    }
+
+    // acc += P.V: the score fragments of n-tiles 2kk, 2kk+1 are the A
+    // fragment of keys 16kk .. 16kk+15
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ah[4], al[4];
+      split_pair(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
+      split_pair(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
+      split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
+      split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (8 * n < hd) {
+          const bf16* vb = vt + (8 * n + g) * ldv + 16 * kk + 2 * t;
+          const uint32_t b0 = ld32(vb), b1 = ld32(vb + 8);
+          mma16816(acc[n], ah, b0, b1);
+          mma16816(acc[n], al, b0, b1);
+        }
+      }
+    }
+  }
+
+  const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (8 * n >= hd) continue;
+    const int d = 8 * n + 2 * t;
+    if (row0 < S) {
+      const __nv_bfloat162 w =
+          __floats2bfloat162_rn(acc[n][0] / d0, acc[n][1] / d0);
+      *reinterpret_cast<__nv_bfloat162*>(
+          o + q_off + static_cast<size_t>(row0) * q_row + d) = w;
+    }
+    if (row1 < S) {
+      const __nv_bfloat162 w =
+          __floats2bfloat162_rn(acc[n][2] / d1, acc[n][3] / d1);
+      *reinterpret_cast<__nv_bfloat162*>(
+          o + q_off + static_cast<size_t>(row1) * q_row + d) = w;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+template <int HDMAX>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int K, int G, int hd, float scale, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((BQ + 2 * BK) * (hd + 1) + BQ * (BK + 1));
+  auto kern = flash_attention_f32_kernel<HDMAX>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + BQ - 1) / BQ, K * G, B);
+  kern<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, K, G, hd,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HDMAX>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int K, int G, int hd, float scale, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(bf16) * ((MQ + MK) * (hd + PAD) + hd * (MK + PAD));
+  auto kern = flash_attention_mma_kernel<HDMAX>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + MQ - 1) / MQ, K * G, B);
+  kern<<<grid, MTHREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, K, G, hd, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define FA_DISPATCH(LAUNCH)                                             \
+  if (hd <= 16) return LAUNCH<16>(q, k, v, o, B, S, K, G, hd, scale, s); \
+  if (hd <= 32) return LAUNCH<32>(q, k, v, o, B, S, K, G, hd, scale, s); \
+  if (hd <= 64) return LAUNCH<64>(q, k, v, o, B, S, K, G, hd, scale, s); \
+  if (hd <= 128) return LAUNCH<128>(q, k, v, o, B, S, K, G, hd, scale, s); \
+  return LAUNCH<256>(q, k, v, o, B, S, K, G, hd, scale, s);
+
+}  // namespace
+
+// q, o: (B, S, K, G, hd); k, v: (B, S, K, hd); all contiguous, float32
+// (is_bf16 = 0) or bfloat16 (is_bf16 = 1, every pointer 16-byte aligned).
+// hd a multiple of 16 in [16, 256].  Every element of o is written.
+// Returns cudaGetLastError() after the launch.
+extern "C" int flash_attention(const void* q, const void* k, const void* v,
+                               void* o, int is_bf16, int B, int S, int K,
+                               int G, int hd, float scale, void* stream) {
+  if (B < 0 || S < 0 || K < 1 || G < 1 || hd < 16 || hd > 256 || hd % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16 && ((reinterpret_cast<uintptr_t>(q) |
+                   reinterpret_cast<uintptr_t>(k) |
+                   reinterpret_cast<uintptr_t>(v) |
+                   reinterpret_cast<uintptr_t>(o)) & 15))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    FA_DISPATCH(launch_mma)
+  }
+  FA_DISPATCH(launch_f32)
+}

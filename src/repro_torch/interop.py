@@ -8,8 +8,12 @@ The JAX package stores RGCN params as a pytree flattened by
     proj/{w1, b1, w2, b2}
 
 which are exactly the port's ``RGCNEncoder.state_dict()`` names with '.'
-for '/'.  Both directions take and give numpy arrays; nothing here imports
-JAX.
+for '/'.  The LM backbone's params (``repro/models/transformer.py``) flatten
+the same way (``embed/tokens``, ``blocks/pos0/mixer/wq``, ...,
+``final_norm/scale``, block leaves stacked over blocks), and the port keeps
+them as a nested dict in that layout (``lm_params_from_jax`` /
+``lm_params_to_numpy``).  Both directions take and give numpy arrays;
+nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -71,3 +75,66 @@ def params_to_numpy(enc: RGCNEncoder) -> dict[str, np.ndarray]:
     ``flatten_tree`` key layout (the inverse of ``params_from_jax``)."""
     return {k.replace(".", "/"): v.detach().cpu().numpy().astype(np.float32)
             for k, v in enc.state_dict().items()}
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _unflatten(flat: dict) -> dict:
+    nest: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = nest
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return nest
+
+
+def _to_torch(arr: np.ndarray) -> torch.Tensor:
+    """A numpy array (float32, or JAX's bfloat16 through ml_dtypes, widened
+    exactly) as a CPU tensor."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def lm_params_from_jax(flat: dict[str, np.ndarray], cfg, *,
+                       device=None) -> dict:
+    """The port's LM params (nested dict of tensors in ``cfg.param_dtype``
+    on ``device``, default the CPU) holding the JAX params given in
+    ``flatten_tree``'s layout.  Every leaf of ``cfg``'s tree must be present
+    with its shape, and nothing else.  MoE archs raise."""
+    from repro_torch.models.transformer import init_params
+
+    want = _flatten(init_params(cfg, None, device="meta"))
+    if set(flat) != set(want):
+        raise KeyError(f"param keys differ: missing "
+                       f"{sorted(set(want) - set(flat))}, unexpected "
+                       f"{sorted(set(flat) - set(want))}")
+    out = {}
+    for key, ref in want.items():
+        arr = np.asarray(flat[key])
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: shape {arr.shape}, expected "
+                             f"{tuple(ref.shape)}")
+        out[key] = _to_torch(arr).to(device=device, dtype=ref.dtype)
+    return _unflatten(out)
+
+
+def lm_params_to_numpy(params: dict) -> dict[str, np.ndarray]:
+    """The LM params as numpy arrays in ``flatten_tree``'s key layout (the
+    inverse of ``lm_params_from_jax``; bfloat16 leaves come out as their
+    exact float32 values)."""
+    out = {}
+    for key, t in _flatten(params).items():
+        t = t.detach().cpu()
+        out[key] = (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+    return out

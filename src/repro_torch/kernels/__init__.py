@@ -10,6 +10,12 @@ kmeans_assign  K2: fused masked K-Means assignment + per-cluster sums;
                K3: blocked silhouette sums; K4: the unmasked assignment of
                the sequential reference (replace
                ``repro/kernels/kmeans_assign``)
+flash_attention
+               K7: GQA causal flash attention, forward (replaces
+               ``repro/kernels/flash_attention``)
+ssd_scan       K8: the Mamba-2 SSD intra-chunk outputs and chunk states,
+               with the inter-chunk recurrence around it in torch
+               (replaces ``repro/kernels/ssd_scan``)
 
 The CUDA C++ sources live in ``repro_torch/csrc/*.cu`` and expose a plain C
 interface (no PyTorch headers), so ``nvcc`` builds them in seconds: one
@@ -46,6 +52,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C signature of every exported launcher (all return cudaGetLastError())
 SIGNATURES = {
     "rgcn_fused_flat": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
@@ -57,6 +64,9 @@ SIGNATURES = {
     "rgcn_spmm_flat": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rgcn_fused_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _P],
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "ssd_intra_chunk": [_P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

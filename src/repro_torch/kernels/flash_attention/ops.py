@@ -1,0 +1,88 @@
+"""K7 wrapper and its plain PyTorch version (counterpart of
+``repro/kernels/flash_attention/{kernel,ops,ref}.py``, forward only: the
+JAX backward is ``jax.vjp`` of the oracle and LM training is not ported).
+
+``flash_attention``        GQA causal attention: CUDA tensors launch
+                           ``csrc/flash_attention.cu``, CPU tensors take
+                           ``flash_attention_plain``.
+``flash_attention_plain``  the kernel's arithmetic in torch ops: float32
+                           scores, softmax and P.V, output in q's dtype.
+
+Shapes: q (B,S,K,G,hd) (query head h = kv head h // G, group h % G, as
+``q.reshape(B,S,K,G,hd)`` lays them out), k / v (B,S,K,hd).  The wrapper
+takes what the JAX kernel takes: float32 or bfloat16 (all three alike), hd
+a multiple of 16 up to 256, and S at most one 512-row block or a multiple
+of it (JAX asserts S % min(512, S) == 0).  Anything else raises, on either
+device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import check, launch, route
+
+#: the JAX kernel's default block: S must be <= BLOCK or a multiple of it
+BLOCK = 512
+NEG_INF = -1e30
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention: q (B,S,K,G,hd), k and v "
+                         f"(B,S,K,hd) expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, K, G, hd = q.shape
+    if tuple(k.shape) != (B, S, K, hd) or tuple(v.shape) != (B, S, K, hd):
+        raise ValueError(f"flash_attention: k / v {tuple(k.shape)} / "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v all float32 or all "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if hd % 16 or not 16 <= hd <= 256:
+        raise ValueError(f"flash_attention: head_dim {hd} is not a multiple "
+                         f"of 16 in [16, 256]")
+    if S > BLOCK and S % BLOCK:
+        raise ValueError(f"flash_attention: S={S} is neither <= {BLOCK} nor "
+                         f"a multiple of {BLOCK}")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """out (B,S,K,G,hd) in q's dtype: float32 causal softmax(scale q.k)
+    times float32 v, as the kernel computes it (materializes the
+    (B,K,G,S,S) scores)."""
+    S = q.shape[1]
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float()) * scale
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~causal, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqs,bskh->bqkgh", p, v.float()).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Causal GQA attention, out (B,S,K,G,hd) in q's dtype."""
+    _check_shapes(q, k, v)
+    if route(q) == "cpu":
+        return flash_attention_plain(q, k, v, scale)
+    B, S, K, G, hd = q.shape
+    dev = q.device
+    check("q", q, dtype=q.dtype, shape=(B, S, K, G, hd), device=dev)
+    check("k", k, dtype=q.dtype, shape=(B, S, K, hd), device=dev)
+    check("v", v, dtype=q.dtype, shape=(B, S, K, hd), device=dev)
+    out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("flash_attention: bfloat16 tensors must start on a "
+                         "16-byte boundary (the kernel loads 16-byte rows)")
+    launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), int(q.dtype == torch.bfloat16), B, S, K, G, hd,
+           float(scale))
+    flash_attention.launches += 1
+    return out
+
+
+#: kernel launches made through this wrapper (CUDA tensors only)
+flash_attention.launches = 0

@@ -1,0 +1,158 @@
+"""Shared layers of the LM backbone: norms, RoPE, SwiGLU MLP, embeddings
+(counterpart of ``repro/models/layers.py``).
+
+Parameters are plain dicts of tensors in the JAX package's tree layout
+(``{"w1": (D, F), ...}``); every function is a pure function of them.  The
+logical-axes metadata of the JAX ``init_*`` functions (sharding hints) and
+the ``constrain`` calls are left out: the port has no device mesh yet.
+``chunked_cross_entropy`` waits for LM training.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype string ("float32", "bfloat16")."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def _dense_init(gen: torch.Generator, shape, scale=None, *,
+                device=None) -> torch.Tensor:
+    """Standard normal * scale in float32; the default scale is
+    1/sqrt(fan_in), fan_in = shape[0] (shape[-1] for a vector)."""
+    fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                       device=device) * scale
+
+
+def cast(x: torch.Tensor, dtype: str | torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype`` (no copy when it already is)."""
+    dt = dtype_of(dtype) if isinstance(dtype, str) else dtype
+    return x if x.dtype == dt else x.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, *, device=None) -> dict:
+    return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"]).to(x.dtype)
+
+
+def rmsnorm_gated(scale: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """Mamba-2 gated norm: RMSNorm(x * silu(z)) * scale."""
+    x32 = x.float() * F.silu(z.float())
+    var = x32.square().mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def _rope_freqs(half: int, theta: float, device: torch.device
+                ) -> torch.Tensor:
+    """1 / theta**(arange(half)/half) in float32, computed on the CPU and
+    copied to ``device`` once: the card's ``pow`` may round a frequency one
+    ulp away from the CPU's, and an angle is that frequency times a
+    position of up to tens of thousands."""
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32) / half))
+    return freqs.to(device)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions (..., S) -> cos / sin (..., S, head_dim // 2), float32."""
+    freqs = _rope_freqs(head_dim // 2, float(theta), positions.device)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x (B,S,H,hd); cos / sin (B,S,half) or (S,half)."""
+    half = x.shape[-1] // 2
+    if cos.dim() == 2:                       # (S, half)
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:                                    # (B, S, half)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    return torch.cat([r1, r2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense (SwiGLU) MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
+    D, Fd = cfg.d_model, cfg.d_ff
+    return {
+        "w1": _dense_init(gen, (D, Fd), device=device),
+        "w3": _dense_init(gen, (D, Fd), device=device),
+        "w2": _dense_init(gen, (Fd, D), device=device,
+                          scale=1.0 / math.sqrt(Fd)
+                          / math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def mlp_forward(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+    dt = cfg.compute_dtype
+    a = h @ cast(p["w1"], dt)
+    g = h @ cast(p["w3"], dt)
+    return (F.silu(a) * g) @ cast(p["w2"], dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+
+def init_embedding(gen: torch.Generator, cfg: ModelConfig, *,
+                   device=None) -> dict:
+    V, D = cfg.vocab_size, cfg.d_model
+    params = {"tokens": _dense_init(gen, (V, D), 0.02, device=device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _dense_init(gen, (D, V), device=device)
+    return params
+
+
+def embed_tokens(cfg: ModelConfig, p: dict, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    """tokens (B,S) integer -> (B,S,D) in the compute dtype (a gather on
+    the device: no host sync)."""
+    table = cast(p["tokens"], cfg.compute_dtype)
+    flat = table.index_select(0, tokens.reshape(-1).long())
+    return flat.reshape(*tokens.shape, table.shape[1])
+
+
+def lm_head_weight(cfg: ModelConfig, embed_params: dict) -> torch.Tensor:
+    """(D, V) in the compute dtype (the tied table's transpose is a view)."""
+    if cfg.tie_embeddings:
+        return cast(embed_params["tokens"], cfg.compute_dtype).t()
+    return cast(embed_params["lm_head"], cfg.compute_dtype)

@@ -1,0 +1,150 @@
+"""Mamba-2 / SSD mixer (counterpart of ``repro/models/ssm.py``).
+
+Prefill runs the SSD chunked scan with its intra-chunk part through K8
+(``repro_torch.kernels.ssd_scan``: a CUDA tensor launches the hand-written
+kernel, a CPU tensor takes its plain version); there is no ``attn_impl``
+switch.  Decode is the O(1) recurrent update in torch ops (the JAX package
+has no kernel there either).  The plain chunked oracle ``ssd_chunked``
+lives beside K8 in ``kernels/ssd_scan/ops.py``.
+
+Layout: d_inner is heads-major, x.reshape(B,S,nh,hp).  The decode caches
+are updated in place (``copy_`` into the caller's tensors) where JAX
+returns new arrays; the returned dict holds the same tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.models.layers import _dense_init, cast, rmsnorm_gated
+
+
+def init_ssm(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
+    D, din, ds, nh, cw = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                          cfg.ssm_heads, cfg.ssm_conv)
+
+    def dense(shape, scale=None):
+        return _dense_init(gen, shape, scale, device=device)
+
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "in_z": dense((D, din)),
+        "in_x": dense((D, din)),
+        "in_B": dense((D, ds)),
+        "in_C": dense((D, ds)),
+        "in_dt": dense((D, nh), 0.02),
+        "conv_x": dense((cw, din), 1.0 / math.sqrt(cw)),
+        "conv_B": dense((cw, ds), 1.0 / math.sqrt(cw)),
+        "conv_C": dense((cw, ds), 1.0 / math.sqrt(cw)),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nh, **f32)),
+        "D_skip": torch.ones(nh, **f32),
+        "dt_bias": torch.zeros(nh, **f32),
+        "norm": torch.ones(din, **f32),
+        "out": dense((din, D), 1.0 / math.sqrt(din)
+                     / math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)) as ``jax.nn.softplus`` computes it (logaddexp(x, 0))."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv + SiLU: x (B,S,C), w (cw,C)."""
+    cw, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, cw - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(cw):
+        out = out + xp[:, i:i + S, :] * w[i][None, None, :]
+    return F.silu(out)
+
+
+def _projections(cfg: ModelConfig, p: dict, h: torch.Tensor):
+    dt_ = cfg.compute_dtype
+    return tuple(h @ cast(p[name], dt_)
+                 for name in ("in_z", "in_x", "in_B", "in_C", "in_dt"))
+
+
+def ssm_forward(cfg: ModelConfig, p: dict, h: torch.Tensor, *,
+                return_cache: bool = False):
+    """Prefill.  h (B,S,D) -> out (B,S,D) and, with ``return_cache``, the
+    decode cache: the final SSM state (compute dtype) and the last cw-1 raw
+    (pre-conv, pre-SiLU) projections of x, B and C."""
+    B, S, _ = h.shape
+    nh, hp, cw = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_conv
+    dt_ = cfg.compute_dtype
+    z, x, Bc, Cc, dt_raw = _projections(cfg, p, h)
+    x = _causal_conv(x, cast(p["conv_x"], dt_))
+    Bc = _causal_conv(Bc, cast(p["conv_B"], dt_))
+    Cc = _causal_conv(Cc, cast(p["conv_C"], dt_))
+
+    dt = _softplus(dt_raw.float() + p["dt_bias"][None, None])
+    A = -torch.exp(p["A_log"])
+    xh = x.reshape(B, S, nh, hp)
+    y, final = ssd_scan(xh, dt, A, Bc, Cc, cfg.ssm_chunk)
+    y = y + xh * p["D_skip"][None, None, :, None].to(y.dtype)
+    y = rmsnorm_gated(p["norm"], y.reshape(B, S, nh * hp), z, cfg.norm_eps)
+    out = y @ cast(p["out"], dt_)
+    if not return_cache:
+        return out, None
+    conv_tail = {name: _tail_raw(cfg, p, h, f"in_{name}", cw)
+                 for name in ("x", "B", "C")}
+    return out, {"ssm": final, "conv": conv_tail}
+
+
+def _tail_raw(cfg: ModelConfig, p: dict, h: torch.Tensor, name: str,
+              cw: int) -> torch.Tensor:
+    return h[:, -(cw - 1):, :] @ cast(p[name], cfg.compute_dtype)
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype, *,
+                   device=None) -> dict:
+    nh, hp, ds, cw, din = (cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
+                           cfg.ssm_conv, cfg.d_inner)
+    z = dict(dtype=dtype, device=device)
+    return {
+        "ssm": torch.zeros(batch, nh, hp, ds, **z),
+        "conv": {"x": torch.zeros(batch, cw - 1, din, **z),
+                 "B": torch.zeros(batch, cw - 1, ds, **z),
+                 "C": torch.zeros(batch, cw - 1, ds, **z)},
+    }
+
+
+def ssm_decode_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                       cache: dict):
+    """One-token decode.  h (B,1,D); cache {'ssm' (B,nh,hp,ds), 'conv'
+    {'x', 'B', 'C'} (B,cw-1,C)}, updated in place."""
+    B = h.shape[0]
+    nh, hp = cfg.ssm_heads, cfg.ssm_headdim
+    dt_ = cfg.compute_dtype
+    z, x_raw, B_raw, C_raw, dt_raw = _projections(cfg, p, h)
+
+    def conv_step(raw_new, tail, w):
+        window = torch.cat([tail, raw_new], dim=1)             # (B,cw,C)
+        out = torch.einsum("bsc,sc->bc", window, w)[:, None, :]
+        tail.copy_(window[:, 1:, :])
+        return F.silu(out)
+
+    conv = cache["conv"]
+    x = conv_step(x_raw, conv["x"], cast(p["conv_x"], dt_))
+    Bc = conv_step(B_raw, conv["B"], cast(p["conv_B"], dt_))
+    Cc = conv_step(C_raw, conv["C"], cast(p["conv_C"], dt_))
+
+    dt = _softplus(dt_raw[:, 0].float() + p["dt_bias"][None])   # (B,nh)
+    A = -torch.exp(p["A_log"])
+    xh = x[:, 0].reshape(B, nh, hp).float()
+    decay = torch.exp(dt * A[None])                             # (B,nh)
+    state = cache["ssm"].float() * decay[..., None, None] + torch.einsum(
+        "bn,bhp,bh->bhpn", Bc[:, 0].float(), xh, dt)
+    y = torch.einsum("bn,bhpn->bhp", Cc[:, 0].float(), state)
+    y = y + xh * p["D_skip"][None, :, None]
+    y = y.reshape(B, nh * hp)[:, None, :].to(h.dtype)
+    y = rmsnorm_gated(p["norm"], y, z, cfg.norm_eps)
+    cache["ssm"].copy_(state)
+    return y @ cast(p["out"], dt_), cache

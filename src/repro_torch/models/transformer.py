@@ -1,0 +1,240 @@
+"""LM backbone: period-structured blocks (attention / Mamba-2 mixers,
+dense or no FFN) over depth (counterpart of ``repro/models/transformer.py``).
+
+Parameters are a nested dict of tensors in the JAX params tree's layout —
+``{"embed": {"tokens", ["lm_head"]}, "blocks": {"pos<i>": {"norm1",
+"mixer", ["norm2", "ffn"]}}, "final_norm"}`` — with the block leaves
+stacked on a leading ``blocks`` axis, so ``flatten_tree``'s keys
+(``blocks/pos0/mixer/wq``) name the same arrays in both packages
+(``repro_torch.interop.lm_params_from_jax``).  Depth is a Python loop over
+views of the stacked leaves: eager PyTorch has no ``scan``, and remat
+belongs to training, which is not ported.
+
+Leaves are kept in ``cfg.param_dtype``; JAX casts each matmul weight to
+``cfg.compute_dtype`` on every use, and ``compute_params`` makes that cast
+once (the same numbers), after which every cast here is a no-op.
+
+MoE FFN layers (``repro/models/moe.py``) are a later slice: an arch with an
+``FFN_MOE`` position raises ``NotImplementedError``.  Decode caches are
+updated in place; ``decode_step`` returns the same cache tensors and a host
+int index (the decode loop never syncs with the card to advance it).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.config import FFN_MOE, FFN_NONE, MIXER_ATTN, ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.frontends import apply_frontend
+from repro_torch.models.layers import (
+    cast, dtype_of, embed_tokens, init_embedding, init_mlp, init_rmsnorm,
+    lm_head_weight, mlp_forward, rmsnorm,
+)
+
+#: leaves JAX casts to the compute dtype on use (the matmul weights)
+COMPUTE_LEAVES = frozenset({
+    "tokens", "lm_head", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
+    "w1", "w2", "w3", "in_z", "in_x", "in_B", "in_C", "in_dt",
+    "conv_x", "conv_B", "conv_C", "out",
+})
+
+
+def require_supported(cfg: ModelConfig) -> None:
+    """Raise for an arch this slice of the port does not run."""
+    if any(s.ffn == FFN_MOE for s in cfg.layer_specs()):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: MoE FFN layers (repro/models/moe.py) are not "
+            f"ported yet; the port serves the archs without MoE")
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_map_named(fn, tree, name=""):
+    if isinstance(tree, dict):
+        return {k: _tree_map_named(fn, v, k) for k, v in tree.items()}
+    return fn(name, tree)
+
+
+def _tree_stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_block(cfg: ModelConfig, gen, device) -> dict:
+    params = {}
+    for i, spec in enumerate(cfg.layer_specs()):
+        pp = {"norm1": init_rmsnorm(cfg.d_model, device=device)}
+        if spec.mixer == MIXER_ATTN:
+            pp["mixer"] = attn_mod.init_attention(gen, cfg, device=device)
+        else:
+            pp["mixer"] = ssm_mod.init_ssm(gen, cfg, device=device)
+        if spec.ffn != FFN_NONE:
+            pp["norm2"] = init_rmsnorm(cfg.d_model, device=device)
+            pp["ffn"] = init_mlp(gen, cfg, device=device)
+        params[f"pos{i}"] = pp
+    return params
+
+
+def init_params(cfg: ModelConfig, gen: Optional[torch.Generator], *,
+                device=None) -> dict:
+    """Random parameters drawn from ``gen`` (a generator on ``device``),
+    with ``_dense_init``'s scales, block leaves stacked over blocks, in
+    ``cfg.param_dtype``.  ``device="meta"`` (``gen=None``) gives the shapes
+    and dtypes only."""
+    require_supported(cfg)
+    pdt = dtype_of(cfg.param_dtype)
+    params = {
+        "embed": init_embedding(gen, cfg, device=device),
+        "blocks": _tree_stack([_init_block(cfg, gen, device)
+                               for _ in range(cfg.num_blocks)]),
+        "final_norm": init_rmsnorm(cfg.d_model, device=device),
+    }
+    return _tree_map(lambda x: x.to(pdt), params)
+
+
+def compute_params(cfg: ModelConfig, params: dict) -> dict:
+    """The params with every matmul weight cast to ``cfg.compute_dtype``
+    once (the cast JAX makes on each use); norms, A_log, D_skip and
+    dt_bias stay in ``param_dtype``, as JAX uses them."""
+    dt = dtype_of(cfg.compute_dtype)
+    return _tree_map_named(
+        lambda name, x: cast(x, dt) if name in COMPUTE_LEAVES else x, params)
+
+
+def _block(blocks: dict, b: int) -> dict:
+    return _tree_map(lambda x: x[b], blocks)
+
+
+# ---------------------------------------------------------------------------
+# Block forward
+# ---------------------------------------------------------------------------
+
+
+def _block_forward(cfg: ModelConfig, bp: dict, h: torch.Tensor, positions,
+                   mode: str, caches: Optional[dict], cache_index):
+    """One period block (cfg.block_size layers).  Returns (h, new_caches)."""
+    new_caches = {}
+    for i, spec in enumerate(cfg.layer_specs()):
+        pp = bp[f"pos{i}"]
+        r = rmsnorm(pp["norm1"], h, cfg.norm_eps)
+        nc = None
+        if spec.mixer == MIXER_ATTN:
+            if mode == "decode":
+                out, nc = attn_mod.decode_attention_forward(
+                    cfg, pp["mixer"], r, caches[f"pos{i}"], cache_index)
+            else:
+                out, (k, v) = attn_mod.attention_forward(cfg, pp["mixer"], r,
+                                                         positions)
+                nc = {"k": k, "v": v} if mode == "prefill" else None
+        elif mode == "decode":
+            out, nc = ssm_mod.ssm_decode_forward(cfg, pp["mixer"], r,
+                                                 caches[f"pos{i}"])
+        else:
+            out, nc = ssm_mod.ssm_forward(cfg, pp["mixer"], r,
+                                          return_cache=(mode == "prefill"))
+        h = h + out
+        if spec.ffn != FFN_NONE:
+            r = rmsnorm(pp["norm2"], h, cfg.norm_eps)
+            h = h + mlp_forward(cfg, pp["ffn"], r)
+        if mode in ("prefill", "decode"):
+            new_caches[f"pos{i}"] = nc if nc is not None else {}
+    return h, new_caches
+
+
+def _stack_forward(cfg: ModelConfig, blocks: dict, h, positions, mode: str,
+                   caches: Optional[dict] = None, cache_index=None):
+    """Blocks over depth.  Returns (h, new caches stacked over blocks)."""
+    per_block = []
+    for b in range(cfg.num_blocks):
+        cache = None if caches is None else _block(caches, b)
+        h, nc = _block_forward(cfg, _block(blocks, b), h, positions, mode,
+                               cache, cache_index)
+        per_block.append(nc)
+    if mode == "prefill":
+        return h, _tree_stack(per_block)
+    return h, caches        # decode: updated in place; train: None
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
+def _embed(cfg, params, tokens, frontend):
+    h = embed_tokens(cfg, params["embed"], tokens)
+    h = apply_frontend(cfg, h, frontend)
+    positions = torch.arange(h.shape[1], dtype=torch.int32,
+                             device=h.device)[None, :]
+    return h, positions
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            frontend=None):
+    """Full forward to the final hidden states.  Returns (h, aux_loss); the
+    aux loss is MoE's and is 0 here."""
+    require_supported(cfg)
+    h, positions = _embed(cfg, params, tokens, frontend)
+    h, _ = _stack_forward(cfg, params["blocks"], h, positions, "train")
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            frontend=None):
+    """Prefill: returns (last-position logits (B,V) float32, caches stacked
+    over blocks, next_index S)."""
+    require_supported(cfg)
+    h, positions = _embed(cfg, params, tokens, frontend)
+    h, caches = _stack_forward(cfg, params["blocks"], h, positions,
+                               "prefill")
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    logits = (h[:, -1] @ lm_head_weight(cfg, params["embed"])).float()
+    return logits, caches, h.shape[1]
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
+                      prefilled: int = 0, *, device=None) -> dict:
+    """Zero decode caches (leaves stacked over blocks, compute dtype)."""
+    require_supported(cfg)
+    dt = dtype_of(cfg.compute_dtype)
+    nb = cfg.num_blocks
+    caches = {}
+    for i, spec in enumerate(cfg.layer_specs()):
+        if spec.mixer == MIXER_ATTN:
+            shape = (nb, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+            caches[f"pos{i}"] = {
+                "k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+        else:
+            one = ssm_mod.init_ssm_cache(cfg, batch, dt, device=device)
+            caches[f"pos{i}"] = _tree_map(
+                lambda x: x[None].repeat(nb, *([1] * x.dim())), one)
+    return {"caches": caches, "index": int(prefilled)}
+
+
+def decode_step(cfg: ModelConfig, params: dict, state: dict,
+                tokens: torch.Tensor):
+    """One decode step.  tokens (B,1) -> (logits (B,V) float32, new state);
+    the caches are written in place."""
+    require_supported(cfg)
+    h = embed_tokens(cfg, params["embed"], tokens)
+    idx = state["index"]
+    h, caches = _stack_forward(cfg, params["blocks"], h, None, "decode",
+                               caches=state["caches"], cache_index=idx)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    logits = (h[:, 0] @ lm_head_weight(cfg, params["embed"])).float()
+    return logits, {"caches": caches, "index": idx + 1}

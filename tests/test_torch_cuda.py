@@ -365,3 +365,139 @@ def test_sequential_reference_on_card_matches_cpu():
     assert info["k"] == cinfo["k"] and np.array_equal(lab, clab)
     for k, v in cinfo["scores"].items():
         assert abs(info["scores"][k] - v) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: K7 (flash attention) and K8 (SSD intra-chunk)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1536, 2, 3, 128), (2, 100, 2, 2, 32),
+                                   (1, 512, 1, 8, 256), (2, 64, 4, 1, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(shape, dtype):
+    """K7 at llama's head shape on a 1536-token prefill, an S that is not
+    a multiple of its 64-row tile, the widest head and MHA at hd=16."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain,
+    )
+
+    B, S, K, G, hd = shape
+    gen = torch.Generator(device=dev).manual_seed(S + hd)
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(
+        getattr(torch, dtype)) for s in ((B, S, K, G, hd), (B, S, K, hd),
+                                         (B, S, K, hd)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, flash_attention_plain(q, k, v, hd ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 256, 8, 64, 128),
+                                   (2, 32, 32, 8, 16, 16),
+                                   (1, 3, 48, 3, 24, 40)])
+def test_ssd_intra_chunk_kernel_matches_plain(shape):
+    """K8 at mamba's chunk, head and state widths, the smoke shape, and
+    sizes that are multiples of none of its tiles."""
+    dev = _card()
+    from repro_torch.kernels.ssd_scan.ops import (
+        ssd_intra_chunk, ssd_intra_chunk_plain,
+    )
+
+    B, nc, Q, nh, hp, ds = shape
+    gen = torch.Generator(device=dev).manual_seed(Q)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    x = randn(B, nc, Q, nh, hp)
+    dt = torch.nn.functional.softplus(randn(B, nc, nh, Q) - 1.0)
+    A = -torch.linspace(1.0, 16.0, nh, device=dev)
+    cum = torch.cumsum(dt * A[None, None, :, None], dim=-1).contiguous()
+    Bc, Cc = randn(B, nc, Q, ds), randn(B, nc, Q, ds)
+    before = ssd_intra_chunk.launches
+    got = ssd_intra_chunk(x, cum, dt.contiguous(), Bc, Cc)
+    torch.cuda.synchronize()
+    assert ssd_intra_chunk.launches == before + 1
+    for g, w in zip(got, ssd_intra_chunk_plain(x, cum, dt, Bc, Cc)):
+        _close(g, w)
+
+
+@pytest.mark.cuda
+def test_lm_wrappers_reject_what_the_kernels_do_not_take():
+    dev = _card()
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+
+    q = torch.zeros(1, 64, 2, 2, 16, device=dev)
+    k = torch.zeros(1, 64, 2, 16, device=dev)
+    with pytest.raises(ValueError):               # not contiguous
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k,
+                        0.25)
+    with pytest.raises(ValueError):               # k on the CPU
+        flash_attention(q, k.cpu(), k, 0.25)
+    with pytest.raises(TypeError):                # mixed dtypes
+        flash_attention(q, k.bfloat16(), k, 0.25)
+    with pytest.raises(ValueError):               # S neither <= 512 nor 512k
+        z = torch.zeros(1, 600, 1, 1, 16, device=dev)
+        flash_attention(z, z[:, :, :, 0], z[:, :, :, 0], 0.25)
+    flat = torch.zeros(1 + 64 * 2 * 16, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):               # bf16 q off a 16-byte line
+        flash_attention(flat[1:].view(1, 64, 2, 1, 16), k.bfloat16(),
+                        k.bfloat16(), 0.25)
+    x = torch.zeros(1, 1, 32, 2, 16, device=dev)
+    cum = torch.zeros(1, 1, 2, 32, device=dev)
+    Bc = torch.zeros(1, 1, 32, 8, device=dev)
+    with pytest.raises(ValueError):               # not contiguous
+        ssd_intra_chunk(x, cum.transpose(2, 3).contiguous().transpose(2, 3),
+                        cum, Bc, Bc)
+    with pytest.raises(TypeError):
+        ssd_intra_chunk(x.double(), cum, cum, Bc, Bc)
+    with pytest.raises(ValueError):               # ds > 128
+        big = torch.zeros(1, 1, 32, 256, device=dev)
+        ssd_intra_chunk(x, cum, cum, big, big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m"])
+def test_lm_prefill_and_decode_on_card_match_cpu(arch):
+    """A smoke-width model (two layers, float32) on the card through K7 /
+    K8 against the same weights on the CPU: prefill logits, then 4
+    teacher-forced decode steps, within 1e-4 of their scale."""
+    dev = _card()
+    from repro_torch.configs import smoke_arch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+    from repro_torch.launch.serve import _splice_prefill
+    from repro_torch.models import transformer as tf
+
+    cfg = smoke_arch(arch).replace(num_layers=2)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 260)).astype(np.int32))
+    runs = {}
+    for d in ("cpu", dev):
+        p = tf._tree_map(lambda t: t.to(d), params)
+        before = (flash_attention.launches, ssd_intra_chunk.launches)
+        logits, caches, idx = tf.prefill(cfg, p, toks[:, :256].to(d))
+        launched = (flash_attention.launches - before[0],
+                    ssd_intra_chunk.launches - before[1])
+        state = _splice_prefill(cfg, tf.init_decode_state(
+            cfg, 2, 260, idx, device=d), caches, idx)
+        out = [logits]
+        for t in range(256, 260):
+            logits, state = tf.decode_step(cfg, p, state,
+                                           toks[:, t:t + 1].to(d))
+            out.append(logits)
+        runs[str(d)] = (out, launched)
+    (cpu, _), (card, launched) = runs["cpu"], runs[str(dev)]
+    assert launched == ((2, 0) if arch.startswith("llama") else (0, 2))
+    for got, want in zip(card, cpu):
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
