@@ -9,22 +9,38 @@ Phases, each reported on its own lines:
 2. build    the CUDA kernels built from ``src/repro_torch/csrc`` with nvcc
             for sm_90a, with the build time and ptxas's register /
             shared-memory report;
-3. kernels  every kernel of the serving, training, sequential and LM paths
-            (K1 rgcn_fused, K2 kmeans_assign_fused, K3 silhouette_sums, K5
-            rgcn_spmm_flat, K1b rgcn_fused_bwd, K4 kmeans_assign, K7
-            flash_attention, K8 ssd_intra_chunk) against its plain PyTorch
-            version on the card at the main-path shapes (K5 / K1b also at
-            the training batch's bucket; K2 / K3 / K4 also at PKA's feature
-            width d = 12; K7 also over hd 16/64/256, G 1/3/8, S
-            64/512/1536, f32 and bf16; K8 also at mamba's smoke shape and
-            a single 64-row chunk), with its time, the plain version's, one
-            library call's where there is one, and the least time the card
-            could take (bound);
+3. kernels  every kernel of the serving, training, sequential, dense and LM
+            paths (K1 rgcn_fused, K2 kmeans_assign_fused, K3
+            silhouette_sums, K5 rgcn_spmm_flat, K1b rgcn_fused_bwd, K6
+            rgcn_spmm_dense, K4 kmeans_assign, K7 flash_attention, K8
+            ssd_intra_chunk) against its plain PyTorch version on the card
+            at the main-path shapes (K5 / K1b also at the training batch's
+            bucket; K6 at phi-2's and cfd's first dense batch, D 64 / 128,
+            f32 and bf16, plus E = 0 and a batch of padding at node 0, and
+            the dense aggregation's backward on the card against the CPU;
+            K2 / K3 / K4 also at PKA's feature width d = 12; K7 also over hd
+            16/64/256, G 1/3/8, S 64/512/1536, f32 and bf16; K8 also at
+            mamba's smoke shape and a single 64-row chunk), with its time,
+            the plain version's, one library call's where there is one, and
+            the least time the card could take (bound);
 4. reference the JAX-trained encoder committed in
             ``src/repro_torch/assets/reference_phi2.npz``: the card embeds
             and plans phi-2 and cfd and must match the JAX results stored
             there (embeddings 1e-4 relative, equal K and representatives,
             eq. 5 / eq. 6 within 1e-6);
+4b. dense  the dense encoder path with the same fixture encoder:
+            ``ContrastiveTrainer.embed_dense`` of all of phi-2 and cfd
+            (``pad_batch`` of the whole program, batches of 64, K6 in each
+            of the 3 layers) within 1e-4 of the fixture's embeddings and of
+            the port's packed ``embed`` on the card; both programs planned
+            from the dense embeddings with the fixture's K and
+            representatives; K6 launched 3 x the number of batches (its
+            ``launches`` in the kernel table); dense and packed embed times,
+            cold and warm.  Then the dense InfoNCE loss and its gradient on
+            16 phi-2 training graphs, card against CPU with the same draws
+            (loss 1e-5, gradient 1e-3 of its norm), and ``encode`` /
+            ``encode_packed`` with ``use_vstats=False, relations_used=(0,)``
+            on the card against the CPU (1e-4);
 5. serve    a PlanService answers submit_program for cfd, phi-2 and nw with
             that encoder; the serving kernels' launch counts (zeroed just
             before) must be > 0 and no request may fail;
@@ -132,6 +148,7 @@ FIT_SPLIT = (
 #: the kernels the serving path launches (K1-K3); fitting adds K5 and K1b
 SERVE_KERNELS = ("rgcn_fused_flat", "kmeans_assign_fused", "silhouette_sums")
 EMBED_TOL = 1e-4        # card embeddings vs the JAX fixture, relative
+DENSE_BATCH = 64        # embed_dense's batch of graphs
 METRIC_TOL = 1e-6       # eq. 5 / eq. 6 vs the JAX fixture, absolute
 #: card sequential scores vs the exact float64 silhouette of JAX's labels
 #: (JAX's own float32 scores sit up to 7.6e-3 from it on phi-2, whose 1125
@@ -402,6 +419,7 @@ def phase_kernels(rows, dev):
                  rgcn_fused_agg_flat, k1))
     _k5_k1b(rows, dev, rng, {"main path": packed,
                              "training bucket": _training_batches(1)[0]})
+    _k6(rows, dev, rng)
 
     # ---- K2 / K3 at the sweep's main-path shape (cfd: n=2425 -> 4096) ----
     n, d, k, n_real, n_sil = 4096, 256, 48, 2425, 1200
@@ -794,6 +812,163 @@ def _k5_k1b(rows, dev, rng, batches):
                  k1b))
 
 
+@functools.lru_cache(maxsize=None)
+def _program_graphs(name):
+    """Every kernel graph of a program (default trace caps), traced once
+    per run."""
+    from repro_torch.core.sampler import GCLSampler
+    from repro_torch.tracing.programs import get_program
+
+    return list(GCLSampler(device="cpu").iter_graphs(get_program(name)))
+
+
+def _dense_first_batch(name):
+    """The first batch ``embed_dense`` encodes for a program: the whole
+    program padded to its largest graph, its first 64 graphs."""
+    from repro_torch.core.graphs import pad_batch
+
+    full, max_warps = pad_batch(_program_graphs(name))
+    return {k: v[:DENSE_BATCH] for k, v in full.items()}, max_warps
+
+
+def _k6_check(dev, label, h, src, dst, w, N, timed):
+    """K6 against its plain version on the card; with ``timed``, its device
+    time, the plain version's, the sparse-product yardstick's (f32) and
+    the bound.  Returns the row's numbers."""
+    import torch
+
+    from repro_torch.kernels.rgcn_spmm.ops import (
+        rgcn_spmm_dense, rgcn_spmm_dense_plain,
+    )
+
+    B, _, D = h.shape
+    E, nb = w.shape[1], w.shape[2]
+    got = rgcn_spmm_dense(h, src, dst, w, N)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, rgcn_spmm_dense_plain(h, src, dst, w, N))
+    dname = "f32" if h.dtype == torch.float32 else "bf16"
+    require(rel <= KERNEL_TOL,
+            f"K6 {label} D={D} {dname}: rel err {rel:.3e} > {KERNEL_TOL}")
+    if not timed:
+        log(f"[kernels] K6 rgcn_spmm_dense {label} B={B} N={N} E={E} D={D} "
+            f"h={dname}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+            f"{KERNEL_TOL})")
+        return None
+    live = (w != 0).any(-1)
+    e_live = int(live.sum())
+    args = (h, src, dst, w, N)
+    call_ms = time_ms(lambda: rgcn_spmm_dense(*args), 50)
+    wrap_ms, ms = device_ms(lambda: rgcn_spmm_dense(*args), 20,
+                            own=("rgcn_spmm_dense_kernel",))
+    plain_ms, _ = device_ms(lambda: rgcn_spmm_dense_plain(*args), 20)
+    lib_ms = None
+    if h.dtype == torch.float32:
+        # the library yardstick: one sparse product over the block-diagonal
+        # CSR of the flattened batch (row k*B*N + b*N + v holds w[b,e,k] at
+        # column b*N + src[b,e])
+        off = (N * torch.arange(B, device=dev))[:, None]
+        rows_b = (dst.long() + off)[live]
+        cols_b = (src.long() + off)[live]
+        A = torch.sparse_coo_tensor(
+            torch.stack([torch.cat([k * B * N + rows_b for k in range(nb)]),
+                         torch.cat([cols_b] * nb)]),
+            torch.cat([w[..., k][live] for k in range(nb)]),
+            (nb * B * N, B * N)).coalesce().to_sparse_csr()
+        hf = h.reshape(B * N, D)
+        lib = torch.sparse.mm(A, hf).reshape(nb, B, N, D)
+        err_lib, _ = rel_err(lib.permute(1, 2, 0, 3).reshape(B, N, -1), got)
+        require(err_lib <= 1e-3 * float(got.abs().max()),
+                f"K6 library yardstick disagrees ({err_lib:.3e})")
+        lib_ms, _ = device_ms(lambda: torch.sparse.mm(A, hf), 20)
+    esz = h.element_size()
+    bytes_ = B * N * D * esz + B * E * 4 * 2 + B * E * nb * 4 + B * N * nb * D * 4
+    b_ms, b_by = bound(bytes_, 2 * e_live * nb * D)
+    lib_txt = (f"{lib_ms:.4f} (sparse.mm, block-diagonal CSR)"
+               if lib_ms is not None else "none (no bf16 sparse product)")
+    log(f"[kernels] K6 rgcn_spmm_dense {label} B={B} N={N} E={E} live edges "
+        f"{e_live} D={D} h={dname}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+        f"{KERNEL_TOL}) kernel device ms {ms:.4f} (wrapper device ms "
+        f"{wrap_ms:.4f}, call ms {call_ms:.4f}) plain device ms "
+        f"{plain_ms:.4f} library device ms {lib_txt} bound_us "
+        f"{b_ms * 1e3:.2f} ({b_by})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def _k6(rows, dev, rng):
+    """K6 against its plain version at phi-2's and cfd's first dense batch
+    (the dense phase's shapes), h of width D in {64, 128} (the layers'
+    input widths), float32 and bfloat16, each timed; then E = 0 and a
+    batch whose edges are all padding at node 0 but ten per graph; then
+    the dense aggregation's forward and backward (K6, K1b and the matmuls)
+    on the card against the CPU.  The table row: phi-2, D = 128, f32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.rgcn import edge_norm_dense
+    from repro_torch.kernels.rgcn_spmm.ops import (
+        rgcn_message_agg, rgcn_spmm_dense,
+    )
+
+    nb = 2
+    k6 = None
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    for name in ("phi-2", "cfd"):
+        batch, _ = _dense_first_batch(name)
+        B, N = batch["node_mask"].shape
+        etype = torch.from_numpy(batch["edge_type"]).long()
+        emask = torch.from_numpy(batch["edge_mask"])
+        dst_c = torch.from_numpy(batch["edge_dst"])
+        wnorm = emask * edge_norm_dense(dst_c, etype, emask, N, 4)
+        src, dst = t(batch["edge_src"]), t(batch["edge_dst"])
+        node_mask = t(batch["node_mask"])
+        for D in (64, 128):
+            comb = torch.from_numpy(rng.standard_normal((4, nb))
+                                    .astype(np.float32))
+            w = (comb[etype] * wnorm[..., None]).contiguous().to(dev)
+            h32 = (t(rng.standard_normal((B, N, D)).astype(np.float32))
+                   * node_mask[..., None])
+            for dt in (torch.float32, torch.bfloat16):
+                m = _k6_check(dev, name, h32.to(dt).contiguous(), src, dst,
+                              w, N, timed=True)
+                if (name, D, dt) == ("phi-2", 128, torch.float32):
+                    k6 = m
+                    fwd_bwd = (h32, src, dst, w, N)
+    # E = 0, and padding at node 0 (pad_batch's padded and truncated edges)
+    B, N, E, D = DENSE_BATCH, 436, 734, 128
+    h = t(rng.standard_normal((B, N, D)).astype(np.float32))
+    e0 = torch.zeros(B, 0, dtype=torch.int32, device=dev)
+    _k6_check(dev, "E=0", h, e0, e0, torch.zeros(B, 0, nb, device=dev), N,
+              timed=False)
+    src = rng.integers(0, N, (B, E)).astype(np.int32)
+    dst = rng.integers(0, N, (B, E)).astype(np.int32)
+    w = rng.standard_normal((B, E, nb)).astype(np.float32)
+    src[:, 10:] = dst[:, 10:] = 0
+    w[:, 10:] = 0.0
+    _k6_check(dev, "padding at node 0", h, t(src), t(dst), t(w), N,
+              timed=True)
+    # the dense aggregation's forward and backward, card against CPU
+    h32, src, dst, w, N = fwd_bwd
+    basis = t((rng.standard_normal((nb, 128, 128)) / np.sqrt(128))
+              .astype(np.float32))
+    g = t(rng.standard_normal(h32.shape[:2] + (128,)).astype(np.float32))
+    res = {}
+    for where in (dev, "cpu"):
+        xs = [x.detach().to(where).requires_grad_() for x in (h32, basis, w)]
+        out = rgcn_message_agg(xs[0], xs[1], src.to(where), dst.to(where),
+                               xs[2], N)
+        res[str(where)] = (out, *torch.autograd.grad(out, xs, g.to(where)))
+    gaps = {k: rel_err(a.detach().cpu(), b.detach())[1] for k, a, b in zip(
+        ("agg", "dh", "dbasis", "dw"), res[str(dev)], res["cpu"])}
+    log(f"[kernels] dense rgcn_message_agg phi-2 D=128 O=128 f32, card "
+        f"(K6 + K1b) vs CPU: rel err {json.dumps(gaps)} (tol {KERNEL_TOL})")
+    require(max(gaps.values()) <= KERNEL_TOL,
+            f"dense rgcn_message_agg card vs CPU: {gaps}")
+    rows.append(("rgcn_spmm_dense", "src/repro_torch/csrc/rgcn_spmm.cu",
+                 "src/repro/kernels/rgcn_spmm/kernel.py:156",
+                 rgcn_spmm_dense, k6))
+
+
 def _reference_method(dev):
     import numpy as np
 
@@ -853,6 +1028,146 @@ def phase_reference(dev):
                 f"{name}: eq. 5 differs from JAX")
         require(abs(ev.speedup - float(ref[f"{name}:speedup"])) <= METRIC_TOL,
                 f"{name}: eq. 6 differs from JAX")
+
+
+def phase_dense(dev):
+    """The dense encoder path through its entry points with the fixture
+    encoder: ``embed_dense`` of phi-2 and cfd (the path's run: K6's launch
+    count), the plans from those embeddings, dense against packed embed
+    times, the dense loss and its gradient, the ablation encodes.  Returns
+    the path's launch counts."""
+    import copy
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.batching import pack_graphs
+    from repro_torch.core.graphs import pad_batch
+    from repro_torch.core.rgcn import RGCNConfig, encode, encode_packed
+    from repro_torch.core.train import (
+        ContrastiveTrainer, dense_loss, draw_seed, draw_step,
+    )
+    from repro_torch.kernels.rgcn_fused.ops import rgcn_fused_bwd
+    from repro_torch.kernels.rgcn_spmm.ops import rgcn_spmm_dense
+    from repro_torch.sampling import Artifacts, evaluate
+    from repro_torch.tracing.programs import get_program
+
+    method, ref = _reference_method(dev)
+    enc = method.sampler.params
+    rc = RGCNConfig()
+    names = ("phi-2", "cfd")
+    graphs = {name: _program_graphs(name) for name in names}
+    trainer = ContrastiveTrainer(rc, device=dev)
+    z_dense, cold = {}, {}
+    _zero_counts()
+    for name in names:
+        t0 = time.perf_counter()
+        z_dense[name] = trainer.embed_dense(enc, graphs[name])
+        cold[name] = time.perf_counter() - t0
+    counts = _counts()
+    batches = sum(math.ceil(len(g) / DENSE_BATCH) for g in graphs.values())
+    log(f"[dense] embed_dense launches {json.dumps(counts)} ({batches} "
+        f"batches of {DENSE_BATCH})")
+    require(counts["rgcn_spmm_dense"] == 3 * batches,
+            f"dense: K6 launched {counts['rgcn_spmm_dense']} times, not "
+            f"3 x {batches}")
+    for name in names:
+        prog = get_program(name)
+        z, g = z_dense[name], graphs[name]
+        want = ref[f"{name}:emb_distinct"][ref[f"{name}:index"]]
+        err = float(np.abs(z - want).max()) / float(np.abs(want).max())
+        t0 = time.perf_counter()
+        z_warm = trainer.embed_dense(enc, g)
+        warm = time.perf_counter() - t0
+        packed = ContrastiveTrainer(rc, device=dev)
+        t0 = time.perf_counter()
+        z_packed = packed.embed(enc, g)
+        p_cold = time.perf_counter() - t0
+        packed._embed_cache.clear()
+        t0 = time.perf_counter()
+        packed.embed(enc, g)
+        p_warm = time.perf_counter() - t0
+        gap = float(np.abs(z - z_packed).max()) / float(np.abs(z_packed).max())
+        full, _ = pad_batch(g)
+        art = Artifacts("gcl", name, "dense", payload={
+            "embeddings": z, "seqs": np.array([k.seq for k in prog.kernels])})
+        plan = method.plan(prog, art)
+        ev = evaluate(plan, prog, "P1")
+        k_ref, reps_ref = int(ref[f"{name}:k"]), ref[f"{name}:reps"].tolist()
+        log(f"[dense] {name}: n={len(g)} padded to N={full['node_mask'].shape[1]}"
+            f" E={full['edge_mask'].shape[1]} ({int(full['node_mask'].sum())} "
+            f"real nodes in {full['node_mask'].size} slots): emb rel err vs "
+            f"fixture {err:.3e} (tol {EMBED_TOL}), vs packed embed on the card "
+            f"{gap:.3e} (tol {EMBED_TOL}); embed_dense cold {cold[name]:.4f} s "
+            f"warm {warm:.4f} s; packed embed cold {p_cold:.4f} s warm (cache "
+            f"cleared) {p_warm:.4f} s ({packed.embed_stats['encoded']} "
+            f"distinct graphs encoded); K {plan.num_clusters} (jax {k_ref}) "
+            f"reps {plan.rep_indices()} eq5 {ev.error_pct['cycles']!r} eq6 "
+            f"{ev.speedup!r}")
+        require(np.array_equal(z, z_warm), f"dense {name}: warm run differs")
+        require(err <= EMBED_TOL, f"dense {name}: rel err {err:.3e}")
+        require(gap <= EMBED_TOL, f"dense {name}: vs packed {gap:.3e}")
+        require(plan.num_clusters == k_ref, f"dense {name}: K differs")
+        require(plan.rep_indices() == reps_ref,
+                f"dense {name}: representatives differ")
+
+    # the dense loss and its gradient on one training batch, card vs CPU
+    train_graphs = _phi2_training_graphs()
+    _, _, selections = ContrastiveTrainer(rc, device="cpu").split(
+        len(train_graphs))
+    batch, mw = pad_batch([train_graphs[i] for i in selections[0]])
+    b_cpu = {k: torch.from_numpy(v) for k, v in batch.items()}
+    draws = draw_step(torch.Generator().manual_seed(draw_seed(0, 0)), b_cpu,
+                      rc)
+    out = {}
+    for where in ("cpu", dev):
+        e = copy.deepcopy(enc).to(where)
+        params = dict(e.named_parameters())
+        k6, k1b = rgcn_spmm_dense.launches, rgcn_fused_bwd.launches
+        loss, _ = dense_loss(e, rc, 0.05, {k: v.to(where)
+                                           for k, v in b_cpu.items()},
+                             mw, tuple(d.to(where) for d in draws))
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        out[str(where)] = (loss.item(), grads, rgcn_spmm_dense.launches - k6,
+                           rgcn_fused_bwd.launches - k1b)
+    (l_cpu, g_cpu, _, _), (l_card, g_card, n_k6, n_k1b) = \
+        out["cpu"], out[str(dev)]
+    loss_gap = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_gap = _norm_gap(g_card, g_cpu)
+    log(f"[dense] dense loss on {len(selections[0])} phi-2 training graphs "
+        f"(N={batch['node_mask'].shape[1]}, E={batch['edge_mask'].shape[1]}):"
+        f" card {l_card!r} cpu {l_cpu!r} rel gap {loss_gap:.3e} (tol "
+        f"{LOSS_TOL}); gradient |card - cpu| / |cpu| {grad_gap:.3e} (tol "
+        f"{GRAD_TOL}); card launches K6 {n_k6} K1b {n_k1b}")
+    require(loss_gap <= LOSS_TOL, f"dense loss gap {loss_gap:.3e}")
+    require(grad_gap <= GRAD_TOL, f"dense gradient gap {grad_gap:.3e}")
+    require(n_k6 == 6 and n_k1b == 6,
+            f"dense loss: K6 {n_k6} / K1b {n_k1b} launches, not 6 / 6")
+
+    # the ablation switches, dense and packed, card vs CPU
+    abl = RGCNConfig(use_vstats=False, relations_used=(0,))
+    dense_b, mw = _dense_first_batch("cfd")
+    packed_b, _ = pack_graphs(graphs["phi-2"][:DENSE_BATCH])
+    got = {}
+    for where in ("cpu", dev):
+        e = copy.deepcopy(enc).to(where)
+        with torch.inference_mode():
+            got[str(where)] = (
+                encode(e, abl, {k: torch.from_numpy(v).to(where)
+                                for k, v in dense_b.items()}, mw).cpu(),
+                encode_packed(e, abl, {k: torch.from_numpy(v).to(where)
+                                       for k, v in packed_b.items()}).cpu())
+    gaps = [rel_err(a, b)[1] for a, b in zip(got[str(dev)], got["cpu"])]
+    moved = float((got["cpu"][0] - torch.from_numpy(
+        z_dense["cfd"][:DENSE_BATCH])).abs().max())
+    log(f"[dense] ablation use_vstats=False relations_used=(0,): card vs CPU "
+        f"rel err encode {gaps[0]:.3e} encode_packed {gaps[1]:.3e} (tol "
+        f"{EMBED_TOL}); max |z_ablated - z_default| {moved:.3e}")
+    require(max(gaps) <= EMBED_TOL, f"dense ablation card vs CPU {gaps}")
+    require(moved > 1e-3, "dense ablation: the switches changed nothing")
+    return counts
 
 
 def phase_serve(rows, dev):
@@ -1197,12 +1512,15 @@ def _all_wrappers():
         rgcn_fused_agg_flat, rgcn_fused_bwd,
     )
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.rgcn_spmm.ops import rgcn_spmm_flat
+    from repro_torch.kernels.rgcn_spmm.ops import (
+        rgcn_spmm_dense, rgcn_spmm_flat,
+    )
     from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
 
     return {"rgcn_fused_flat": rgcn_fused_agg_flat,
             "rgcn_fused_bwd": rgcn_fused_bwd,
             "rgcn_spmm_flat": rgcn_spmm_flat,
+            "rgcn_spmm_dense": rgcn_spmm_dense,
             "kmeans_assign_fused": kmeans_assign_fused,
             "silhouette_sums": silhouette_sums,
             "kmeans_assign": kmeans_assign,
@@ -1836,6 +2154,9 @@ def main() -> int:
     phase_reference(dev)
     log(f"[phase] reference {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    dense = phase_dense(dev)
+    log(f"[phase] dense {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     phase_serve(rows, dev)
     log(f"[phase] serve {time.perf_counter() - t0:.2f} s")
     for name, phase in (("train", phase_train), ("resume", phase_resume),
@@ -1845,7 +2166,8 @@ def main() -> int:
         log(f"[phase] {name} {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_fit_serve([r for r in rows if r[0] not in (
-        "kmeans_assign", "flash_attention", "ssd_intra_chunk")], dev)
+        "kmeans_assign", "rgcn_spmm_dense", "flash_attention",
+        "ssd_intra_chunk")], dev)
     log(f"[phase] fit+serve {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     sequential = phase_sequential(dev)
@@ -1854,6 +2176,7 @@ def main() -> int:
     launches = phase_grid(dev)
     log(f"[phase] grid {time.perf_counter() - t0:.2f} s")
     launches["kmeans_assign"] = sequential["kmeans_assign"]
+    launches["rgcn_spmm_dense"] = dense["rgcn_spmm_dense"]
     t0 = time.perf_counter()
     phase_lm_reference(dev)
     log(f"[phase] lm_reference {time.perf_counter() - t0:.2f} s")

@@ -1,5 +1,5 @@
 """RGCN encoder with basis decomposition + projection head (paper §3.3.2),
-packed path.  Counterpart of ``repro/core/rgcn.py:56-363``.
+packed and dense paths.  Counterpart of ``repro/core/rgcn.py``.
 
 Architecture: 3 relational conv layers (64 -> 128 -> 128 -> 256), basis
 decomposition per layer, LayerNorm + ReLU + dropout (the last layer keeps
@@ -9,22 +9,29 @@ head 256 -> 128 (ReLU, dropout) -> 64.  Node features are built in-model
 (paper §3.3.1).
 
 The encoder is an ``nn.Module`` whose parameters keep the JAX pytree's
-names (``repro_torch.interop`` maps one onto the other).  Message passing
-goes through ``kernels.rgcn_fused`` (K1 forward, K1b + K5 backward): the
-hand-written kernels for CUDA tensors, their plain versions for CPU
-tensors.  ``h @ w0`` and the projection head are ``torch.matmul``, as the
-JAX package leaves those to XLA.
+names (``repro_torch.interop`` maps one onto the other).  The packed path
+(``encode_packed``, the main path) passes messages through
+``kernels.rgcn_fused`` (K1 forward, K1b + K5 backward); the dense path
+(``encode``, batches from ``core/graphs.pad_batch``: every graph padded to
+the batch's largest) through ``kernels.rgcn_spmm.rgcn_message_agg`` (K6
+forward, K1b backward): the hand-written kernels for CUDA tensors, their
+plain versions for CPU tensors.  ``h @ w0``, the basis contraction after
+K5 / K6 and the projection head are ``torch.matmul``, as the JAX package
+leaves those to XLA.
 
 Training mode takes its randomness from an explicit draws object
 (``EncodeDraws``: feature noise, dropout keep masks; the projection's keep
 mask is an argument of ``project``), never from a global generator, so the
 same draws give the same forward pass on the CPU and the card.  The
-relation coefficients ``comb[etype]`` are taken as a one-hot matmul, so
-their gradient is a matmul too (a fixed-order reduction) rather than a
-scatter-add with float atomics.  ``unfused_ref=True`` is the JAX package's
-pre-fusion path: the normalizer recomputed per layer, K5 + a matmul in
-place of K1, and the four-sum readout.  The dense ``encode`` comes with a
-later slice.
+relation coefficients ``comb[etype]`` and the readouts are one-hot
+matmuls, so their gradients are matmuls too (fixed-order reductions)
+rather than scatter-adds with float atomics.  ``unfused_ref=True`` is the
+JAX package's pre-fusion packed path: the normalizer recomputed per layer,
+K5 + a matmul in place of K1, and the four-sum readout.  The ablation
+switches ``use_vstats`` and ``relations_used`` act on both paths as in
+JAX; JAX's ``use_pallas`` and ``message_dtype`` have no counterpart (the
+port always runs the kernels' precision profile: gather in the compute
+dtype, float32 after it).
 """
 
 from __future__ import annotations
@@ -37,14 +44,18 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.core.augment import apply_feature_noise_packed
+from repro_torch.core.augment import (
+    apply_feature_noise, apply_feature_noise_packed,
+)
 from repro_torch.core.graphs import NUM_RELATIONS
 from repro_torch.core.precision import Policy
 from repro_torch.kernels import check_endpoints
 from repro_torch.kernels.rgcn_fused.ops import (
     edge_index, fused_two_level_readout, rgcn_fused_agg_flat,
 )
-from repro_torch.kernels.rgcn_spmm.ops import rgcn_message_agg_flat
+from repro_torch.kernels.rgcn_spmm.ops import (
+    dense_csr, rgcn_message_agg, rgcn_message_agg_flat,
+)
 from repro_torch.tracing.isa import NUM_OPCODES, PSEUDO_KINDS, VAR_KINDS
 
 
@@ -60,6 +71,9 @@ class RGCNConfig:
     #: activations (and K1's gathered messages) run in the policy's compute
     #: dtype; LayerNorm statistics and the readout stay float32
     policy: Policy = field(default_factory=Policy)
+    # ablation switches (the JAX package's benchmarks/bench_ablations.py)
+    use_vstats: bool = True           # dynamic-value summary features
+    relations_used: tuple = (0, 1, 2, 3)  # subset of edge relations
 
 
 class RGCNLayer(nn.Module):
@@ -164,7 +178,8 @@ def node_features(p: RGCNEncoder, rc: RGCNConfig, batch: dict
     instr = _lookup(p.embed_instr, torch.clamp(tok, 0, NUM_OPCODES - 1))
     instr = instr + _positional_encoding(batch["pc_norm"], 64)
     var32 = _lookup(p.embed_var, torch.clamp(tok, 0, len(VAR_KINDS) - 1))
-    vstats = batch["vstats"]
+    vstats = batch["vstats"] if rc.use_vstats \
+        else torch.zeros_like(batch["vstats"])
     var = torch.cat([var32, _stats_encode(vstats),
                      var32.new_zeros(var32.shape[:-1] + (64 - 40,))], dim=-1)
     pse16 = _lookup(p.embed_pseudo,
@@ -179,10 +194,11 @@ def node_features(p: RGCNEncoder, rc: RGCNConfig, batch: dict
 @dataclass(frozen=True)
 class EncodeDraws:
     """The random draws of one training-mode encode (JAX: the key split
-    ``len(dims)`` ways in ``encode_packed``).  noise (P, dims[0]): standard
-    normal in the compute dtype (JAX's ``rngs[-1]``); noise_gate (G,):
-    which graphs get feature noise (the view's strategy flags); dropout:
-    one (P, dims[i+1]) bool keep mask per non-last layer (``rngs[i]``)."""
+    ``len(dims)`` ways in ``encode_packed`` / ``encode``).  noise (P,
+    dims[0]) packed, (B, N, dims[0]) dense: standard normal in the compute
+    dtype (JAX's ``rngs[-1]``); noise_gate (G,) / (B,): which graphs get
+    feature noise (the view's strategy flags); dropout: one (P, dims[i+1])
+    / (B, N, dims[i+1]) bool keep mask per non-last layer (``rngs[i]``)."""
     noise: Optional[torch.Tensor] = None
     noise_gate: Optional[torch.Tensor] = None
     dropout: tuple = ()
@@ -218,17 +234,27 @@ def edge_norm_packed(dst, etype, emask, num_nodes: int,
     return 1.0 / torch.clamp_min(deg[key], 1.0)
 
 
-def _rgcn_layer_packed(lp: RGCNLayer, rc: RGCNConfig, h, batch, wnorm,
-                       onehot_etype, edges, *, last: bool, keep=None,
+def _relation_mask(rc: RGCNConfig, etype, emask) -> torch.Tensor:
+    """The edge mask with the relations outside ``rc.relations_used``
+    switched off (the ablation; JAX compares with all four literally)."""
+    if tuple(rc.relations_used) == (0, 1, 2, 3):
+        return emask
+    used = torch.tensor(rc.relations_used, dtype=etype.dtype,
+                        device=etype.device)
+    return emask * torch.isin(etype, used)
+
+
+def _rgcn_layer_packed(lp: RGCNLayer, rc: RGCNConfig, h, batch, emask,
+                       wnorm, onehot_etype, edges, *, last: bool, keep=None,
                        train: bool = False,
                        unfused_ref: bool = False) -> torch.Tensor:
     P = h.shape[0]
     src, dst = batch["edge_src"], batch["edge_dst"]
     coef = onehot_etype @ lp.comb                       # (Q,nb) = comb[etype]
     if unfused_ref:
-        norm = edge_norm_packed(dst, batch["edge_type"], batch["edge_mask"],
-                                P, rc.num_relations)
-        w = coef * (batch["edge_mask"] * norm)[:, None]
+        norm = edge_norm_packed(dst, batch["edge_type"], emask, P,
+                                rc.num_relations)
+        w = coef * (emask * norm)[:, None]
         agg = rgcn_message_agg_flat(h.contiguous(), lp.basis, src, dst,
                                     w.contiguous(), P, checked=False)
     else:
@@ -261,11 +287,12 @@ def encode_packed(p: RGCNEncoder, rc: RGCNConfig, batch: dict, *,
         h = apply_feature_noise_packed(h, draws.noise, draws.noise_gate,
                                        batch["graph_id"], rc.feat_noise_sigma)
         h = h * batch["node_mask"].to(h.dtype)[:, None]
-    norm = batch.get("edge_norm")
-    if norm is None:
-        norm = edge_norm_packed(dst, batch["edge_type"], batch["edge_mask"],
-                                P, rc.num_relations)
-    wnorm = (batch["edge_mask"] * norm).contiguous()             # (Q,)
+    emask = _relation_mask(rc, batch["edge_type"], batch["edge_mask"])
+    norm = batch.get("edge_norm") if emask is batch["edge_mask"] else None
+    if norm is None:     # no hoisted normalizer, or relations filtered out
+        norm = edge_norm_packed(dst, batch["edge_type"], emask, P,
+                                rc.num_relations)
+    wnorm = (emask * norm).contiguous()                          # (Q,)
     onehot_etype = torch.nn.functional.one_hot(
         batch["edge_type"].long(), rc.num_relations).float()     # (Q,R)
     edges = None if unfused_ref else edge_index(src, dst, wnorm, P)
@@ -273,7 +300,7 @@ def encode_packed(p: RGCNEncoder, rc: RGCNConfig, batch: dict, *,
     n_layers = len(p.layers)
     for li, lp in enumerate(p.layers):
         h = _rgcn_layer_packed(
-            lp, rc, h, batch, wnorm, onehot_etype, edges,
+            lp, rc, h, batch, emask, wnorm, onehot_etype, edges,
             last=(li == n_layers - 1),
             keep=keeps[li] if li < len(keeps) else None, train=train,
             unfused_ref=unfused_ref)
@@ -299,6 +326,86 @@ def _four_sum_readout(h, node_mask, warp_seg, warp_graph, num_graphs: int):
         0, warp_graph.long(), warp_mean * valid[:, None])
     gcnt = valid.new_zeros(num_graphs).index_add_(0, warp_graph.long(), valid)
     return gsum / torch.clamp_min(gcnt, 1.0)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Dense path (core/graphs.pad_batch layout: (B, N) nodes, (B, E) edges)
+# ---------------------------------------------------------------------------
+
+def edge_norm_dense(dst, etype, emask, num_nodes: int,
+                    num_relations: int) -> torch.Tensor:
+    """Per-edge degree normalizer 1/|N_r(dst_e)| of each graph of a dense
+    batch (B, E).  The degrees are sums of 0/1 mask values, exact in any
+    order, so the result equals JAX's bit for bit."""
+    key = dst.long() * num_relations + etype.long()
+    deg = emask.new_zeros(dst.shape[0], int(num_nodes) * num_relations)
+    deg.scatter_add_(1, key, emask)
+    return 1.0 / torch.clamp_min(deg.gather(1, key), 1.0)
+
+
+def _rgcn_layer(lp: RGCNLayer, rc: RGCNConfig, h, batch, wnorm,
+                onehot_etype, csr, *, last: bool, keep=None,
+                train: bool = False) -> torch.Tensor:
+    coef = onehot_etype @ lp.comb                       # (B,E,nb) = comb[etype]
+    w = (coef * wnorm[..., None]).contiguous()
+    agg = rgcn_message_agg(h.contiguous(), lp.basis, batch["edge_src"],
+                           batch["edge_dst"], w, h.shape[1], csr=csr,
+                           checked=False)
+    return _layer_epilogue(lp, rc, agg, h, batch["node_mask"], last=last,
+                           keep=keep, train=train)
+
+
+def _dense_readout(h, node_mask, warp_id, max_warps: int) -> torch.Tensor:
+    """Per graph: node -> warp masked mean, then the mean over the warps
+    that hold a live node (JAX ``encode``'s segment sums), as one-hot
+    matmuls so the backward is a fixed-order sum."""
+    nmask = node_mask.to(h.dtype)
+    onehot = torch.nn.functional.one_hot(
+        warp_id.long(), int(max_warps)).to(h.dtype).transpose(1, 2)
+    sums = onehot @ (h * nmask[..., None])              # (B,W,D)
+    cnts = (onehot @ nmask[..., None])[..., 0]          # (B,W)
+    warp_mean = sums / torch.clamp_min(cnts, 1.0)[..., None]
+    valid = (cnts > 0).to(h.dtype)
+    zsum = (valid[:, None, :] @ warp_mean)[:, 0]        # (B,D)
+    return zsum / torch.clamp_min(valid.sum(1, keepdim=True), 1.0)
+
+
+def encode(p: RGCNEncoder, rc: RGCNConfig, batch: dict, max_warps: int, *,
+           draws: Optional[EncodeDraws] = None, train: bool = False,
+           edges_checked: bool = False) -> torch.Tensor:
+    """Dense batch (``pad_batch``'s arrays as tensors on one device) ->
+    kernel embeddings z_k (B, dims[-1]); JAX ``encode``.
+
+    ``train=True`` with ``draws``: dropout after the non-last layers and
+    per-graph gated feature noise (noise (B, N, dims[0]), gate (B,)).  The
+    degree normalizer is derived here from the batch's (or view's) edge
+    mask; the destination CSR K6 walks is built once and shared by every
+    layer.  ``edges_checked=True``: the caller validated the endpoints;
+    otherwise they are checked here (one host sync on the card)."""
+    N = batch["node_mask"].shape[1]
+    src, dst, etype = batch["edge_src"], batch["edge_dst"], batch["edge_type"]
+    if not edges_checked:
+        check_endpoints(src, dst, N, "encode")
+    h = rc.policy.cast_compute(node_features(p, rc, batch))     # (B,N,64)
+    if draws is not None and draws.noise is not None \
+            and draws.noise_gate is not None:
+        h = apply_feature_noise(h, draws.noise, draws.noise_gate,
+                                rc.feat_noise_sigma)
+        h = h * batch["node_mask"].to(h.dtype)[..., None]
+    emask = _relation_mask(rc, etype, batch["edge_mask"])
+    norm = edge_norm_dense(dst, etype, emask, N, rc.num_relations)
+    wnorm = (emask * norm).contiguous()                          # (B,E)
+    onehot_etype = torch.nn.functional.one_hot(
+        etype.long(), rc.num_relations).float()                  # (B,E,R)
+    csr = dense_csr(dst, wnorm, N)
+    keeps = draws.dropout if draws is not None else ()
+    n_layers = len(p.layers)
+    for li, lp in enumerate(p.layers):
+        h = _rgcn_layer(lp, rc, h, batch, wnorm, onehot_etype, csr,
+                        last=(li == n_layers - 1),
+                        keep=keeps[li] if li < len(keeps) else None,
+                        train=train)
+    return _dense_readout(h, batch["node_mask"], batch["warp_id"], max_warps)
 
 
 def project(p: RGCNEncoder, rc: RGCNConfig, zk: torch.Tensor, *,

@@ -22,6 +22,13 @@ buckets, uploaded to the trainer's device and encoded by
 ``core/rgcn.encode_packed``; identical graphs (same content hash) are
 encoded once.  Host-side staging runs inline (the JAX package's one-ahead
 prefetch thread is not ported).
+
+The dense path is the pre-packing baseline the JAX package keeps for
+parity tests and its batching benchmark: ``prepad`` / ``embed_dense`` pad
+every graph to the program's largest (``core/graphs.pad_batch``) and
+encode batches of 64 through ``core/rgcn.encode``, and ``dense_loss`` is
+the InfoNCE over two dense augmented views (JAX ``_loss``); its draws come
+from ``draw_step`` like the packed loss's.
 """
 
 from __future__ import annotations
@@ -40,7 +47,8 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import rgcn as rgcn_mod
 from repro_torch.core.augment import (
-    COMBOS, EDGE_DROP_RATE, NODE_DROP_RATE, augment_view_packed,
+    COMBOS, EDGE_DROP_RATE, NODE_DROP_RATE, augment_view,
+    augment_view_packed,
 )
 from repro_torch.core.batching import (
     MAX_EDGES_PER_MICROBATCH, MAX_NODES_PER_MICROBATCH, bucket_key,
@@ -48,7 +56,7 @@ from repro_torch.core.batching import (
     plan_microbatches, stream_bins,
 )
 from repro_torch.core.contrastive import info_nce
-from repro_torch.core.graphs import KernelGraph
+from repro_torch.core.graphs import KernelGraph, pad_batch
 from repro_torch.core.rgcn import EncodeDraws, RGCNConfig, RGCNEncoder
 from repro_torch.kernels import check_endpoints
 from repro_torch.optim.adamw import TrainConfig, adamw_init, adamw_update
@@ -94,8 +102,9 @@ class GCLTrainConfig:
 @dataclass(frozen=True)
 class ViewDraws:
     """The draws of one augmented view (JAX: one of ``r1``/``r2`` and
-    ``rp1``/``rp2`` in ``packed_loss``).  combo (G,) int64 in [0, 6);
-    node_keep (P,) / edge_keep (Q,) bool; ``enc`` the encoder's noise and
+    ``rp1``/``rp2`` in ``packed_loss`` / ``_loss``).  combo (G,) int64 in
+    [0, 6); node_keep (P,) / edge_keep (Q,) bool for a packed batch, (B, N)
+    / (B, E) for a dense one (G = B); ``enc`` the encoder's noise and
     dropout draws (``None`` in eval mode); proj_keep (G, proj_hidden) bool
     (``None`` in eval mode)."""
     combo: torch.Tensor
@@ -124,20 +133,23 @@ def draw_seed(seed: int, *stream: int) -> int:
 
 def draw_view(gen: torch.Generator, batch: dict, rc: RGCNConfig, *,
               train: bool = True) -> ViewDraws:
-    """All draws of one view, in a fixed order, on the generator's device."""
+    """All draws of one view, in a fixed order, on the generator's device,
+    shaped for the batch: packed (``graph_mask`` present) or dense."""
     dev = gen.device
-    P = batch["node_mask"].shape[0]
-    Q = batch["edge_mask"].shape[0]
-    G = batch["graph_mask"].shape[0]
+    nodes = tuple(batch["node_mask"].shape)       # (P,) or (B, N)
+    edges = tuple(batch["edge_mask"].shape)       # (Q,) or (B, E)
+    G = batch["graph_mask"].shape[0] if "graph_mask" in batch else nodes[0]
     combo = torch.randint(0, len(COMBOS), (G,), generator=gen, device=dev)
-    node_keep = torch.rand(P, generator=gen, device=dev) < 1 - NODE_DROP_RATE
-    edge_keep = torch.rand(Q, generator=gen, device=dev) < 1 - EDGE_DROP_RATE
+    node_keep = torch.rand(nodes, generator=gen, device=dev) \
+        < 1 - NODE_DROP_RATE
+    edge_keep = torch.rand(edges, generator=gen, device=dev) \
+        < 1 - EDGE_DROP_RATE
     if not train:
         return ViewDraws(combo, node_keep, edge_keep)
-    noise = torch.randn(P, rc.dims[0], generator=gen, device=dev,
+    noise = torch.randn(*nodes, rc.dims[0], generator=gen, device=dev,
                         dtype=rc.policy.compute)
     dropout = tuple(
-        torch.rand(P, d, generator=gen, device=dev) < 1 - rc.dropout
+        torch.rand(*nodes, d, generator=gen, device=dev) < 1 - rc.dropout
         for d in rc.dims[1:-1])
     proj_keep = torch.rand(G, rc.proj_hidden, generator=gen,
                            device=dev) < 1 - rc.dropout
@@ -176,6 +188,27 @@ def packed_loss(enc: RGCNEncoder, rc: RGCNConfig, tau: float, batch: dict,
         else:
             z = rgcn_mod.encode_packed(enc, rc, view, edges_checked=True)
             zs.append(rgcn_mod.project(enc, rc, z))
+    return info_nce(zs[0], zs[1], tau)
+
+
+def dense_loss(enc: RGCNEncoder, rc: RGCNConfig, tau: float, batch: dict,
+               max_warps: int, draws: tuple):
+    """Dense-batch InfoNCE over two augmented views in training mode (JAX
+    ``ContrastiveTrainer._loss``): each view's strategy draws, feature
+    noise on the graphs whose strategy holds it, dropout on.  ``batch`` is
+    ``pad_batch``'s arrays as tensors; its endpoints are checked once here
+    (one host sync on the card)."""
+    check_endpoints(batch["edge_src"], batch["edge_dst"],
+                    batch["node_mask"].shape[1], "dense_loss")
+    zs = []
+    for vd in draws:
+        view, use_noise = augment_view(batch, vd.combo, vd.node_keep,
+                                       vd.edge_keep)
+        ed = dataclasses.replace(vd.enc, noise_gate=use_noise)
+        z = rgcn_mod.encode(enc, rc, view, max_warps, draws=ed, train=True,
+                            edges_checked=True)
+        zs.append(rgcn_mod.project(enc, rc, z, keep=vd.proj_keep,
+                                   train=True))
     return info_nce(zs[0], zs[1], tau)
 
 
@@ -455,6 +488,34 @@ class ContrastiveTrainer:
             max_nodes_per_graph=n_cap, max_edges_per_graph=e_cap,
         )
         return self._upload(packed), meta, bucket_key(packed)
+
+    @staticmethod
+    def prepad(graphs: list[KernelGraph], pad_to=None):
+        """(dense batch arrays, max_warps) for ``graphs``: ``pad_batch``
+        with the optional (max_nodes, max_edges, max_warps) shapes."""
+        return pad_batch(graphs, *(pad_to or (None, None, None)))
+
+    def embed_dense(self, params: RGCNEncoder, graphs: list[KernelGraph],
+                    batch_size=64, pad_shapes=None) -> np.ndarray:
+        """The dense embed path, the pre-packing baseline: the whole list
+        is padded once to its largest graph (``prepad``), then encoded in
+        batches of ``batch_size`` graphs on the trainer's device through
+        ``core/rgcn.encode`` (K6 per layer on the card).  No content
+        cache: every graph is encoded."""
+        full, max_warps = self.prepad(graphs, pad_shapes)
+        if next(params.parameters()).device == self.device:
+            enc = params
+        else:
+            enc = copy.deepcopy(params).to(self.device)
+        outs = []
+        for i in range(0, len(graphs), batch_size):
+            batch = self._upload({k: v[i:i + batch_size]
+                                  for k, v in full.items()})
+            with torch.inference_mode():
+                z = rgcn_mod.encode(enc, self.rc, batch, max_warps,
+                                    edges_checked=True)
+            outs.append(z.float().cpu().numpy())
+        return np.concatenate(outs, axis=0)
 
     def _encode(self, enc: RGCNEncoder, batch: dict) -> np.ndarray:
         with torch.inference_mode():

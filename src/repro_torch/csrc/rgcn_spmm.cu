@@ -1,32 +1,43 @@
-// K5 — flat RGCN message aggregation (pre-basis) for NVIDIA Hopper (sm_90a).
+// K5 and K6 — RGCN message aggregation (pre-basis) for NVIDIA Hopper
+// (sm_90a), flat and dense.
 //
-// Replaces the Pallas TPU kernel `rgcn_spmm_flat_fwd`
-// (src/repro/kernels/rgcn_spmm/kernel.py, body `_rgcn_flat_kernel`).
-// It computes the same function, the pre-basis accumulator
+// K5 replaces the Pallas TPU kernel `rgcn_spmm_flat_fwd`
+// (src/repro/kernels/rgcn_spmm/kernel.py, body `_rgcn_flat_kernel`); K6
+// replaces `rgcn_spmm_fwd` (same file, body `_rgcn_kernel`), its dense
+// batched form.  They compute the pre-basis accumulator
 //
-//   s[v, k*D + d] = sum_{e : dst_e = v} w[e,k] * h[src_e, d]
+//   K5: s[v, k*D + d]    = sum_{e : dst_e = v} w[e,k] * h[src_e, d]
+//   K6: s[b, v, k*D + d] = sum_{e : dst[b,e] = v} w[b,e,k] * h[b, src[b,e], d]
 //
 // with h gathered in its own dtype (float or bfloat16, widened with
-// __bfloat162float) and the products and sums in float32.  On the training
-// path it is the recompute of s that K1's backward needs for the gradient
-// of the basis (s^T g); it also serves the unfused reference path
-// (`encode_packed(unfused_ref=True)`).
+// __bfloat162float) and the products and sums in float32.  K5 is the
+// recompute of s that K1's backward needs for the gradient of the basis
+// (s^T g) and the unfused reference path (`encode_packed(unfused_ref=
+// True)`); K6 is every layer of the dense encoder (`core/rgcn.encode`,
+// `ContrastiveTrainer.embed_dense`, the dense contrastive loss), whose
+// batches pad every graph to the batch's largest (core/graphs.pad_batch).
 //
-// What bounds it on this card: at the main-path shapes (P = 4096 nodes,
-// Q = 8192 edges, nb = 2, D <= 128) it does 2*Q*nb*D ~ 4 MFLOP and must
-// write P*nb*D*4 ~ 4 MB of output, so it is bound by bytes (~1.5 us at
-// 3.35 TB/s); this simple version is bound by the latency of its gathers
-// of h rows (random 256-512 B reads), one warp per destination node.
+// What bounds them on this card: K5 at the main-path shapes (P = 4096
+// nodes, Q = 8192 edges, nb = 2, D <= 128) does 2*Q*nb*D ~ 4 MFLOP and must
+// write P*nb*D*4 ~ 4 MB, so it is bound by bytes (~1.5 us at 3.35 TB/s);
+// K6 at phi-2's dense batch (B = 64, N = 426, E = 714, D = 128) must move
+// ~43 MB (h 14 MB, s 28 MB), ~13 us, against ~22 MFLOP of arithmetic.
+// This simple version of both is bound by the latency of its gathers of h
+// rows (random 256-512 B reads), one warp per destination node.
 //
-// Design (no atomics): the TPU kernel multiplies one-hot matrices because
-// the TPU has no fast scatter; here the wrapper hands the kernel the same
-// CSR view of the edges by destination as K1 (a stable sort of dst; edges
-// whose weights are all zero, such as pack_graphs' padded tail, are keyed
-// past the last row and never walked).  One warp per destination node walks
-// its edges in that order, lanes over the feature axis, and accumulates
-// every basis's row in registers; each node's row of s is written once,
-// coalesced.  The sums run in a fixed order, so the result is
-// deterministic.
+// Design (no atomics): the TPU kernels multiply one-hot matrices because
+// the TPU has no fast scatter (DESIGN.md §3); here the wrapper hands the
+// kernel a CSR view of the edges by destination (a stable sort of the
+// destination key; edges whose weights are all zero are keyed past the last
+// real row and never walked).  For K5 the key is dst, for K6 b*(N+1) + dst
+// over the flattened (B*E) edges, with dead edges keyed to row N of their
+// graph: pad_batch pads and truncates edges to src = dst = 0, which left in
+// would all land in each graph's row 0.  One warp per destination node
+// walks its edges in that order, lanes over the feature axis, and
+// accumulates every basis's row in registers (`aggregate_row`, shared by
+// both kernels); each node's row of s is written once, coalesced.  The sums
+// run in a fixed order, so the result is deterministic.  K6's grid is
+// (node groups of 8, graphs): blockIdx.y walks the graphs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,23 +54,21 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// One warp's row of s: the edges perm[t0..t1) of one destination node,
+// h the base of its graph's (or the flat batch's) node rows; orow its
+// nb*D outputs, every element written.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-rgcn_spmm_flat_kernel(const T* __restrict__ h, const int* __restrict__ src,
-                      const int* __restrict__ perm,
-                      const int* __restrict__ rowptr,
-                      const float* __restrict__ w, float* __restrict__ out,
-                      int P, int D, int nb) {
-  const int v = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (v >= P) return;
+__device__ __forceinline__ void aggregate_row(
+    const T* __restrict__ h, const int* __restrict__ src,
+    const int* __restrict__ perm, int t0, int t1,
+    const float* __restrict__ w, float* __restrict__ orow, int D, int nb,
+    int lane) {
   float acc[MAX_NB][MAX_DPL];
 #pragma unroll
   for (int k = 0; k < MAX_NB; ++k)
 #pragma unroll
     for (int i = 0; i < MAX_DPL; ++i) acc[k][i] = 0.f;
-  const int t1 = rowptr[v + 1];
-  for (int t = rowptr[v]; t < t1; ++t) {
+  for (int t = t0; t < t1; ++t) {
     const int e = perm[t];
     const T* hrow = h + static_cast<size_t>(src[e]) * D;
     float we[MAX_NB];
@@ -76,7 +85,6 @@ rgcn_spmm_flat_kernel(const T* __restrict__ h, const int* __restrict__ src,
       }
     }
   }
-  float* orow = out + static_cast<size_t>(v) * nb * D;
 #pragma unroll
   for (int k = 0; k < MAX_NB; ++k)
 #pragma unroll
@@ -84,6 +92,41 @@ rgcn_spmm_flat_kernel(const T* __restrict__ h, const int* __restrict__ src,
       const int d = lane + 32 * i;
       if (k < nb && d < D) orow[k * D + d] = acc[k][i];
     }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+rgcn_spmm_flat_kernel(const T* __restrict__ h, const int* __restrict__ src,
+                      const int* __restrict__ perm,
+                      const int* __restrict__ rowptr,
+                      const float* __restrict__ w, float* __restrict__ out,
+                      int P, int D, int nb) {
+  const int v = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (v >= P) return;
+  aggregate_row(h, src, perm, rowptr[v], rowptr[v + 1], w,
+                out + static_cast<size_t>(v) * nb * D, D, nb,
+                threadIdx.x & 31);
+}
+
+// src holds node indices local to each graph; perm indexes the flattened
+// (B*E) edges; rowptr has B*(N+1)+1 entries (row N of each graph holds its
+// dead edges and is never walked).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+rgcn_spmm_dense_kernel(const T* __restrict__ h, const int* __restrict__ src,
+                       const int* __restrict__ perm,
+                       const int* __restrict__ rowptr,
+                       const float* __restrict__ w, float* __restrict__ out,
+                       int B, int N, int D, int nb) {
+  const int v = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (v >= N) return;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const size_t r = static_cast<size_t>(b) * (N + 1) + v;
+    aggregate_row(h + static_cast<size_t>(b) * N * D, src, perm, rowptr[r],
+                  rowptr[r + 1], w,
+                  out + (static_cast<size_t>(b) * N + v) * nb * D, D, nb,
+                  threadIdx.x & 31);
+  }
 }
 
 }  // namespace
@@ -108,5 +151,30 @@ extern "C" int rgcn_spmm_flat(const void* h, int h_is_bf16, const int* src,
   else
     rgcn_spmm_flat_kernel<float><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(h), src, perm, rowptr, w, out, P, D, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// h: (B, N, D) float or bfloat16; src: (B*E,) int32, local node indices;
+// perm: (B*E,) int32, the stable order of the flattened edges by the key
+// b*(N+1) + dst (dead edges at row N of their graph); rowptr: (B*(N+1)+1,)
+// int32 CSR offsets into perm; w: (B*E, nb) f32; out: (B, N, nb*D) f32,
+// every element written.  Returns cudaGetLastError() after the launch.
+extern "C" int rgcn_spmm_dense(const void* h, int h_is_bf16, const int* src,
+                               const int* perm, const int* rowptr,
+                               const float* w, float* out, int B, int N,
+                               int D, int nb, void* stream) {
+  if (B < 0 || N < 0 || D < 1 || nb < 1 || nb > MAX_NB || D > 32 * MAX_DPL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || N == 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid((N + WARPS - 1) / WARPS, B < 65535 ? B : 65535);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (h_is_bf16)
+    rgcn_spmm_dense_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(h), src, perm, rowptr, w, out, B,
+        N, D, nb);
+  else
+    rgcn_spmm_dense_kernel<float><<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(h), src, perm, rowptr, w, out, B, N, D,
+        nb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,8 @@ rgcn_fused     K1: one-pass RGCN message + degree norm + scatter + basis
                contraction (replaces ``repro/kernels/rgcn_fused``), as an
                autograd function whose backward is K1b (``jax.vjp`` of the
                oracle in the JAX package) plus two ``torch.matmul``s
-rgcn_spmm      K5: the flat pre-basis aggregate (replaces
-               ``repro/kernels/rgcn_spmm``, flat variant)
+rgcn_spmm      K5 / K6: the flat and the dense pre-basis aggregates
+               (replace ``repro/kernels/rgcn_spmm``)
 kmeans_assign  K2: fused masked K-Means assignment + per-cluster sums;
                K3: blocked silhouette sums; K4: the unmasked assignment of
                the sequential reference (replace
@@ -62,6 +62,7 @@ SIGNATURES = {
     "silhouette_sums": [_P, _P, _P, _P, _I, _I, _I, _P],
     "kmeans_assign": [_P, _P, _P, _P, _I, _I, _I, _P],
     "rgcn_spmm_flat": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rgcn_spmm_dense": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rgcn_fused_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -211,6 +212,24 @@ def edge_csr(index: torch.Tensor, live: torch.Tensor, num_nodes: int
     rowptr = torch.searchsorted(
         sorted_key, torch.arange(P + 1, dtype=index.dtype,
                                  device=index.device), out_int32=True)
+    return EdgeCSR(perm.to(torch.int32), rowptr)
+
+
+def dense_edge_csr(dst: torch.Tensor, live: torch.Tensor, num_nodes: int
+                   ) -> EdgeCSR:
+    """CSR of a dense batch's edges (B, E) by destination, one run of
+    ``num_nodes + 1`` rows per graph over the flattened (B*E) edges: the
+    key is b*(N+1) + dst, and dead edges (``live`` False) take row N of
+    their graph, past its last node, so no warp walks them (pad_batch pads
+    and truncates edges to src = dst = 0).  ``perm`` indexes the flattened
+    edges; ``rowptr`` has B*(N+1)+1 entries.  No host sync."""
+    B, N = dst.shape[0], int(num_nodes)
+    base = torch.arange(B, dtype=torch.int64, device=dst.device) * (N + 1)
+    key = torch.where(live, dst.long(), N) + base[:, None]
+    sorted_key, perm = torch.sort(key.reshape(-1), stable=True)
+    rowptr = torch.searchsorted(
+        sorted_key, torch.arange(B * (N + 1) + 1, dtype=torch.int64,
+                                 device=dst.device), out_int32=True)
     return EdgeCSR(perm.to(torch.int32), rowptr)
 
 

@@ -31,7 +31,8 @@ from repro_torch.kernels.rgcn_fused.ops import (
     rgcn_fused_bwd_plain,
 )
 from repro_torch.kernels.rgcn_spmm.ops import (
-    rgcn_spmm_flat, rgcn_spmm_flat_plain,
+    rgcn_message_agg, rgcn_spmm_dense, rgcn_spmm_dense_plain, rgcn_spmm_flat,
+    rgcn_spmm_flat_plain,
 )
 
 TOL = 1e-5
@@ -501,3 +502,143 @@ def test_lm_prefill_and_decode_on_card_match_cpu(arch):
     for got, want in zip(card, cpu):
         scale = float(want.abs().max())
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+def _k6_args(dev, B, N, E, D, dtype, live=0.5, seed=0):
+    """A dense batch as pad_batch leaves it: each graph's live edges first,
+    then padding (src = dst = 0, w = 0), ``live`` of the E slots real."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, N, (B, E)).astype(np.int32)
+    dst = rng.integers(0, N, (B, E)).astype(np.int32)
+    w = rng.standard_normal((B, E, 2)).astype(np.float32)
+    n_live = rng.integers(0, int(live * E) + 1, B)
+    for b in range(B):
+        src[b, n_live[b]:] = dst[b, n_live[b]:] = 0
+        w[b, n_live[b]:] = 0.0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    h = t(rng.standard_normal((B, N, D)).astype(np.float32)).to(dtype)
+    return h, t(src), t(dst), t(w), N
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 70, 300), (64, 426, 714), (3, 40, 0),
+                                   (2, 9, 50)])
+@pytest.mark.parametrize("D", [64, 128, 40])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rgcn_spmm_dense_kernel_matches_plain(shape, D, dtype):
+    """K6 against its plain version: ragged sizes, phi-2's dense batch,
+    E = 0, and a batch whose edges are nearly all padding at node 0."""
+    dev = _card()
+    B, N, E = shape
+    h, src, dst, w, N = _k6_args(dev, B, N, E, D, getattr(torch, dtype),
+                                 live=0.05 if shape == (2, 9, 50) else 0.9)
+    before = rgcn_spmm_dense.launches
+    got = rgcn_spmm_dense(h, src, dst, w, N)
+    torch.cuda.synchronize()
+    assert rgcn_spmm_dense.launches == before + 1
+    assert got.shape == (B, N, 2 * D) and got.dtype == torch.float32
+    want = rgcn_spmm_dense_plain(h, src, dst, w, N)
+    if E == 0:
+        assert not got.any()
+    else:
+        _close(got, want)
+    assert torch.equal(got, rgcn_spmm_dense(h, src, dst, w, N))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rgcn_message_agg_dense_on_card_matches_cpu(dtype):
+    """The dense aggregation's forward (K6 + matmul) and backward (K1b over
+    the flattened batch + matmuls) on the card against the CPU's plain
+    path: the output and the gradients in h, basis and w."""
+    dev = _card()
+    tdt = getattr(torch, dtype)
+    h, src, dst, w, N = _k6_args(dev, 6, 90, 200, 64, tdt)
+    basis = torch.randn(2, 64, 48, device=dev) / 8
+    g = torch.randn(6, N, 48, device=dev)
+    res = {}
+    for where in ("cuda", "cpu"):
+        xs = [x.detach().to(where).requires_grad_() for x in (h, basis, w)]
+        out = rgcn_message_agg(xs[0], xs[1], src.to(where), dst.to(where),
+                               xs[2], N)
+        res[where] = (out.detach(),
+                      *torch.autograd.grad(out, xs, g.to(where)))
+    for a, b in zip(res["cuda"], res["cpu"]):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+def test_dense_wrapper_rejects_what_the_kernel_does_not_take():
+    dev = _card()
+    h, src, dst, w, N = _k6_args(dev, 3, 20, 30, 32, torch.float32)
+    with pytest.raises(TypeError):
+        rgcn_spmm_dense(h, src.long(), dst, w, N)
+    with pytest.raises(ValueError):
+        rgcn_spmm_dense(h, src, dst, w.cpu(), N)
+    with pytest.raises(ValueError):
+        rgcn_spmm_dense(h[:, :, :16], src, dst, w, N)       # not contiguous
+    with pytest.raises(ValueError):
+        rgcn_spmm_dense(h, src, dst, w, N + 1)              # N disagrees
+    with pytest.raises(ValueError):
+        rgcn_spmm_dense(h.reshape(60, 32), src, dst, w, N)  # not (B, N, D)
+    with pytest.raises(ValueError):                         # nb > 4
+        rgcn_spmm_dense(h, src, dst, w.repeat(1, 1, 3).contiguous(), N)
+    with pytest.raises(ValueError):                         # D > 256
+        rgcn_spmm_dense(h.repeat(1, 1, 9).contiguous(), src, dst, w, N)
+    with pytest.raises(IndexError):                         # dst outside [0, N)
+        rgcn_spmm_dense(h, src, dst + N, w, N)
+    with pytest.raises(ValueError):
+        rgcn_spmm_dense(h.to("meta"), src, dst, w, N)       # no third path
+
+
+@pytest.mark.cuda
+def test_dense_path_on_card_matches_cpu():
+    """``embed_dense`` (dense ``encode``, K6 per layer), the ablation
+    encodes, and the dense loss with its gradient, full width, on the card
+    against the CPU with the same draws: embeddings 1e-5, the loss 1e-5 and
+    the gradient 1e-3 of its norm (a ReLU kink: see the training test)."""
+    dev = _card()
+    import dataclasses
+
+    from repro_torch.core.graphs import build_kernel_graph, pad_batch
+    from repro_torch.core.rgcn import RGCNConfig, encode, init_rgcn
+    from repro_torch.core.train import (
+        ContrastiveTrainer, dense_loss, draw_seed, draw_step,
+    )
+    from repro_torch.tracing.templates import make_kernel
+
+    templates = [("gemm", {"M": 128, "N": 128, "K": 128}),
+                 ("stencil", {"nx": 512, "ny": 4, "pts": 5, "iters": 8}),
+                 ("reduction", {"n": 65536}),
+                 ("softmax", {"rows": 64, "cols": 1000})]
+    graphs = [build_kernel_graph(make_kernel(f"k{i}", *templates[i % 4], i,
+                                             seed=i).trace())
+              for i in range(10)]
+    rc = RGCNConfig()
+    enc = init_rgcn(0, rc)
+    z = {where: ContrastiveTrainer(rc, device=where).embed_dense(
+             enc, graphs, batch_size=4) for where in ("cpu", "cuda")}
+    _close(torch.from_numpy(z["cuda"]), torch.from_numpy(z["cpu"]))
+    batch, mw = pad_batch(graphs)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    abl = dataclasses.replace(rc, use_vstats=False, relations_used=(0,))
+    with torch.inference_mode():
+        za = [encode(enc.to(where), abl, {k: v.to(where) for k, v in
+                                          tb.items()}, mw).cpu()
+              for where in ("cuda", "cpu")]
+    _close(*za)
+    draws = draw_step(torch.Generator().manual_seed(draw_seed(0, 0)), tb, rc)
+    out = {}
+    for where in ("cpu", "cuda"):
+        e = init_rgcn(0, rc).to(where)
+        loss, _ = dense_loss(e, rc, 0.05, {k: v.to(where)
+                                           for k, v in tb.items()},
+                             mw, tuple(d.to(where) for d in draws))
+        params = dict(e.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[where] = (float(loss), [g.cpu() for g in grads])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    num = sum(float(((a - b) ** 2).sum())
+              for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    den = sum(float((b ** 2).sum()) for b in out["cpu"][1])
+    assert (num / den) ** 0.5 <= 1e-3
