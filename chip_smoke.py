@@ -22,7 +22,11 @@ Phases, each reported on its own lines:
             16/64/256, G 1/3/8, S 64/512/1536, f32 and bf16; K8 also at
             mamba's smoke shape and a single 64-row chunk), with its time,
             the plain version's, one library call's where there is one, and
-            the least time the card could take (bound);
+            the least time the card could take (bound).  Each device time
+            comes from a torch.profiler record that holds every launch of
+            the timed calls (``profile_verdict``) and is printed with
+            ``[cupti]``, or else is the spin-primed device span and printed
+            with ``[spin-primed]``;
 4. reference the JAX-trained encoder committed in
             ``src/repro_torch/assets/reference_phi2.npz``: the card embeds
             and plans phi-2 and cfd and must match the JAX results stored
@@ -109,6 +113,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "src" / "repro_torch" / "assets" / "reference_phi2.npz"
@@ -165,6 +170,11 @@ LM_BATCH, LM_PROMPT, LM_TOKENS, LM_REQUESTS = 4, 2048, 32, 2
 LLAMA_PREFILL = (LM_BATCH, LM_PROMPT, 8, 3, 128)     # K7: (B, S, K, G, hd)
 MAMBA_PREFILL = (LM_BATCH, LM_PROMPT // 256, 256, 48, 64, 128)  # K8
 BF16_TOL = 2 ** -7      # a bf16 kernel output vs plain: one bf16 rounding
+#: the kernels K2's and K3's wrappers launch per call (``device_ms``'s
+#: ``own``)
+K2_KERNELS = {"kmeans_assign_kernel": 1, "kmeans_reduce_kernel": 1}
+K3_KERNELS = {"sil_rows_kernel": 1, "sil_compact_kernel": 1,
+              "silhouette_sums_kernel": 1}
 LM_TOL = 1e-4           # card (K7, K8, f32) vs the JAX fixture, relative
 #: decode-vs-prefill: a prefill length must be a multiple of K7's 512-row
 #: block and K8's 256-row chunk (1792 is not)
@@ -249,38 +259,110 @@ def _spin_primed_ms(fn, iters):
     return None if starved else start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters, own=()):
-    """Device time of one call from torch.profiler (CUPTI): (all kernels
-    and copies the call runs, the kernels whose names contain one of
-    ``own``), in ms per call.  When CUPTI records nothing twice, both are
-    the call's whole device span from ``_spin_primed_ms``; when that too
-    cannot hold the host's time out, it raises."""
+class DeviceTime(NamedTuple):
+    """Device time of one call in ms: every device event the call runs
+    (``total``), the events named in ``own`` (``own``), and where the
+    numbers come from: ``"cupti"`` (torch.profiler) or ``"spin-primed"``
+    (``_spin_primed_ms``, the call's whole device span; then own = total)."""
+    total: float
+    own: float
+    source: str
+
+    def __str__(self):
+        return f"{self.own:.4f} ({self.source})"
+
+
+def profile_verdict(events, iters, expect=None, min_events=0):
+    """Whether a torch.profiler record of ``iters`` calls holds all of them.
+
+    ``events``: (name, count) of every device event in the record (kernels,
+    copies, fills).  ``expect``: {kernel name: launches per call}; every
+    name must appear exactly ``iters`` x its launches (counted over the
+    events whose name contains it).  ``min_events``: for a call whose
+    kernels cannot be listed (library kernels picked by shape), the device
+    events of one call in a first recorded pass; the record must hold at
+    least ``iters`` x that many.  A record with no events is refused.
+    Returns (accepted, reason)."""
+    events = list(events)
+    seen = sum(c for _, c in events)
+    if seen == 0:
+        return False, "no device events recorded"
+    for name, per_call in (expect or {}).items():
+        got = sum(c for key, c in events if name in key)
+        if got != iters * per_call:
+            return False, (f"{name}: {got} launches recorded, expected "
+                           f"{iters} x {per_call}")
+    if seen < iters * min_events:
+        return False, (f"{seen} device events recorded, expected at least "
+                       f"{iters} x {min_events}")
+    return True, "complete"
+
+
+def profile_events(averages):
+    """[(name, count, device us)] of the events of ``prof.key_averages()``
+    that ran on the device."""
+    out = []
+    for ev in averages:
+        t = getattr(ev, "self_device_time_total", None)
+        t = ev.self_cuda_time_total if t is None else t
+        if ev.count and t > 0:
+            out.append((ev.key, ev.count, t))
+    return out
+
+
+def _record(fn, iters):
+    """``profile_events`` of ``iters`` calls under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return profile_events(prof.key_averages())
+
+
+def device_ms(fn, iters, own=None) -> DeviceTime:
+    """Device time of one call from torch.profiler (CUPTI), accepted only
+    when the record provably holds every call (``profile_verdict``):
+    ``own`` = {kernel name: launches per call} lists every kernel the
+    wrapper launches, each of which must appear exactly ``iters`` x its
+    count; without ``own`` the record must hold at least ``iters`` x the
+    device events of one call recorded first.  A refused record is taken
+    once more; then the number is the call's device span behind a spin
+    kernel (``_spin_primed_ms``), and the source says so.  Raises when
+    neither can be had."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):       # CUPTI now and then records nothing: retry once
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total = mine = 0.0
-        for ev in prof.key_averages():
-            t = getattr(ev, "self_device_time_total", None)
-            t = ev.self_cuda_time_total if t is None else t
-            total += t
-            if any(o in ev.key for o in own):
-                mine += t
-        if total > 0:
-            return total / 1e3 / iters, mine / 1e3 / iters
+    own = dict(own or {})
+    min_events = 0
+    if not own:
+        for _ in range(2):
+            min_events = sum(c for _, c, _ in _record(fn, 1))
+            if min_events:
+                break
+    why = "the first recorded call held no device events"
+    if own or min_events:
+        for _ in range(2):
+            events = _record(fn, iters)
+            ok, why = profile_verdict([(k, c) for k, c, _ in events], iters,
+                                      own, min_events)
+            if ok:
+                total = sum(t for _, _, t in events)
+                mine = sum(t for k, _, t in events
+                           if any(o in k for o in own))
+                return DeviceTime(total / 1e3 / iters, mine / 1e3 / iters,
+                                  "cupti")
     t = _spin_primed_ms(fn, iters)
     if t is None:
-        raise RuntimeError("no device time: torch.profiler recorded nothing "
-                           "and the call waits for the device")
-    log(f"[kernels] torch.profiler recorded no device time: {t:.4f} ms is "
-        f"the call's device span behind a spin kernel")
-    return t, t
+        raise RuntimeError(f"no device time: torch.profiler's record was "
+                           f"refused ({why}) and the call waits for the "
+                           f"device")
+    log(f"[kernels] torch.profiler's record refused twice ({why}): "
+        f"{t:.4f} ms is the call's device span behind a spin kernel")
+    return DeviceTime(t, t, "spin-primed")
 
 
 def bound(bytes_, ops, peak=PEAK_F32_S):
@@ -396,9 +478,10 @@ def phase_kernels(rows, dev):
             require(rel <= KERNEL_TOL,
                     f"K1 D={D} O={O} {dt}: rel err {rel:.3e} > {KERNEL_TOL}")
             call_ms = time_ms(lambda: rgcn_fused_agg_flat(*args), 50)
-            wrap_ms, ms = device_ms(lambda: rgcn_fused_agg_flat(*args), 20,
-                                    own=("rgcn_fused_flat_kernel",))
-            plain_ms, _ = device_ms(
+            wrap_ms, ms, ms_src = device_ms(
+                lambda: rgcn_fused_agg_flat(*args), 20,
+                own={"rgcn_fused_flat_kernel": 1})
+            plain_ms, _, plain_src = device_ms(
                 lambda: rgcn_fused_agg_flat_plain(*args), 20)
             esz = h.element_size()
             bytes_ = (P * D * esz + Q * 4 * 2 + Q * nb * 4 + Q * 4
@@ -408,9 +491,10 @@ def phase_kernels(rows, dev):
             dname = "f32" if dt == torch.float32 else "bf16"
             log(f"[kernels] K1 rgcn_fused D={D} O={O} h={dname}: "
                 f"max_abs_err {err:.3e} rel {rel:.3e} (tol {KERNEL_TOL}) "
-                f"kernel device ms {ms:.4f} (wrapper device ms {wrap_ms:.4f}, "
-                f"call ms {call_ms:.4f}) plain device ms {plain_ms:.4f} "
-                f"bound_us {b_ms * 1e3:.2f} ({b_by})")
+                f"kernel device ms {ms:.4f} [{ms_src}] (wrapper device ms "
+                f"{wrap_ms:.4f}, call ms {call_ms:.4f}) plain device ms "
+                f"{plain_ms:.4f} [{plain_src}] bound_us {b_ms * 1e3:.2f} "
+                f"({b_by})")
             if (D, O, dt) == (128, 256, torch.float32):
                 k1 = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=None)
@@ -441,24 +525,26 @@ def phase_kernels(rows, dev):
     err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
     require(rel <= KERNEL_TOL, f"K2: rel err {rel:.3e} > {KERNEL_TOL}")
     call_ms = time_ms(lambda: kmeans_assign_fused(*args), 200)
-    _, ms = device_ms(lambda: kmeans_assign_fused(*args), 50,
-                      own=("kmeans_assign_kernel", "kmeans_reduce_kernel"))
-    plain_ms, _ = device_ms(lambda: kmeans_assign_fused_plain(*args), 50)
+    _, ms, ms_src = device_ms(lambda: kmeans_assign_fused(*args), 50,
+                              own=K2_KERNELS)
+    plain_ms, _, plain_src = device_ms(
+        lambda: kmeans_assign_fused_plain(*args), 50)
 
     def k2_library():
         dist = torch.cdist(x, cent) ** 2
         dist = torch.where(cmask[None, :] > 0, dist, float("inf"))
         return torch.min(dist, dim=1)
 
-    lib_ms, _ = device_ms(k2_library, 50)
+    lib_ms, _, lib_src = device_ms(k2_library, 50)
     bytes_ = n * d * 4 + k * d * 4 + k * 4 + n * 4 + n * 8 + k * d * 4 + k * 4
     ops = 2 * n * k_live * d + 2 * n * d + n_real * d
     b_ms, b_by = bound(bytes_, ops)
     log(f"[kernels] K2 kmeans_assign_fused n={n} d={d} k={k}: labels equal, "
         f"max_abs_err {err:.3e} rel {rel:.3e} (tol {KERNEL_TOL}) kernel "
-        f"device ms {ms:.4f} (call ms {call_ms:.4f}) plain device ms "
-        f"{plain_ms:.4f} library device ms {lib_ms:.4f} (cdist^2 + mask + "
-        f"min) bound_us {b_ms * 1e3:.2f} ({b_by})")
+        f"device ms {ms:.4f} [{ms_src}] (call ms {call_ms:.4f}) plain device "
+        f"ms {plain_ms:.4f} [{plain_src}] library device ms {lib_ms:.4f} "
+        f"[{lib_src}] (cdist^2 + mask + min) bound_us {b_ms * 1e3:.2f} "
+        f"({b_by})")
     rows.append(("kmeans_assign_fused", "src/repro_torch/csrc/kmeans_assign.cu",
                  "src/repro/kernels/kmeans_assign/kernel.py:113",
                  kmeans_assign_fused,
@@ -475,10 +561,11 @@ def phase_kernels(rows, dev):
     err, rel = rel_err(got, want3)
     require(rel <= KERNEL_TOL, f"K3: rel err {rel:.3e} > {KERNEL_TOL}")
     call_ms = time_ms(lambda: silhouette_sums(x, onehot), 20)
-    _, ms = device_ms(lambda: silhouette_sums(x, onehot), 10,
-                      own=("silhouette_sums_kernel", "sqnorm_kernel"))
-    plain_ms, _ = device_ms(lambda: silhouette_sums_plain(x, onehot), 10)
-    lib_ms, _ = device_ms(lambda: torch.cdist(x, x) @ onehot, 10)
+    _, ms, ms_src = device_ms(lambda: silhouette_sums(x, onehot), 10,
+                              own=K3_KERNELS)
+    plain_ms, _, plain_src = device_ms(
+        lambda: silhouette_sums_plain(x, onehot), 10)
+    lib_ms, _, lib_src = device_ms(lambda: torch.cdist(x, x) @ onehot, 10)
     j_live = int((onehot != 0).any(1).sum())
     nnz = int((onehot != 0).sum())
     bytes_ = n * d * 4 + n * k * 4 * 2
@@ -486,9 +573,10 @@ def phase_kernels(rows, dev):
     b_ms, b_by = bound(bytes_, ops)
     log(f"[kernels] K3 silhouette_sums n={n} d={d} k={k} live rows "
         f"{j_live}: max_abs_err {err:.3e} rel {rel:.3e} (tol {KERNEL_TOL}) "
-        f"kernel device ms {ms:.4f} (call ms {call_ms:.4f}) plain device ms "
-        f"{plain_ms:.4f} library device ms {lib_ms:.4f} (cdist @ onehot) "
-        f"bound_us {b_ms * 1e3:.2f} ({b_by})")
+        f"kernel device ms {ms:.4f} [{ms_src}] (call ms {call_ms:.4f}) plain "
+        f"device ms {plain_ms:.4f} [{plain_src}] library device ms "
+        f"{lib_ms:.4f} [{lib_src}] (cdist @ onehot) bound_us "
+        f"{b_ms * 1e3:.2f} ({b_by})")
     rows.append(("silhouette_sums", "src/repro_torch/csrc/silhouette_sums.cu",
                  "src/repro/kernels/kmeans_assign/kernel.py:173",
                  silhouette_sums,
@@ -583,11 +671,12 @@ def phase_k4(rows, dev):
                 f"> {KERNEL_TOL}")
         args = (x, cent)
         call_ms = time_ms(lambda: kmeans_assign(*args), 200)
-        _, ms = device_ms(lambda: kmeans_assign(*args), 50,
-                          own=("kmeans_assign_seq_kernel",))
+        _, ms, ms_src = device_ms(lambda: kmeans_assign(*args), 50,
+                                  own={"kmeans_assign_seq_kernel": 1})
         span_ms = _spin_primed_ms(lambda: kmeans_assign(*args), 50)
-        plain_ms, _ = device_ms(lambda: kmeans_assign_plain(*args), 50)
-        lib_ms, _ = device_ms(
+        plain_ms, _, plain_src = device_ms(
+            lambda: kmeans_assign_plain(*args), 50)
+        lib_ms, _, lib_src = device_ms(
             lambda: torch.min(torch.cdist(x, cent) ** 2, dim=1), 50)
         bytes_ = n * d * 4 + k * d * 4 + n * 4 * 2
         ops = 2 * n * k * d + 2 * n * d + 2 * k * d
@@ -598,10 +687,10 @@ def phase_k4(rows, dev):
             f"near-ties (plain's differ there on {plain_off}; kernel vs "
             f"plain differ on {flips} rows in all), max_abs_err min_sq "
             f"{err:.3e}, {rel:.3e} of the row's scale (tol {KERNEL_TOL}) "
-            f"kernel device ms {ms:.4f} (call ms {call_ms:.4f}, device "
-            f"span behind a spin kernel {span_ms:.4f}) plain device ms "
-            f"{plain_ms:.4f} library device ms {lib_ms:.4f} (cdist^2 + min) "
-            f"bound_us "
+            f"kernel device ms {ms:.4f} [{ms_src}] (call ms {call_ms:.4f}, "
+            f"device span behind a spin kernel {span_ms:.4f}) plain device "
+            f"ms {plain_ms:.4f} [{plain_src}] library device ms "
+            f"{lib_ms:.4f} [{lib_src}] (cdist^2 + min) bound_us "
             f"{b_ms * 1e3:.2f} ({b_by})")
         if (d, k) == (256, 48):
             k4 = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -639,9 +728,10 @@ def phase_k4(rows, dev):
         sums = (onehot.T @ x, onehot.sum(0))
     sums_rel = max(rel_err(g, w)[1] for g, w in zip(got[2:], sums))
     require(sums_rel <= KERNEL_TOL, f"K2 d=12: sums rel err {sums_rel:.3e}")
-    _, ms = device_ms(lambda: kmeans_assign_fused(*args), 50,
-                      own=("kmeans_assign_kernel", "kmeans_reduce_kernel"))
-    plain_ms, _ = device_ms(lambda: kmeans_assign_fused_plain(*args), 50)
+    _, ms, ms_src = device_ms(lambda: kmeans_assign_fused(*args), 50,
+                              own=K2_KERNELS)
+    plain_ms, _, plain_src = device_ms(
+        lambda: kmeans_assign_fused_plain(*args), 50)
     bytes_ = n * d * 4 + k * d * 4 + k * 4 + n * 4 + n * 8 + k * d * 4 + k * 4
     b_ms, b_by = bound(bytes_, 2 * n * k_live * d + 2 * n * d + n_real * d)
     log(f"[kernels] K2 kmeans_assign_fused d=12 n={n} k={k} (cfd PKA "
@@ -649,8 +739,8 @@ def phase_k4(rows, dev):
         f"rows clear of near-ties ({flips} differ from plain in all), "
         f"max_abs_err min_sq {err:.3e}, {rel:.3e} of the row's scale, sums "
         f"rel err {sums_rel:.3e} (tol {KERNEL_TOL}) kernel device ms "
-        f"{ms:.4f} plain device ms {plain_ms:.4f} bound_us {b_ms * 1e3:.2f} "
-        f"({b_by})")
+        f"{ms:.4f} [{ms_src}] plain device ms {plain_ms:.4f} [{plain_src}] "
+        f"bound_us {b_ms * 1e3:.2f} ({b_by})")
     sil = (torch.arange(n, device=dev) < 1200).float()
     onehot = (torch.nn.functional.one_hot(want[0].long(), k).float()
               * sil[:, None]).contiguous()
@@ -659,15 +749,18 @@ def phase_k4(rows, dev):
     want3 = silhouette_sums_plain(x, onehot)
     err, rel = rel_err(got3, want3)
     require(rel <= KERNEL_TOL, f"K3 d=12: rel err {rel:.3e} > {KERNEL_TOL}")
-    _, ms = device_ms(lambda: silhouette_sums(x, onehot), 10,
-                      own=("silhouette_sums_kernel", "sqnorm_kernel"))
-    plain_ms, _ = device_ms(lambda: silhouette_sums_plain(x, onehot), 10)
+    _, ms, ms_src = device_ms(lambda: silhouette_sums(x, onehot), 10,
+                           own=K3_KERNELS)
+    plain_ms, _, plain_src = device_ms(
+        lambda: silhouette_sums_plain(x, onehot), 10)
+    lib_ms, _, lib_src = device_ms(lambda: torch.cdist(x, x) @ onehot, 10)
     b_ms, b_by = bound(n * d * 4 + n * k * 4 * 2,
                        2 * n * 1200 * d + 2 * n * 1200)
     log(f"[kernels] K3 silhouette_sums d=12 n={n} k={k} live rows 1200: "
         f"max_abs_err {err:.3e} rel {rel:.3e} (tol {KERNEL_TOL}) kernel "
-        f"device ms {ms:.4f} plain device ms {plain_ms:.4f} bound_us "
-        f"{b_ms * 1e3:.2f} ({b_by})")
+        f"device ms {ms:.4f} [{ms_src}] plain device ms {plain_ms:.4f} "
+        f"[{plain_src}] library device ms {lib_ms:.4f} [{lib_src}] (cdist "
+        f"@ onehot) bound_us {b_ms * 1e3:.2f} ({b_by})")
 
 
 def _training_batches(n_steps):
@@ -747,30 +840,32 @@ def _k5_k1b(rows, dev, rng, batches):
                         f"err {rel:.3e} > {KERNEL_TOL}")
                 call_ms = time_ms(lambda: rgcn_spmm_flat(h, src, dst, w, P),
                                   50)
-                wrap_ms, ms = device_ms(
+                wrap_ms, ms, ms_src = device_ms(
                     lambda: rgcn_spmm_flat(h, src, dst, w, P), 20,
-                    own=("rgcn_spmm_flat_kernel",))
-                plain_ms, _ = device_ms(
+                    own={"rgcn_spmm_flat_kernel": 1})
+                plain_ms, _, plain_src = device_ms(
                     lambda: rgcn_spmm_flat_plain(h, src, dst, w, P), 20)
-                lib_ms = None
+                lib_ms = lib_src = None
                 if dt == torch.float32:
                     lib = torch.sparse.mm(A, h).reshape(nb, P, D)
                     err_lib, _ = rel_err(lib.permute(1, 0, 2).reshape(P, -1),
                                          got)
                     require(err_lib <= 1e-3 * float(got.abs().max()),
                             f"K5 library yardstick disagrees ({err_lib:.3e})")
-                    lib_ms, _ = device_ms(lambda: torch.sparse.mm(A, h), 20)
+                    lib_ms, _, lib_src = device_ms(
+                        lambda: torch.sparse.mm(A, h), 20)
                 bytes_ = P * D * esz + Q * 4 * 2 + Q * nb * 4 + P * nb * D * 4
                 ops = 2 * q_live * nb * D
                 b_ms, b_by = bound(bytes_, ops)
-                lib_txt = (f"{lib_ms:.4f} (sparse.mm)" if lib_ms is not None
+                lib_txt = (f"{lib_ms:.4f} [{lib_src}] (sparse.mm)"
+                           if lib_ms is not None
                            else "none (no bf16 sparse product)")
                 log(f"[kernels] K5 rgcn_spmm_flat {label} D={D} h={dname}: "
                     f"max_abs_err {err:.3e} rel {rel:.3e} (tol {KERNEL_TOL}) "
-                    f"kernel device ms {ms:.4f} (wrapper device ms "
+                    f"kernel device ms {ms:.4f} [{ms_src}] (wrapper device ms "
                     f"{wrap_ms:.4f}, call ms {call_ms:.4f}) plain device ms "
-                    f"{plain_ms:.4f} library device ms {lib_txt} bound_us "
-                    f"{b_ms * 1e3:.2f} ({b_by})")
+                    f"{plain_ms:.4f} [{plain_src}] library device ms "
+                    f"{lib_txt} bound_us {b_ms * 1e3:.2f} ({b_by})")
                 if (label, D, dt) == ("main path", 128, torch.float32):
                     k5 = dict(err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
@@ -786,10 +881,11 @@ def _k5_k1b(rows, dev, rng, batches):
                         f"dcoef {r2:.3e}")
                 args = (h, t, src, dst, coef, wnorm, P)
                 call_ms = time_ms(lambda: rgcn_fused_bwd(*args), 50)
-                wrap_ms, ms = device_ms(lambda: rgcn_fused_bwd(*args), 20,
-                                        own=("rgcn_fused_bwd_kernel",))
-                plain_ms, _ = device_ms(lambda: rgcn_fused_bwd_plain(*args),
-                                        20)
+                wrap_ms, ms, ms_src = device_ms(
+                    lambda: rgcn_fused_bwd(*args), 20,
+                    own={"rgcn_fused_bwd_kernel": 1})
+                plain_ms, _, plain_src = device_ms(
+                    lambda: rgcn_fused_bwd_plain(*args), 20)
                 bytes_ = (2 * P * D * esz + P * nb * D * 4 + Q * 4 * 2
                           + Q * nb * 4 * 2 + Q * 4)
                 ops = 4 * q_live * nb * D
@@ -797,10 +893,11 @@ def _k5_k1b(rows, dev, rng, batches):
                 log(f"[kernels] K1b rgcn_fused_bwd {label} D={D} h={dname}: "
                     f"max_abs_err dh {e1:.3e} rel {r1:.3e} (tol {tol_dh:.1e}) "
                     f"dcoef {e2:.3e} rel {r2:.3e} (tol {KERNEL_TOL}) kernel "
-                    f"device ms {ms:.4f} (wrapper device ms {wrap_ms:.4f}, "
-                    f"call ms {call_ms:.4f}) plain device ms {plain_ms:.4f} "
-                    f"library none (dh and dcoef: no one call) bound_us "
-                    f"{b_ms * 1e3:.2f} ({b_by})")
+                    f"device ms {ms:.4f} [{ms_src}] (wrapper device ms "
+                    f"{wrap_ms:.4f}, call ms {call_ms:.4f}) plain device ms "
+                    f"{plain_ms:.4f} [{plain_src}] library none (dh and "
+                    f"dcoef: no one call) bound_us {b_ms * 1e3:.2f} "
+                    f"({b_by})")
                 if (label, D, dt) == ("main path", 128, torch.float32):
                     k1b = dict(err=max(e1, e2), ms=ms, plain_ms=plain_ms,
                                bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -858,10 +955,11 @@ def _k6_check(dev, label, h, src, dst, w, N, timed):
     e_live = int(live.sum())
     args = (h, src, dst, w, N)
     call_ms = time_ms(lambda: rgcn_spmm_dense(*args), 50)
-    wrap_ms, ms = device_ms(lambda: rgcn_spmm_dense(*args), 20,
-                            own=("rgcn_spmm_dense_kernel",))
-    plain_ms, _ = device_ms(lambda: rgcn_spmm_dense_plain(*args), 20)
-    lib_ms = None
+    wrap_ms, ms, ms_src = device_ms(lambda: rgcn_spmm_dense(*args), 20,
+                            own={"rgcn_spmm_dense_kernel": 1})
+    plain_ms, _, plain_src = device_ms(
+        lambda: rgcn_spmm_dense_plain(*args), 20)
+    lib_ms = lib_src = None
     if h.dtype == torch.float32:
         # the library yardstick: one sparse product over the block-diagonal
         # CSR of the flattened batch (row k*B*N + b*N + v holds w[b,e,k] at
@@ -879,17 +977,17 @@ def _k6_check(dev, label, h, src, dst, w, N, timed):
         err_lib, _ = rel_err(lib.permute(1, 2, 0, 3).reshape(B, N, -1), got)
         require(err_lib <= 1e-3 * float(got.abs().max()),
                 f"K6 library yardstick disagrees ({err_lib:.3e})")
-        lib_ms, _ = device_ms(lambda: torch.sparse.mm(A, hf), 20)
+        lib_ms, _, lib_src = device_ms(lambda: torch.sparse.mm(A, hf), 20)
     esz = h.element_size()
     bytes_ = B * N * D * esz + B * E * 4 * 2 + B * E * nb * 4 + B * N * nb * D * 4
     b_ms, b_by = bound(bytes_, 2 * e_live * nb * D)
-    lib_txt = (f"{lib_ms:.4f} (sparse.mm, block-diagonal CSR)"
+    lib_txt = (f"{lib_ms:.4f} [{lib_src}] (sparse.mm, block-diagonal CSR)"
                if lib_ms is not None else "none (no bf16 sparse product)")
     log(f"[kernels] K6 rgcn_spmm_dense {label} B={B} N={N} E={E} live edges "
         f"{e_live} D={D} h={dname}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
-        f"{KERNEL_TOL}) kernel device ms {ms:.4f} (wrapper device ms "
-        f"{wrap_ms:.4f}, call ms {call_ms:.4f}) plain device ms "
-        f"{plain_ms:.4f} library device ms {lib_txt} bound_us "
+        f"{KERNEL_TOL}) kernel device ms {ms:.4f} [{ms_src}] (wrapper device "
+        f"ms {wrap_ms:.4f}, call ms {call_ms:.4f}) plain device ms "
+        f"{plain_ms:.4f} [{plain_src}] library device ms {lib_txt} bound_us "
         f"{b_ms * 1e3:.2f} ({b_by})")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
@@ -1799,6 +1897,19 @@ def _k7_inputs(dev, B, S, K, G, hd, dt, seed):
                                (B, S, K, hd)))
 
 
+def k7_kernels(hd, dtype):
+    """K7's kernel for a head width and input type: the wgmma kernel for
+    bf16 at hd 64 / 128 / 256, mma.sync for the other bf16 widths, FMAs for
+    float32 (``flash_attention`` in ``csrc/flash_attention.cu``)."""
+    import torch
+
+    if dtype == torch.float32:
+        return {"flash_attention_f32_kernel": 1}
+    if hd in (64, 128, 256):
+        return {"flash_attention_wgmma_kernel": 1}
+    return {"flash_attention_mma_kernel": 1}
+
+
 def _k7_check(dev, shape, dt, seed):
     """K7 against its plain version; (err, rel, q, k, v, scale)."""
     import math
@@ -1875,14 +1986,13 @@ def phase_lm_kernels(rows, dev):
     for dt in (torch.bfloat16, torch.float32):
         err, rel, q, k, v, scale = _k7_check(dev, LLAMA_PREFILL, dt, 99)
         call_ms = time_ms(lambda: flash_attention(q, k, v, scale), 10)
-        _, ms = device_ms(lambda: flash_attention(q, k, v, scale), 5,
-                          own=("flash_attention_mma_kernel",
-                               "flash_attention_f32_kernel"))
-        plain_ms, _ = device_ms(
+        _, ms, ms_src = device_ms(lambda: flash_attention(q, k, v, scale), 5,
+                               own=k7_kernels(hd, dt))
+        plain_ms, _, plain_src = device_ms(
             lambda: flash_attention_plain(q, k, v, scale), 3)
         qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
         kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-        lib_ms, _ = device_ms(
+        lib_ms, _, lib_src = device_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=True, enable_gqa=True), 5)
         esz = q.element_size()
@@ -1891,12 +2001,17 @@ def phase_lm_kernels(rows, dev):
         b_ms, b_by = bound(bytes_, ops, PEAK_BF16_S if dt == torch.bfloat16
                            else PEAK_F32_S)
         dname = "bf16" if dt == torch.bfloat16 else "f32"
+        floor = (f" (the P hi/lo split's floor: 1.5 x the operations, "
+                 f"{bound(bytes_, 1.5 * ops, PEAK_BF16_S)[0]:.4f} ms)"
+                 if dt == torch.bfloat16 else "")
         log(f"[kernels] K7 flash_attention {LLAMA_PREFILL} {dname}: "
             f"max_abs_err {err:.3e} rel {rel:.3e} kernel device ms {ms:.4f} "
-            f"(call ms {call_ms:.4f}) plain device ms {plain_ms:.4f} library "
-            f"device ms {lib_ms:.4f} (scaled_dot_product_attention, causal, "
-            f"GQA) bound ms {b_ms:.4f} ({b_by}; {ops:.3e} ops, "
-            f"{bytes_ / 1e6:.1f} MB) achieved {ops / ms / 1e9:.2f} TFLOP/s")
+            f"[{ms_src}] (call ms {call_ms:.4f}) plain device ms "
+            f"{plain_ms:.4f} [{plain_src}] library device ms {lib_ms:.4f} "
+            f"[{lib_src}] (scaled_dot_product_attention, causal, GQA) "
+            f"bound ms {b_ms:.4f} ({b_by}; {ops:.3e} ops, "
+            f"{bytes_ / 1e6:.1f} MB){floor} achieved {ops / ms / 1e9:.2f} "
+            f"TFLOP/s")
         if dt == torch.bfloat16:
             k7 = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                       bound_by=b_by, library_ms=lib_ms)
@@ -1919,9 +2034,10 @@ def phase_lm_kernels(rows, dev):
         require(rel <= KERNEL_TOL,
                 f"K8 {label}: rel err {rel:.3e} > {KERNEL_TOL}")
         call_ms = time_ms(lambda: ssd_intra_chunk(*args), 10)
-        _, ms = device_ms(lambda: ssd_intra_chunk(*args), 5,
-                          own=("ssd_cb_kernel", "ssd_intra_kernel"))
-        plain_ms, _ = device_ms(lambda: ssd_intra_chunk_plain(*args), 3)
+        _, ms, ms_src = device_ms(lambda: ssd_intra_chunk(*args), 5,
+                          own={"ssd_cb_kernel": 1, "ssd_intra_kernel": 1})
+        plain_ms, _, plain_src = device_ms(
+            lambda: ssd_intra_chunk_plain(*args), 3)
         tri = Q * (Q + 1) // 2
         ops = B * nc * (2 * ds * tri + nh * (
             4 * tri + 2 * hp * tri + 3 * Q + Q * ds + 2 * Q * ds * hp))
@@ -1930,9 +2046,10 @@ def phase_lm_kernels(rows, dev):
         b_ms, b_by = bound(bytes_, ops)
         log(f"[kernels] K8 ssd_intra_chunk {label} (B, nc, Q, nh, hp, ds) = "
             f"{(B, nc, Q, nh, hp, ds)}: max_abs_err {err:.3e} rel {rel:.3e} "
-            f"(tol {KERNEL_TOL}) kernel device ms {ms:.4f} (call ms "
-            f"{call_ms:.4f}) plain device ms {plain_ms:.4f} bound ms "
-            f"{b_ms:.4f} ({b_by}; {ops:.3e} ops, {bytes_ / 1e6:.1f} MB)")
+            f"(tol {KERNEL_TOL}) kernel device ms {ms:.4f} [{ms_src}] (call "
+            f"ms {call_ms:.4f}) plain device ms {plain_ms:.4f} [{plain_src}] "
+            f"bound ms {b_ms:.4f} ({b_by}; {ops:.3e} ops, "
+            f"{bytes_ / 1e6:.1f} MB)")
         if label == "main path":
             k8 = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                       bound_by=b_by, library_ms=None)

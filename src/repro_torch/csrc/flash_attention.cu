@@ -10,36 +10,51 @@
 //
 // with q (B,S,K,G,hd) and k, v (B,S,K,hd), all float32 or all bfloat16.
 // Scores, the running max, the running sum and the accumulator are float32
-// (an online softmax, FlashAttention-2's schedule); masked scores are the
-// finite -1e30, the final divide guards with max(l, 1e-20), and the output
-// is rounded to q's dtype once.  Only the tiles at or below the diagonal
-// are visited (the TPU kernel's point: blocks above it are skipped, not
-// masked).
+// (an online softmax); masked scores are the finite -1e30, the final divide
+// guards with max(l, 1e-20), and the output is rounded to q's dtype once.
+// Only the key tiles at or below the diagonal are visited, and only the
+// diagonal tile is masked.
 //
 // What bounds it on this card: causal attention at the llama3.2-3b prefill
-// (B=4, S=2048, K=8, G=3, hd=128, bf16) needs 4*B*H*S^2*hd/2 ~ 1.0e11
+// (B=4, S=2048, K=8, G=3, hd=128, bf16) needs 4*B*H*hd*S(S+1)/2 = 1.03e11
 // operations against ~134 MB of q, k, v and output, so it is bound by
-// operations: ~0.10 ms at the bf16 tensor-core peak.  Design by input type:
+// operations: 0.104 ms at the 989 TFLOP/s bf16 tensor-core peak.  P.V is
+// done twice (P's bf16 high and low parts, below), so this design's floor
+// is 1.5x that, 0.156 ms.  Kernels by input:
 //
-// bfloat16 (the serving path): tensor cores.  One block of 4 warps per
-// (64 query rows, head, batch); each warp owns 16 rows.  The block stages
-// its q rows, then 64 keys of K and of V (V transposed) at a time in
-// shared memory as bfloat16, rows padded by 16 bytes so the fragment loads
-// hit 32 distinct banks.  S = q.K^T is `mma.sync` m16n8k16 (bf16 products
-// are exact in float32, the sums float32); the online softmax runs on the
-// accumulator fragments (row max and sum over the 4 lanes that share a row)
-// and the fragments become P.V's A operand in registers.  P is split into a
-// bf16 high part and a bf16 low part (p - hi), two MMAs, so P.V keeps ~16
-// bits of P — float32-grade, as the plain version's float32 P.V — at 1.5x
-// the MMA work.  No ldmatrix and no copy pipelining yet (later work).
+// bfloat16, hd 64 / 128 / 256 (the serving path): wgmma + TMA,
+// warp-specialised.  A block owns 128 query rows of one (b, head): two
+// consumer warpgroups of 64 rows (wgmma's m64) and one producer
+// warpgroup, whose one thread (after `setmaxnreg` hands its registers to
+// the consumers) loads q once and keeps 128-key tiles of K and V (64 for
+// hd 256) in flight by TMA, 128-byte swizzled, in a 3-stage ring (2 for
+// hd 256) with a full barrier per tile and operand and an empty barrier
+// per stage.  S = q.K^T is wgmma m64n128k16 with both operands in shared
+// memory; the softmax runs on the accumulator registers with exp2 on the
+// special-function unit and scale * log2(e) folded into its argument; P is
+// split into a bf16 high part and a bf16 low part (p - hi), the register
+// A operands of two wgmmas against V, read row-major from shared memory
+// through the descriptor's transpose (no hand transpose).  The split keeps
+// ~16 bits of P, float32-grade as the plain version's float32 P.V.  The
+// next tile's S is queued on the tensor cores behind this tile's P.V, and
+// the two consumer warpgroups take turns to issue (named barriers), so one
+// warpgroup's softmax overlaps the other's matrix products.  Query tiles
+// are issued latest first (the longest rows of the triangle).  Tensor
+// maps are encoded on the host (cuTensorMapEncodeTiled, looked up through
+// the runtime) and passed as __grid_constant__.
+//
+// bfloat16, other hd (16, 32, 48, ..., 240): mma.sync m16n8k16.  One block
+// of 4 warps per (64 query rows, head, batch); each warp owns 16 rows.  q,
+// then 64 keys of K and of V (V transposed) at a time are staged in shared
+// memory, rows padded by 16 bytes; P is split into bf16 high + low parts
+// as above.
 //
 // float32: the same schedule on float32 FMAs out of shared memory (tensor
 // cores would need TF32, which would change the numbers): one block of 256
 // threads per (64 query rows, head, batch), K / V staged 32 rows at a time,
 // each thread owning 4 rows and a 4x2 block of scores, the row max / sum
 // 16-lane shuffle reductions, P through shared memory for the P.V product.
-// Bound by shared-memory bandwidth (one 4-byte load per ~1.5 FMAs): ~18
-// TFLOP/s.
+// Bound by shared-memory bandwidth (one 4-byte load per ~1.5 FMAs).
 //
 // Any hd that is a multiple of 16 up to 256 and any S run; the wrapper
 // enforces what the JAX kernel accepts.
@@ -47,6 +62,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -422,6 +439,268 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, hd 64 / 128 / 256: wgmma + TMA, one producer warpgroup
+// ---------------------------------------------------------------------------
+
+constexpr int WM = 128;          // query rows per block: 2 consumer warpgroups
+constexpr int WTHREADS = 384;    // consumer warpgroups 0, 1; producer 2
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+struct WCfg {
+  static constexpr int BN = HD == 256 ? 64 : 128;  // keys per K / V tile
+  static constexpr int STAGES = HD == 256 ? 2 : 3;  // K / V ring depth
+  static constexpr int NCH = HD / 64;              // 128-byte column chunks
+  static constexpr int Q_CHUNK = WM * 128;         // bytes of one q chunk
+  static constexpr int KV_CHUNK = BN * 128;
+  static constexpr int Q_BYTES = NCH * Q_CHUNK;
+  static constexpr int KV_BYTES = NCH * KV_CHUNK;  // one K or V tile
+  // tiles, 1 KB of barriers, 1 KB to align the tiles to the swizzle line
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 2048;
+};
+
+// 2^x on the special-function unit (flushes subnormal results to zero:
+// those probabilities are below 2^-126 of the row's largest)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// named barriers between the two consumer warpgroups (256 threads; id 0 is
+// __syncthreads')
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_scores(float (&d)[N / 2], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  if constexpr (N == 64) hopper::wgmma_ss_n64(d, da, db, scale_d);
+  else hopper::wgmma_ss_n128(d, da, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) hopper::wgmma_rs_n64(d, a, db, 1);
+  else if constexpr (N == 128) hopper::wgmma_rs_n128(d, a, db, 1);
+  else hopper::wgmma_rs_n256(d, a, db, 1);
+}
+
+// q / o are 4-D tensor maps over (hd, H, S, B), k / v over (hd, K, S, B),
+// all with 64-column boxes in the 128-byte swizzle layout.  Block
+// (b * H + h, y) owns query rows q0 .. q0 + 127 of head h, q0 counted from
+// the end (the longest rows of the causal triangle start first).
+template <int HD>
+__global__ void __launch_bounds__(WTHREADS, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             bf16* __restrict__ o, int S, int H, int G,
+                             float scale_log2) {
+  using C = WCfg<HD>;
+  constexpr int BN = C::BN, STAGES = C::STAGES, NCH = C::NCH;
+  extern __shared__ __align__(1024) unsigned char wsmem[];
+  unsigned char* sq =
+      wsmem + ((1024 - (hopper::smem_addr(wsmem) & 1023)) & 1023);
+  unsigned char* sk = sq + C::Q_BYTES;             // STAGES K tiles
+  unsigned char* sv = sk + STAGES * C::KV_BYTES;   // STAGES V tiles
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sv + STAGES * C::KV_BYTES);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty = full_v + STAGES;
+
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
+  const int kh = h / G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WM;
+  const int n_kt = (min(q0 + WM, S) - 1) / BN + 1;  // tiles up to the diagonal
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full_k[s], 1);
+      hopper::mbar_init(&full_v[s], 1);
+      hopper::mbar_init(&empty[s], 256);   // every consumer thread
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread keeps the K / V ring full by TMA --------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      hopper::mbar_expect_tx(bar_q, C::Q_BYTES);
+      for (int c = 0; c < NCH; ++c)
+        hopper::tma_load_4d(sq + c * C::Q_CHUNK, &tq, bar_q, c * 64, h, q0, b);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full_k[s], C::KV_BYTES);
+        for (int c = 0; c < NCH; ++c)
+          hopper::tma_load_4d(sk + s * C::KV_BYTES + c * C::KV_CHUNK, &tk,
+                              &full_k[s], c * 64, kh, j * BN, b);
+        hopper::mbar_expect_tx(&full_v[s], C::KV_BYTES);
+        for (int c = 0; c < NCH; ++c)
+          hopper::tma_load_4d(sv + s * C::KV_BYTES + c * C::KV_CHUNK, &tv,
+                              &full_v[s], c * 64, kh, j * BN, b);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows r0 .. r0 + 63 --------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;   // accumulator row / column pair
+    const int r0 = q0 + wg * 64;
+    const int row0 = r0 + warp * 16 + g, row1 = row0 + 8;
+    const uint32_t q_base = hopper::smem_addr(sq) + wg * 64 * 128;
+
+    float acc[HD / 2], sc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+    // S = q.K^T of key tile j into sc: both operands K-major in shared
+    // memory (issued, not waited for)
+    auto issue_scores = [&](int j) {
+      const int s = j % STAGES;
+      hopper::mbar_wait(&full_k[s], (j / STAGES) & 1);
+      const uint32_t k_base = hopper::smem_addr(sk + s * C::KV_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_scores<BN>(
+            sc, hopper::desc_sw128(q_base + (kk >> 2) * C::Q_CHUNK + off, 16,
+                                   1024),
+            hopper::desc_sw128(k_base + (kk >> 2) * C::KV_CHUNK + off, 16,
+                               1024),
+            kk > 0);
+      }
+      hopper::wgmma_commit();
+    };
+
+    hopper::mbar_wait(bar_q, 0);
+    hopper::wgmma_fence();
+    issue_scores(0);
+    if (wg == 1) named_arrive(1);   // warpgroup 0 issues first
+    hopper::wgmma_wait<0>();
+    for (int j = 0; j < n_kt; ++j) {
+      const int s = j % STAGES;
+      // online softmax on the raw scores (scale > 0 keeps the max), the
+      // scale folded into exp2's argument; only the diagonal tile is masked
+      const int k0 = j * BN;
+      if (k0 + BN - 1 > r0) {
+#pragma unroll
+        for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * n + 2 * t + (e & 1) > (e < 2 ? row0 : row1))
+              sc[4 * n + e] = NEG_INF;
+      }
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float b0 = -mn0 * scale_log2, b1 = -mn1 * scale_log2;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+        sc[4 * n] = ex2(fmaf(sc[4 * n], scale_log2, b0));
+        sc[4 * n + 1] = ex2(fmaf(sc[4 * n + 1], scale_log2, b0));
+        sc[4 * n + 2] = ex2(fmaf(sc[4 * n + 2], scale_log2, b1));
+        sc[4 * n + 3] = ex2(fmaf(sc[4 * n + 3], scale_log2, b1));
+        rs0 += sc[4 * n] + sc[4 * n + 1];
+        rs1 += sc[4 * n + 2] + sc[4 * n + 3];
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
+      }
+      const float c0 = ex2((m0 - mn0) * scale_log2);
+      const float c1 = ex2((m1 - mn1) * scale_log2);
+      l0 = l0 * c0 + rs0;
+      l1 = l1 * c1 + rs1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        acc[4 * n] *= c0;
+        acc[4 * n + 1] *= c0;
+        acc[4 * n + 2] *= c1;
+        acc[4 * n + 3] *= c1;
+      }
+      // P as the A operand of P.V, a bf16 high and a bf16 low part; the
+      // fragments of score n-tiles 2kk, 2kk+1 are keys 16kk .. 16kk+15
+      uint32_t ph[BN / 16][4], pl[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split_pair(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
+                     pl[kk][r]);
+
+      // acc += P.V, V row-major in shared memory read through the
+      // descriptor's transpose; then the next tile's scores queue behind it.
+      // The two warpgroups take turns to issue (named barriers 1, 2), so
+      // one's softmax overlaps the other's tensor-core work
+      hopper::mbar_wait(&full_v[s], (j / STAGES) & 1);
+      const uint32_t v_base = hopper::smem_addr(sv + s * C::KV_BYTES);
+      named_sync(1 + wg);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint64_t db =
+            hopper::desc_sw128(v_base + kk * 2048, C::KV_CHUNK, 1024);
+        wgmma_pv<HD>(acc, ph[kk], db);
+        wgmma_pv<HD>(acc, pl[kk], db);
+      }
+      hopper::wgmma_commit();
+      if (j + 1 < n_kt) issue_scores(j + 1);
+      if (wg == 0 || j + 1 < n_kt) named_arrive(2 - wg);
+      if (j + 1 < n_kt) {
+        hopper::wgmma_wait<1>();   // P.V of tile j is done
+        hopper::mbar_arrive(&empty[s]);
+        hopper::wgmma_wait<0>();
+      } else {
+        hopper::wgmma_wait<0>();
+        hopper::mbar_arrive(&empty[s]);
+      }
+    }
+
+    const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
+    bf16* o0 = o + (static_cast<size_t>(b) * S + row0) * H * HD +
+               static_cast<size_t>(h) * HD + 2 * t;
+    bf16* o1 = o0 + static_cast<size_t>(8) * H * HD;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * n) =
+            __floats2bfloat162_rn(acc[4 * n] / d0, acc[4 * n + 1] / d0);
+      if (row1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * n) =
+            __floats2bfloat162_rn(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -460,6 +739,36 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int S, int K, int G, float scale, cudaStream_t stream) {
+  using C = WCfg<HD>;
+  const uint64_t H = static_cast<uint64_t>(K) * G, row = HD * 2;
+  CUtensorMap tq, tk, tv;
+  const uint64_t q_dims[4] = {HD, H, static_cast<uint64_t>(S),
+                              static_cast<uint64_t>(B)};
+  const uint64_t q_strides[3] = {row, H * row, S * H * row};
+  const uint32_t q_box[4] = {64, 1, WM, 1};
+  const uint64_t kv_dims[4] = {HD, static_cast<uint64_t>(K),
+                               static_cast<uint64_t>(S),
+                               static_cast<uint64_t>(B)};
+  const uint64_t kv_strides[3] = {row, K * row, S * K * row};
+  const uint32_t kv_box[4] = {64, 1, C::BN, 1};
+  if (!hopper::bf16_map_4d(&tq, q, q_dims, q_strides, q_box) ||
+      !hopper::bf16_map_4d(&tk, k, kv_dims, kv_strides, kv_box) ||
+      !hopper::bf16_map_4d(&tv, v, kv_dims, kv_strides, kv_box))
+    return static_cast<int>(cudaErrorNotSupported);
+  auto kern = flash_attention_wgmma_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(B * H), (S + WM - 1) / WM);
+  kern<<<grid, WTHREADS, C::SMEM, stream>>>(tq, tk, tv, static_cast<bf16*>(o),
+                                            S, static_cast<int>(H), G,
+                                            scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
 #define FA_DISPATCH(LAUNCH)                                             \
   if (hd <= 16) return LAUNCH<16>(q, k, v, o, B, S, K, G, hd, scale, s); \
   if (hd <= 32) return LAUNCH<32>(q, k, v, o, B, S, K, G, hd, scale, s); \
@@ -486,6 +795,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
+    if (hd == 64) return launch_wgmma<64>(q, k, v, o, B, S, K, G, scale, s);
+    if (hd == 128) return launch_wgmma<128>(q, k, v, o, B, S, K, G, scale, s);
+    if (hd == 256) return launch_wgmma<256>(q, k, v, o, B, S, K, G, scale, s);
     FA_DISPATCH(launch_mma)
   }
   FA_DISPATCH(launch_f32)

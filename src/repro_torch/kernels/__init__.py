@@ -59,7 +59,7 @@ SIGNATURES = {
                         _I, _I, _I, _I, _P],
     "kmeans_assign_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _P],
-    "silhouette_sums": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "silhouette_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "kmeans_assign": [_P, _P, _P, _P, _I, _I, _I, _P],
     "rgcn_spmm_flat": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rgcn_spmm_dense": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -135,10 +135,20 @@ def silhouette_sums(x, onehot):
     check("onehot", onehot, dtype=torch.float32, shape=(n, k), device=dev)
     if k > 64:
         raise ValueError(f"silhouette_sums kernel takes k <= 64; got {k}")
-    sq = torch.empty(n, dtype=torch.float32, device=dev)
+    if d % 4 or x.data_ptr() % 16:
+        # 16-byte rows for the kernel's vector loads; zero columns add
+        # fmaf(0, 0, s) = s, so every sum is unchanged
+        xp = x.new_zeros(n, d + (-d) % 4)
+        xp[:, :d] = x
+        x = xp
+    nb = (n + 31) // 32
+    iscratch = torch.empty(3 * n + 2 * nb + n * k + 2, dtype=torch.int32,
+                           device=dev)
+    fscratch = torch.empty(2 * n + n * k, dtype=torch.float32, device=dev)
     out = torch.empty(n, k, dtype=torch.float32, device=dev)
     launch("silhouette_sums",
-           *(t.data_ptr() for t in (x, onehot, sq, out)), n, d, k)
+           *(t.data_ptr() for t in (x, onehot, iscratch, fscratch, out)),
+           n, x.shape[1], k)
     silhouette_sums.launches += 1
     return out
 

@@ -199,23 +199,33 @@ class GCLMethod(SamplingMethod):
                         n_total=len(program), **ckpt)
                     if stream else self.sampler.train(graphs, **ckpt))
             self._trained_on = program_fingerprint(program)
+            # JAX's keys: ``engine`` is the hashed config's (the scan
+            # engine's step for step, run eagerly); ``step_compiles`` counts
+            # the step executables JAX compiles, and eager PyTorch compiles
+            # none; the step loop's seconds go to the timings
+            info = dict(info, engine=_JAX_ONLY["train"]["engine"],
+                        step_compiles=0)
+            fit_s = info.pop("fit_s", None)
             meta["train"] = {
                 k: info[k] for k in
-                ("val_loss", "val_acc", "trunc_nodes", "engine",
-                 "resumed_from", "checkpoint_saves", "host_syncs", "fit_s")
+                ("val_loss", "val_acc", "trunc_nodes", "step_compiles",
+                 "engine", "resumed_from", "checkpoint_saves", "host_syncs")
                 if k in info}
         else:
             meta["encoder_reused"] = True
+            fit_s = None
         meta["trained_on"] = self._trained_on
         t2 = time.time()
         if stream:
+            # one micro-batch of graphs resident at a time
             emb = self.sampler.embed_stream(self.sampler.iter_graphs(program))
+            meta["embed"] = {
+                k: v for k, v in self.sampler.trainer.embed_stats.items()
+                if k in ("cache_hits", "encoded", "microbatches",
+                         "peak_resident_graphs", "peak_resident_nodes")}
         else:
             emb = self.sampler.embed(graphs)
         t3 = time.time()
-        meta["embed"] = {k: v for k, v in
-                         self.sampler.trainer.embed_stats.items()
-                         if k in ("cache_hits", "encoded", "microbatches")}
         ing = self.sampler.ingest
         meta["ingest"] = {
             "workers": self.cfg.ingest.workers,
@@ -228,10 +238,11 @@ class GCLMethod(SamplingMethod):
         payload = {"params": unflatten_tree(params_to_numpy(
                        self.sampler.params)),
                    "embeddings": emb, "seqs": _seqs(program)}
+        timings = {"graphs_s": t1 - t0, "train_s": t2 - t1, "embed_s": t3 - t2}
+        if fit_s is not None:
+            timings["fit_s"] = fit_s      # the step loop alone
         return _artifacts(
-            self, program, payload,
-            {"graphs_s": t1 - t0, "train_s": t2 - t1, "embed_s": t3 - t2},
-            meta,
+            self, program, payload, timings, meta,
             provenance=self._encoder_provenance(program_fingerprint(program)))
 
     def plan(self, program: Program, artifacts: Artifacts) -> SamplingPlan:

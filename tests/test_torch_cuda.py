@@ -121,6 +121,62 @@ def test_silhouette_sums_kernel_matches_plain(n, d, k):
     _close(got, silhouette_sums_plain(x, onehot))
 
 
+def _sil_inputs(dev, n, d, k, live, seed=0):
+    """Points and a point-masked one-hot with ``live`` live rows."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, d, generator=gen) * 3
+    lab = torch.randint(0, k, (n,), generator=gen)
+    mask = torch.zeros(n)
+    mask[torch.randperm(n, generator=gen)[:live]] = 1
+    onehot = torch.nn.functional.one_hot(lab, k).float() * mask[:, None]
+    return x.to(dev), onehot.contiguous().to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k,live", [(4096, 256, 48, 300),
+                                        (1000, 200, 48, 60),
+                                        (4096, 12, 48, 1200),
+                                        (301, 12, 5, 29)])
+def test_silhouette_sums_live_rows_match_plain(n, d, k, live):
+    """K3 over a mostly masked onehot (at most 10 % live rows, or PKA's
+    d = 12): only live rows j are walked, and the sums are the plain
+    version's."""
+    dev = _card()
+    x, onehot = _sil_inputs(dev, n, d, k, live)
+    got = silhouette_sums(x, onehot)
+    torch.cuda.synchronize()
+    _close(got, silhouette_sums_plain(x, onehot))
+
+
+@pytest.mark.cuda
+def test_silhouette_sums_all_rows_masked_gives_zeros():
+    dev = _card()
+    x, onehot = _sil_inputs(dev, 300, 64, 7, 0)
+    got = silhouette_sums(x, onehot)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 12, 19])
+def test_silhouette_sums_duplicates_are_exactly_zero(d):
+    """Points with identical copies, each copy set its own cluster: every
+    point's sum over its own cluster is exactly 0.0 (the norms accumulate
+    in the tile dot product's order)."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(d)
+    base = torch.randn(50, d, generator=gen) * 4
+    x = torch.cat([base, base[:20], base[:5]]).contiguous().to(dev)
+    lab = torch.cat([torch.arange(50), torch.arange(20),
+                     torch.arange(5)]).to(dev)          # cluster c: base[c]
+    onehot = torch.nn.functional.one_hot(lab, 50).float().contiguous()
+    got = silhouette_sums(x, onehot)
+    torch.cuda.synchronize()
+    own = got[torch.arange(75, device=dev), lab]
+    assert torch.equal(own, torch.zeros_like(own))
+    _close(got, silhouette_sums_plain(x, onehot))
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take():
     dev = _card()
@@ -395,6 +451,31 @@ def test_flash_attention_kernel_matches_plain(shape, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, flash_attention_plain(q, k, v, hd ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [64, 100, 512, 1536])
+@pytest.mark.parametrize("hd,dtype", [
+    (64, "bfloat16"), (128, "bfloat16"), (256, "bfloat16"),  # wgmma + TMA
+    (16, "bfloat16"), (96, "bfloat16"),                      # mma.sync
+    (64, "float32"), (128, "float32"), (256, "float32")])    # float32 FMAs
+def test_flash_attention_dispatch_matches_plain(S, hd, dtype):
+    """Every kernel K7's head-width dispatch picks, at sequence lengths
+    inside one 128-row query tile, not a multiple of it, and over several
+    (the causal diagonal crosses tile boundaries), G = 3 heads per KV
+    head."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(S * hd)
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(
+        getattr(torch, dtype)) for s in ((1, S, 2, 3, hd), (1, S, 2, hd),
+                                         (1, S, 2, hd)))
+    got = flash_attention(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
     _close(got, flash_attention_plain(q, k, v, hd ** -0.5))
 
 

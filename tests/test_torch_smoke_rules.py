@@ -1,0 +1,128 @@
+"""The acceptance rule of ``chip_smoke.device_ms`` on the CPU.
+
+``chip_smoke.py`` times the port's kernels on the card from torch.profiler
+records.  CUPTI now and then records only part of a run, so a record is
+accepted only when it provably holds every call (``profile_verdict``): each
+kernel the wrapper launches appears exactly ``iters`` x its launches per
+call, and a call whose kernels cannot be listed shows at least ``iters`` x
+the device events of one call recorded first.  Otherwise ``device_ms``
+takes one more record, then the spin-primed device span, and says which
+source gave the number.  Here the records are fakes of
+``prof.key_averages()``; no card is needed.
+"""
+
+import importlib.util
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(smoke)
+
+K3 = {"sil_rows_kernel": 1, "sil_compact_kernel": 1,
+      "silhouette_sums_kernel": 1}
+
+
+def _avg(key, count, us):
+    return SimpleNamespace(key=key, count=count, self_device_time_total=us)
+
+
+def _k3_record(iters, short=None, extra=None):
+    """Fake ``key_averages()`` of ``iters`` K3 calls: ``short`` names a
+    kernel recorded once less, ``extra`` one recorded once more."""
+    return [_avg(f"(anonymous namespace)::{name}(float const*, ...)",
+                 iters - (name == short) + (name == extra), us * iters)
+            for name, us in (("sil_rows_kernel", 2.0),
+                             ("sil_compact_kernel", 3.0),
+                             ("silhouette_sums_kernel", 70.0))]
+
+
+def test_profile_events_keeps_device_events_only():
+    avgs = [_avg("kernel_a", 5, 10.0), _avg("aten::empty", 5, 0.0),
+            _avg("Memcpy HtoD", 0, 3.0),
+            SimpleNamespace(key="old_api", count=2, self_device_time_total=None,
+                            self_cuda_time_total=4.0)]
+    assert smoke.profile_events(avgs) == [("kernel_a", 5, 10.0),
+                                          ("old_api", 2, 4.0)]
+
+
+@pytest.mark.parametrize("case,accepted", [
+    ("complete", True), ("one launch missing", False),
+    ("one launch too many", False), ("a kernel missing", False),
+    ("empty", False)])
+def test_verdict_on_named_kernels(case, accepted):
+    iters = 10
+    events = {"complete": _k3_record(iters),
+              "one launch missing": _k3_record(iters, short="silhouette_sums_kernel"),
+              "one launch too many": _k3_record(iters, extra="sil_rows_kernel"),
+              "a kernel missing": _k3_record(iters)[1:],
+              "empty": []}[case]
+    ok, why = smoke.profile_verdict(
+        [(k, c) for k, c, _ in smoke.profile_events(events)], iters, K3)
+    assert ok is accepted, why
+
+
+@pytest.mark.parametrize("seen,accepted", [(30, True), (45, True),
+                                           (29, False), (0, False)])
+def test_verdict_on_unlisted_kernels(seen, accepted):
+    """A library call launching 3 device events per call, recorded over 10
+    calls: fewer than 30 events means part of the run went unrecorded."""
+    events = [("sm90_xmma_gemm_f32f32_tf32f32", seen // 3),
+              ("elementwise_kernel", seen - seen // 3)] if seen else []
+    ok, _ = smoke.profile_verdict(events, 10, None, min_events=3)
+    assert ok is accepted
+
+
+def _fake_device_ms(monkeypatch, records, spin=1.5):
+    """device_ms with torch.profiler replaced by ``records`` (one list of
+    (name, count, us) per recorded pass) and the spin-primed span by
+    ``spin``; returns the pending records."""
+    queue = list(records)
+    monkeypatch.setattr(smoke, "_record", lambda fn, iters: queue.pop(0))
+    monkeypatch.setattr(smoke, "_spin_primed_ms", lambda fn, iters: spin)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(smoke, "log", lambda *a: None)
+    return queue
+
+
+def test_device_ms_accepts_a_complete_record(monkeypatch):
+    _fake_device_ms(monkeypatch, [smoke.profile_events(_k3_record(10))])
+    t = smoke.device_ms(lambda: None, 10, own=K3)
+    assert t.source == "cupti"
+    assert t.own == pytest.approx(0.075) and t.total == pytest.approx(0.075)
+
+
+def test_device_ms_retries_a_partial_record(monkeypatch):
+    queue = _fake_device_ms(monkeypatch, [
+        smoke.profile_events(_k3_record(10, short="sil_compact_kernel")),
+        smoke.profile_events(_k3_record(10))])
+    t = smoke.device_ms(lambda: None, 10, own=K3)
+    assert t.source == "cupti" and not queue
+
+
+def test_device_ms_falls_back_to_the_spin_primed_span(monkeypatch):
+    _fake_device_ms(monkeypatch, [
+        smoke.profile_events(_k3_record(10, short="sil_rows_kernel")),
+        smoke.profile_events(_k3_record(10, extra="silhouette_sums_kernel"))], spin=1.5)
+    t = smoke.device_ms(lambda: None, 10, own=K3)
+    assert t == smoke.DeviceTime(1.5, 1.5, "spin-primed")
+
+
+def test_device_ms_holds_a_library_call_to_its_first_pass(monkeypatch):
+    one = [("gemm", 1, 5.0), ("elementwise", 2, 1.0)]
+    partial = [("gemm", 10, 50.0), ("elementwise", 12, 6.0)]
+    full = [("gemm", 10, 50.0), ("elementwise", 20, 10.0)]
+    queue = _fake_device_ms(monkeypatch, [one, partial, full])
+    t = smoke.device_ms(lambda: None, 10)
+    assert t.source == "cupti" and t.total == pytest.approx(0.006)
+    assert t.own == 0.0 and not queue
+
+
+def test_device_ms_raises_without_any_device_time(monkeypatch):
+    _fake_device_ms(monkeypatch, [[], []], spin=None)
+    with pytest.raises(RuntimeError, match="no device time"):
+        smoke.device_ms(lambda: None, 10)
