@@ -18,15 +18,17 @@ Phases, each reported on its own lines:
             bucket; K6 at phi-2's and cfd's first dense batch, D 64 / 128,
             f32 and bf16, plus E = 0 and a batch of padding at node 0, and
             the dense aggregation's backward on the card against the CPU;
-            K2 / K3 / K4 also at PKA's feature width d = 12; K7 also over hd
-            16/64/256, G 1/3/8, S 64/512/1536, f32 and bf16; K8 also at
-            mamba's smoke shape and a single 64-row chunk), with its time,
-            the plain version's, one library call's where there is one, and
-            the least time the card could take (bound).  Each device time
-            comes from a torch.profiler record that holds every launch of
-            the timed calls (``profile_verdict``) and is printed with
-            ``[cupti]``, or else is the spin-primed device span and printed
-            with ``[spin-primed]``;
+            K2 also over a sweep's 47 candidates in one call
+            (``kmeans_assign_fused_batched``, one Lloyd step of cfd's
+            sweep); K2 / K3 / K4 also at PKA's feature width d = 12; K7
+            also over hd 16/64/256, G 1/3/8, S 64/512/1536, f32 and bf16;
+            K8 also at mamba's smoke shape and a single 64-row chunk), with
+            its time, the plain version's, one library call's where there
+            is one, and the least time the card could take (bound).  Each
+            device time comes from a torch.profiler record that holds every
+            launch of the timed calls (``profile_verdict``) and is printed
+            with ``[cupti]``, or else is the spin-primed device span and
+            printed with ``[spin-primed]``;
 4. reference the JAX-trained encoder committed in
             ``src/repro_torch/assets/reference_phi2.npz``: the card embeds
             and plans phi-2 and cfd and must match the JAX results stored
@@ -47,7 +49,8 @@ Phases, each reported on its own lines:
             on the card against the CPU (1e-4);
 5. serve    a PlanService answers submit_program for cfd, phi-2 and nw with
             that encoder; the serving kernels' launch counts (zeroed just
-            before) must be > 0 and no request may fail;
+            before) must be > 0, a sweep may make at most iters + 1 K2
+            calls (``SweepCount``), and no request may fail;
 6. train    three training steps of the full-width encoder on the card
             against the same steps on the CPU with the same draws (loss
             1e-5, parameters 1e-4 relative);
@@ -82,7 +85,8 @@ Phases, each reported on its own lines:
             rows are printed beside JAX's; a second run on the same
             directory replays (no fit, gcl prepare under a tenth of the
             first run's).  This is the slice's main path: its counts are the
-            ``launches`` of K1, K1b, K2, K3 and K5 in the kernel table;
+            ``launches`` of K1, K1b, K2, K3 and K5 in the kernel table (K2's
+            count batched calls, at most iters + 1 a sweep);
 12. lm_reference the JAX fixture ``src/repro_torch/assets/reference_lm.npz``
             (smoke-width llama3.2-3b and mamba2-780m, two layers, f32, B=2,
             a 1024-token prompt): the card's prefill logits and its decode
@@ -151,7 +155,8 @@ FIT_SPLIT = (
     ("copies and fills", ("Memcpy", "Memset")),
 )
 #: the kernels the serving path launches (K1-K3); fitting adds K5 and K1b
-SERVE_KERNELS = ("rgcn_fused_flat", "kmeans_assign_fused", "silhouette_sums")
+SERVE_KERNELS = ("rgcn_fused_flat", "kmeans_assign_fused",
+                 "kmeans_assign_fused_batched", "silhouette_sums")
 EMBED_TOL = 1e-4        # card embeddings vs the JAX fixture, relative
 DENSE_BATCH = 64        # embed_dense's batch of graphs
 METRIC_TOL = 1e-6       # eq. 5 / eq. 6 vs the JAX fixture, absolute
@@ -170,11 +175,16 @@ LM_BATCH, LM_PROMPT, LM_TOKENS, LM_REQUESTS = 4, 2048, 32, 2
 LLAMA_PREFILL = (LM_BATCH, LM_PROMPT, 8, 3, 128)     # K7: (B, S, K, G, hd)
 MAMBA_PREFILL = (LM_BATCH, LM_PROMPT // 256, 256, 48, 64, 128)  # K8
 BF16_TOL = 2 ** -7      # a bf16 kernel output vs plain: one bf16 rounding
-#: the kernels K2's and K3's wrappers launch per call (``device_ms``'s
+#: the kernels K2's, K3's and K4's wrappers launch per call (``device_ms``'s
 #: ``own``)
-K2_KERNELS = {"kmeans_assign_kernel": 1, "kmeans_reduce_kernel": 1}
+K2_KERNELS = {"k2_prep_kernel": 1, "k2_assign_kernel": 1,
+              "k2_stats_kernel": 1, "k2_reduce_kernel": 1}
 K3_KERNELS = {"sil_rows_kernel": 1, "sil_compact_kernel": 1,
               "silhouette_sums_kernel": 1}
+K4_KERNELS = {"k4_assign_kernel": 1}
+#: what a K2 row's ``launches`` counts
+K2_COUNTED = ("calls of the batched K2: one per Lloyd step (and one final "
+              "assignment) for all candidates of a program")
 LM_TOL = 1e-4           # card (K7, K8, f32) vs the JAX fixture, relative
 #: decode-vs-prefill: a prefill length must be a multiple of K7's 512-row
 #: block and K8's 256-row chunk (1792 is not)
@@ -194,6 +204,9 @@ DECODE_TOL = {"llama3.2-3b": 0.06, "mamba2-780m": 0.6}
 DECODE_TOL_F32 = 1e-4
 DECODE_F32_LAYERS = 4
 LM_PROFILE_STEPS = 8    # decode steps under torch.profiler
+#: torch.profiler records ``device_ms`` takes of one call before it falls
+#: back to the spin-primed span: CUPTI now and then drops part of a record
+RECORD_TRIES = 3
 
 
 def log(*a):
@@ -234,9 +247,10 @@ def time_ms(fn, iters, warmup=3):
 def _spin_primed_ms(fn, iters):
     """Device time of one call from CUDA events around ``iters`` calls that
     the host queues while a spin kernel holds the stream, so the span holds
-    the calls' device work back to back and no host launch time; None when
-    the spin ended before the host had queued them (a call that waits for
-    the device)."""
+    the calls' device work back to back and no host launch time.  A spin
+    that ended before the host had queued the calls is taken once more,
+    four times as long (the host's pace varies on a shared machine); None
+    when that one ends early too (a call that waits for the device)."""
     import torch
 
     t0 = time.perf_counter()
@@ -244,19 +258,23 @@ def _spin_primed_ms(fn, iters):
         fn()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    primed = torch.cuda.Event()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    # twice the host's queueing time at the card's top clock, <= 2 GHz
-    torch.cuda._sleep(int(max(host_s, 1e-3) * 4e9))
-    primed.record()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    starved = primed.query()
-    torch.cuda.synchronize()
-    return None if starved else start.elapsed_time(end) / iters
+    for spans in (2, 8):
+        primed = torch.cuda.Event()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # ``spans`` x the host's queueing time at the card's top clock,
+        # <= 2 GHz
+        torch.cuda._sleep(int(max(host_s, 1e-3) * spans * 2e9))
+        primed.record()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        starved = primed.query()
+        torch.cuda.synchronize()
+        if not starved:
+            return start.elapsed_time(end) / iters
+    return None
 
 
 class DeviceTime(NamedTuple):
@@ -311,14 +329,22 @@ def profile_events(averages):
 
 
 def _record(fn, iters):
-    """``profile_events`` of ``iters`` calls under torch.profiler."""
+    """``profile_events`` of ``iters`` calls under torch.profiler.  One call
+    runs first in a warm-up step, whose events are dropped, so CUPTI is
+    already collecting when the recorded calls start."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        prof.step()
     return profile_events(prof.key_averages())
 
 
@@ -329,9 +355,10 @@ def device_ms(fn, iters, own=None) -> DeviceTime:
     wrapper launches, each of which must appear exactly ``iters`` x its
     count; without ``own`` the record must hold at least ``iters`` x the
     device events of one call recorded first.  A refused record is taken
-    once more; then the number is the call's device span behind a spin
-    kernel (``_spin_primed_ms``), and the source says so.  Raises when
-    neither can be had."""
+    again, up to ``RECORD_TRIES`` records; then the number is the call's
+    device span behind a spin kernel (``_spin_primed_ms``, which needs a
+    call that does not wait for the device), and the source says so.
+    Raises when neither can be had."""
     import torch
 
     fn()
@@ -339,13 +366,13 @@ def device_ms(fn, iters, own=None) -> DeviceTime:
     own = dict(own or {})
     min_events = 0
     if not own:
-        for _ in range(2):
+        for _ in range(RECORD_TRIES):
             min_events = sum(c for _, c, _ in _record(fn, 1))
             if min_events:
                 break
     why = "the first recorded call held no device events"
     if own or min_events:
-        for _ in range(2):
+        for _ in range(RECORD_TRIES):
             events = _record(fn, iters)
             ok, why = profile_verdict([(k, c) for k, c, _ in events], iters,
                                       own, min_events)
@@ -360,7 +387,8 @@ def device_ms(fn, iters, own=None) -> DeviceTime:
         raise RuntimeError(f"no device time: torch.profiler's record was "
                            f"refused ({why}) and the call waits for the "
                            f"device")
-    log(f"[kernels] torch.profiler's record refused twice ({why}): "
+    log(f"[kernels] torch.profiler's record refused {RECORD_TRIES} times "
+        f"({why}): "
         f"{t:.4f} ms is the call's device span behind a spin kernel")
     return DeviceTime(t, t, "spin-primed")
 
@@ -432,13 +460,48 @@ def _main_path_batch():
     return packed
 
 
+def _k2_batched_check(got, x, cent, cmask, pmask):
+    """K2 over candidates against the plain version on the card: labels
+    must equal plain's wherever the two nearest live centroids are further
+    apart than TIE_TOL of the row's scale (|x|^2 plus the larger |c|^2);
+    returns (pairs clear of near-ties, labels differing in all, max abs
+    and scale-relative error of the min distance, relative error of sums
+    and counts against the plain sums of the kernel's own labels)."""
+    import torch
+
+    from repro_torch.kernels.kmeans_assign.ops import (
+        kmeans_assign_fused_batched_plain,
+    )
+
+    want = kmeans_assign_fused_batched_plain(x, cent, cmask, pmask)
+    clear_n = flips = 0
+    err = rel = sums_rel = 0.0
+    for c in range(cent.shape[0]):
+        _, clear, scale = _expected_labels(x, cent[c], cmask[c])
+        require(torch.equal(got[0][c][clear], want[0][c][clear]),
+                f"K2 batched candidate {c}: labels differ from plain outside "
+                f"near-ties")
+        clear_n += int(clear.sum())
+        flips += int((got[0][c] != want[0][c]).sum())
+        gap = (got[1][c] - want[1][c]).abs()
+        err = max(err, float(gap.max()))
+        rel = max(rel, float((gap / scale).max()))
+        onehot = (torch.nn.functional.one_hot(got[0][c].long(),
+                                              cent.shape[1]).float()
+                  * pmask[:, None])
+        sums_rel = max(sums_rel, rel_err(got[2][c], onehot.T @ x)[1],
+                       rel_err(got[3][c], onehot.sum(0))[1])
+    return clear_n, flips, err, rel, sums_rel
+
+
 def phase_kernels(rows, dev):
     import numpy as np
     import torch
 
     from repro_torch.kernels.kmeans_assign.ops import (
-        kmeans_assign_fused, kmeans_assign_fused_plain, silhouette_sums,
-        silhouette_sums_plain,
+        K2Workspace, kmeans_assign_fused, kmeans_assign_fused_batched,
+        kmeans_assign_fused_batched_plain, kmeans_assign_fused_plain,
+        silhouette_sums, silhouette_sums_plain,
     )
     from repro_torch.kernels.rgcn_fused.ops import (
         rgcn_fused_agg_flat, rgcn_fused_agg_flat_plain,
@@ -477,10 +540,12 @@ def phase_kernels(rows, dev):
             err, rel = rel_err(got, want)
             require(rel <= KERNEL_TOL,
                     f"K1 D={D} O={O} {dt}: rel err {rel:.3e} > {KERNEL_TOL}")
-            call_ms = time_ms(lambda: rgcn_fused_agg_flat(*args), 50)
+            # timed as the staged paths call it: the edges were checked
+            # by the call above, so the timed calls make no host sync
+            call = lambda: rgcn_fused_agg_flat(*args, checked=False)  # noqa
+            call_ms = time_ms(call, 50)
             wrap_ms, ms, ms_src = device_ms(
-                lambda: rgcn_fused_agg_flat(*args), 20,
-                own={"rgcn_fused_flat_kernel": 1})
+                call, 20, own={"rgcn_fused_flat_kernel": 1})
             plain_ms, _, plain_src = device_ms(
                 lambda: rgcn_fused_agg_flat_plain(*args), 20)
             esz = h.element_size()
@@ -547,9 +612,61 @@ def phase_kernels(rows, dev):
         f"({b_by})")
     rows.append(("kmeans_assign_fused", "src/repro_torch/csrc/kmeans_assign.cu",
                  "src/repro/kernels/kmeans_assign/kernel.py:113",
-                 kmeans_assign_fused,
+                 kmeans_assign_fused_batched,
                  dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                      bound_by=b_by, library_ms=lib_ms)))
+                      bound_by=b_by, library_ms=lib_ms,
+                      launches_counted=K2_COUNTED)))
+
+    # ---- K2 over the sweep's candidates: one Lloyd step of cfd's sweep ---
+    C = k - 1                                    # K = 2..48
+    cent_b = torch.from_numpy(
+        centers[None] + 0.1 * rng.standard_normal((C, k, d)).astype(
+            np.float32)).to(dev)
+    ks = torch.arange(2, k + 1, device=dev)
+    cmask_b = (torch.arange(k, device=dev)[None] < ks[:, None]).float()
+    args_b = (x, cent_b, cmask_b, pmask)
+    ws = K2Workspace(C, n, k, d, dev)
+    got = [t.clone() for t in kmeans_assign_fused_batched(*args_b, out=ws)]
+    torch.cuda.synchronize()
+    clear, flips, err, rel, sums_rel = _k2_batched_check(got, *args_b)
+    require(rel <= KERNEL_TOL and sums_rel <= KERNEL_TOL,
+            f"K2 batched: mind {rel:.3e} of the scale, sums {sums_rel:.3e}")
+    call_ms = time_ms(lambda: kmeans_assign_fused_batched(*args_b, out=ws),
+                      50)
+    _, ms, ms_src = device_ms(
+        lambda: kmeans_assign_fused_batched(*args_b, out=ws), 20,
+        own=K2_KERNELS)
+    plain_ms, _, plain_src = device_ms(
+        lambda: kmeans_assign_fused_batched_plain(*args_b), 5)
+
+    def k2_batched_library():
+        dist = torch.cdist(x[None].expand(C, n, d), cent_b) ** 2
+        dist = torch.where(cmask_b[:, None, :] > 0, dist, float("inf"))
+        return torch.min(dist, dim=2)
+
+    lib_ms, _, lib_src = device_ms(k2_batched_library, 20)
+    live = int(ks.sum())
+    bytes_ = (n * d * 4 + C * k * d * 4 * 2 + C * k * 4 * 2 + n * 4
+              + C * n * 8)
+    ops = 2 * n * live * d + 2 * n * d + 2 * live * d + C * n_real * d
+    b_ms, b_by = bound(bytes_, ops)
+    log(f"[kernels] K2 kmeans_assign_fused_batched n={n} d={d} k={k} C={C} "
+        f"(K = 2..{k}, {live} live slots): labels equal to plain on "
+        f"{clear} of {C * n} (candidate, point) pairs clear of near-ties, "
+        f"{flips} differ in all, max_abs_err min_sq {err:.3e}, {rel:.3e} of "
+        f"the row's scale, sums of the kernel's labels rel err "
+        f"{sums_rel:.3e} (tol {KERNEL_TOL}) kernel device ms {ms:.4f} "
+        f"[{ms_src}] (call ms {call_ms:.4f}; the replaced design ran "
+        f"{C} launches for this) plain device ms {plain_ms:.4f} "
+        f"[{plain_src}] library device ms {lib_ms:.4f} [{lib_src}] "
+        f"(batched cdist^2 + mask + min) bound_us {b_ms * 1e3:.2f} ({b_by})")
+    rows.append(("kmeans_assign_fused_batched",
+                 "src/repro_torch/csrc/kmeans_assign.cu",
+                 "src/repro/kernels/kmeans_assign/kernel.py:113",
+                 kmeans_assign_fused_batched,
+                 dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=lib_ms,
+                      launches_counted=K2_COUNTED)))
 
     sil = torch.zeros(n, device=dev)
     sil[torch.from_numpy(rng.choice(n_real, n_sil, replace=False)).to(dev)] = 1
@@ -672,7 +789,7 @@ def phase_k4(rows, dev):
         args = (x, cent)
         call_ms = time_ms(lambda: kmeans_assign(*args), 200)
         _, ms, ms_src = device_ms(lambda: kmeans_assign(*args), 50,
-                                  own={"kmeans_assign_seq_kernel": 1})
+                                  own=K4_KERNELS)
         span_ms = _spin_primed_ms(lambda: kmeans_assign(*args), 50)
         plain_ms, _, plain_src = device_ms(
             lambda: kmeans_assign_plain(*args), 50)
@@ -838,11 +955,11 @@ def _k5_k1b(rows, dev, rng, batches):
                                                              P))
                 require(rel <= KERNEL_TOL, f"K5 {label} D={D} {dname}: rel "
                         f"err {rel:.3e} > {KERNEL_TOL}")
-                call_ms = time_ms(lambda: rgcn_spmm_flat(h, src, dst, w, P),
-                                  50)
+                call = lambda: rgcn_spmm_flat(  # noqa: E731
+                    h, src, dst, w, P, checked=False)
+                call_ms = time_ms(call, 50)
                 wrap_ms, ms, ms_src = device_ms(
-                    lambda: rgcn_spmm_flat(h, src, dst, w, P), 20,
-                    own={"rgcn_spmm_flat_kernel": 1})
+                    call, 20, own={"rgcn_spmm_flat_kernel": 1})
                 plain_ms, _, plain_src = device_ms(
                     lambda: rgcn_spmm_flat_plain(h, src, dst, w, P), 20)
                 lib_ms = lib_src = None
@@ -880,10 +997,10 @@ def _k5_k1b(rows, dev, rng, batches):
                         f"K1b {label} D={D} {dname}: rel err dh {r1:.3e} "
                         f"dcoef {r2:.3e}")
                 args = (h, t, src, dst, coef, wnorm, P)
-                call_ms = time_ms(lambda: rgcn_fused_bwd(*args), 50)
+                call = lambda: rgcn_fused_bwd(*args, checked=False)  # noqa
+                call_ms = time_ms(call, 50)
                 wrap_ms, ms, ms_src = device_ms(
-                    lambda: rgcn_fused_bwd(*args), 20,
-                    own={"rgcn_fused_bwd_kernel": 1})
+                    call, 20, own={"rgcn_fused_bwd_kernel": 1})
                 plain_ms, _, plain_src = device_ms(
                     lambda: rgcn_fused_bwd_plain(*args), 20)
                 bytes_ = (2 * P * D * esz + P * nb * D * 4 + Q * 4 * 2
@@ -954,9 +1071,12 @@ def _k6_check(dev, label, h, src, dst, w, N, timed):
     live = (w != 0).any(-1)
     e_live = int(live.sum())
     args = (h, src, dst, w, N)
-    call_ms = time_ms(lambda: rgcn_spmm_dense(*args), 50)
-    wrap_ms, ms, ms_src = device_ms(lambda: rgcn_spmm_dense(*args), 20,
-                            own={"rgcn_spmm_dense_kernel": 1})
+    # timed as the dense encoder calls it: the edges were checked by the
+    # call above, so the timed calls make no host sync
+    call = lambda: rgcn_spmm_dense(*args, checked=False)  # noqa: E731
+    call_ms = time_ms(call, 50)
+    wrap_ms, ms, ms_src = device_ms(call, 20,
+                                    own={"rgcn_spmm_dense_kernel": 1})
     plain_ms, _, plain_src = device_ms(
         lambda: rgcn_spmm_dense_plain(*args), 20)
     lib_ms = lib_src = None
@@ -1268,6 +1388,36 @@ def phase_dense(dev):
     return counts
 
 
+class SweepCount:
+    """Counts, inside its block, the sweeps (``clustering._sweep_core``
+    calls) and the K2 calls they may make: iters + 1 each (one per Lloyd
+    step for all candidates, and the final assignment)."""
+
+    def __enter__(self):
+        from repro_torch.core import clustering
+
+        self._mod, self._real = clustering, clustering._sweep_core
+        self.sweeps = self.allowed = 0
+
+        def counted(*a, **kw):
+            self.sweeps += 1
+            self.allowed += kw["iters"] + 1
+            return self._real(*a, **kw)
+
+        clustering._sweep_core = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._sweep_core = self._real
+
+    def check(self, tag, k2_calls):
+        log(f"[{tag}] {self.sweeps} sweeps, {k2_calls} K2 calls "
+            f"({k2_calls / max(self.sweeps, 1):.1f} a sweep; at most "
+            f"{self.allowed}: iters + 1 a sweep)")
+        require(self.sweeps > 0 and k2_calls <= self.allowed,
+                f"{tag}: {k2_calls} K2 calls for {self.sweeps} sweeps")
+
+
 def phase_serve(rows, dev):
     import numpy as np
     import torch
@@ -1280,7 +1430,8 @@ def phase_serve(rows, dev):
     rows = [r for r in rows if r[0] in SERVE_KERNELS]
     for r in rows:
         r[3].launches = 0
-    with PlanService(device=dev, max_delay_ms=2.0) as svc:
+    with SweepCount() as sweeps, \
+            PlanService(device=dev, max_delay_ms=2.0) as svc:
         svc.warmup()
         for name in ("cfd", "phi-2", "nw"):
             prog = get_program(name)
@@ -1297,6 +1448,7 @@ def phase_serve(rows, dev):
     launches = {r[0]: r[3].launches for r in rows}
     log(f"[serve] stats {json.dumps(stats, default=str)}")
     log(f"[serve] launches {json.dumps(launches)}")
+    sweeps.check("serve", launches["kmeans_assign_fused"])
     require(stats["errors"] == 0 and stats["served"] == 3,
             f"serve: {stats['served']} served, {stats['errors']} errors")
     for name, count in launches.items():
@@ -1604,7 +1756,7 @@ def phase_fit_serve(rows, dev):
 
 def _all_wrappers():
     from repro_torch.kernels.kmeans_assign.ops import (
-        kmeans_assign, kmeans_assign_fused, silhouette_sums,
+        kmeans_assign, kmeans_assign_fused_batched, silhouette_sums,
     )
     from repro_torch.kernels.rgcn_fused.ops import (
         rgcn_fused_agg_flat, rgcn_fused_bwd,
@@ -1619,7 +1771,9 @@ def _all_wrappers():
             "rgcn_fused_bwd": rgcn_fused_bwd,
             "rgcn_spmm_flat": rgcn_spmm_flat,
             "rgcn_spmm_dense": rgcn_spmm_dense,
-            "kmeans_assign_fused": kmeans_assign_fused,
+            # K2: every launch goes through the batched wrapper
+            "kmeans_assign_fused": kmeans_assign_fused_batched,
+            "kmeans_assign_fused_batched": kmeans_assign_fused_batched,
             "silhouette_sums": silhouette_sums,
             "kmeans_assign": kmeans_assign,
             "flash_attention": flash_attention,
@@ -1781,9 +1935,10 @@ def phase_grid(dev):
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
         _zero_counts()
         t0 = time.perf_counter()
-        doc = run_grid(methods, list(PAPER_PROGRAMS), PLATFORMS, out,
-                       device=dev, verbose=False)
-        torch.cuda.synchronize()
+        with SweepCount() as sweeps:
+            doc = run_grid(methods, list(PAPER_PROGRAMS), PLATFORMS, out,
+                           device=dev, verbose=False)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _counts()
         validate_results(doc)
@@ -1795,6 +1950,7 @@ def phase_grid(dev):
             log(f"[grid] wall {m}: prepare {t['prepare_s']:.3f} s plan "
                 f"{t['plan_s']:.3f} s evaluate {t['evaluate_s']:.3f} s")
         log(f"[grid] launches {json.dumps(counts)}")
+        sweeps.check("grid", counts["kmeans_assign_fused"])
         require(not doc["failures"] and not doc["batch_plan_errors"],
                 "grid: failed cells or plan_batch fallbacks")
         rows = _grid_rows(out, doc)
@@ -2307,7 +2463,9 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": source, "replaces": repl,
          "launches": launches[name], "max_abs_err": m["err"], "ms": m["ms"],
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-         "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+         "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+         **({"launches_counted": m["launches_counted"]}
+            if "launches_counted" in m else {})}
         for name, source, repl, _, m in rows]}
     print(json.dumps(table))
     print(smi_line)

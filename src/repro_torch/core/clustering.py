@@ -14,12 +14,13 @@ host.  Two implementations share that rule:
   one-hot matmul centroid update, and one silhouette per candidate from
   ``silhouette_sums`` (K3);
 - the swept engine (``sweep_cluster_stack``): centroids padded to k_max
-  with masked Lloyd steps (K2 per step, K3 per candidate).  Where JAX
-  ``vmap``s the candidates and ``lax.scan``s the Lloyd steps inside one
-  executable, the port writes the candidate axis out as a Python loop; the
-  silhouette arithmetic over all candidates is plain torch.  Points are
-  padded to a power-of-two bucket with masks exactly as in JAX, so padding
-  never moves a result.
+  with masked Lloyd steps.  As JAX runs every candidate inside one
+  executable, each Lloyd step of the port is one K2 call for all the
+  candidates of a program (their centroids one (C, k_max, d) tensor) plus
+  the centroid update, and the final assignment one more; K3 runs once per
+  candidate, and the silhouette arithmetic over all candidates is plain
+  torch.  Points are padded to a power-of-two bucket with masks exactly as
+  in JAX, so padding never moves a result.
 
 On-device kmeans++ (``init="device"``) is not ported: it raises.
 """
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.kmeans_assign.ops import (
-    kmeans_assign, kmeans_assign_fused, silhouette_sums,
+    K2Workspace, kmeans_assign, kmeans_assign_fused_batched, silhouette_sums,
 )
 from repro_torch.utils.device import resolve_device
 
@@ -247,29 +248,36 @@ def _sweep_core(x, pmask, init_idx, sil_mask, *, k_max: int, iters: int,
     (k_max,) live on one device.  Returns (labels (num_k, n_pad) int32,
     sil (num_k,), ok (num_k,) bool) on that device, num_k = k_max - 1;
     candidates above n-1 are not fitted and come back ``ok=False``."""
-    n_pad = x.shape[0]
+    n_pad, d = x.shape
     dev = x.device
     num_k = k_max - 1
     k_top = min(k_max, n_real - 1)
+    C = max(k_top - 1, 0)                                   # fitted: 2..k_top
     cent0 = x[init_idx.long()]                              # (k_max, d)
-    slots = torch.arange(k_max, device=dev)
     labels_all = torch.zeros(num_k, n_pad, dtype=torch.int32, device=dev)
+    if C:
+        ks = torch.arange(2, k_top + 1, device=dev)
+        cmask = (torch.arange(k_max, device=dev)[None, :]
+                 < ks[:, None]).to(torch.float32)           # (C, k_max)
+        cent = cent0[None].expand(C, k_max, d).contiguous()
+        ws = (K2Workspace(C, n_pad, k_max, d, dev) if dev.type == "cuda"
+              else None)
+        for _ in range(iters):
+            _, _, sums, cnts = kmeans_assign_fused_batched(x, cent, cmask,
+                                                           pmask, out=ws)
+            cent = torch.where((cnts > 0)[..., None],
+                               sums / torch.clamp_min(cnts, 1)[..., None],
+                               cent)
+        lab, _, _, _ = kmeans_assign_fused_batched(x, cent.contiguous(),
+                                                   cmask, pmask, out=ws)
+        labels_all[:C] = lab
+    onehot_all = (torch.nn.functional.one_hot(labels_all.long(), k_max)
+                  .to(torch.float32) * sil_mask[None, :, None])
+    onehot_all[C:] = 0.0                                    # not fitted
     sums_all = torch.zeros(num_k, n_pad, k_max, dtype=torch.float32,
                            device=dev)
-    onehot_all = torch.zeros_like(sums_all)
-    for ki, k in enumerate(range(2, k_top + 1)):
-        cmask = (slots < k).to(torch.float32)
-        cent = cent0
-        for _ in range(iters):
-            _, _, sums, cnts = kmeans_assign_fused(x, cent, cmask, pmask)
-            cent = torch.where((cnts > 0)[:, None],
-                               sums / torch.clamp_min(cnts, 1)[:, None], cent)
-        lab, _, _, _ = kmeans_assign_fused(x, cent.contiguous(), cmask, pmask)
-        onehot = (torch.nn.functional.one_hot(lab.long(), k_max)
-                  .to(torch.float32) * sil_mask[:, None])
-        labels_all[ki] = lab
-        onehot_all[ki] = onehot
-        sums_all[ki] = silhouette_sums(x, onehot.contiguous())
+    for ki in range(C):
+        sums_all[ki] = silhouette_sums(x, onehot_all[ki].contiguous())
 
     # vectorized masked silhouette over the candidates (the JAX sweep's
     # arithmetic; empty clusters are excluded via cnt > 0)

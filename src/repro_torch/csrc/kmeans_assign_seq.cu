@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel `kmeans_assign_fwd`
 // (src/repro/kernels/kmeans_assign/kernel.py, body `_kmeans_kernel`), the
 // assignment step of the sequential K-Means reference.  For points x (n, d)
-// and centroids cent (k, d) it computes
+// and centroids cent (k, d), any k >= 1 and d >= 1, it computes
 //
 //   dist[p, c] = max(|x_p|^2 - 2 x_p . c + |c|^2, 0)
 //   labels[p]  = argmin_c dist[p, c]   (ties to the lowest index)
@@ -11,128 +11,129 @@
 //
 // and the (n, k) distance tile never reaches device memory.
 //
-// What bounds it on this card: at the sequential path's shape (n = 2425,
-// d = 256, k <= 48) one launch does 2 n k d ~ 60 MFLOP (~0.9 us of float32
-// CUDA-core time) and reads ~2.5 MB (~0.75 us at 3.35 TB/s), so operations
-// bind, narrowly; the Lloyd loop launches it iters + 1 times per candidate
-// K, so launch latency dominates a fit.
-//
-// Design: a block owns TP = 32 points and walks the centroids in chunks of
-// KC = 64 and the feature axis in chunks of DC = 32, staging both tiles in
-// shared memory (padded rows, no bank conflicts).  Each of the 256 threads
-// keeps a 2 x 4 register tile of dot products (2 points x 4 centroids), so
-// any d and any k run in ~17 KB of shared memory.  Every dot product, and
-// every norm, is one fmaf chain over the feature axis in index order, so
-// two identical centroids (kmeans++ seeds duplicates when a program has few
+// Numerics: every dot product, and every norm, is one fmaf chain over the
+// feature axis in index order (the shared core, kmeans_core.cuh), so two
+// identical centroids (kmeans++ seeds duplicates when a program has few
 // distinct kernels) get bit-identical distances; the expanded formula is
 // kept (not (x - c)^2) because the reference decides near-ties in its
 // rounding.  The argmin keeps the lowest index on ties: each thread scans
-// its centroids in increasing order with a strict '<', and the 16 threads
-// sharing a point reduce (distance, index) pairs preferring the smaller
-// index on equal distances; chunks are merged in increasing order with a
+// its centroids in increasing order with a strict '<', the 16 threads
+// sharing a point leave (distance, index) pairs in shared memory, which
+// one thread per point reduces preferring the smaller index on equal
+// distances, and column tiles are merged in increasing order with a
 // strict '<'.
+//
+// What bounds it on this card: at the sequential path's shape (n = 2425,
+// d = 256, k = 48) one launch does 2 n k d ~ 60 MFLOP (~0.9 us at the
+// 67 TFLOP/s float32 peak) and reads ~2.5 MB (~0.75 us at 3.35 TB/s):
+// operations, narrowly, and at that size the latency of getting the tiles
+// on chip.  Shared-memory wavefronts bind the design below (a 1 x 4 tile
+// reads five 16-byte values per 16 FMAs).
+//
+// Design: a block owns 16 points (152 blocks at n = 2425) and walks the
+// centroids in tiles of 64 (one tile for k <= 64).  The shared core issues
+// the point rows and the tile's centroid rows as cp.async copies into an
+// 8-stage ring of 32-feature chunks, so at d = 256 every chunk of both is
+// in flight at once (92 KB of shared memory, two blocks an SM); larger d
+// streams through the same ring.  Each thread keeps 1 x 4 dot products
+// (its point, columns tx + 16 m; a warp covers 8 points x 4 column
+// lanes, so its loads are free of bank conflicts), and the threads
+// with t < 80 also chain the squared norm of one staged row.  Rows past n
+// or k stage as zeros.
+
+#include <climits>
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "kmeans_core.cuh"
 
 namespace {
 
-constexpr int TP = 32;        // points per block
-constexpr int KC = 64;        // centroids per chunk
-constexpr int DC = 32;        // feature chunk staged in shared memory
-constexpr int THREADS = 256;  // 16 point pairs x 16 centroid lanes
+using kmcore::TC;
 
-__global__ void __launch_bounds__(THREADS)
-kmeans_assign_seq_kernel(const float* __restrict__ x,
-                         const float* __restrict__ cent,
-                         int* __restrict__ labels, float* __restrict__ min_sq,
-                         int n, int d, int k) {
-  __shared__ float xs[TP][DC + 1];
-  __shared__ float cs[KC][DC + 1];
-  __shared__ float x2s[TP];
-  __shared__ float c2s[KC];
-  const int t = threadIdx.x;
-  const int pr = t >> 4;        // this thread's points: 2 pr, 2 pr + 1
-  const int cl = t & 15;        // this thread's centroids: cl + 16 m
+constexpr int TP = 16;            // points per block
+constexpr int THREADS = 256;
+constexpr int STAGES = 8;         // ring depth: all of d = 256 in flight
+using T4 = kmcore::Tile<TP, 1, 4, THREADS>;   // 1 x 4 dot products a thread
+constexpr int TXN = T4::TXN;
+constexpr int SMEM =
+    4 * (STAGES * T4::STAGE + (TP + TC) + TP + TC + 2 * TP * TXN);
+
+template <bool VEC4>
+__global__ void __launch_bounds__(THREADS, 2)
+k4_assign_kernel(const float* __restrict__ x, const float* __restrict__ cent,
+                 int* __restrict__ labels, float* __restrict__ min_sq, int n,
+                 int d, int k) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  int* rows = reinterpret_cast<int*>(smem + STAGES * T4::STAGE);
+  float* x2s = reinterpret_cast<float*>(rows + TP + TC);
+  float* c2s = x2s + TP;
+  float* red_d = c2s + TC;                       // TP x TXN partial minima
+  int* red_i = reinterpret_cast<int*>(red_d + TP * TXN);
+  const int tx = T4::tx(), ty = T4::ty();
   const int p0 = blockIdx.x * TP;
-
-  float best[2] = {__int_as_float(0x7f800000), __int_as_float(0x7f800000)};
-  int arg[2] = {0, 0};
-
-  for (int c0 = 0; c0 < k; c0 += KC) {
-    float acc[2][4];
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int m = 0; m < 4; ++m) acc[a][m] = 0.f;
-    float nrm = 0.f;            // |x|^2 (t < TP, first chunk) or |c|^2 (t < KC)
-    for (int d0 = 0; d0 < d; d0 += DC) {
-      for (int e = t; e < TP * DC; e += THREADS) {
-        const int row = e / DC, col = e % DC;
-        const int gp = p0 + row, gd = d0 + col;
-        xs[row][col] = (gp < n && gd < d) ? x[static_cast<size_t>(gp) * d + gd] : 0.f;
-      }
-      for (int e = t; e < KC * DC; e += THREADS) {
-        const int row = e / DC, col = e % DC;
-        const int gc = c0 + row, gd = d0 + col;
-        cs[row][col] = (gc < k && gd < d) ? cent[static_cast<size_t>(gc) * d + gd] : 0.f;
-      }
-      __syncthreads();
-      // norms: one fmaf chain per row, in feature order (as the dots)
-      if (t < KC) {
-        for (int dd = 0; dd < DC; ++dd) nrm = fmaf(cs[t][dd], cs[t][dd], nrm);
-      } else if (c0 == 0 && t - KC < TP) {
-        const int row = t - KC;
-        for (int dd = 0; dd < DC; ++dd) nrm = fmaf(xs[row][dd], xs[row][dd], nrm);
-      }
-#pragma unroll 8
-      for (int dd = 0; dd < DC; ++dd) {
-        const float a0 = xs[2 * pr][dd], a1 = xs[2 * pr + 1][dd];
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const float b = cs[cl + 16 * m][dd];
-          acc[0][m] = fmaf(a0, b, acc[0][m]);
-          acc[1][m] = fmaf(a1, b, acc[1][m]);
-        }
-      }
-      __syncthreads();
-    }
-    if (t < KC) c2s[t] = nrm;
-    else if (c0 == 0 && t - KC < TP) x2s[t - KC] = nrm;
+  float best = kmcore::inf();
+  int arg = 0;
+  for (int c0 = 0; c0 < k; c0 += TC) {
+    for (int e = threadIdx.x; e < TP + TC; e += THREADS)
+      rows[e] = e < TP ? (p0 + e < n ? p0 + e : -1)
+                       : (c0 + e - TP < k ? c0 + e - TP : -1);
     __syncthreads();
+    float acc[1][T4::CT], nrm;
+    kmcore::tile_dots<T4, STAGES, VEC4, true>(x, cent, d, rows, ring, acc,
+                                              nrm);
+    if (threadIdx.x < TP) x2s[threadIdx.x] = nrm;
+    else if (threadIdx.x < TP + TC) c2s[threadIdx.x - TP] = nrm;
+    __syncthreads();
+    const float x2 = x2s[ty];
+    float cb = kmcore::inf();
+    int ca = INT_MAX;
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const float x2 = x2s[2 * pr + a];
-      float cb = __int_as_float(0x7f800000);
-      int ca = 0x7fffffff;
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int c = c0 + cl + 16 * m;
-        if (c < k) {
-          const float dist = fmaxf(x2 - 2.f * acc[a][m] + c2s[cl + 16 * m], 0.f);
-          if (dist < cb) { cb = dist; ca = c; }
-        }
-      }
-      // the 16 lanes of this point: smallest distance, then smallest index
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, cb, off);
-        const int oa = __shfl_xor_sync(0xffffffffu, ca, off);
-        if (ob < cb || (ob == cb && oa < ca)) { cb = ob; ca = oa; }
-      }
-      if (cb < best[a]) { best[a] = cb; arg[a] = ca; }
-    }
-    __syncthreads();            // c2s is rewritten by the next chunk
-  }
-  if (cl == 0) {
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int gp = p0 + 2 * pr + a;
-      if (gp < n) {
-        labels[gp] = arg[a];
-        min_sq[gp] = best[a];
+    for (int m = 0; m < T4::CT; ++m) {
+      const int j = tx + TXN * m;
+      if (c0 + j < k) {
+        const float dist = kmcore::sq_dist(x2, acc[0][m], c2s[j]);
+        if (dist < cb) { cb = dist; ca = c0 + j; }
       }
     }
+    red_d[ty * TXN + tx] = cb;
+    red_i[ty * TXN + tx] = ca;
+    __syncthreads();
+    // the 16 column lanes of a point: smallest distance, then smallest
+    // index; then the tile against the earlier tiles' lower indices
+    if (threadIdx.x < TP) {
+      const float* rd = red_d + threadIdx.x * TXN;
+      const int* ri = red_i + threadIdx.x * TXN;
+      float bd = rd[0];
+      int bi = ri[0];
+#pragma unroll
+      for (int q = 1; q < TXN; ++q)
+        if (kmcore::closer(rd[q], ri[q], bd, bi)) { bd = rd[q]; bi = ri[q]; }
+      if (bd < best) { best = bd; arg = bi; }
+    }
+    __syncthreads();              // rows, x2s, c2s, red: the next tile's
   }
+  const int p = p0 + threadIdx.x;
+  if (threadIdx.x < TP && p < n) {
+    labels[p] = arg;
+    min_sq[p] = best;
+  }
+}
+
+bool g_configured = false;
+
+int configure() {
+  if (g_configured) return 0;
+  cudaFuncSetAttribute(k4_assign_kernel<true>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  cudaFuncSetAttribute(k4_assign_kernel<false>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  g_configured = true;
+  return 0;
 }
 
 }  // namespace
@@ -142,9 +143,19 @@ kmeans_assign_seq_kernel(const float* __restrict__ x,
 extern "C" int kmeans_assign(const float* x, const float* cent, int* labels,
                              float* min_sq, int n, int d, int k, void* stream) {
   if (n < 0 || d < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = configure();
+  if (err != 0) return err;
   if (n == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kmeans_assign_seq_kernel<<<(n + TP - 1) / TP, THREADS, 0, s>>>(
-      x, cent, labels, min_sq, n, d, k);
+  const bool vec4 = d % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(cent) % 16 == 0;
+  const int grid = (n + TP - 1) / TP;
+  if (vec4)
+    k4_assign_kernel<true><<<grid, THREADS, SMEM, s>>>(x, cent, labels, min_sq,
+                                                       n, d, k);
+  else
+    k4_assign_kernel<false><<<grid, THREADS, SMEM, s>>>(x, cent, labels,
+                                                        min_sq, n, d, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,6 +2,8 @@
 sequential reference's unmasked assignment."""
 
 from repro_torch.kernels.kmeans_assign.ops import (  # noqa: F401
-    kmeans_assign, kmeans_assign_fused, kmeans_assign_fused_plain,
-    kmeans_assign_plain, silhouette_sums, silhouette_sums_plain,
+    K2Workspace, kmeans_assign, kmeans_assign_fused,
+    kmeans_assign_fused_batched, kmeans_assign_fused_batched_plain,
+    kmeans_assign_fused_plain, kmeans_assign_plain, silhouette_sums,
+    silhouette_sums_plain,
 )

@@ -5,8 +5,11 @@ Counterpart of ``repro/kernels/kmeans_assign/{ops,ref}.py``.
 ``kmeans_assign``       the sequential reference's unmasked assignment
                         (K4): CUDA tensors launch
                         ``csrc/kmeans_assign_seq.cu``.
-``kmeans_assign_fused`` one mask-aware Lloyd step's statistics: CUDA
-                        tensors launch ``csrc/kmeans_assign.cu``.
+``kmeans_assign_fused_batched``
+                        one mask-aware Lloyd step's statistics for every
+                        candidate of a sweep: CUDA tensors launch
+                        ``csrc/kmeans_assign.cu``; ``kmeans_assign_fused``
+                        is its single-candidate form.
 ``silhouette_sums``     per-(point, cluster) distance totals: CUDA tensors
                         launch ``csrc/silhouette_sums.cu``.
 
@@ -18,10 +21,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import check, launch, route
-
-#: points per block of the K2 kernel (its partial-sum scratch is per block)
-_K2_POINTS = 32
-
 
 def kmeans_assign_plain(x, cent):
     """(labels (n,) int32, min squared distance (n,)): the expanded
@@ -74,39 +73,111 @@ def kmeans_assign_fused_plain(x, cent, cmask, pmask):
     return lab.to(torch.int32), mind * pmask, onehot.T @ x, onehot.sum(0)
 
 
+def kmeans_assign_fused_batched_plain(x, cent, cmask, pmask):
+    """``kmeans_assign_fused_plain`` of each candidate c (cent[c],
+    cmask[c]), stacked: (labels (C,n) int32, mind (C,n), sums (C,k,d),
+    counts (C,k))."""
+    outs = [kmeans_assign_fused_plain(x, cent[c], cmask[c], pmask)
+            for c in range(cent.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+#: csrc/kmeans_assign.cu: points of a statistics segment, columns of a
+#: tile, and the kernel's limits on k, d and C
+_K2_SEG, _K2_TC = 256, 64
+_K2_MAX_K, _K2_MAX_D, _K2_MAX_C = 64, 512, 1024
+
+
+class K2Workspace:
+    """Outputs and scratch of ``kmeans_assign_fused_batched`` for one shape
+    (C candidates, n points, k slots, d features) on one card, made once
+    per sweep so that its Lloyd steps allocate nothing.  Each call
+    overwrites ``labels``, ``mind``, ``sums`` and ``cnts``.  It also keeps
+    the kernel's column plan, built from the cmask it was called with; a
+    later call with the same cmask tensor, unmodified, reuses it."""
+
+    def __init__(self, C: int, n: int, k: int, d: int, device):
+        dev = torch.device(device)
+        nseg = -(-n // _K2_SEG)
+        self.shape = (C, n, k, d)
+        self.labels = torch.empty(C, n, dtype=torch.int32, device=dev)
+        self.mind = torch.empty(C, n, dtype=torch.float32, device=dev)
+        self.sums = torch.empty(C, k, d, dtype=torch.float32, device=dev)
+        self.cnts = torch.empty(C, k, dtype=torch.float32, device=dev)
+        # the plan (csrc plan_ints) and the touched flags per (segment,
+        # candidate, slot); the norms, partial counts and partial sums
+        self.iscratch = torch.empty(1 + 4 * C + 2 * C * _K2_TC
+                                    + nseg * C * k, dtype=torch.int32,
+                                    device=dev)
+        self.fscratch = torch.empty(n + C * k + nseg * C * k * (d + 1),
+                                    dtype=torch.float32, device=dev)
+        self._plan_of = None          # (cmask, its version) of the plan
+
+    def has_plan(self, cmask) -> bool:
+        return (self._plan_of is not None and self._plan_of[0] is cmask
+                and self._plan_of[1] == cmask._version)
+
+
+def kmeans_assign_fused_batched(x, cent, cmask, pmask, out=None):
+    """x (n,d), cent (C,k,d), cmask (C,k), pmask (n,), all float32 ->
+    (labels (C,n) int32, masked min_sq_dist (C,n), sums (C,k,d), counts
+    (C,k)): one K2 launch for every candidate.  On the card the results
+    are the tensors of ``out`` (a ``K2Workspace`` of this shape; a new one
+    when None), which the next call with it overwrites.  CPU tensors take
+    the plain version and ignore ``out``."""
+    if route(x) == "cpu":
+        return kmeans_assign_fused_batched_plain(x, cent, cmask, pmask)
+    dev = x.device
+    if x.dim() != 2 or cent.dim() != 3:
+        raise ValueError("kmeans_assign_fused_batched: x must be 2-D and "
+                         "cent 3-D")
+    n, d = x.shape
+    C, k = cent.shape[:2]
+    check("x", x, dtype=torch.float32, shape=(n, d), device=dev)
+    check("cent", cent, dtype=torch.float32, shape=(C, k, d), device=dev)
+    check("cmask", cmask, dtype=torch.float32, shape=(C, k), device=dev)
+    check("pmask", pmask, dtype=torch.float32, shape=(n,), device=dev)
+    if not (1 <= C <= _K2_MAX_C and 1 <= k <= _K2_MAX_K
+            and 1 <= d <= _K2_MAX_D):
+        raise ValueError(f"kmeans_assign kernel takes 1 <= C <= "
+                         f"{_K2_MAX_C}, 1 <= k <= {_K2_MAX_K}, 1 <= d <= "
+                         f"{_K2_MAX_D}; got C={C}, k={k}, d={d}")
+    ws = K2Workspace(C, n, k, d, dev) if out is None else out
+    if ws.shape != (C, n, k, d) or ws.labels.device != dev:
+        raise ValueError(f"kmeans_assign_fused_batched: workspace of shape "
+                         f"{ws.shape} on {ws.labels.device}, expected "
+                         f"{(C, n, k, d)} on {dev}")
+    replan = not ws.has_plan(cmask)
+    launch("kmeans_assign_fused_batched",
+           *(t.data_ptr() for t in (x, cent, cmask, pmask, ws.labels,
+                                    ws.mind, ws.sums, ws.cnts, ws.iscratch,
+                                    ws.fscratch)),
+           n, d, k, C, int(replan))
+    ws._plan_of = (cmask, cmask._version)
+    kmeans_assign_fused_batched.launches += 1
+    return ws.labels, ws.mind, ws.sums, ws.cnts
+
+
+#: calls that launched the K2 kernels (CUDA tensors only), single-candidate
+#: calls through ``kmeans_assign_fused`` included
+kmeans_assign_fused_batched.launches = 0
+
+
 def kmeans_assign_fused(x, cent, cmask, pmask):
     """x (n,d), cent (k,d), cmask (k,), pmask (n,), all float32 ->
-    (labels (n,) int32, masked min_sq_dist (n,), sums (k,d), counts (k,))."""
+    (labels (n,) int32, masked min_sq_dist (n,), sums (k,d), counts (k,)):
+    the batched kernel with one candidate."""
     if route(x) == "cpu":
         return kmeans_assign_fused_plain(x, cent, cmask, pmask)
-    dev = x.device
-    if x.dim() != 2 or cent.dim() != 2:
-        raise ValueError("kmeans_assign_fused: x and cent must be 2-D")
-    n, d = x.shape
-    k = cent.shape[0]
-    check("x", x, dtype=torch.float32, shape=(n, d), device=dev)
-    check("cent", cent, dtype=torch.float32, shape=(k, d), device=dev)
-    check("cmask", cmask, dtype=torch.float32, shape=(k,), device=dev)
-    check("pmask", pmask, dtype=torch.float32, shape=(n,), device=dev)
-    if k > 64 or d > 512:
-        raise ValueError(f"kmeans_assign kernel takes k <= 64, d <= 512; "
-                         f"got k={k}, d={d}")
-    nblk = (n + _K2_POINTS - 1) // _K2_POINTS
-    labels = torch.empty(n, dtype=torch.int32, device=dev)
-    mind = torch.empty(n, dtype=torch.float32, device=dev)
-    psums = torch.empty(max(nblk, 1), k, d, dtype=torch.float32, device=dev)
-    pcnts = torch.empty(max(nblk, 1), k, dtype=torch.float32, device=dev)
-    sums = torch.empty(k, d, dtype=torch.float32, device=dev)
-    cnts = torch.empty(k, dtype=torch.float32, device=dev)
-    launch("kmeans_assign_fused",
-           *(t.data_ptr() for t in (x, cent, cmask, pmask, labels, mind,
-                                    psums, pcnts, sums, cnts)),
-           n, d, k)
+    if x.dim() != 2 or cent.dim() != 2 or cmask.dim() != 1:
+        raise ValueError("kmeans_assign_fused: x and cent must be 2-D, "
+                         "cmask 1-D")
+    out = kmeans_assign_fused_batched(x, cent[None], cmask[None], pmask)
     kmeans_assign_fused.launches += 1
-    return labels, mind, sums, cnts
+    return tuple(t[0] for t in out)
 
 
-#: kernel launches made through this wrapper (CUDA tensors only)
+#: single-candidate calls that launched K2 (CUDA tensors only)
 kmeans_assign_fused.launches = 0
 
 

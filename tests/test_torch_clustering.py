@@ -19,9 +19,16 @@ with each other on some inputs (ROADMAP.md, C2).
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.clustering import sweep_cluster_stack as jax_sweep
-from repro_torch.core.clustering import sweep_cluster_stack
+from repro_torch.core.clustering import (
+    _host_preamble, _kmeanspp_init, _sweep_core, bucket_points,
+    sweep_cluster_stack,
+)
+from repro_torch.kernels.kmeans_assign.ops import (
+    kmeans_assign_fused_plain, silhouette_sums_plain,
+)
 
 SIL_TOL = 1e-3
 
@@ -106,3 +113,87 @@ def test_device_init_is_not_ported():
     with pytest.raises(NotImplementedError):
         sweep_cluster_stack([_blobs(0, 20, 4, 2)], init="device",
                             device="cpu")
+
+
+def _sweep_inputs(x, seed, k_max, sil_cap):
+    """``sweep_cluster_stack``'s padded inputs for one program."""
+    n, d = x.shape
+    n_pad = bucket_points(n)
+    xb = np.zeros((n_pad, d), np.float32)
+    xb[:n] = x
+    pmask = (np.arange(n_pad) < n).astype(np.float32)
+    _, sil_idx = _host_preamble(x, seed, 4, sil_cap)
+    silm = np.zeros(n_pad, np.float32)
+    silm[np.arange(n) if sil_idx is None else sil_idx] = 1.0
+    init_idx = np.zeros(k_max, np.int32)
+    k_up = min(k_max, n - 1)
+    init_idx[:k_up] = _kmeanspp_init(x, k_up, seed)
+    return tuple(torch.from_numpy(a) for a in (xb, pmask, init_idx, silm))
+
+
+def _sweep_core_per_candidate(x, pmask, init_idx, sil_mask, *, k_max, iters,
+                              n_real):
+    """The sweep with its candidate axis written out as a Python loop: one
+    Lloyd fit per candidate K, each step one single-candidate assignment
+    (``kmeans_assign_fused_plain``), then the same silhouette arithmetic."""
+    n_pad = x.shape[0]
+    num_k, k_top = k_max - 1, min(k_max, n_real - 1)
+    cent0 = x[init_idx.long()]
+    slots = torch.arange(k_max)
+    labels_all = torch.zeros(num_k, n_pad, dtype=torch.int32)
+    sums_all = torch.zeros(num_k, n_pad, k_max)
+    onehot_all = torch.zeros_like(sums_all)
+    for ki, k in enumerate(range(2, k_top + 1)):
+        cmask = (slots < k).to(torch.float32)
+        cent = cent0
+        for _ in range(iters):
+            _, _, sums, cnts = kmeans_assign_fused_plain(x, cent, cmask,
+                                                         pmask)
+            cent = torch.where((cnts > 0)[:, None],
+                               sums / torch.clamp_min(cnts, 1)[:, None], cent)
+        lab = kmeans_assign_fused_plain(x, cent.contiguous(), cmask,
+                                        pmask)[0]
+        onehot = (torch.nn.functional.one_hot(lab.long(), k_max)
+                  .to(torch.float32) * sil_mask[:, None])
+        labels_all[ki], onehot_all[ki] = lab, onehot
+        sums_all[ki] = silhouette_sums_plain(x, onehot)
+    inf = torch.tensor(float("inf"))
+    cnt = onehot_all.sum(1)
+    own_cnt = torch.einsum("knc,kc->kn", onehot_all, cnt)
+    own_sum = torch.sum(sums_all * onehot_all, dim=2)
+    a = own_sum / torch.clamp_min(own_cnt - 1, 1)
+    mean_other = sums_all / torch.clamp_min(cnt[:, None, :], 1)
+    mean_other = torch.where(onehot_all > 0, inf, mean_other)
+    mean_other = torch.where(cnt[:, None, :] > 0, mean_other, inf)
+    b = torch.min(mean_other, dim=2).values
+    s = (b - a) / torch.clamp_min(torch.maximum(a, b), 1e-12)
+    s = torch.where(own_cnt > 1, s, torch.zeros_like(s)) * sil_mask[None, :]
+    sil = torch.sum(s, dim=1) / torch.clamp_min(torch.sum(sil_mask), 1.0)
+    k_valid = torch.arange(2, k_max + 1) <= k_top
+    return labels_all, sil, k_valid & (torch.sum(cnt > 0, dim=1) >= 2)
+
+
+# (case id, inputs builder, k_max, sil_cap): n <= 64, d in {12, 24},
+# k_max <= 8, so at most 7 candidates
+CORE_CASES = [
+    ("blobs_d12", lambda: _blobs(10, 60, 12, 4), 8, 1200),
+    ("duplicates_d24", lambda: _duplicates(11, 64, 24, 3), 8, 1200),
+    ("subsampled_d12", lambda: _blobs(12, 50, 12, 3), 8, 20),
+    ("few_points_d24", lambda: _blobs(13, 5, 24, 2), 8, 1200),
+    ("kmax_5_d12", lambda: _blobs(14, 33, 12, 5), 5, 1200),
+]
+
+
+@pytest.mark.parametrize("case", CORE_CASES, ids=[c[0] for c in CORE_CASES])
+def test_sweep_core_equals_per_candidate_loop(case):
+    """On the CPU, the sweep with all candidates in one K2 call per Lloyd
+    step gives the bits of the per-candidate loop: labels, silhouettes
+    and ok flags exactly equal."""
+    _, build, k_max, sil_cap = case
+    x = build()
+    inputs = _sweep_inputs(x, 0, k_max, sil_cap)
+    kw = dict(k_max=k_max, iters=50, n_real=len(x))
+    got = _sweep_core(*inputs, **kw)
+    want = _sweep_core_per_candidate(*inputs, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)

@@ -23,8 +23,10 @@ import pytest
 import torch
 
 from repro_torch.kernels.kmeans_assign.ops import (
-    kmeans_assign, kmeans_assign_fused, kmeans_assign_fused_plain,
-    kmeans_assign_plain, silhouette_sums, silhouette_sums_plain,
+    K2Workspace, kmeans_assign, kmeans_assign_fused,
+    kmeans_assign_fused_batched, kmeans_assign_fused_batched_plain,
+    kmeans_assign_fused_plain, kmeans_assign_plain, silhouette_sums,
+    silhouette_sums_plain,
 )
 from repro_torch.kernels.rgcn_fused.ops import (
     rgcn_fused_agg_flat, rgcn_fused_agg_flat_plain, rgcn_fused_bwd,
@@ -107,6 +109,153 @@ def test_kmeans_assign_kernel_matches_plain(n, d, k):
     assert torch.equal(got[0], want[0])
     for g, w in zip(got[1:], want[1:]):
         _close(g, w)
+
+
+def _k2_batched_inputs(dev, n_pad, d, C, kind, seed=0):
+    """The sweep's shapes: k = 48 slots, n_pad points of which the first
+    ~60 % are real, centroids near blob centres (each candidate its own
+    perturbation); ``kind`` "prefix" gives candidate c the live slots
+    0..c+1 (the sweep's K = c + 2), "scattered" a random half of them with
+    at least one live."""
+    k = 48
+    rng = np.random.default_rng(seed + n_pad + d + C)
+    centers = rng.standard_normal((k, d)).astype(np.float32) * 5
+    x = centers[rng.integers(0, k, n_pad)] + rng.standard_normal(
+        (n_pad, d)).astype(np.float32)
+    cent = centers[None] + 0.1 * rng.standard_normal((C, k, d)).astype(
+        np.float32)
+    if kind == "prefix":
+        cmask = np.arange(k)[None] < np.minimum(np.arange(C) + 2, k)[:, None]
+    else:
+        cmask = rng.random((C, k)) < 0.5
+        cmask[np.arange(C), rng.integers(0, k, C)] = True
+    n_real = max(1, (n_pad * 3) // 5)
+    pmask = (np.arange(n_pad) < n_real).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return (t(x.astype(np.float32)), t(cent.astype(np.float32)),
+            t(cmask.astype(np.float32)), t(pmask))
+
+
+def _check_k2_batched(got, x, cent, cmask, pmask):
+    """K2 over candidates against the plain version: labels equal wherever
+    the two nearest live centroids are further apart than 1e-6 of the
+    distance scale (elsewhere float32 summation order may decide), the
+    masked min distance within TOL of that scale, and sums / counts within
+    TOL of the plain sums of the kernel's own labels."""
+    want = kmeans_assign_fused_batched_plain(x, cent, cmask, pmask)
+    x2 = (x * x).sum(1)
+    for c in range(cent.shape[0]):
+        d2 = torch.clamp_min(x2[:, None] - 2 * x @ cent[c].T
+                             + (cent[c] * cent[c]).sum(1)[None], 0)
+        d2 = torch.where(cmask[c][None] > 0, d2, float("inf"))
+        scale = float(x2.max() + (cent[c] * cent[c]).sum(1).max())
+        if int((cmask[c] > 0).sum()) > 1:
+            top2 = torch.topk(d2, 2, dim=1, largest=False).values
+            clear = top2[:, 1] - top2[:, 0] > 1e-6 * scale
+        else:
+            clear = torch.ones_like(x2, dtype=torch.bool)
+        assert torch.equal(got[0][c][clear], want[0][c][clear])
+        assert float((got[1][c] - want[1][c]).abs().max()) <= TOL * scale
+        onehot = (torch.nn.functional.one_hot(got[0][c].long(),
+                                              cent.shape[1]).float()
+                  * pmask[:, None])
+        _close(got[2][c], onehot.T @ x)
+        _close(got[3][c], onehot.sum(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 5, 47])
+@pytest.mark.parametrize("n_pad", [32, 256, 4096])
+@pytest.mark.parametrize("d", [12, 256])
+@pytest.mark.parametrize("kind", ["prefix", "scattered"])
+def test_kmeans_assign_batched_kernel_matches_plain(C, n_pad, d, kind):
+    """The batched K2 at the sweep's shapes against its plain version, one
+    launch counted per call."""
+    dev = _card()
+    args = _k2_batched_inputs(dev, n_pad, d, C, kind)
+    before = kmeans_assign_fused_batched.launches
+    got = kmeans_assign_fused_batched(*args)
+    torch.cuda.synchronize()
+    assert kmeans_assign_fused_batched.launches == before + 1
+    assert got[0].shape == (C, n_pad) and got[2].shape == (C, 48, d)
+    _check_k2_batched(got, *args)
+
+
+@pytest.mark.cuda
+def test_kmeans_assign_batched_single_equals_fused_and_repeats():
+    """One candidate through the batched wrapper gives the bits of
+    ``kmeans_assign_fused``; a workspace reused over calls (the plan kept,
+    then rebuilt for a new cmask) gives the bits of fresh calls, and two
+    runs are bit-equal."""
+    dev = _card()
+    x, cent, cmask, pmask = _k2_batched_inputs(dev, 256, 256, 5, "scattered")
+    one = kmeans_assign_fused(x, cent[0], cmask[0], pmask)
+    many = kmeans_assign_fused_batched(x, cent[:1].contiguous(), cmask[:1],
+                                       pmask)
+    for a, b in zip(one, many):
+        assert torch.equal(a, b[0])
+    fresh = [t.clone() for t in kmeans_assign_fused_batched(x, cent, cmask,
+                                                           pmask)]
+    ws = K2Workspace(5, 256, 48, 256, dev)
+    for _ in range(2):
+        got = kmeans_assign_fused_batched(x, cent, cmask, pmask, out=ws)
+        assert all(torch.equal(a, b) for a, b in zip(got, fresh))
+    other = cmask.flip(0).contiguous()            # a new cmask: replanned
+    got = [t.clone() for t in kmeans_assign_fused_batched(x, cent, other,
+                                                         pmask, out=ws)]
+    want = kmeans_assign_fused_batched(x, cent, other, pmask)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    other[0] = 1.0                                # changed in place
+    got = [t.clone() for t in kmeans_assign_fused_batched(x, cent, other,
+                                                         pmask, out=ws)]
+    want = kmeans_assign_fused_batched(x, cent, other, pmask)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_kmeans_assign_batched_dead_slots_and_duplicates():
+    """Dead slots of a candidate with live ones get exactly 0 sums and
+    counts (a candidate with none live: label 0 and +inf everywhere, as in
+    the plain version); among identical centroids, points equal to them go
+    to the lowest live index at distance exactly 0."""
+    dev = _card()
+    rng = np.random.default_rng(3)
+    rows = rng.standard_normal((5, 256)).astype(np.float32)
+    x_np = rows[rng.integers(0, 5, 300)]
+    cent_np = np.stack([x_np[rng.integers(0, 300, 48)] for _ in range(4)])
+    cent_np[:, 7] = cent_np[:, 3]                 # duplicated slots
+    cmask_np = np.ones((4, 48), np.float32)
+    cmask_np[1, ::2] = 0.0
+    cmask_np[2] = 0.0
+    cmask_np[3, 3] = 0.0                          # the first copy dead
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    x, cent, cmask = t(x_np), t(cent_np), t(cmask_np)
+    pmask = torch.ones(300, device=dev)
+    lab, mind, sums, cnts = kmeans_assign_fused_batched(x, cent, cmask,
+                                                        pmask)
+    torch.cuda.synchronize()
+    dead = (cmask == 0) & (cmask.sum(1, keepdim=True) > 0)
+    assert torch.equal(cnts[dead], torch.zeros_like(cnts[dead]))
+    assert torch.equal(sums[dead], torch.zeros_like(sums[dead]))
+    # no live slot: every point takes slot 0 at +inf, as the reference's
+    # argmin over all-inf rows does, and slot 0 collects them
+    assert torch.equal(lab[2], torch.zeros_like(lab[2]))
+    assert bool(torch.isinf(mind[2]).all())
+    assert float(cnts[2, 0]) == 300.0 and float(cnts[2, 1:].abs().sum()) == 0
+    _close(sums[2, 0], x.sum(0))
+    for c in (0, 1, 3):
+        live = torch.nonzero(cmask[c] > 0).flatten().cpu().numpy()
+        first = {}
+        for i in live:
+            first.setdefault(bytes(cent_np[c, i]), int(i))
+        for p in range(300):                      # every point is a centroid
+            key = bytes(x_np[p])
+            if key in first:
+                assert int(lab[c, p]) == first[key]
+                assert float(mind[c, p]) == 0.0
+    again = kmeans_assign_fused_batched(x, cent, cmask, pmask)
+    for a, b in zip((lab, mind, sums, cnts), again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -195,6 +344,34 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):               # k > 64
         kmeans_assign_fused(x, cent, torch.ones(70, device=dev),
                             torch.ones(20, device=dev))
+    # the batched K2
+    cb, cm, pm = cent[None, :6], torch.ones(1, 6, device=dev), \
+        torch.ones(20, device=dev)
+    kmeans_assign_fused_batched(x, cb.contiguous(), cm, pm)
+    with pytest.raises(ValueError):               # cent must be 3-D
+        kmeans_assign_fused_batched(x, cent[:6], cm, pm)
+    with pytest.raises(ValueError):               # k > 64
+        kmeans_assign_fused_batched(x, cent[None], torch.ones(1, 70,
+                                                              device=dev), pm)
+    with pytest.raises(ValueError):               # C > 1024
+        kmeans_assign_fused_batched(
+            x, cb.expand(1025, 6, 8).contiguous(),
+            torch.ones(1025, 6, device=dev), pm)
+    with pytest.raises(ValueError):               # d > 512
+        kmeans_assign_fused_batched(
+            torch.ones(20, 513, device=dev), torch.ones(1, 6, 513,
+                                                        device=dev), cm, pm)
+    with pytest.raises(ValueError):               # cmask on the CPU
+        kmeans_assign_fused_batched(x, cb.contiguous(), cm.cpu(), pm)
+    with pytest.raises(ValueError):               # cmask's shape
+        kmeans_assign_fused_batched(x, cb.contiguous(), cm[0], pm)
+    with pytest.raises(TypeError):                # float64 centroids
+        kmeans_assign_fused_batched(x, cb.double().contiguous(), cm, pm)
+    with pytest.raises(ValueError):               # not contiguous
+        kmeans_assign_fused_batched(x, cent[None, :12:2], cm, pm)
+    with pytest.raises(ValueError):               # workspace of another shape
+        kmeans_assign_fused_batched(x, cb.contiguous(), cm, pm,
+                                    out=K2Workspace(2, 20, 6, 8, dev))
 
 
 @pytest.mark.cuda
@@ -368,6 +545,43 @@ def test_kmeans_assign_seq_kernel_matches_plain(n, d, k, dup):
             first.setdefault(row, i)
         assert all(first[bytes(c[i])] == i for i in lab.cpu().numpy())
     assert torch.equal(lab, kmeans_assign(x, cent)[0])   # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 48, 300])
+@pytest.mark.parametrize("d", [1, 12, 256, 1000])
+def test_kmeans_assign_seq_kernel_shapes(k, d):
+    """K4 at n = 2427 (not a multiple of its 16-point tile), past one
+    64-centroid tile (k = 300) and past one shared-memory stage of the
+    feature axis (d = 1000; k = 300 at d = 256 is 307 KB of centroids):
+    labels equal to the plain version's wherever the two nearest
+    centroids are clear of a near-tie, min distance within TOL of the
+    scale, identical centroids resolved to the lowest index."""
+    dev = _card()
+    n = 2427
+    rng = np.random.default_rng(k + d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)
+                         ).to(dev)
+    idx = rng.integers(0, n, k)
+    if k > 2:
+        idx[k // 2] = idx[0]                      # a duplicated centroid
+    cent = x[torch.from_numpy(idx).to(dev)].contiguous()
+    lab, mind = kmeans_assign(x, cent)
+    torch.cuda.synchronize()
+    plab, pmind = kmeans_assign_plain(x, cent)
+    x2 = (x * x).sum(1)
+    scale = float(x2.max() + (cent * cent).sum(1).max())
+    if k > 1:
+        d2 = torch.clamp_min(x2[:, None] - 2 * x @ cent.T
+                             + (cent * cent).sum(1)[None], 0)
+        top2 = torch.topk(d2, 2, dim=1, largest=False).values
+        clear = top2[:, 1] - top2[:, 0] > 1e-6 * scale
+        assert torch.equal(lab[clear], plab[clear])
+    else:
+        assert torch.equal(lab, torch.zeros_like(lab))
+    assert float((mind - pmind).abs().max()) <= TOL * scale
+    if k > 2:
+        assert int(lab[int(idx[0])]) == 0 and float(mind[int(idx[0])]) == 0
 
 
 @pytest.mark.cuda

@@ -45,7 +45,7 @@ from repro.kernels.rgcn_spmm.ops import (
 from repro.kernels.rgcn_spmm.ref import rgcn_message_agg_flat_ref
 from repro_torch.kernels import route
 from repro_torch.kernels.kmeans_assign.ops import (
-    kmeans_assign_fused, silhouette_sums,
+    kmeans_assign_fused, kmeans_assign_fused_batched, silhouette_sums,
 )
 from repro_torch.kernels.rgcn_fused.ops import (
     rgcn_fused_agg_flat, rgcn_fused_bwd,
@@ -304,6 +304,67 @@ def test_kmeans_assign_fused_plain_matches_jax(case):
         assert int(got[0].max()) < k - dead
 
 
+# (case id, n, d, k, candidates C, cmask kind, padded points)
+K2_BATCHED_CASES = [
+    ("prefix_sweep", 64, 12, 8, 7, "prefix", 9),
+    ("non_prefix", 50, 24, 8, 5, "scattered", 4),
+    ("one_dead_candidate", 33, 12, 6, 4, "one_dead", 0),
+    ("single_candidate", 40, 24, 8, 1, "prefix", 3),
+]
+
+
+def _batched_k2_inputs(seed, n, d, k, C, kind, pad):
+    """Blobs around k centres; candidate c gets its own perturbation of
+    them and a live-slot mask: the sweep's prefixes (K = c + 2), random
+    scattered slots (at least one live), or prefixes with candidate 1
+    wholly dead."""
+    x, centers, _ = _blobs(seed, n, d, k)
+    rng = np.random.default_rng(seed + 1)
+    cent = (centers[None] + 0.2 * rng.standard_normal((C, k, d))
+            ).astype(np.float32)
+    slots = np.arange(k)
+    if kind == "scattered":
+        cmask = (rng.random((C, k)) < 0.5).astype(np.float32)
+        cmask[np.arange(C), rng.integers(0, k, C)] = 1.0
+    else:
+        cmask = (slots[None] < np.minimum(np.arange(C) + 2, k)[:, None]
+                 ).astype(np.float32)
+        if kind == "one_dead":
+            cmask[1] = 0.0
+    pmask = (np.arange(n) < n - pad).astype(np.float32)
+    return x, cent, cmask, pmask
+
+
+@pytest.mark.parametrize("case", K2_BATCHED_CASES,
+                         ids=[c[0] for c in K2_BATCHED_CASES])
+def test_kmeans_assign_fused_batched_plain_matches_jax(case):
+    """Port K2 over a batch of candidates (plain, CPU) vs JAX's Pallas
+    kernel (interpret) run per candidate, as JAX's sweep maps it over the
+    candidates, stacked: labels exact, the rest at 1e-5.  A candidate with
+    no live slot gives label 0 and +inf (times pmask) everywhere, as
+    JAX's does."""
+    _, n, d, k, C, kind, pad = case
+    x, cent, cmask, pmask = _batched_k2_inputs(n + d + C, n, d, k, C, kind,
+                                               pad)
+    got = kmeans_assign_fused_batched(_t(x), _t(cent), _t(cmask), _t(pmask))
+    assert got[0].shape == (C, n) and got[0].dtype == torch.int32
+    assert got[2].shape == (C, k, d) and got[3].shape == (C, k)
+    for c in range(C):
+        want = jax_kmeans_fused(*(jnp.asarray(a) for a in
+                                  (x, cent[c], cmask[c], pmask)),
+                                block_n=32, interpret=True)
+        np.testing.assert_array_equal(got[0][c].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(np.isinf(got[1][c].numpy()),
+                                      np.isinf(np.asarray(want[1])))
+        fin = np.isfinite(np.asarray(want[1]))
+        _close(got[1][c].numpy()[fin], np.asarray(want[1])[fin])
+        for g, w in zip(got[2:], want[2:]):
+            _close(g[c].numpy(), w)
+        if cmask[c].any():
+            assert float(got[3][c].sum()) == pytest.approx(n - pad)
+            assert bool((got[3][c].numpy()[cmask[c] == 0] == 0).all())
+
+
 # (case id, n, k, d, block_n, masked rows)
 K3_CASES = [
     ("blocks", 96, 4, 16, 32, 3),
@@ -335,14 +396,17 @@ def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
     x, cent, _ = _blobs(0, 20, 8, 3)
     before = (kmeans_assign_fused.launches, silhouette_sums.launches,
               rgcn_fused_agg_flat.launches, rgcn_spmm_flat.launches,
-              rgcn_fused_bwd.launches)
+              rgcn_fused_bwd.launches, kmeans_assign_fused_batched.launches)
     kmeans_assign_fused(_t(x), _t(cent), torch.ones(3), torch.ones(20))
+    kmeans_assign_fused_batched(_t(x), _t(cent)[None], torch.ones(1, 3),
+                                torch.ones(20))
     silhouette_sums(_t(x), torch.ones(20, 3))
     rgcn_spmm_flat(_t(x), torch.zeros(2, dtype=torch.int32),
                    torch.ones(2, dtype=torch.int32), torch.ones(2, 2), 20)
     assert (kmeans_assign_fused.launches, silhouette_sums.launches,
             rgcn_fused_agg_flat.launches, rgcn_spmm_flat.launches,
-            rgcn_fused_bwd.launches) == before
+            rgcn_fused_bwd.launches,
+            kmeans_assign_fused_batched.launches) == before
     assert route(torch.empty(2)) == "cpu"
     with pytest.raises(ValueError):
         route(torch.empty(2, device="meta"))
