@@ -24,11 +24,14 @@ Phases, each reported on its own lines:
             also over hd 16/64/256, G 1/3/8, S 64/512/1536, f32 and bf16;
             K8 also at mamba's smoke shape and a single 64-row chunk), with
             its time, the plain version's, one library call's where there
-            is one, and the least time the card could take (bound).  Each
-            device time comes from a torch.profiler record that holds every
-            launch of the timed calls (``profile_verdict``) and is printed
-            with ``[cupti]``, or else is the spin-primed device span and
-            printed with ``[spin-primed]``;
+            is one, and the least time the card could take (bound); K1 and
+            K8, whose float32 products run as 3xTF32 on the tensor cores,
+            also with that design's bound (three passes at the TF32 rate),
+            ptxas's registers and spills, and equal bits on a second call.
+            Each device time comes from a torch.profiler record that holds
+            every launch of the timed calls (``profile_verdict``) and is
+            printed with ``[cupti]``, or else is the spin-primed device span
+            and printed with ``[spin-primed]``;
 4. reference the JAX-trained encoder committed in
             ``src/repro_torch/assets/reference_phi2.npz``: the card embeds
             and plans phi-2 and cfd and must match the JAX results stored
@@ -101,11 +104,13 @@ Phases, each reported on its own lines:
             width (prefill 1536, decode 512 teacher-forced, against the
             prefill of all 2048 at its last position) in bf16 at full
             depth and in f32 at 4 layers, with 8 decode steps profiled for
-            the step's device / host split.
+            the step's device / host split, and one bf16 mamba prefill
+            (4 x 2048) profiled for its top device ops and K8's share.
 
 Any mismatch or exception exits non-zero.  The last lines are the kernel
-table as one JSON object, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  It needs one CUDA card and the
+table as one JSON object (K1's and K8's ``bound_ms`` is their 3xTF32
+design's bound, with the float32-FMA bound as ``fma_bound_ms``), the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.  It needs one CUDA card and the
 repository's ``src/`` beside it; it imports nothing of JAX.
 """
 
@@ -129,6 +134,7 @@ LM_FIXTURE = FIXTURE.parent / "reference_lm.npz"
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_BF16_S = 989e12    # dense bf16 tensor-core rate
+PEAK_TF32_S = 495e12    # dense TF32 tensor-core rate: K1 and K8 run 3xTF32
 
 KERNEL_TOL = 1e-5       # max |kernel - plain| / max |plain|
 # Training on the card against the CPU.  The encoder's gradient jumps where
@@ -145,7 +151,7 @@ PARAM_TOL = 1e-4        # card vs CPU parameters after step 3, relative norm
 RESUME_TOL = 1e-5       # resumed vs uninterrupted fit on the card, ditto
 #: how the fit's device time is split in the report (first match wins)
 FIT_SPLIT = (
-    ("K1 rgcn_fused_flat_kernel", ("rgcn_fused_flat_kernel",)),
+    ("K1 rgcn_fused_tf32_kernel", ("rgcn_fused_tf32_kernel",)),
     ("K1b rgcn_fused_bwd_kernel", ("rgcn_fused_bwd_kernel",)),
     ("K5 rgcn_spmm_flat_kernel", ("rgcn_spmm_flat_kernel",)),
     ("CSR views (sort, searchsorted)", ("RadixSort", "radix", "searchsorted",
@@ -182,6 +188,9 @@ K2_KERNELS = {"k2_prep_kernel": 1, "k2_assign_kernel": 1,
 K3_KERNELS = {"sil_rows_kernel": 1, "sil_compact_kernel": 1,
               "silhouette_sums_kernel": 1}
 K4_KERNELS = {"k4_assign_kernel": 1}
+#: K1's and K8's (3xTF32 tensor cores, ``csrc/tf32x3.cuh``)
+K1_KERNELS = {"rgcn_fused_tf32_kernel": 1}
+K8_KERNELS = {"ssd_cb_tf32_kernel": 1, "ssd_chunk_tf32_kernel": 1}
 #: what a K2 row's ``launches`` counts
 K2_COUNTED = ("calls of the batched K2: one per Lloyd step (and one final "
               "assignment) for all candidates of a program")
@@ -399,6 +408,38 @@ def bound(bytes_, ops, peak=PEAK_F32_S):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def tf32x3_bound(bytes_, ops):
+    """(ms, by) of a 3xTF32 design: three tensor-core passes over the
+    operations at the TF32 rate, against the bytes."""
+    return bound(bytes_, 3 * ops, PEAK_TF32_S)
+
+
+def ptxas_report(kernel):
+    """ptxas's registers and spill bytes of each compiled entry whose name
+    holds ``kernel`` (the build's ``-Xptxas -v`` report), as text."""
+    import re
+
+    from repro_torch import kernels
+
+    out, entry, spills = [], None, ""
+    for line in kernels.BUILD_INFO.get("ptxas", "").splitlines():
+        if "Compiling entry function" in line:
+            entry = line if kernel in line else None
+        elif entry and "spill stores" in line:
+            st = re.search(r"(\d+) bytes spill stores", line)
+            ld = re.search(r"(\d+) bytes spill loads", line)
+            spills = (f"spills {st.group(1)} / {ld.group(1)} bytes (stores / "
+                      f"loads)" if st and ld else "")
+        elif entry and "registers" in line:
+            kind = ("<bf16>" if "bfloat16" in entry
+                    else "<float>" if f"{kernel}IfE" in entry else "")
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{kernel}{kind}: {regs.group(1) if regs else '?'} "
+                       f"registers, {spills or 'spills not reported'}")
+            entry = None
+    return "; ".join(out) or f"{kernel}: not in this build's ptxas report"
+
+
 def rel_err(got, want):
     got, want = got.float(), want.float()
     err = float((got - want).abs().max()) if got.numel() else 0.0
@@ -544,8 +585,7 @@ def phase_kernels(rows, dev):
             # by the call above, so the timed calls make no host sync
             call = lambda: rgcn_fused_agg_flat(*args, checked=False)  # noqa
             call_ms = time_ms(call, 50)
-            wrap_ms, ms, ms_src = device_ms(
-                call, 20, own={"rgcn_fused_flat_kernel": 1})
+            wrap_ms, ms, ms_src = device_ms(call, 20, own=K1_KERNELS)
             plain_ms, _, plain_src = device_ms(
                 lambda: rgcn_fused_agg_flat_plain(*args), 20)
             esz = h.element_size()
@@ -553,16 +593,25 @@ def phase_kernels(rows, dev):
                       + nb * D * O * 4 + P * O * 4)
             ops = 2 * q_live * nb * D + 2 * rows_live * nb * D * O
             b_ms, b_by = bound(bytes_, ops)
+            tc_ms, tc_by = tf32x3_bound(bytes_, ops)
+            again = rgcn_fused_agg_flat(*args, checked=False)
+            require(torch.equal(got, again),
+                    f"K1 D={D} O={O} {dt}: two calls differ")
             dname = "f32" if dt == torch.float32 else "bf16"
             log(f"[kernels] K1 rgcn_fused D={D} O={O} h={dname}: "
-                f"max_abs_err {err:.3e} rel {rel:.3e} (tol {KERNEL_TOL}) "
-                f"kernel device ms {ms:.4f} [{ms_src}] (wrapper device ms "
-                f"{wrap_ms:.4f}, call ms {call_ms:.4f}) plain device ms "
-                f"{plain_ms:.4f} [{plain_src}] bound_us {b_ms * 1e3:.2f} "
-                f"({b_by})")
+                f"max_abs_err {err:.3e} rel {rel:.3e} (tol {KERNEL_TOL}), "
+                f"repeat bit-equal; kernel device ms {ms:.4f} [{ms_src}] "
+                f"(wrapper device ms {wrap_ms:.4f}, call ms {call_ms:.4f}) "
+                f"plain device ms {plain_ms:.4f} [{plain_src}] bound_us "
+                f"{b_ms * 1e3:.2f} ({b_by}, float32 FMAs); 3xTF32 design "
+                f"bound_us {tc_ms * 1e3:.2f} ({tc_by})")
             if (D, O, dt) == (128, 256, torch.float32):
-                k1 = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None)
+                # the bound of the work as the kernel does it (3xTF32);
+                # the float32-FMA bound rides along as an extra key
+                k1 = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=tc_ms,
+                          bound_by=tc_by, library_ms=None,
+                          fma_bound_ms=b_ms)
+    log(f"[kernels] K1 ptxas: {ptxas_report('rgcn_fused_tf32_kernel')}")
     rows.append(("rgcn_fused_flat", "src/repro_torch/csrc/rgcn_fused.cu",
                  "src/repro/kernels/rgcn_fused/kernel.py:107",
                  rgcn_fused_agg_flat, k1))
@@ -2189,9 +2238,12 @@ def phase_lm_kernels(rows, dev):
         err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
         require(rel <= KERNEL_TOL,
                 f"K8 {label}: rel err {rel:.3e} > {KERNEL_TOL}")
+        again = ssd_intra_chunk(*args)
+        require(all(torch.equal(g, a) for g, a in zip(got, again)),
+                f"K8 {label}: two calls differ")
         call_ms = time_ms(lambda: ssd_intra_chunk(*args), 10)
         _, ms, ms_src = device_ms(lambda: ssd_intra_chunk(*args), 5,
-                          own={"ssd_cb_kernel": 1, "ssd_intra_kernel": 1})
+                                  own=K8_KERNELS)
         plain_ms, _, plain_src = device_ms(
             lambda: ssd_intra_chunk_plain(*args), 3)
         tri = Q * (Q + 1) // 2
@@ -2200,16 +2252,20 @@ def phase_lm_kernels(rows, dev):
         bytes_ = 4 * (2 * B * nc * Q * nh * hp + 2 * B * nc * nh * Q
                       + 2 * B * nc * Q * ds + B * nc * nh * hp * ds)
         b_ms, b_by = bound(bytes_, ops)
+        tc_ms, tc_by = tf32x3_bound(bytes_, ops)
         log(f"[kernels] K8 ssd_intra_chunk {label} (B, nc, Q, nh, hp, ds) = "
             f"{(B, nc, Q, nh, hp, ds)}: max_abs_err {err:.3e} rel {rel:.3e} "
-            f"(tol {KERNEL_TOL}) kernel device ms {ms:.4f} [{ms_src}] (call "
-            f"ms {call_ms:.4f}) plain device ms {plain_ms:.4f} [{plain_src}] "
-            f"bound ms {b_ms:.4f} ({b_by}; {ops:.3e} ops, "
-            f"{bytes_ / 1e6:.1f} MB)")
+            f"(tol {KERNEL_TOL}), repeat bit-equal; kernel device ms "
+            f"{ms:.4f} [{ms_src}] (call ms {call_ms:.4f}) plain device ms "
+            f"{plain_ms:.4f} [{plain_src}] bound ms {b_ms:.4f} ({b_by}, "
+            f"float32 FMAs; {ops:.3e} ops, {bytes_ / 1e6:.1f} MB); 3xTF32 "
+            f"design bound ms {tc_ms:.4f} ({tc_by})")
         if label == "main path":
-            k8 = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                      bound_by=b_by, library_ms=None)
+            k8 = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=tc_ms,
+                      bound_by=tc_by, library_ms=None, fma_bound_ms=b_ms)
         del args, got, want
+    log(f"[kernels] K8 ptxas: {ptxas_report('ssd_chunk_tf32_kernel')}; "
+        f"{ptxas_report('ssd_cb_tf32_kernel')}")
     rows.append(("ssd_intra_chunk", "src/repro_torch/csrc/ssd_intra_chunk.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:62",
                  ssd_intra_chunk, k8))
@@ -2280,6 +2336,33 @@ def phase_lm_reference(dev):
                 f"{launched[kernel]} times, not once per layer")
 
 
+def _profile_prefill(cfg, params, toks):
+    """One prefill of ``toks`` under torch.profiler: the device's busy time,
+    K8's share of it and the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tf
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tf.prefill(cfg, params, toks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_s, top = _device_profile(prof)
+    k8 = sum(t for t, key, _ in top if any(k in key for k in K8_KERNELS))
+    B, S = toks.shape
+    busy = max(busy_s, 1e-12)
+    log(f"[lm_serve] {cfg.arch_id} prefill {B}x{S} ({cfg.compute_dtype}) "
+        f"under torch.profiler: wall {wall * 1e3:.2f} ms, device busy "
+        f"{busy_s * 1e3:.2f} ms, K8 {k8 / 1e3:.2f} ms "
+        f"({100 * k8 / 1e6 / busy:.1f} % of busy)")
+    for t, key, count in top[:10]:
+        log(f"[lm_serve]   {t / 1e3:9.3f} ms {100 * t / 1e6 / busy:5.1f} %  "
+            f"x{count:<6d} {key[:70]}")
+
+
 def _decode_vs_prefill(dev, arch, compute_dtype, tol, num_layers=None):
     """At full width (``num_layers`` cuts the depth): prefill DECODE_SPLIT
     prompt tokens, decode the rest teacher-forced, and hold the last logits
@@ -2302,6 +2385,8 @@ def _decode_vs_prefill(dev, arch, compute_dtype, tol, num_layers=None):
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
     want, _, _ = tf.prefill(cfg, params, toks)
+    if arch.startswith("mamba") and num_layers is None:
+        _profile_prefill(cfg, params, toks)
     _, caches, idx = tf.prefill(cfg, params, toks[:, :P])
     state = _splice_prefill(cfg, tf.init_decode_state(cfg, B, S, idx,
                                                       device=dev), caches, idx)
@@ -2464,8 +2549,8 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": m["err"], "ms": m["ms"],
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-         **({"launches_counted": m["launches_counted"]}
-            if "launches_counted" in m else {})}
+         **{k: m[k] for k in ("launches_counted", "fma_bound_ms")
+            if k in m}}
         for name, source, repl, _, m in rows]}
     print(json.dumps(table))
     print(smi_line)

@@ -3,7 +3,8 @@ it (counterpart of ``repro/kernels/ssd_scan/{kernel,ops,ref}.py`` and of
 ``ssd_chunked`` in ``repro/models/ssm.py``; forward only).
 
 ``ssd_intra_chunk``        the intra-chunk outputs and chunk states: CUDA
-                           tensors launch ``csrc/ssd_intra_chunk.cu``, CPU
+                           tensors launch ``csrc/ssd_intra_chunk.cu`` (its
+                           three products as 3xTF32 tensor-core MMAs), CPU
                            tensors take ``ssd_intra_chunk_plain``.
 ``ssd_scan``               the whole scan as the JAX wrapper runs it: the
                            chunked cumulative log-decay, K8, then the
@@ -81,7 +82,8 @@ def ssd_intra_chunk(x, cum, dt, Bc, Cc):
     for name, t in (("x", x), ("cum", cum), ("dt", dt), ("Bc", Bc),
                     ("Cc", Cc)):
         check(name, t, dtype=torch.float32, shape=tuple(t.shape), device=dev)
-    cb = torch.empty(B * nc * Q * Q, dtype=torch.float32, device=dev)
+    QP = -(-Q // 64) * 64           # CB's scratch: (B*nc, QP, QP) tiles
+    cb = torch.empty(B * nc * QP * QP, dtype=torch.float32, device=dev)
     y = torch.empty(B, nc, Q, nh, hp, dtype=torch.float32, device=dev)
     states = torch.empty(B, nc, nh, hp, ds, dtype=torch.float32, device=dev)
     launch("ssd_intra_chunk", *(t.data_ptr() for t in

@@ -57,7 +57,18 @@ def _close(got, want):
     assert err <= tol * max(scale, 1e-30), (err, scale)
 
 
-def _k1_args(dev, P, D, Q, O, dtype, seed=0):
+def _offset(t, offset):
+    """``t``'s values in a contiguous view that starts ``offset`` elements
+    into its storage (so its address is no multiple of 16 bytes)."""
+    if not offset:
+        return t
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _k1_args(dev, P, D, Q, O, dtype, seed=0, offset=0):
     rng = np.random.default_rng(seed)
     src = rng.integers(0, P, Q).astype(np.int32)
     dst = rng.integers(0, P, Q).astype(np.int32)
@@ -65,8 +76,10 @@ def _k1_args(dev, P, D, Q, O, dtype, seed=0):
     dst[Q // 2:], wnorm[Q // 2:] = 0, 0.0         # padded tail ...
     perm = rng.permutation(Q)                     # ... in no order
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
-    h = t(rng.standard_normal((P, D)).astype(np.float32)).to(dtype)
-    basis = t((rng.standard_normal((2, D, O)) / np.sqrt(D)).astype(np.float32))
+    h = _offset(t(rng.standard_normal((P, D)).astype(np.float32)).to(dtype),
+                offset)
+    basis = _offset(t((rng.standard_normal((2, D, O))
+                       / np.sqrt(D)).astype(np.float32)), offset)
     coef = t(rng.standard_normal((Q, 2)).astype(np.float32)[perm])
     return (h, basis, t(src[perm]), t(dst[perm]), coef, t(wnorm[perm]), P)
 
@@ -81,12 +94,23 @@ def _blobs(dev, n, d, k, seed=0):
             torch.from_numpy(cent.astype(np.float32)).to(dev), lab)
 
 
+_K1_SHAPES = [(64, 128, 0), (128, 256, 0), (40, 24, 0), (128, 200, 0),
+              (256, 200, 0), (37, 23, 1), (64, 128, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,O", [(64, 128), (128, 256), (40, 24)])
+@pytest.mark.parametrize(
+    "D,O,offset", _K1_SHAPES,
+    ids=[f"{D}-{O}" + (f"-offset{o}" if o else "") for D, O, o in _K1_SHAPES])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rgcn_fused_kernel_matches_plain(D, O, dtype):
+def test_rgcn_fused_kernel_matches_plain(D, O, offset, dtype):
+    """K1 at the main path's widths and ragged ones; with ``offset``, h and
+    the basis start off a 16-byte boundary, so the gather and the basis
+    staging take their scalar paths (and at D = 37, O = 23 the partial
+    feature blocks and the odd-width stores)."""
     dev = _card()
-    args = _k1_args(dev, 700, D, 1500, O, getattr(torch, dtype))
+    args = _k1_args(dev, 700, D, 1500, O, getattr(torch, dtype),
+                    offset=offset)
     before = rgcn_fused_agg_flat.launches
     got = rgcn_fused_agg_flat(*args)
     torch.cuda.synchronize()
@@ -94,6 +118,48 @@ def test_rgcn_fused_kernel_matches_plain(D, O, dtype):
     _close(got, rgcn_fused_agg_flat_plain(*args))
     again = rgcn_fused_agg_flat(*args)
     assert torch.equal(got, again)                # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rgcn_fused_kernel_gathers_the_last_row_of_h_at_a_segment_end(dtype):
+    """h (D = 64, half of a 128-feature block) fills a device allocation of
+    its own, so its last row ends where the allocation ends, and edges
+    gather that row: the kernel must read no byte past h (a lane whose
+    features start at D loads nothing) and still match plain."""
+    dev = _card()
+    P, D, O, Q = 81920, 64, 128, 1500        # h: 20 or 10 MiB, 2 MiB-aligned
+    _, basis, src, dst, coef, wnorm, _ = _k1_args(dev, P, D, Q, O,
+                                                  torch.float32)
+    src[::3] = P - 1
+    gen = torch.Generator(device=dev).manual_seed(5)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()                 # no cached block to split
+    h = torch.empty(P, D, dtype=getattr(torch, dtype), device=dev)
+    h.copy_(torch.randn(P, D, generator=gen, device=dev))
+    args = (h, basis, src, dst, coef, wnorm, P)
+    got = rgcn_fused_agg_flat(*args)
+    torch.cuda.synchronize()
+    _close(got, rgcn_fused_agg_flat_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rgcn_fused_kernel_dead_tiles_write_exact_zeros(dtype):
+    """No live in-edge into whole 64-node tiles (and into 16-node strips of
+    live tiles): those output rows are exactly 0, the rest match plain."""
+    dev = _card()
+    h, basis, src, dst, coef, wnorm, P = _k1_args(dev, 700, 128, 1500, 200,
+                                                  getattr(torch, dtype))
+    v = torch.arange(P, device=dev)
+    dead = ((v >= 64) & (v < 192)) | ((v >= 272) & (v < 288)) | (v >= 640)
+    live_dst = torch.nonzero(~dead).flatten().to(torch.int32)
+    dst = live_dst[dst.long() % live_dst.numel()].contiguous()
+    args = (h, basis, src, dst, coef, wnorm, P)
+    got = rgcn_fused_agg_flat(*args)
+    torch.cuda.synchronize()
+    assert not bool(got[dead].any())
+    _close(got, rgcn_fused_agg_flat_plain(*args))
 
 
 @pytest.mark.cuda
@@ -695,11 +761,17 @@ def test_flash_attention_dispatch_matches_plain(S, hd, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 4, 256, 8, 64, 128),
+                                   (4, 8, 256, 48, 64, 128),
                                    (2, 32, 32, 8, 16, 16),
-                                   (1, 3, 48, 3, 24, 40)])
+                                   (1, 3, 48, 3, 24, 40),
+                                   (1, 2, 100, 3, 10, 13),
+                                   (1, 2, 100, 3, 9, 13)])
 def test_ssd_intra_chunk_kernel_matches_plain(shape):
-    """K8 at mamba's chunk, head and state widths, the smoke shape, and
-    sizes that are multiples of none of its tiles."""
+    """K8 at mamba's chunk, head and state widths (the prefill shape
+    among them), the smoke shape, sizes that are multiples of none of its
+    tiles, and head and state widths that are no multiple of 4 (4-byte
+    staging copies, odd-width stores); a second call gives the same bits
+    (fixed-order sums, no atomics)."""
     dev = _card()
     from repro_torch.kernels.ssd_scan.ops import (
         ssd_intra_chunk, ssd_intra_chunk_plain,
@@ -722,6 +794,8 @@ def test_ssd_intra_chunk_kernel_matches_plain(shape):
     assert ssd_intra_chunk.launches == before + 1
     for g, w in zip(got, ssd_intra_chunk_plain(x, cum, dt, Bc, Cc)):
         _close(g, w)
+    again = ssd_intra_chunk(x, cum, dt.contiguous(), Bc, Cc)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
 @pytest.mark.cuda

@@ -390,6 +390,125 @@ def test_silhouette_sums_plain_matches_jax(case):
            atol=floor)
 
 
+# ---------------------------------------------------------------------------
+# the 3xTF32 split of K1's and K8's tensor-core products
+# ---------------------------------------------------------------------------
+
+#: chip_smoke's KERNEL_TOL and the card tests' TOL: max |kernel - plain| /
+#: max |plain|
+KERNEL_TOL = 1e-5
+
+
+def _tf32(a):
+    """float32 -> TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest on the low
+    13 mantissa bits, ties away from zero (the bits are sign-magnitude, so
+    adding half an ulp to the magnitude rounds half away), as a float32
+    whose low 13 bits are 0."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_tf32(a, b, terms):
+    """a @ b (float32 arrays, batched) as the kernels run it on the tensor
+    cores: TF32 operands whose products are exact, sums in float32.
+    ``terms`` 3: hi = tf32(a), lo = tf32(a - hi), and lo.hi + hi.lo + hi.hi
+    (``csrc/tf32x3.cuh``); 1: a single TF32 pass."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _ssd_intra(x, cum, dt, Bc, Cc, mm):
+    """K8's function with its three products through ``mm``: x (B,nc,Q,nh,
+    hp), cum / dt (B,nc,nh,Q), Bc / Cc (B,nc,Q,ds), any float dtype."""
+    Q = x.shape[2]
+    f = x.dtype.type
+    CB = mm(Cc, np.swapaxes(Bc, -1, -2))                        # (B,nc,Q,Q)
+    diff = cum[..., :, None] - cum[..., None, :]
+    decay = np.exp(np.where(np.tri(Q, dtype=bool), diff, f(-1e30)))
+    w = CB[:, :, None] * decay * dt[..., None, :]              # (B,nc,nh,Q,Q)
+    xh = np.moveaxis(x, 3, 2)                                # (B,nc,nh,Q,hp)
+    sd = np.exp(cum[..., -1:] - cum) * dt                       # (B,nc,nh,Q)
+    y = mm(w, xh)
+    states = mm(np.swapaxes(xh * sd[..., None], -1, -2), Bc[:, :, None])
+    return np.moveaxis(y, 2, 3), states
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 8, 16, 16),
+                                   (1, 2, 256, 4, 64, 128)],
+                         ids=["smoke", "chunk256"])
+def test_ssd_split_tf32x3_meets_kernel_tol_and_one_pass_does_not(shape):
+    """K8's products as 3xTF32 are within KERNEL_TOL of float64 at mamba's
+    smoke shape and at a full 256-row chunk, with the card test's strong
+    decay (A down to -16); one TF32 pass is not.  This is why K8 splits."""
+    B, nc, Q, nh, hp, ds = shape
+    rng = np.random.default_rng(Q)
+    x = rng.standard_normal((B, nc, Q, nh, hp)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, nc, nh, Q)) - 1.0))
+    A = -np.linspace(1.0, 16.0, nh)
+    cum = np.cumsum(dt * A[None, None, :, None], axis=-1).astype(np.float32)
+    dt = dt.astype(np.float32)
+    Bc, Cc = (rng.standard_normal((B, nc, Q, ds)).astype(np.float32)
+              for _ in range(2))
+    want = _ssd_intra(*(a.astype(np.float64) for a in (x, cum, dt, Bc, Cc)),
+                      np.matmul)
+    split = _ssd_intra(x, cum, dt, Bc, Cc, lambda a, b: _mm_tf32(a, b, 3))
+    one = _ssd_intra(x, cum, dt, Bc, Cc, lambda a, b: _mm_tf32(a, b, 1))
+    for name, w, g3, g1 in zip(("y", "states"), want, split, one):
+        assert _rel(g3, w) <= KERNEL_TOL, (name, _rel(g3, w))
+        assert _rel(g1, w) > KERNEL_TOL, (name, _rel(g1, w))
+    # and the split's y / states agree with the JAX kernel (interpret)
+    from repro.kernels.ssd_scan.kernel import ssd_intra_chunk as j_ssd_intra
+    jy, js = j_ssd_intra(*(jnp.asarray(a) for a in (x, cum, dt, Bc, Cc)),
+                         interpret=True)
+    _close(split[0], np.asarray(jy))
+    _close(split[1], np.asarray(js))
+
+
+def test_rgcn_split_tf32x3_meets_kernel_tol_and_one_pass_does_not():
+    """K1's contraction s (P, nb*D) . basis (nb*D, O) at D = 128, nb = 2,
+    O = 256, s gathered as the kernel gathers it (weighted sums of 0-3 h
+    rows): 3xTF32 within KERNEL_TOL of float64, one TF32 pass not."""
+    rng = np.random.default_rng(128)
+    P, D, nb, O = 512, 128, 2, 256
+    h = rng.standard_normal((P, D)).astype(np.float32)
+    deg = rng.integers(0, 4, P)
+    s = np.zeros((P, nb, D), np.float32)
+    for v in range(P):
+        for _ in range(deg[v]):
+            w = rng.standard_normal(nb).astype(np.float32) * np.float32(
+                rng.random())
+            s[v] += w[:, None] * h[rng.integers(0, P)][None, :]
+    s = s.reshape(P, nb * D)
+    basis = (rng.standard_normal((nb * D, O)) / np.sqrt(D)).astype(np.float32)
+    want = s.astype(np.float64) @ basis.astype(np.float64)
+    assert _rel(_mm_tf32(s, basis, 3), want) <= KERNEL_TOL
+    assert _rel(_mm_tf32(s, basis, 1), want) > KERNEL_TOL
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    """The emulated ``cvt.rna.tf32.f32`` on hand-made bit patterns."""
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)              # TF32's ulp at 1
+    cases = {1.0: 1.0, 1 + 2.0 ** -12: 1.0,   # below half an ulp: down
+             1 + 2.0 ** -11: 1 + 2.0 ** -10,  # a tie: away from zero
+             -(1 + 2.0 ** -11): -(1 + 2.0 ** -10),
+             1 + 2.0 ** -11 + 2.0 ** -20: 1 + 2.0 ** -10,
+             float(one + ulp - np.float32(2.0 ** -23)): 1 + 2.0 ** -10}
+    for a, want in cases.items():
+        assert _tf32(np.array([a], np.float32))[0] == np.float32(want), a
+    x = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
+    hi = _tf32(x)
+    assert np.all(np.abs(x - hi) <= np.abs(x) * 2.0 ** -11)
+    assert np.all((hi.view(np.uint32) & np.uint32(0x1FFF)) == 0)
+
+
 def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
     """A CPU tensor takes the plain version (no launch is counted); a tensor
     on any other non-CUDA device raises instead of being served."""

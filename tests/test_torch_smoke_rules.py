@@ -138,3 +138,31 @@ def test_device_ms_takes_the_last_record_it_may(monkeypatch):
         + [smoke.profile_events(_k3_record(10))], spin=None)
     t = smoke.device_ms(lambda: None, 10, own=K3)
     assert t.source == "cupti" and not queue
+
+
+def _source_kernels():
+    """The names of the ``__global__`` kernels in ``src/repro_torch/csrc``."""
+    import re
+
+    csrc = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+    text = "\n".join(p.read_text() for p in sorted(csrc.glob("*.cu")))
+    return set(re.findall(r"__global__[^;{]*?\b(\w+_kernel)\s*\(", text))
+
+
+@pytest.mark.parametrize("group", ["K1", "K2", "K3", "K4", "K7", "K8",
+                                   "FIT_SPLIT"])
+def test_timed_kernel_names_are_kernels_of_the_sources(group):
+    """Every name chip_smoke's records are held to (``own=``) and the fit's
+    device time is split by is a kernel the CUDA sources define: a name left
+    behind by a redesign would have every record of that kernel refused."""
+    names = {"K1": smoke.K1_KERNELS, "K2": smoke.K2_KERNELS,
+             "K3": smoke.K3_KERNELS, "K4": smoke.K4_KERNELS,
+             "K7": {**smoke.k7_kernels(16, torch.bfloat16),
+                    **smoke.k7_kernels(64, torch.bfloat16),
+                    **smoke.k7_kernels(64, torch.float32)},
+             "K8": smoke.K8_KERNELS,
+             "FIT_SPLIT": [m for label, marks in smoke.FIT_SPLIT
+                           if label.startswith("K") for m in marks]}[group]
+    defined = _source_kernels()
+    assert names and all(n in defined for n in names), (
+        sorted(set(names) - defined))
