@@ -14,8 +14,15 @@ Phases, each reported on its own lines:
             silhouette_sums, K5 rgcn_spmm_flat, K1b rgcn_fused_bwd, K6
             rgcn_spmm_dense, K4 kmeans_assign, K7 flash_attention, K8
             ssd_intra_chunk) against its plain PyTorch version on the card
-            at the main-path shapes (K5 / K1b also at the training batch's
-            bucket; K6 at phi-2's and cfd's first dense batch, D 64 / 128,
+            at the main-path shapes (K5 / K1b at the embed path's first
+            micro-batch and the fit's bucket, D 64 / 128, f32 and bf16,
+            equal bits on a repeat, the table rows from the fit's bucket at
+            D = 128 f32 with D = 64's times as ``d64_*`` keys; K1b also as
+            the unit-norm backward paths call it — phi-2's first dense
+            batch flattened, and the embed batch's padded tail on node 0 —
+            timed against the same call with the padded edges' wnorm set
+            to 0; the bytes bounds count the rows and edges the live edges
+            need; K6 at phi-2's and cfd's first dense batch, D 64 / 128,
             f32 and bf16, plus E = 0 and a batch of padding at node 0, and
             the dense aggregation's backward on the card against the CPU;
             K2 also over a sweep's 47 candidates in one call
@@ -62,7 +69,9 @@ Phases, each reported on its own lines:
             bits are equal is printed);
 8. fit      the default fit on phi-2 (120 steps, batch 16, subsample 400):
             losses, validation, steps/s, launches of K1 / K1b / K5, then the
-            same fit under torch.profiler for the busy share and top ops;
+            same fit under torch.profiler for the busy share, the split of
+            its device time (K1, K1b, K5 with their us a launch) and top
+            ops;
 9. fit+serve a fresh ``gcl`` method with no encoder behind a PlanService:
             submit_program(phi-2) fits its own encoder (prepare), then cfd,
             phi-2 and nw are served with it; K, eq. 5 and eq. 6 are printed
@@ -191,6 +200,9 @@ K4_KERNELS = {"k4_assign_kernel": 1}
 #: K1's and K8's (3xTF32 tensor cores, ``csrc/tf32x3.cuh``)
 K1_KERNELS = {"rgcn_fused_tf32_kernel": 1}
 K8_KERNELS = {"ssd_cb_tf32_kernel": 1, "ssd_chunk_tf32_kernel": 1}
+#: K5's and K1b's (``csrc/csr_gather.cuh``)
+K5_KERNELS = {"rgcn_spmm_flat_kernel": 1}
+K1B_KERNELS = {"rgcn_fused_bwd_kernel": 1}
 #: what a K2 row's ``launches`` counts
 K2_COUNTED = ("calls of the batched K2: one per Lloyd step (and one final "
               "assignment) for all candidates of a program")
@@ -615,7 +627,7 @@ def phase_kernels(rows, dev):
     rows.append(("rgcn_fused_flat", "src/repro_torch/csrc/rgcn_fused.cu",
                  "src/repro/kernels/rgcn_fused/kernel.py:107",
                  rgcn_fused_agg_flat, k1))
-    _k5_k1b(rows, dev, rng, {"main path": packed,
+    _k5_k1b(rows, dev, rng, {"embed batch": packed,
                              "training bucket": _training_batches(1)[0]})
     _k6(rows, dev, rng)
 
@@ -949,10 +961,12 @@ def _training_batches(n_steps):
 
 
 def _k5_k1b(rows, dev, rng, batches):
-    """K5 and K1b against their plain versions at each batch's shape, h of
-    width D in {64, 128} (the layers' input widths), float32 and bfloat16;
-    timed at every shape, the table rows from the main path at D = 128,
-    float32."""
+    """K5 and K1b against their plain versions at each batch's shape (the
+    embed path's first micro-batch and the fit's bucket), h of width D in
+    {64, 128} (the layers' input widths), float32 and bfloat16, each timed
+    and held to equal bits on a repeat; then K1b on the unit-norm paths.
+    The table rows: the fit's bucket at D = 128, float32, with D = 64's
+    times as extra keys."""
     import numpy as np
     import torch
 
@@ -964,7 +978,7 @@ def _k5_k1b(rows, dev, rng, batches):
     )
 
     nb = 2
-    k5 = k1b = None
+    res = {}
     for label, packed in batches.items():
         P, Q = len(packed["node_mask"]), len(packed["edge_mask"])
         src = torch.from_numpy(packed["edge_src"]).to(dev)
@@ -975,7 +989,15 @@ def _k5_k1b(rows, dev, rng, batches):
         node_mask = torch.from_numpy(packed["node_mask"]).to(dev)
         live = wnorm != 0
         q_live = int(live.sum())
-        log(f"[kernels] K5/K1b {label}: P={P} Q={Q} live edges={q_live}")
+        deg = torch.bincount(src[live].long(), minlength=P)
+        # the rows the work needs: h at the live edges' sources, t at their
+        # destinations (padding rows are never read)
+        n_src = int(torch.unique(src[live]).numel())
+        n_dst = int(torch.unique(dst[live]).numel())
+        log(f"[kernels] K5/K1b {label}: P={P} Q={Q} live edges={q_live} "
+            f"largest out-degree {int(deg.max())}, in-degree "
+            f"{int(torch.bincount(dst[live].long(), minlength=P).max())}; "
+            f"rows read: {n_src} sources, {n_dst} destinations")
         for D in (64, 128):
             comb = torch.from_numpy(rng.standard_normal((4, nb))
                                     .astype(np.float32))
@@ -997,18 +1019,21 @@ def _k5_k1b(rows, dev, rng, batches):
                 h = h32.to(dt).contiguous()
                 dname = "f32" if dt == torch.float32 else "bf16"
                 esz = h.element_size()
+                tag = f"{label} D={D} h={dname}"
                 # ---- K5 --------------------------------------------------
                 got = rgcn_spmm_flat(h, src, dst, w, P)
                 torch.cuda.synchronize()
                 err, rel = rel_err(got, rgcn_spmm_flat_plain(h, src, dst, w,
                                                              P))
-                require(rel <= KERNEL_TOL, f"K5 {label} D={D} {dname}: rel "
-                        f"err {rel:.3e} > {KERNEL_TOL}")
+                require(rel <= KERNEL_TOL, f"K5 {tag}: rel err {rel:.3e} > "
+                        f"{KERNEL_TOL}")
+                again = rgcn_spmm_flat(h, src, dst, w, P, checked=False)
+                require(torch.equal(got, again), f"K5 {tag}: two calls "
+                        f"differ")
                 call = lambda: rgcn_spmm_flat(  # noqa: E731
                     h, src, dst, w, P, checked=False)
                 call_ms = time_ms(call, 50)
-                wrap_ms, ms, ms_src = device_ms(
-                    call, 20, own={"rgcn_spmm_flat_kernel": 1})
+                wrap_ms, ms, ms_src = device_ms(call, 20, own=K5_KERNELS)
                 plain_ms, _, plain_src = device_ms(
                     lambda: rgcn_spmm_flat_plain(h, src, dst, w, P), 20)
                 lib_ms = lib_src = None
@@ -1020,59 +1045,150 @@ def _k5_k1b(rows, dev, rng, batches):
                             f"K5 library yardstick disagrees ({err_lib:.3e})")
                     lib_ms, _, lib_src = device_ms(
                         lambda: torch.sparse.mm(A, h), 20)
-                bytes_ = P * D * esz + Q * 4 * 2 + Q * nb * 4 + P * nb * D * 4
+                # h's live source rows, the live edges' src, perm and w, the
+                # rowptr; s written in full
+                bytes_ = (n_src * D * esz + q_live * (4 * 2 + nb * 4)
+                          + (P + 1) * 4 + P * nb * D * 4)
                 ops = 2 * q_live * nb * D
                 b_ms, b_by = bound(bytes_, ops)
                 lib_txt = (f"{lib_ms:.4f} [{lib_src}] (sparse.mm)"
                            if lib_ms is not None
                            else "none (no bf16 sparse product)")
-                log(f"[kernels] K5 rgcn_spmm_flat {label} D={D} h={dname}: "
-                    f"max_abs_err {err:.3e} rel {rel:.3e} (tol {KERNEL_TOL}) "
-                    f"kernel device ms {ms:.4f} [{ms_src}] (wrapper device ms "
-                    f"{wrap_ms:.4f}, call ms {call_ms:.4f}) plain device ms "
-                    f"{plain_ms:.4f} [{plain_src}] library device ms "
-                    f"{lib_txt} bound_us {b_ms * 1e3:.2f} ({b_by})")
-                if (label, D, dt) == ("main path", 128, torch.float32):
-                    k5 = dict(err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                log(f"[kernels] K5 rgcn_spmm_flat {tag}: max_abs_err "
+                    f"{err:.3e} rel {rel:.3e} (tol {KERNEL_TOL}), repeat "
+                    f"bit-equal; kernel device ms {ms:.4f} [{ms_src}] "
+                    f"(wrapper device ms {wrap_ms:.4f}, call ms "
+                    f"{call_ms:.4f}) plain device ms {plain_ms:.4f} "
+                    f"[{plain_src}] library device ms {lib_txt} bound_us "
+                    f"{b_ms * 1e3:.2f} ({b_by})")
+                res["K5", label, D, dname] = dict(
+                    err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib_ms)
                 # ---- K1b -------------------------------------------------
                 dh, dcoef = rgcn_fused_bwd(h, t, src, dst, coef, wnorm, P)
                 torch.cuda.synchronize()
                 want = rgcn_fused_bwd_plain(h, t, src, dst, coef, wnorm, P)
                 e1, r1 = rel_err(dh, want[0])
                 e2, r2 = rel_err(dcoef, want[1])
-                tol_dh = 2 ** -7 if dt == torch.bfloat16 else KERNEL_TOL
+                tol_dh = BF16_TOL if dt == torch.bfloat16 else KERNEL_TOL
                 require(r1 <= tol_dh and r2 <= KERNEL_TOL,
-                        f"K1b {label} D={D} {dname}: rel err dh {r1:.3e} "
-                        f"dcoef {r2:.3e}")
+                        f"K1b {tag}: rel err dh {r1:.3e} dcoef {r2:.3e}")
                 args = (h, t, src, dst, coef, wnorm, P)
+                again = rgcn_fused_bwd(*args, checked=False)
+                require(torch.equal(dh, again[0])
+                        and torch.equal(dcoef, again[1]),
+                        f"K1b {tag}: two calls differ")
                 call = lambda: rgcn_fused_bwd(*args, checked=False)  # noqa
                 call_ms = time_ms(call, 50)
-                wrap_ms, ms, ms_src = device_ms(
-                    call, 20, own={"rgcn_fused_bwd_kernel": 1})
+                wrap_ms, ms, ms_src = device_ms(call, 20, own=K1B_KERNELS)
                 plain_ms, _, plain_src = device_ms(
                     lambda: rgcn_fused_bwd_plain(*args), 20)
-                bytes_ = (2 * P * D * esz + P * nb * D * 4 + Q * 4 * 2
-                          + Q * nb * 4 * 2 + Q * 4)
+                # h's live source rows, t's live destination rows, the live
+                # edges' src, dst, perm, coef and wnorm, the rowptr; dh and
+                # dcoef written in full
+                bytes_ = (n_src * D * esz + n_dst * nb * D * 4
+                          + q_live * (4 * 3 + nb * 4 + 4) + (P + 1) * 4
+                          + P * D * esz + Q * nb * 4)
                 ops = 4 * q_live * nb * D
                 b_ms, b_by = bound(bytes_, ops)
-                log(f"[kernels] K1b rgcn_fused_bwd {label} D={D} h={dname}: "
-                    f"max_abs_err dh {e1:.3e} rel {r1:.3e} (tol {tol_dh:.1e}) "
-                    f"dcoef {e2:.3e} rel {r2:.3e} (tol {KERNEL_TOL}) kernel "
-                    f"device ms {ms:.4f} [{ms_src}] (wrapper device ms "
-                    f"{wrap_ms:.4f}, call ms {call_ms:.4f}) plain device ms "
-                    f"{plain_ms:.4f} [{plain_src}] library none (dh and "
-                    f"dcoef: no one call) bound_us {b_ms * 1e3:.2f} "
-                    f"({b_by})")
-                if (label, D, dt) == ("main path", 128, torch.float32):
-                    k1b = dict(err=max(e1, e2), ms=ms, plain_ms=plain_ms,
-                               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                log(f"[kernels] K1b rgcn_fused_bwd {tag}: max_abs_err dh "
+                    f"{e1:.3e} rel {r1:.3e} (tol {tol_dh:.1e}) dcoef "
+                    f"{e2:.3e} rel {r2:.3e} (tol {KERNEL_TOL}), repeat "
+                    f"bit-equal; kernel device ms {ms:.4f} [{ms_src}] "
+                    f"(wrapper device ms {wrap_ms:.4f}, call ms "
+                    f"{call_ms:.4f}) plain device ms {plain_ms:.4f} "
+                    f"[{plain_src}] library none (dh and dcoef: no one "
+                    f"call) bound_us {b_ms * 1e3:.2f} ({b_by})")
+                res["K1b", label, D, dname] = dict(
+                    err=max(e1, e2), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+    _k1b_unit_norms(dev, rng, batches["embed batch"])
+
+    def row(kernel):
+        m = dict(res[kernel, "training bucket", 128, "f32"])
+        d64 = res[kernel, "training bucket", 64, "f32"]
+        m.update(d64_ms=d64["ms"], d64_bound_ms=d64["bound_ms"])
+        return m
+
     rows.append(("rgcn_spmm_flat", "src/repro_torch/csrc/rgcn_spmm.cu",
                  "src/repro/kernels/rgcn_spmm/kernel.py:119",
-                 rgcn_spmm_flat, k5))
+                 rgcn_spmm_flat, row("K5")))
     rows.append(("rgcn_fused_bwd", "src/repro_torch/csrc/rgcn_fused_bwd.cu",
                  "src/repro/kernels/rgcn_fused/ops.py:47", rgcn_fused_bwd,
-                 k1b))
+                 row("K1b")))
+
+
+def _k1b_unit_norms(dev, rng, packed):
+    """K1b as the unit-norm backward paths call it (the weights as the
+    coefficients, wnorm = 1 on every edge, padded ones included), D = 128,
+    float32: phi-2's first dense batch flattened as ``_MessageAgg.backward``
+    flattens it, and the embed path's first micro-batch as
+    ``_MessageAggFlat.backward`` passes it (its padded tail on node 0).
+    Each against its plain version, timed against the same call with the
+    padded edges' wnorm set to 0.  Both backward passes at these shapes,
+    card against CPU, are card tests (``tests/test_torch_cuda.py``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.rgcn import edge_norm_dense
+    from repro_torch.kernels import weight_csr
+    from repro_torch.kernels.rgcn_fused.ops import (
+        rgcn_fused_bwd, rgcn_fused_bwd_plain,
+    )
+
+    nb, D = 2, 128
+    t_ = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    batch, _ = _dense_first_batch("phi-2")
+    B, N = batch["node_mask"].shape
+    E = batch["edge_src"].shape[1]
+    etype = torch.from_numpy(batch["edge_type"]).long()
+    emask = torch.from_numpy(batch["edge_mask"])
+    wn = emask * edge_norm_dense(torch.from_numpy(batch["edge_dst"]), etype,
+                                 emask, N, 4)
+    comb = torch.from_numpy(rng.standard_normal((4, nb)).astype(np.float32))
+    w3 = (comb[etype] * wn[..., None]).contiguous().to(dev)   # (B, E, nb)
+    off = (N * torch.arange(B, dtype=torch.int32))[:, None]
+    dense = dict(
+        h=t_(rng.standard_normal((B * N, D)).astype(np.float32)),
+        src=t_((torch.from_numpy(batch["edge_src"]) + off).reshape(-1)),
+        dst=t_((torch.from_numpy(batch["edge_dst"]) + off).reshape(-1)),
+        w=w3.reshape(B * E, nb).contiguous(), P=B * N)
+    P = len(packed["node_mask"])
+    wnorm = t_(packed["edge_mask"] * packed["edge_norm"])
+    coef = comb[torch.from_numpy(packed["edge_type"]).long()].to(dev)
+    flat = dict(h=t_(rng.standard_normal((P, D)).astype(np.float32)),
+                src=t_(packed["edge_src"]), dst=t_(packed["edge_dst"]),
+                w=(coef * wnorm[:, None]).contiguous(), P=P)
+    for label, c in (("dense batch (phi-2, B=64 x N=426, E=714)", dense),
+                     ("embed batch via rgcn_message_agg_flat", flat)):
+        h, src, dst, w, P = c["h"], c["src"], c["dst"], c["w"], c["P"]
+        ones = torch.ones(w.shape[0], device=dev)
+        t = t_(rng.standard_normal((P, nb * D)).astype(np.float32))
+        live = (w != 0).any(1)
+        deg_all = torch.bincount(src.long(), minlength=P)
+        deg = torch.bincount(src[live].long(), minlength=P)
+        args = (h, t, src, dst, w, ones, P)
+        got = rgcn_fused_bwd(*args)
+        torch.cuda.synchronize()
+        want = rgcn_fused_bwd_plain(*args)
+        e1, r1 = rel_err(got[0], want[0])
+        e2, r2 = rel_err(got[1], want[1])
+        require(r1 <= KERNEL_TOL and r2 <= KERNEL_TOL,
+                f"K1b unit norms {label}: rel err dh {r1:.3e} dcoef {r2:.3e}")
+        csr = weight_csr(src, w, P)
+        unit = lambda: rgcn_fused_bwd(*args, csr=csr, checked=False)  # noqa
+        ms = device_ms(unit, 20, own=K1B_KERNELS)
+        zeroed = live.float()
+        ms0 = device_ms(lambda: rgcn_fused_bwd(
+            h, t, src, dst, w, zeroed, P, csr=csr, checked=False), 20,
+            own=K1B_KERNELS)
+        log(f"[kernels] K1b unit norms, {label}: Q={w.shape[0]} live "
+            f"{int(live.sum())}, largest out-degree {int(deg_all.max())} "
+            f"with the padded edges, {int(deg.max())} without; max_abs_err "
+            f"dh {e1:.3e} rel {r1:.3e} dcoef {e2:.3e} rel {r2:.3e} (tol "
+            f"{KERNEL_TOL}); kernel device ms {ms} against {ms0} with the "
+            f"padded edges' wnorm set to 0 ({ms.own / ms0.own:.2f}x, aim "
+            f"<= 1.3x)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -1742,15 +1858,19 @@ def phase_fit(dev):
         kind = next((k for k, marks in FIT_SPLIT if any(m in key for m in marks)),
                     "other (elementwise, reductions: autograd, LayerNorm, "
                     "AdamW, InfoNCE)")
-        split[kind] = split.get(kind, 0.0) + t / 1e6
+        t0, n0 = split.get(kind, (0.0, 0))
+        split[kind] = (t0 + t / 1e6, n0 + count)
     launches_per_step = sum(c for t, k, c in top
                             if not k.startswith("Mem")) / len(hist)
     log(f"[fit] profiled fit: wall_s {p_wall:.3f} (step loop "
         f"{p_info['fit_s']:.3f} s) device busy_s {busy_s:.4f} busy share "
         f"{busy_s / p_wall:.4f} idle share {1 - busy_s / p_wall:.4f}; device "
         f"kernels per step {launches_per_step:.0f} (validation included)")
-    for kind, t in sorted(split.items(), key=lambda kv: -kv[1]):
-        log(f"[fit]   split {t * 1e3:9.3f} ms {100 * t / busy_s:5.1f} %  {kind}")
+    for kind, (t, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        per = (f" (x{n}, {t * 1e6 / n:.2f} us a launch)"
+               if kind.startswith("K") else "")
+        log(f"[fit]   split {t * 1e3:9.3f} ms {100 * t / busy_s:5.1f} %  "
+            f"{kind}{per}")
     for t, key, count in top[:12]:
         log(f"[fit]   {t / 1e3:9.3f} ms {100 * t / 1e6 / busy_s:5.1f} %  "
             f"x{count:<7d} {key[:70]}")
@@ -2549,8 +2669,8 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": m["err"], "ms": m["ms"],
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-         **{k: m[k] for k in ("launches_counted", "fma_bound_ms")
-            if k in m}}
+         **{k: m[k] for k in ("launches_counted", "fma_bound_ms", "d64_ms",
+                              "d64_bound_ms") if k in m}}
         for name, source, repl, _, m in rows]}
     print(json.dumps(table))
     print(smi_line)

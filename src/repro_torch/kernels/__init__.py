@@ -64,8 +64,8 @@ SIGNATURES = {
     "kmeans_assign": [_P, _P, _P, _P, _I, _I, _I, _P],
     "rgcn_spmm_flat": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rgcn_spmm_dense": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "rgcn_fused_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _P],
+    "rgcn_fused_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "ssd_intra_chunk": [_P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
@@ -214,6 +214,16 @@ def edge_csr(index: torch.Tensor, live: torch.Tensor, num_nodes: int
         sorted_key, torch.arange(P + 1, dtype=index.dtype,
                                  device=index.device), out_int32=True)
     return EdgeCSR(perm.to(torch.int32), rowptr)
+
+
+def weight_csr(index: torch.Tensor, w: torch.Tensor, num_nodes: int
+               ) -> EdgeCSR:
+    """``edge_csr`` keyed on nonzero weight: an edge is live when any of
+    its weights ``w`` (Q, nb) is nonzero.  A zero-weight edge adds exactly
+    zero to a sum over the edges of a row for finite inputs, so no row's
+    run is longer than the edges of nonzero weight it holds (the padded
+    edges that pack_graphs and pad_batch put on node 0 all leave it)."""
+    return edge_csr(index, (w != 0).any(1), num_nodes)
 
 
 def dense_edge_csr(dst: torch.Tensor, live: torch.Tensor, num_nodes: int

@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import (
-    EdgeCSR, check, check_endpoints, edge_csr, launch, route,
+    EdgeCSR, check, check_endpoints, edge_csr, launch, route, weight_csr,
 )
 from repro_torch.kernels.rgcn_spmm.ops import rgcn_spmm_flat
 
@@ -132,10 +132,14 @@ def rgcn_fused_bwd_plain(h, t, src, dst, coef, wnorm, num_nodes: int):
 def rgcn_fused_bwd(h, t, src, dst, coef, wnorm, num_nodes: int, *,
                    csr: Optional[EdgeCSR] = None, checked: bool = True):
     """K1b: (dh, dcoef), see ``rgcn_fused_bwd_plain``.  ``csr``: the edges
-    by SOURCE, keyed on ``wnorm != 0`` (built here unless given)."""
+    by SOURCE that dh walks, under any key that keeps every edge of nonzero
+    weight coef * wnorm (the fit passes its ``wnorm != 0`` view); built
+    here keyed on nonzero weight unless given.  dcoef is computed for every
+    edge in the edges' own order, whatever the CSR holds."""
     if route(h) == "cpu":
         return rgcn_fused_bwd_plain(h, t, src, dst, coef, wnorm, num_nodes)
     P, nb, D = int(num_nodes), coef.shape[-1], h.shape[1]
+    Q = src.shape[0]
     _check_layer(h, src, dst, coef, wnorm, P, nb)
     check("t", t, dtype=torch.float32, shape=(P, nb * D), device=h.device)
     if nb > 4 or D > 256:
@@ -144,13 +148,13 @@ def rgcn_fused_bwd(h, t, src, dst, coef, wnorm, num_nodes: int, *,
     if checked:
         check_endpoints(src, dst, P, "rgcn_fused_bwd")
     if csr is None:
-        csr = edge_csr(src, wnorm != 0, P)
+        csr = weight_csr(src, coef * wnorm[:, None], P)
     dh = torch.empty(P, D, dtype=h.dtype, device=h.device)
-    dcoef = torch.zeros_like(coef)
+    dcoef = torch.empty_like(coef)        # the kernel writes every entry
     launch("rgcn_fused_bwd", h.data_ptr(), int(h.dtype == torch.bfloat16),
-           *(x.data_ptr() for x in (t, dst, csr.perm, csr.rowptr, coef,
+           *(x.data_ptr() for x in (t, src, dst, csr.perm, csr.rowptr, coef,
                                     wnorm, dh, dcoef)),
-           P, D, nb)
+           P, Q, D, nb)
     rgcn_fused_bwd.launches += 1
     return dh, dcoef
 

@@ -25,7 +25,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import (
-    EdgeCSR, check, check_endpoints, dense_edge_csr, edge_csr, launch, route,
+    EdgeCSR, check, check_endpoints, dense_edge_csr, launch, route,
+    weight_csr,
 )
 
 
@@ -71,7 +72,7 @@ def rgcn_spmm_flat(h, src, dst, w, num_nodes: int, *,
     if checked:
         check_endpoints(src, dst, P, "rgcn_spmm")
     if csr is None:
-        csr = edge_csr(dst, (w != 0).any(1), P)
+        csr = weight_csr(dst, w, P)
     out = torch.empty(P, nb * D, dtype=torch.float32, device=dev)
     launch("rgcn_spmm_flat", h.data_ptr(), int(h.dtype == torch.bfloat16),
            *(t.data_ptr() for t in (src, csr.perm, csr.rowptr, w, out)),
@@ -87,8 +88,9 @@ rgcn_spmm_flat.launches = 0
 class _MessageAggFlat(torch.autograd.Function):
     """agg = K5(h, w) @ basisflat; backward: t = g @ basisflat^T, dbasis =
     s^T g (s saved from the forward), and dh / dw from K1b with w as the
-    coefficients and unit norms (every edge walked: a zero-weight edge
-    still has a nonzero dw)."""
+    coefficients and unit norms: a zero-weight edge still has a nonzero
+    dw, which K1b writes for every edge, while its dh walk keeps only the
+    edges of nonzero weight."""
 
     @staticmethod
     def forward(ctx, h, basis, w, src, dst, num_nodes, checked):

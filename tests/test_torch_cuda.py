@@ -18,6 +18,8 @@ orders, and Adam divides by sqrt(v), which magnifies that noise where a
 gradient is small).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -33,8 +35,8 @@ from repro_torch.kernels.rgcn_fused.ops import (
     rgcn_fused_bwd_plain,
 )
 from repro_torch.kernels.rgcn_spmm.ops import (
-    rgcn_message_agg, rgcn_spmm_dense, rgcn_spmm_dense_plain, rgcn_spmm_flat,
-    rgcn_spmm_flat_plain,
+    rgcn_message_agg, rgcn_message_agg_flat, rgcn_spmm_dense,
+    rgcn_spmm_dense_plain, rgcn_spmm_flat, rgcn_spmm_flat_plain,
 )
 
 TOL = 1e-5
@@ -68,13 +70,51 @@ def _offset(t, offset):
     return view
 
 
-def _k1_args(dev, P, D, Q, O, dtype, seed=0, offset=0):
+@functools.lru_cache(maxsize=None)
+def _phi2_batches():
+    """phi-2's main-path batches: the first micro-batch the packed embed
+    packs (its padded tail, src = dst = 0, on node 0) and the first batch
+    of 64 graphs ``embed_dense`` pads."""
+    from repro_torch.core.batching import (
+        bucket_size, graph_content_hash, pack_graphs, plan_microbatches,
+    )
+    from repro_torch.core.graphs import pad_batch
+    from repro_torch.core.sampler import GCLSampler
+    from repro_torch.tracing.programs import get_program
+
+    graphs = list(GCLSampler(device="cpu").iter_graphs(get_program("phi-2")))
+    seen = {}
+    for g in graphs:
+        seen.setdefault(graph_content_hash(g), g)
+    distinct = list(seen.values())
+    first = [distinct[i] for i in plan_microbatches(distinct)[0]]
+    packed, _ = pack_graphs(first, pad_graphs_to=bucket_size(len(first), 8))
+    full, _ = pad_batch(graphs)
+    return packed, {k: v[:64] for k, v in full.items()}
+
+
+def _k1_args(dev, P, D, Q, O, dtype, seed=0, offset=0, pile=0):
+    """Random K1 / K1b inputs; ``pile="phi-2"`` takes P, Q and the edges
+    of phi-2's first packed embed batch in its own order."""
     rng = np.random.default_rng(seed)
-    src = rng.integers(0, P, Q).astype(np.int32)
-    dst = rng.integers(0, P, Q).astype(np.int32)
-    wnorm = rng.random(Q).astype(np.float32)
-    dst[Q // 2:], wnorm[Q // 2:] = 0, 0.0         # padded tail ...
-    perm = rng.permutation(Q)                     # ... in no order
+    if pile == "phi-2":
+        packed = _phi2_batches()[0]
+        src, dst = packed["edge_src"], packed["edge_dst"]
+        wnorm = (packed["edge_mask"] * packed["edge_norm"]).astype(np.float32)
+        P, Q = len(packed["node_mask"]), len(src)
+        perm = np.arange(Q)
+    else:
+        src = rng.integers(0, P, Q).astype(np.int32)
+        dst = rng.integers(0, P, Q).astype(np.int32)
+        wnorm = rng.random(Q).astype(np.float32)
+        dst[Q // 2:], wnorm[Q // 2:] = 0, 0.0     # padded tail ...
+        if pile:                                  # ... a row 3 -> 3 of
+            src = np.concatenate([src, np.full(pile, 3, np.int32)])  # degree
+            dst = np.concatenate([dst, np.full(pile, 3, np.int32)])  # >= pile
+            wnorm = np.concatenate([wnorm,
+                                    rng.random(pile).astype(np.float32) + 0.5])
+            Q += pile
+        perm = rng.permutation(Q)                 # ... in no order
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     h = _offset(t(rng.standard_normal((P, D)).astype(np.float32)).to(dtype),
                 offset)
@@ -464,13 +504,30 @@ def test_program_served_on_card_matches_cpu():
     assert np.array_equal(plans["cuda"].labels, plans["cpu"].labels)
 
 
+# (D, offset, pile): the gathers' layouts (16 lanes a row up to D = 64,
+# 32 beyond, two slots a lane past 128, scalars for D % 4 != 0), h one
+# element off its 16-byte boundary (the scalar path), and one row of
+# degree >= 1200 (38 steps of 32 edge slots), and phi-2's first packed
+# embed batch (P = 4096, 2072 padded edges on node 0); every case has rows
+# of degree 0 and a padded tail of zero weight at node 0
+_GATHER_SHAPES = [(64, 0, 0), (128, 0, 0), (40, 0, 0), (37, 0, 0),
+                  (256, 0, 0), (200, 0, 0), (64, 1, 0), (128, 1, 0),
+                  (64, 0, 1200), (128, 0, 1200), (128, 0, "phi-2")]
+_GATHER_IDS = [str(D) + (f"-offset{o}" if o else "")
+               + (f"-{p}-embed-batch" if isinstance(p, str)
+                  else f"-pile{p}" if p else "")
+               for D, o, p in _GATHER_SHAPES]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 40])
+@pytest.mark.parametrize("D,offset,pile", _GATHER_SHAPES, ids=_GATHER_IDS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rgcn_spmm_kernel_matches_plain(D, dtype):
+def test_rgcn_spmm_kernel_matches_plain(D, offset, pile, dtype):
+    """K5 against its plain version, equal bits on a repeat, and Q = 0."""
     dev = _card()
-    h, _, src, dst, coef, wnorm, P = _k1_args(dev, 700, D, 1500, 8,
-                                              getattr(torch, dtype))
+    h, _, src, dst, coef, wnorm, P = _k1_args(
+        dev, 700, D, 1500, 8, getattr(torch, dtype), offset=offset,
+        pile=pile)
     w = (coef * wnorm[:, None]).contiguous()
     before = rgcn_spmm_flat.launches
     got = rgcn_spmm_flat(h, src, dst, w, P)
@@ -484,15 +541,23 @@ def test_rgcn_spmm_kernel_matches_plain(D, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 40])
+@pytest.mark.parametrize("D,offset,pile", _GATHER_SHAPES, ids=_GATHER_IDS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rgcn_fused_bwd_kernel_matches_plain(D, dtype):
-    """K1b against its plain version, and K1's whole backward on the card
-    (K5 + K1b + the matmuls) against the same backward on the CPU."""
+def test_rgcn_fused_bwd_kernel_matches_plain(D, offset, pile, dtype):
+    """K1b against its plain version (dh and dcoef; equal bits on a
+    repeat); the kernel writes every dcoef entry, the wnorm = 0 ones as 0,
+    into outputs that start as NaN; Q = 0; then K1's whole backward on the
+    card (K5 + K1b + the matmuls) and the unfused layer's (K5 + matmul
+    forward, K1b with unit norms backward, the padded tail moved to src =
+    dst = 0 as pack_graphs leaves it) against the same backward on the
+    CPU."""
     dev = _card()
+    from repro_torch.kernels import launch, weight_csr
+
     tdt = getattr(torch, dtype)
-    h, basis, src, dst, coef, wnorm, P = _k1_args(dev, 700, D, 1500, 96,
-                                                  tdt)
+    h, basis, src, dst, coef, wnorm, P = _k1_args(
+        dev, 700, D, 1500, 96, tdt, offset=offset, pile=pile)
+    Q = src.shape[0]
     t = torch.randn(P, 2 * D, device=dev)
     before = rgcn_fused_bwd.launches
     dh, dcoef = rgcn_fused_bwd(h, t, src, dst, coef, wnorm, P)
@@ -504,15 +569,37 @@ def test_rgcn_fused_bwd_kernel_matches_plain(D, dtype):
     again = rgcn_fused_bwd(h, t, src, dst, coef, wnorm, P)
     assert torch.equal(dh, again[0]) and torch.equal(dcoef, again[1])
 
+    csr = weight_csr(src, coef * wnorm[:, None], P)
+    nan_dh = torch.full_like(dh, float("nan"))
+    nan_dc = torch.full_like(dcoef, float("nan"))
+    launch("rgcn_fused_bwd", h.data_ptr(), int(tdt == torch.bfloat16),
+           *(x.data_ptr() for x in (t, src, dst, csr.perm, csr.rowptr, coef,
+                                    wnorm, nan_dh, nan_dc)),
+           P, Q, D, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(nan_dh, dh) and torch.equal(nan_dc, dcoef)
+    assert not dcoef[wnorm == 0].any()
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    zh, zc = rgcn_fused_bwd(h, t, empty, empty, coef[:0], wnorm[:0], P)
+    assert zc.shape == (0, 2) and not zh.float().any()
+
     g = torch.randn(P, 96, device=dev)
+    pad = wnorm == 0
+    src0 = torch.where(pad, 0, src)
+    w = (coef * wnorm[:, None]).contiguous()
     grads = {}
     for where in ("cuda", "cpu"):
         xs = [x.detach().to(where).requires_grad_() for x in (h, basis, coef)]
         out = rgcn_fused_agg_flat(xs[0], xs[1], src.to(where), dst.to(where),
                                   xs[2], wnorm.to(where), P)
-        grads[where] = torch.autograd.grad(out, xs, g.to(where))
+        ws = [x.detach().to(where).requires_grad_() for x in (h, basis, w)]
+        out2 = rgcn_message_agg_flat(ws[0], ws[1], src0.to(where),
+                                     dst.to(where), ws[2], P)
+        grads[where] = (torch.autograd.grad(out, xs, g.to(where))
+                        + torch.autograd.grad(out2, ws, g.to(where)))
     for a, b in zip(grads["cuda"], grads["cpu"]):
         _close(a, b)
+    assert grads["cuda"][5][pad].abs().sum() > 0   # dw of zero-weight edges
 
 
 @pytest.mark.cuda
@@ -918,22 +1005,39 @@ def test_rgcn_spmm_dense_kernel_matches_plain(shape, D, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rgcn_message_agg_dense_on_card_matches_cpu(dtype):
     """The dense aggregation's forward (K6 + matmul) and backward (K1b over
-    the flattened batch + matmuls) on the card against the CPU's plain
-    path: the output and the gradients in h, basis and w."""
+    the flattened batch with unit norms + matmuls) on the card against the
+    CPU's plain path: the output and the gradients in h, basis and w; for
+    a ragged batch, one whose padded edges (src = dst = 0, w = 0, as
+    pad_batch leaves them) pile up over a thousand on each graph's node
+    0, whose dw are nonzero, and phi-2's first dense batch at D = 128."""
     dev = _card()
     tdt = getattr(torch, dtype)
-    h, src, dst, w, N = _k6_args(dev, 6, 90, 200, 64, tdt)
-    basis = torch.randn(2, 64, 48, device=dev) / 8
-    g = torch.randn(6, N, 48, device=dev)
-    res = {}
-    for where in ("cuda", "cpu"):
-        xs = [x.detach().to(where).requires_grad_() for x in (h, basis, w)]
-        out = rgcn_message_agg(xs[0], xs[1], src.to(where), dst.to(where),
-                               xs[2], N)
-        res[where] = (out.detach(),
-                      *torch.autograd.grad(out, xs, g.to(where)))
-    for a, b in zip(res["cuda"], res["cpu"]):
-        _close(a, b)
+    cases = [_k6_args(dev, 6, 90, E, 64, tdt, live=live)
+             for E, live in ((200, 0.5), (1200, 0.05))]
+    batch = _phi2_batches()[1]
+    rng = np.random.default_rng(1)
+    B, N = batch["node_mask"].shape
+    w = (rng.standard_normal((*batch["edge_mask"].shape, 2))
+         * batch["edge_mask"][..., None]).astype(np.float32)
+    cases.append((torch.from_numpy(rng.standard_normal((B, N, 128))
+                                   .astype(np.float32)).to(dev, tdt),
+                  *(torch.from_numpy(a).to(dev) for a in (
+                      batch["edge_src"], batch["edge_dst"], w)), N))
+    for h, src, dst, w, N in cases:
+        B, D = h.shape[0], h.shape[2]
+        basis = torch.randn(2, D, 48, device=dev) / np.sqrt(D)
+        g = torch.randn(B, N, 48, device=dev)
+        res = {}
+        for where in ("cuda", "cpu"):
+            xs = [x.detach().to(where).requires_grad_()
+                  for x in (h, basis, w)]
+            out = rgcn_message_agg(xs[0], xs[1], src.to(where),
+                                   dst.to(where), xs[2], N)
+            res[where] = (out.detach(),
+                          *torch.autograd.grad(out, xs, g.to(where)))
+        for a, b in zip(res["cuda"], res["cpu"]):
+            _close(a, b)
+        assert res["cuda"][3][(w == 0).all(-1)].abs().sum() > 0
 
 
 @pytest.mark.cuda

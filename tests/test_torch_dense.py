@@ -134,14 +134,16 @@ def _k6_inputs(case, seed=0):
     src = dst = 0 with w = 0, as pad_batch leaves them."""
     rng = np.random.default_rng(seed)
     B, N, D, nb = 3, 40, 24, 2
-    E = {"ragged": 300, "empty": 0, "bf16": 130, "padded": 180}[case]
+    E = {"ragged": 300, "empty": 0, "bf16": 130, "padded": 180,
+         "piled": 600}[case]
     h = rng.standard_normal((B, N, D)).astype(np.float32)
     src = rng.integers(0, N, (B, E)).astype(np.int32)
     dst = rng.integers(0, N, (B, E)).astype(np.int32)
     w = rng.standard_normal((B, E, nb)).astype(np.float32)
-    if case == "padded":
-        src[:, E // 3:] = dst[:, E // 3:] = 0
-        w[:, E // 3:] = 0.0
+    if case in ("padded", "piled"):
+        cut = E // 3 if case == "padded" else E // 6
+        src[:, cut:] = dst[:, cut:] = 0
+        w[:, cut:] = 0.0
     return h, src, dst, w, N
 
 
@@ -165,11 +167,13 @@ def test_rgcn_spmm_dense_plain_matches_jax_kernel(case):
     assert torch.equal(rgcn_spmm_dense(ht, _t(src), _t(dst), _t(w), N), got)
 
 
-@pytest.mark.parametrize("case", ["ragged", "padded"])
+@pytest.mark.parametrize("case", ["ragged", "padded", "piled"])
 def test_rgcn_message_agg_and_grads_match_jax(case):
     """The dense ``rgcn_message_agg`` (K6 + matmul forward, K1b backward over
     the flattened batch) against JAX's custom-vjp op: the output and the
-    gradients of <agg, G> in h, basis and w, 1e-4 relative."""
+    gradients of <agg, G> in h, basis and w, 1e-4 relative.  'piled': 500
+    padded edges (src = dst = 0, w = 0) on each graph's node 0, which get
+    their nonzero dw and add nothing to dh."""
     h, src, dst, w, N = _k6_inputs(case, seed=1)
     rng = np.random.default_rng(2)
     basis = (rng.standard_normal((2, h.shape[2], 16))
@@ -190,6 +194,14 @@ def test_rgcn_message_agg_and_grads_match_jax(case):
     _scale_close(out.detach().numpy(), jout, 1e-4)
     for got, want in zip(grads, jgrads):
         _scale_close(got.numpy(), want, 1e-4)
+    if case == "piled":
+        cut = src.shape[1] // 6
+        assert (grads[2][:, cut:].abs().sum(-1) > 0).all()
+        ht2 = _t(h).requires_grad_()
+        out2 = rgcn_message_agg(ht2, _t(basis), _t(src[:, :cut]),
+                                _t(dst[:, :cut]), _t(w[:, :cut]), N)
+        (dh2,) = torch.autograd.grad((out2 * _t(G)).sum(), [ht2])
+        _scale_close(grads[0].numpy(), dh2.numpy(), 1e-5)
 
 
 # ---------------------------------------------------------------------------

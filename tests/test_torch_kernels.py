@@ -43,7 +43,7 @@ from repro.kernels.rgcn_spmm.ops import (
     rgcn_message_agg_flat as jax_message_agg_flat,
 )
 from repro.kernels.rgcn_spmm.ref import rgcn_message_agg_flat_ref
-from repro_torch.kernels import route
+from repro_torch.kernels import route, weight_csr
 from repro_torch.kernels.kmeans_assign.ops import (
     kmeans_assign_fused, kmeans_assign_fused_batched, silhouette_sums,
 )
@@ -109,6 +109,15 @@ def _k1_inputs(seed, P, D, Q, nb, O, extra):
         dst[30:], wnorm[30:] = 0, 0.0
         perm = rng.permutation(Q)
         src, dst, coef, wnorm = src[perm], dst[perm], coef[perm], wnorm[perm]
+    if extra == "pile":
+        # pack_graphs' padded tail: hundreds of edges src = dst = 0 with
+        # wnorm = 0, so weight 0, all out of (and into) node 0
+        pad = 400
+        src = np.concatenate([src, np.zeros(pad, np.int32)])
+        dst = np.concatenate([dst, np.zeros(pad, np.int32)])
+        coef = np.concatenate([coef, rng.standard_normal((pad, nb))
+                               .astype(np.float32)])
+        wnorm = np.concatenate([wnorm, np.zeros(pad, np.float32)])
     if extra == "masked":
         pad = 13
         src = np.concatenate([src, np.zeros(pad, np.int32)])
@@ -217,10 +226,17 @@ def test_rgcn_fused_backward_plain_matches_jax_vjp(case, dtype):
         assert not dcoef[-13:].any()                    # wnorm = 0 rows
 
 
-@pytest.mark.parametrize("case", K1_CASES[:4], ids=[c[0] for c in K1_CASES[:4]])
+# the first four K1 cases, and a padded tail of 400 zero-weight edges piled
+# on node 0 (src = dst = 0, as pack_graphs pads)
+MSG_CASES = K1_CASES[:4] + [("padded_pile", 40, 16, 50, 2, 12, "pile")]
+
+
+@pytest.mark.parametrize("case", MSG_CASES, ids=[c[0] for c in MSG_CASES])
 def test_message_agg_backward_plain_matches_jax(case):
     """The unfused layer's backward (K1b with the weights as coefficients
-    and unit norms) vs the JAX package's ``rgcn_message_agg_flat`` vjp."""
+    and unit norms) vs the JAX package's ``rgcn_message_agg_flat`` vjp.
+    With the pile on node 0, its zero-weight edges get their nonzero dw
+    and add nothing to dh: dh equals the backward without them."""
     P, h, basis, src, dst, coef, wnorm, g = _vjp_inputs(case, 3 + case[1])
     w = (coef * wnorm[:, None]).astype(np.float32)
     th, tb, tw = (_t(a).requires_grad_() for a in (h, basis, w))
@@ -232,6 +248,48 @@ def test_message_agg_backward_plain_matches_jax(case):
         jnp.asarray(h), jnp.asarray(basis), jnp.asarray(w))
     for got_, want_ in zip(got, vjp(jnp.asarray(g))):
         _close(got_.numpy(), want_)
+    if case[-1] == "pile":
+        q = case[3]
+        assert (got[2][q:].abs().sum(1) > 0).all()      # dw of the pile
+        th2 = _t(h).requires_grad_()
+        out2 = rgcn_message_agg_flat(th2, _t(basis), _t(src[:q]),
+                                     _t(dst[:q]), _t(w[:q]), P)
+        (dh2,) = torch.autograd.grad(out2, (th2,), _t(g))
+        _close(got[0].numpy(), dh2.numpy())
+
+
+WEIGHT_CSR_CASES = [("mixed", 37, 200, 2, 0.4), ("one_basis", 5, 60, 1, 0.5),
+                    ("all_zero", 9, 30, 2, 1.0), ("none_zero", 12, 40, 4, 0.0),
+                    ("no_edges", 6, 0, 2, 0.0)]
+
+
+@pytest.mark.parametrize("case", WEIGHT_CSR_CASES,
+                         ids=[c[0] for c in WEIGHT_CSR_CASES])
+def test_weight_csr_keys_zero_weight_edges_past_the_last_row(case):
+    """The CSR view the K5 / K1b wrappers build when none is given,
+    ``weight_csr(index, w, P)``: the edges with some nonzero weight, in a
+    stable order by index, with ``rowptr`` their runs (each row's count);
+    every zero-weight edge (a zero in some bases only keeps the edge)
+    after ``rowptr[P]``, in its own order, so no row walks it."""
+    _, P, Q, nb, zero_share = case
+    rng = np.random.default_rng(P + Q)
+    index = rng.integers(0, P, Q).astype(np.int32)
+    index[: Q // 3] = 0                                 # a pile on node 0
+    w = rng.standard_normal((Q, nb)).astype(np.float32)
+    w[rng.random(Q) < zero_share] = 0.0
+    if nb > 1 and Q:
+        w[1, 0] = 0.0                                   # one base zero only
+    csr = weight_csr(_t(index), _t(w), P)
+    perm, rowptr = csr.perm.numpy(), csr.rowptr.numpy()
+    assert perm.dtype == np.int32 and rowptr.dtype == np.int32
+    live = (w != 0).any(1)
+    order = np.argsort(np.where(live, index, P), kind="stable")
+    np.testing.assert_array_equal(perm, order)
+    counts = np.bincount(index[live], minlength=P)
+    np.testing.assert_array_equal(rowptr, np.concatenate([[0],
+                                                          np.cumsum(counts)]))
+    np.testing.assert_array_equal(perm[rowptr[P]:],
+                                  np.flatnonzero(~live))
 
 
 def test_rgcn_fused_bwd_plain_direct():
