@@ -23,8 +23,10 @@ Phases, each reported on its own lines:
             timed against the same call with the padded edges' wnorm set
             to 0; the bytes bounds count the rows and edges the live edges
             need; K6 at phi-2's and cfd's first dense batch, D 64 / 128,
-            f32 and bf16, plus E = 0 and a batch of padding at node 0, and
-            the dense aggregation's backward on the card against the CPU;
+            f32 and bf16 (bytes bound from the h rows and edge slots the
+            live edges need, s in full), plus E = 0 and a batch of
+            padding at node 0, and the dense aggregation's backward on
+            the card against the CPU;
             K2 also over a sweep's 47 candidates in one call
             (``kmeans_assign_fused_batched``, one Lloyd step of cfd's
             sweep); K2 / K3 / K4 also at PKA's feature width d = 12; K7
@@ -61,6 +63,17 @@ Phases, each reported on its own lines:
             that encoder; the serving kernels' launch counts (zeroed just
             before) must be > 0, a sweep may make at most iters + 1 K2
             calls (``SweepCount``), and no request may fail;
+5b. plan_serve the plan-serving load path: ``repro_torch.launch.
+            plan_serve.main`` on the card at JAX's CLI defaults (120
+            requests, d 16, k_max 8, iters 10, max_batch 8, max_delay 5
+            ms) and at the gcl engine's defaults (d 256, k_max 48, iters
+            50), each at 0.5x and 3x the closed-loop capacity (plans/s of
+            a warm ``PlanEngine.plan_many`` over the same fleet): p50 /
+            p99 / mean latency, plans/s, occupancy, queue depth, flush
+            causes, and the first request's latency cold and after
+            ``warmup``.  No request may fail, every served plan must equal
+            its closed-loop plan (labels, K, representatives), and K2 and
+            K3 must have been launched;
 6. train    three training steps of the full-width encoder on the card
             against the same steps on the CPU with the same draws (loss
             1e-5, parameters 1e-4 relative);
@@ -200,9 +213,19 @@ K4_KERNELS = {"k4_assign_kernel": 1}
 #: K1's and K8's (3xTF32 tensor cores, ``csrc/tf32x3.cuh``)
 K1_KERNELS = {"rgcn_fused_tf32_kernel": 1}
 K8_KERNELS = {"ssd_cb_tf32_kernel": 1, "ssd_chunk_tf32_kernel": 1}
-#: K5's and K1b's (``csrc/csr_gather.cuh``)
+#: K5's, K1b's and K6's (``csrc/csr_gather.cuh``)
 K5_KERNELS = {"rgcn_spmm_flat_kernel": 1}
 K1B_KERNELS = {"rgcn_fused_bwd_kernel": 1}
+K6_KERNELS = {"rgcn_spmm_dense_kernel": 1}
+#: the plan_serve phase: ``repro_torch.launch.plan_serve.main`` at JAX's
+#: CLI defaults (120 requests, d 16, k_max 8, iters 10, max_batch 8,
+#: max_delay 5 ms), then at the gcl engine's defaults and the encoder's
+#: embedding width; each at two offered loads, these multiples of the
+#: closed-loop capacity (``benchmarks/bench_serve_latency.py``'s factors)
+PLAN_SERVE_RUNS = (("CLI defaults", {}),
+                   ("engine defaults", {"d": 256, "k_max": 48, "iters": 50}))
+PLAN_SERVE_CLI = {"d": 16, "k_max": 8, "iters": 10}   # the CLI's defaults
+PLAN_SERVE_LOADS = (0.5, 3.0)
 #: what a K2 row's ``launches`` counts
 K2_COUNTED = ("calls of the batched K2: one per Lloyd step (and one final "
               "assignment) for all candidates of a program")
@@ -1210,6 +1233,17 @@ def _dense_first_batch(name):
     return {k: v[:DENSE_BATCH] for k, v in full.items()}, max_warps
 
 
+def _k6_reads(src, w, N):
+    """(h rows, edge slots) K6 must read: the distinct (graph, source)
+    rows of the live edges (w != 0 in some base), and those edges."""
+    import torch
+
+    live = (w != 0).any(-1)
+    B = src.shape[0]
+    rows = src.long() + N * torch.arange(B, device=src.device)[:, None]
+    return int(torch.unique(rows[live]).numel()), int(live.sum())
+
+
 def _k6_check(dev, label, h, src, dst, w, N, timed):
     """K6 against its plain version on the card; with ``timed``, its device
     time, the plain version's, the sparse-product yardstick's (f32) and
@@ -1228,20 +1262,22 @@ def _k6_check(dev, label, h, src, dst, w, N, timed):
     dname = "f32" if h.dtype == torch.float32 else "bf16"
     require(rel <= KERNEL_TOL,
             f"K6 {label} D={D} {dname}: rel err {rel:.3e} > {KERNEL_TOL}")
+    require(torch.equal(got, rgcn_spmm_dense(h, src, dst, w, N,
+                                             checked=False)),
+            f"K6 {label} D={D} {dname}: two calls differ")
     if not timed:
         log(f"[kernels] K6 rgcn_spmm_dense {label} B={B} N={N} E={E} D={D} "
             f"h={dname}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
-            f"{KERNEL_TOL})")
+            f"{KERNEL_TOL}), repeat bit-equal")
         return None
+    n_src, e_live = _k6_reads(src, w, N)
     live = (w != 0).any(-1)
-    e_live = int(live.sum())
     args = (h, src, dst, w, N)
     # timed as the dense encoder calls it: the edges were checked by the
     # call above, so the timed calls make no host sync
     call = lambda: rgcn_spmm_dense(*args, checked=False)  # noqa: E731
     call_ms = time_ms(call, 50)
-    wrap_ms, ms, ms_src = device_ms(call, 20,
-                                    own={"rgcn_spmm_dense_kernel": 1})
+    wrap_ms, ms, ms_src = device_ms(call, 20, own=K6_KERNELS)
     plain_ms, _, plain_src = device_ms(
         lambda: rgcn_spmm_dense_plain(*args), 20)
     lib_ms = lib_src = None
@@ -1264,16 +1300,19 @@ def _k6_check(dev, label, h, src, dst, w, N, timed):
                 f"K6 library yardstick disagrees ({err_lib:.3e})")
         lib_ms, _, lib_src = device_ms(lambda: torch.sparse.mm(A, hf), 20)
     esz = h.element_size()
-    bytes_ = B * N * D * esz + B * E * 4 * 2 + B * E * nb * 4 + B * N * nb * D * 4
+    # h's rows that live edges read, the live edges' src, perm and w, the
+    # rowptr; s written in full
+    bytes_ = (n_src * D * esz + e_live * (4 * 2 + nb * 4)
+              + (B * N + 1) * 4 + B * N * nb * D * 4)
     b_ms, b_by = bound(bytes_, 2 * e_live * nb * D)
     lib_txt = (f"{lib_ms:.4f} [{lib_src}] (sparse.mm, block-diagonal CSR)"
                if lib_ms is not None else "none (no bf16 sparse product)")
     log(f"[kernels] K6 rgcn_spmm_dense {label} B={B} N={N} E={E} live edges "
         f"{e_live} D={D} h={dname}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
-        f"{KERNEL_TOL}) kernel device ms {ms:.4f} [{ms_src}] (wrapper device "
-        f"ms {wrap_ms:.4f}, call ms {call_ms:.4f}) plain device ms "
-        f"{plain_ms:.4f} [{plain_src}] library device ms {lib_txt} bound_us "
-        f"{b_ms * 1e3:.2f} ({b_by})")
+        f"{KERNEL_TOL}), repeat bit-equal; kernel device ms {ms:.4f} "
+        f"[{ms_src}] (wrapper device ms {wrap_ms:.4f}, call ms "
+        f"{call_ms:.4f}) plain device ms {plain_ms:.4f} [{plain_src}] "
+        f"library device ms {lib_txt} bound_us {b_ms * 1e3:.2f} ({b_by})")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
 
@@ -1305,6 +1344,15 @@ def _k6(rows, dev, rng):
         wnorm = emask * edge_norm_dense(dst_c, etype, emask, N, 4)
         src, dst = t(batch["edge_src"]), t(batch["edge_dst"])
         node_mask = t(batch["node_mask"])
+        E = batch["edge_src"].shape[1]
+        live = wnorm.to(dev) != 0
+        n_src, e_live = _k6_reads(src, live[..., None].float(), N)
+        deg = torch.bincount((dst.long() + N * torch.arange(
+            B, device=dev)[:, None])[live], minlength=B * N)
+        log(f"[kernels] K6 {name} batch: B={B} N={N} E={E} live edges "
+            f"{e_live} of {B * E} slots, largest in-degree {int(deg.max())}, "
+            f"rows without an edge {int((deg == 0).sum())} of {B * N}; rows "
+            f"read: {n_src} distinct (graph, source) h rows of {B * N}")
         for D in (64, 128):
             comb = torch.from_numpy(rng.standard_normal((4, nb))
                                     .astype(np.float32))
@@ -1656,6 +1704,117 @@ def profile_request(dev, name):
         f"busy share {busy_s / wall:.4f} idle share {1 - busy_s / wall:.4f}")
     for t, key, count in top[:8]:
         log(f"[profile]   {t / 1e3:9.3f} ms  x{count:<6d} {key[:70]}")
+
+
+def phase_plan_serve(dev):
+    """The plan-serving load path: ``repro_torch.launch.plan_serve.main``
+    on the card for each of ``PLAN_SERVE_RUNS``, at ``PLAN_SERVE_LOADS`` x
+    the closed-loop capacity (plans/s of a warm ``PlanEngine.plan_many``
+    over the same fleet, measured first).  Every request must be served,
+    every served plan must equal the same request's closed-loop plan
+    (labels, K, representatives), and K2 and K3 must have been launched
+    (counts zeroed just before each run).  Also the first request's
+    latency of a fresh service, cold and after ``warmup`` (the allocator's
+    cache emptied before each)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import plan_serve
+    from repro_torch.sampling.engine import PlanEngine, bucket_key
+    from repro_torch.serving import PlanService, synthetic_fleet
+
+    class Recording(PlanService):
+        """A PlanService that keeps every future it hands out."""
+        futures: list = []
+
+        def submit(self, request):
+            fut = super().submit(request)
+            Recording.futures.append(fut)
+            return fut
+
+    for label, overrides in PLAN_SERVE_RUNS:
+        argv = ["--device", dev.type]
+        for k, v in overrides.items():
+            argv += [f"--{k.replace('_', '-')}", str(v)]
+        cfg = dict(PLAN_SERVE_CLI, **overrides)
+        d, k_max, iters = cfg["d"], cfg["k_max"], cfg["iters"]
+        n_req, seed = 120, 0                  # the CLI's requests and seed
+        fleet = synthetic_fleet(n_req, d=d, seed=seed)
+        buckets = sorted({bucket_key(r.embeddings) for r in fleet})
+        eng_kw = dict(k_max=k_max, iters=iters, seed=seed, max_batch=8)
+        first = {}
+        for warm in (False, True):
+            torch.cuda.empty_cache()
+            with PlanService(device=dev, max_delay_ms=5.0, **eng_kw) as svc:
+                if warm:
+                    svc.warmup(buckets)
+                t0 = time.perf_counter()
+                svc.submit(fleet[0]).result(timeout=600)
+                first[warm] = time.perf_counter() - t0
+        eng = PlanEngine(device=dev, **eng_kw)
+        eng.warmup(buckets)
+        eng.plan_many(fleet)
+        t0 = time.perf_counter()
+        ref = eng.plan_many(fleet)
+        closed_s = time.perf_counter() - t0
+        cap = n_req / closed_s
+        loads = [f * cap for f in PLAN_SERVE_LOADS]
+        log(f"[plan_serve] {label} (d={d} k_max={k_max} iters={iters}, "
+            f"{n_req} requests, buckets {buckets}): closed-loop capacity "
+            f"{cap:.2f} plans/s ({closed_s:.3f} s); first request of a "
+            f"fresh service cold {first[False] * 1e3:.1f} ms, after warmup "
+            f"{first[True] * 1e3:.1f} ms; offered loads "
+            f"{', '.join(f'{x:.2f}' for x in loads)} req/s")
+        Recording.futures = []
+        orig = plan_serve.PlanService
+        plan_serve.PlanService = Recording
+        _zero_counts()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = Path(tmp) / "plan_serve.json"
+                rc = plan_serve.main(argv + [
+                    "--load", ",".join(f"{x:.6g}" for x in loads),
+                    "--json", str(path)])
+                doc = json.loads(path.read_text())
+        finally:
+            plan_serve.PlanService = orig
+        counts = _counts()
+        require(rc == 0, f"plan_serve {label}: exit code {rc}")
+        for row in doc["loads"]:
+            lat, svc = row["latency_ms"], row["service"]
+            log(f"[plan_serve] {label} offered {row['offered_per_s']:.2f}/s "
+                f"({row['offered_per_s'] / cap:.1f}x capacity): served "
+                f"{row['n_ok']} / {row['n_requests']}, errors "
+                f"{row['n_err']}; latency ms p50 {lat['p50']:.2f} p99 "
+                f"{lat['p99']:.2f} mean {lat['mean']:.2f} max "
+                f"{lat['max']:.2f}; {row['plans_per_s']:.2f} plans/s over "
+                f"{row['wall_s']:.3f} s; occupancy "
+                f"{svc['batch_occupancy']:.3f} mean batch "
+                f"{svc['mean_batch']:.2f} mean queue depth "
+                f"{svc['mean_queue_depth']:.2f} dispatch ms "
+                f"{svc['mean_dispatch_ms']:.2f}; flushes "
+                f"{json.dumps(svc['flush_causes'])}")
+            require(row["n_err"] == 0 and row["n_ok"] == n_req,
+                    f"plan_serve {label}: {row['n_err']} failed requests")
+        futs = Recording.futures
+        require(len(futs) == n_req * len(loads),
+                f"plan_serve {label}: {len(futs)} requests recorded")
+        for i, fut in enumerate(futs):
+            got, want = fut.result(), ref[i % n_req]
+            require(np.array_equal(got.labels, want.labels)
+                    and got.num_clusters == want.num_clusters
+                    and got.reps == want.reps,
+                    f"plan_serve {label}: request {i % n_req} served a "
+                    f"plan other than its closed-loop plan")
+        k2, k3 = counts["kmeans_assign_fused_batched"], counts[
+            "silhouette_sums"]
+        log(f"[plan_serve] {label}: {len(futs)} served plans equal to their "
+            f"closed-loop plans (labels, K, representatives); launches K2 "
+            f"{k2} K3 {k3}")
+        require(k2 > 0 and k3 > 0,
+                f"plan_serve {label}: K2 {k2} / K3 {k3} launches")
 
 
 # ---------------------------------------------------------------------------
@@ -2637,6 +2796,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_serve(rows, dev)
     log(f"[phase] serve {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_plan_serve(dev)
+    log(f"[phase] plan_serve {time.perf_counter() - t0:.2f} s")
     for name, phase in (("train", phase_train), ("resume", phase_resume),
                         ("fit", phase_fit)):
         t0 = time.perf_counter()

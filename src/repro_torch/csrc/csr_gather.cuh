@@ -1,15 +1,17 @@
 // Row gathers along a CSR run for NVIDIA Hopper (sm_90a), shared by K5
-// (rgcn_spmm.cu, `rgcn_spmm_flat`) and K1b (rgcn_fused_bwd.cu).
+// and K6 (rgcn_spmm.cu, `rgcn_spmm_flat`, `rgcn_spmm_dense`) and K1b
+// (rgcn_fused_bwd.cu).
 //
-// A group of G lanes (16 or 32) owns one output row and walks that row's
-// run perm[r0..r1) of a CSR view of the edges.  Walked edge by edge, every
+// A group of G lanes (16 or 32) owns one output row (K6: a few consecutive
+// rows, whose runs are contiguous) and walks the run perm[r0..r1) of a
+// CSR view of the edges.  Walked edge by edge, every
 // edge costs a chain of three dependent loads (perm, then the edge's
 // arrays, then the gathered row), and the slowest row of a launch pays
 // that chain once per edge.  Here the chain is paid once per run of up to
 // G edges (`walk_run`):
 //
 //   1. lane j loads slot r0 + j: perm, then the edge's own arrays
-//      (`load_slot`), all G slots in one step;
+//      (`load_slot(e, r0 + j)`), all G slots in one step;
 //   2. the group takes the edges in CSR order, U at a time: each edge's
 //      data is broadcast from the lane that loaded it with one shuffle,
 //      and the U edges' rows are loaded (`gather`) before any of them is
@@ -145,6 +147,15 @@ struct Slot {
   float w[NB];
 };
 
+// ... and, for a group that owns several rows (K6), which of them the
+// edge's slot falls in
+template <int NB>
+struct RowSlot {
+  int row;
+  int out;
+  float w[NB];
+};
+
 template <int G, int NB>
 __device__ __forceinline__ Slot<NB> bcast(const Slot<NB>& s, unsigned mask,
                                           int from) {
@@ -154,20 +165,30 @@ __device__ __forceinline__ Slot<NB> bcast(const Slot<NB>& s, unsigned mask,
   for (int k = 0; k < NB; ++k) r.w[k] = __shfl_sync(mask, s.w[k], from, G);
   return r;
 }
+template <int G, int NB>
+__device__ __forceinline__ RowSlot<NB> bcast(const RowSlot<NB>& s,
+                                             unsigned mask, int from) {
+  RowSlot<NB> r;
+  r.row = __shfl_sync(mask, s.row, from, G);
+  r.out = __shfl_sync(mask, s.out, from, G);
+#pragma unroll
+  for (int k = 0; k < NB; ++k) r.w[k] = __shfl_sync(mask, s.w[k], from, G);
+  return r;
+}
 
 // The walk described at the top of this file, for lane g of its group:
-// load_slot(e) -> Slot<NB> reads edge e's arrays; gather(u, slot) issues
-// the loads of the u-th edge of a step (u < U); use(u, slot) consumes
-// them.  Every lane of the warp must call it (a group with no row walks
-// an empty run): with G = 16 the two groups of a warp take their steps
-// together, as many as the longer run needs, so neither group's loads
-// wait behind the other's in a diverged warp.
-template <int G, int U, int NB, typename LoadSlot, typename Gather,
-          typename Use>
+// load_slot(e, t) -> a Slot or RowSlot reads edge e = perm[t]'s arrays;
+// gather(u, slot) issues the loads of the u-th edge of a step (u < U);
+// use(u, slot) consumes them.  Every lane of the warp must call it (a
+// group with no row walks an empty run): with G = 16 the two groups of a
+// warp take their steps together, as many as the longer run needs, so
+// neither group's loads wait behind the other's in a diverged warp.
+template <int G, int U, typename LoadSlot, typename Gather, typename Use>
 __device__ __forceinline__ void walk_run(const int* __restrict__ perm,
                                          int r0, int r1, int g,
                                          unsigned mask, LoadSlot load_slot,
                                          Gather gather, Use use) {
+  using S = decltype(load_slot(0, 0));
   const int len = r1 - r0;
   int span = len;  // the same in every lane of the warp
   if constexpr (G < 32)
@@ -175,13 +196,13 @@ __device__ __forceinline__ void walk_run(const int* __restrict__ perm,
   for (int c = 0; c < span; c += G) {
     const int n = max(0, min(G, len - c));  // this group's edges
     const int nw = min(G, span - c);        // the warp's
-    Slot<NB> mine;
-    mine.row = 0;
-#pragma unroll
-    for (int k = 0; k < NB; ++k) mine.w[k] = 0.f;
-    if (g < n) mine = load_slot(__ldg(perm + r0 + c + g));
+    S mine{};
+    if (g < n) {
+      const int t = r0 + c + g;
+      mine = load_slot(__ldg(perm + t), t);
+    }
     for (int i = 0; i < nw; i += U) {
-      Slot<NB> s[U];
+      S s[U];
 #pragma unroll
       for (int u = 0; u < U; ++u)
         s[u] = bcast<G>(mine, mask, (i + u) & (G - 1));

@@ -80,10 +80,10 @@ rgcn_fused_bwd_kernel(const T* __restrict__ h, const float* __restrict__ t,
     csrg::Vec<VEC> acc[CPL], tv[U][NB][CPL];
 #pragma unroll
     for (int j = 0; j < CPL; ++j) acc[j] = csrg::zeros<VEC>();
-    csrg::walk_run<G, U, NB>(
+    csrg::walk_run<G, U>(
         perm, row ? __ldg(rowptr + u) : 0, row ? __ldg(rowptr + u + 1) : 0,
         g, mask,
-        [&](int e) {
+        [&](int e, int) {
           csrg::Slot<NB> s;
           s.row = __ldg(dst + e);
           const float wn = __ldg(wnorm + e);

@@ -63,7 +63,7 @@ SIGNATURES = {
     "silhouette_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "kmeans_assign": [_P, _P, _P, _P, _I, _I, _I, _P],
     "rgcn_spmm_flat": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "rgcn_spmm_dense": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rgcn_spmm_dense": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rgcn_fused_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -228,18 +228,19 @@ def weight_csr(index: torch.Tensor, w: torch.Tensor, num_nodes: int
 
 def dense_edge_csr(dst: torch.Tensor, live: torch.Tensor, num_nodes: int
                    ) -> EdgeCSR:
-    """CSR of a dense batch's edges (B, E) by destination, one run of
-    ``num_nodes + 1`` rows per graph over the flattened (B*E) edges: the
-    key is b*(N+1) + dst, and dead edges (``live`` False) take row N of
-    their graph, past its last node, so no warp walks them (pad_batch pads
-    and truncates edges to src = dst = 0).  ``perm`` indexes the flattened
-    edges; ``rowptr`` has B*(N+1)+1 entries.  No host sync."""
+    """CSR of a dense batch's edges (B, E) by destination over the
+    flattened (B*N) rows: the key is b*N + dst, so each graph's rows follow
+    the last graph's and the runs of consecutive rows are contiguous in
+    ``perm``, across graphs too.  Dead edges (``live`` False) are keyed
+    B*N, past the last row, so no row walks them (pad_batch pads and
+    truncates edges to src = dst = 0).  ``perm`` indexes the flattened
+    edges; ``rowptr`` has B*N+1 entries.  No host sync."""
     B, N = dst.shape[0], int(num_nodes)
-    base = torch.arange(B, dtype=torch.int64, device=dst.device) * (N + 1)
-    key = torch.where(live, dst.long(), N) + base[:, None]
+    base = torch.arange(B, dtype=torch.int64, device=dst.device) * N
+    key = torch.where(live, dst.long() + base[:, None], B * N)
     sorted_key, perm = torch.sort(key.reshape(-1), stable=True)
     rowptr = torch.searchsorted(
-        sorted_key, torch.arange(B * (N + 1) + 1, dtype=torch.int64,
+        sorted_key, torch.arange(B * N + 1, dtype=torch.int64,
                                  device=dst.device), out_int32=True)
     return EdgeCSR(perm.to(torch.int32), rowptr)
 

@@ -187,7 +187,7 @@ def rgcn_spmm_dense(h, src, dst, w, num_nodes: int, *,
     out = torch.empty(B, N, nb * D, dtype=torch.float32, device=dev)
     launch("rgcn_spmm_dense", h.data_ptr(), int(h.dtype == torch.bfloat16),
            *(t.data_ptr() for t in (src, csr.perm, csr.rowptr, w, out)),
-           B, N, D, nb)
+           B, N, E, D, nb)
     rgcn_spmm_dense.launches += 1
     return out
 

@@ -16,7 +16,10 @@ method.  Counterpart of ``repro/sampling/engine.py``.
   (the parity path).
 
 There are no compiled executables to cache: ``warmup`` builds (or loads)
-the kernel library, so the first request does not pay the ``nvcc`` build.
+the kernel library, so the first request does not pay the ``nvcc`` build,
+and, given buckets, sweeps a seeded matrix of each bucket's shape once, so
+the first request of a bucket does not pay for the allocator's growth or
+the library handles either.
 """
 
 from __future__ import annotations
@@ -88,8 +91,19 @@ class PlanEngine:
             raise ValueError(f"engine must be 'sweep'|'sequential': "
                              f"{self.cfg.engine!r}")
         self.device = resolve_device(device)
-        self.stats = {"programs": 0, "dispatches": 0, "errors": 0,
-                      "warmed_executables": 0, "bucket_hist": []}
+        self.stats = self._fresh_stats()
+        #: the (points-bucket, dim, batch) keys ``warmup`` has swept
+        self._warm: set = set()
+
+    @staticmethod
+    def _fresh_stats() -> dict:
+        return {"programs": 0, "dispatches": 0, "errors": 0,
+                "warmed_executables": 0, "bucket_hist": []}
+
+    def reset_stats(self) -> None:
+        """Zero the instance counters (long-lived servers window their
+        telemetry with this); the warm set stays."""
+        self.stats = self._fresh_stats()
 
     def _bump_bucket(self, key: tuple[int, int], n: int) -> None:
         for entry in self.stats["bucket_hist"]:
@@ -100,16 +114,49 @@ class PlanEngine:
             {"points_bucket": key[0], "dim": key[1], "count": n})
 
     # -- warm pool -----------------------------------------------------------
-    def warmup(self) -> int:
-        """Build or load the kernel library before the first request (eager
-        kernels have no per-shape executables to pre-build).  Returns 1 when
-        the library was built or loaded now, 0 when it already was."""
-        if self.device.type != "cuda":
-            return 0
-        from repro_torch import kernels
+    def warmup(self, buckets=(), batch_sizes: Optional[list] = None) -> int:
+        """Take first-request costs off the serving path.
 
-        built = int(not kernels.loaded())
-        kernels.library()
+        Without ``buckets``: build or load the kernel library (on the card;
+        eager kernels have no per-shape executables); returns 1 when it was
+        built or loaded now, 0 when it already was or on the CPU.
+
+        ``buckets``: ``(points, dim)`` pairs or ``{"points_bucket": p,
+        "dim": d}`` dicts, points rounded up to their bucket.  The library
+        is loaded, then each bucket not yet warm on this engine is swept
+        once (this engine's k_max, iters and seed) over a seeded matrix of
+        that bucket's points and dim on the engine's device, so its first
+        request finds the library, the library handles and the allocator's
+        blocks in place (``engine="sequential"``: one call of the
+        sequential reference).  The port dispatches one program per sweep, so
+        ``batch_sizes`` defaults to ``[1]``; every batch size takes the
+        same path, and each new ``(points, dim, batch)`` key counts once.
+        Returns the number of keys warmed now: 0 when all were warm."""
+        lib = 0
+        if self.device.type == "cuda":
+            from repro_torch import kernels
+
+            lib = int(not kernels.loaded())
+            kernels.library()
+        if not buckets:
+            self.stats["warmed_executables"] += lib
+            return lib
+        built = 0
+        for bucket in buckets:
+            if isinstance(bucket, dict):
+                points, dim = bucket["points_bucket"], bucket["dim"]
+            else:
+                points, dim = bucket
+            points, dim = bucket_points(int(points)), int(dim)
+            new = [b for b in (batch_sizes or [1])
+                   if (points, dim, int(b)) not in self._warm]
+            if not new:
+                continue
+            x = np.random.default_rng(self.cfg.seed).standard_normal(
+                (points, dim)).astype(np.float32)
+            self._cluster_one(x, self.cfg.seed, "raise")
+            self._warm.update((points, dim, int(b)) for b in new)
+            built += len(new)
         self.stats["warmed_executables"] += built
         return built
 
@@ -176,6 +223,9 @@ class PlanEngine:
                 on_chunk([i], [res])
         self.stats["programs"] += len(embs)
         return out
+
+    def cluster(self, emb: np.ndarray, seed: Optional[int] = None):
+        return self.cluster_many([emb], [seed])[0]
 
     def _sequential(self, x, seed):
         return select_k_and_cluster(x, seed=seed, **self._cluster_kwargs())

@@ -10,7 +10,12 @@
 - ``submit_program`` prepares a program on the caller's thread (trace,
   graphs, embeddings for gcl; features for pka) and queues the method's
   engine-ready request; methods that do not plan through the engine
-  (sieve, stem_root) resolve at once through their own ``plan``.
+  (sieve, stem_root) resolve at once through their own ``plan``;
+- ``warmup`` loads the kernel library and sweeps each expected bucket once
+  (:meth:`repro_torch.sampling.engine.PlanEngine.warmup`), taking
+  first-request costs off the serving path;
+- ``reset_stats`` windows the counters between measurement intervals
+  (:mod:`repro_torch.serving.loadgen` calls it before each load).
 
 The dispatcher thread binds the engine's CUDA device before its first
 dispatch and launches on that thread's current (default) stream; results
@@ -33,6 +38,19 @@ import torch
 from repro_torch.sampling.engine import PlanEngine, PlanRequest, bucket_key
 
 
+def parse_buckets(spec: str) -> list[tuple[int, int]]:
+    """Parse a ``--warmup-buckets`` CLI spec: comma-separated
+    ``<points>x<dim>`` pairs, e.g. ``"64x16,128x16"``."""
+    out = []
+    for part in str(spec).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        p, _, d = part.partition("x")
+        out.append((int(p), int(d)))
+    return out
+
+
 @dataclass
 class _Pending:
     request: PlanRequest
@@ -44,7 +62,7 @@ class PlanService:
     """Long-lived continuous batcher over one :class:`PlanEngine`::
 
         with PlanService(max_batch=8, max_delay_ms=5.0) as svc:
-            svc.warmup()
+            svc.warmup([(64, 16)])
             plan = svc.submit_program(method, program).result()
 
     ``engine`` defaults to a fresh :class:`PlanEngine` on ``device`` (the
@@ -71,15 +89,19 @@ class PlanService:
         self._cv = threading.Condition()
         self._stop = False
         self._mlock = threading.Lock()
-        self.metrics = {
+        self.metrics = self._fresh_metrics()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="plan-service-dispatch")
+        self._thread.start()
+
+    @staticmethod
+    def _fresh_metrics() -> dict:
+        return {
             "submitted": 0, "served": 0, "failed": 0, "dispatches": 0,
             "batch_sizes": [], "dispatch_s": [], "latencies_s": [],
             "queue_depth_samples": [],
             "flush_causes": {"fill": 0, "deadline": 0, "drain": 0},
         }
-        self._thread = threading.Thread(target=self._loop, daemon=True,
-                                        name="plan-service-dispatch")
-        self._thread.start()
 
     # -- client surface ------------------------------------------------------
     def submit(self, request: PlanRequest) -> Future:
@@ -107,6 +129,12 @@ class PlanService:
             self.metrics["queue_depth_samples"].append(depth)
         return fut
 
+    def plan(self, embeddings, seqs, method: str = "",
+             seed: Optional[int] = None, extra: Optional[dict] = None):
+        """Blocking convenience wrapper around one ``submit``."""
+        return self.submit(PlanRequest(embeddings, seqs, method, seed=seed,
+                                       extra=extra or {})).result()
+
     def submit_program(self, method, program, store=None) -> Future:
         """Serve a traced program end to end: ``run_prepare`` on the
         caller's thread (through ``store`` when given: a replayed gcl
@@ -126,10 +154,14 @@ class PlanService:
             return fut
         return self.submit(request)
 
-    def warmup(self) -> int:
-        """Build/load the kernels before the first request (see
-        :meth:`PlanEngine.warmup`)."""
-        return self.engine.warmup()
+    def warmup(self, buckets=(), batch_sizes: Optional[list] = None) -> int:
+        """Load the kernels and warm the expected bucket set before the
+        first request (see :meth:`PlanEngine.warmup`); accepts ``(points,
+        dim)`` pairs, structured dicts, or a ``"64x16,128x16"`` spec
+        string; none loads the kernel library only."""
+        if isinstance(buckets, str):
+            buckets = parse_buckets(buckets)
+        return self.engine.warmup(buckets, batch_sizes=batch_sizes)
 
     # -- telemetry -----------------------------------------------------------
     def stats(self) -> dict:
@@ -158,6 +190,18 @@ class PlanService:
         m["engine"] = self.engine.engine_stats()
         m["errors"] = m["failed"]           # requests whose future raised
         return m
+
+    def raw_latencies_s(self) -> list[float]:
+        with self._mlock:
+            return list(self.metrics["latencies_s"])
+
+    def reset_stats(self) -> None:
+        """Window the serving counters (and the engine's instance
+        counters): long-lived servers call this between measurement
+        intervals."""
+        with self._mlock:
+            self.metrics = self._fresh_metrics()
+        self.engine.reset_stats()
 
     # -- dispatcher ----------------------------------------------------------
     def _ready_key_locked(self, now: float):

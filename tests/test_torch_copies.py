@@ -3,7 +3,8 @@ give, bit for bit: traces, graphs, packed batches, simulated metrics, plans
 and program fingerprints on a few paper programs; the sieve / stem_root
 partitions and PKA features; graph-store keys and entries (each package
 reads the other's) and the ingestion engine; generated scenario programs;
-``lm:`` / ``model:`` traces; the model configs."""
+``lm:`` / ``model:`` traces; the model configs; the plan-serving load
+generator's fleets and arrival times."""
 
 import dataclasses
 
@@ -21,6 +22,7 @@ import repro.ingest as j_ingest
 import repro.ingest.store as j_ingest_store
 import repro.sampling.base as j_base
 import repro.sampling.store as j_store
+import repro.serving.loadgen as j_loadgen
 import repro.sim.timing as j_timing
 import repro.tracing.programs as j_programs
 import repro.workloads as j_workloads
@@ -35,6 +37,7 @@ import repro_torch.ingest as t_ingest
 import repro_torch.ingest.store as t_ingest_store
 import repro_torch.sampling.base as t_base
 import repro_torch.sampling.store as t_store
+import repro_torch.serving.loadgen as t_loadgen
 import repro_torch.sim.timing as t_timing
 import repro_torch.tracing.programs as t_programs
 import repro_torch.workloads as t_workloads
@@ -245,3 +248,21 @@ def test_model_configs_are_equal():
         for shape in j_config.SHAPES:
             assert (j_config.model_flops(jc, j_config.SHAPES[shape])
                     == t_config.model_flops(tc, t_config.SHAPES[shape]))
+
+
+@pytest.mark.parametrize("n,d,seed", [(6, 8, 3), (40, 16, 0), (3, 256, 7)])
+def test_loadgen_fleet_and_arrivals_are_bit_equal(n, d, seed):
+    """``serving/loadgen.py``: the synthetic fleet (embeddings, seqs,
+    method, per-request seed) and the Poisson arrival times."""
+    jf = j_loadgen.synthetic_fleet(n, d=d, seed=seed)
+    tf = t_loadgen.synthetic_fleet(n, d=d, seed=seed)
+    assert len(jf) == len(tf) == n
+    for jr, tr in zip(jf, tf):
+        assert jr.embeddings.dtype == tr.embeddings.dtype
+        assert np.array_equal(jr.embeddings, tr.embeddings)
+        assert np.array_equal(jr.seqs, tr.seqs)
+        assert (jr.method, jr.seed, jr.extra) == (tr.method, tr.seed,
+                                                   tr.extra)
+    ja = j_loadgen.poisson_arrivals(n, 37.5, seed=seed)
+    ta = t_loadgen.poisson_arrivals(n, 37.5, seed=seed)
+    assert ja.dtype == ta.dtype and np.array_equal(ja, ta)

@@ -960,34 +960,48 @@ def test_lm_prefill_and_decode_on_card_match_cpu(arch):
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
 
 
-def _k6_args(dev, B, N, E, D, dtype, live=0.5, seed=0):
+def _k6_args(dev, B, N, E, D, dtype, live=0.5, seed=0, hub=0, offset=0):
     """A dense batch as pad_batch leaves it: each graph's live edges first,
-    then padding (src = dst = 0, w = 0), ``live`` of the E slots real."""
+    then padding (src = dst = 0, w = 0), ``live`` of the E slots real.
+    ``hub``: graph 0's first ``hub`` edges are live and all land on node 1,
+    and the last graph (B > 1) is all padding.  ``offset``: h starts that
+    many elements into its storage (unaligned rows)."""
     rng = np.random.default_rng(seed)
     src = rng.integers(0, N, (B, E)).astype(np.int32)
     dst = rng.integers(0, N, (B, E)).astype(np.int32)
     w = rng.standard_normal((B, E, 2)).astype(np.float32)
     n_live = rng.integers(0, int(live * E) + 1, B)
+    if hub:
+        n_live[0] = max(n_live[0], hub)
+        dst[0, :hub] = 1
+        if B > 1:
+            n_live[-1] = 0
     for b in range(B):
         src[b, n_live[b]:] = dst[b, n_live[b]:] = 0
         w[b, n_live[b]:] = 0.0
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     h = t(rng.standard_normal((B, N, D)).astype(np.float32)).to(dtype)
-    return h, t(src), t(dst), t(w), N
+    return _offset(h, offset), t(src), t(dst), t(w), N
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(5, 70, 300), (64, 426, 714), (3, 40, 0),
                                    (2, 9, 50)])
-@pytest.mark.parametrize("D", [64, 128, 40])
+@pytest.mark.parametrize("D,offset", [(64, 0), (128, 0), (40, 0), (37, 0),
+                                      (64, 1)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rgcn_spmm_dense_kernel_matches_plain(shape, D, dtype):
+def test_rgcn_spmm_dense_kernel_matches_plain(shape, D, offset, dtype):
     """K6 against its plain version: ragged sizes, phi-2's dense batch,
-    E = 0, and a batch whose edges are nearly all padding at node 0."""
+    E = 0, and a batch whose edges are nearly all padding at node 0; where
+    E >= 100, graph 0's node 1 has an in-degree of 100 (the walk takes
+    several 32-slot steps) and the last graph's edges are all padding; D =
+    37 and an h that starts one element into its storage take the scalar
+    layout.  A repeat gives the same bits."""
     dev = _card()
     B, N, E = shape
     h, src, dst, w, N = _k6_args(dev, B, N, E, D, getattr(torch, dtype),
-                                 live=0.05 if shape == (2, 9, 50) else 0.9)
+                                 live=0.05 if shape == (2, 9, 50) else 0.9,
+                                 hub=100 if E >= 100 else 0, offset=offset)
     before = rgcn_spmm_dense.launches
     got = rgcn_spmm_dense(h, src, dst, w, N)
     torch.cuda.synchronize()
@@ -998,6 +1012,9 @@ def test_rgcn_spmm_dense_kernel_matches_plain(shape, D, dtype):
         assert not got.any()
     else:
         _close(got, want)
+    if E >= 100:
+        assert int((dst[0, :100] == 1).sum()) == 100
+        assert not got[-1].any() and got[0, 1].abs().sum() > 0
     assert torch.equal(got, rgcn_spmm_dense(h, src, dst, w, N))
 
 

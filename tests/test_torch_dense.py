@@ -57,6 +57,7 @@ from repro_torch.core.train import (
     ContrastiveTrainer, ViewDraws, dense_loss, draw_seed, draw_step,
 )
 from repro_torch.interop import params_from_jax
+from repro_torch.kernels import dense_edge_csr
 from repro_torch.kernels.rgcn_spmm.ops import (
     rgcn_message_agg, rgcn_spmm_dense, rgcn_spmm_dense_plain,
 )
@@ -202,6 +203,52 @@ def test_rgcn_message_agg_and_grads_match_jax(case):
                                 _t(dst[:, :cut]), _t(w[:, :cut]), N)
         (dh2,) = torch.autograd.grad((out2 * _t(G)).sum(), [ht2])
         _scale_close(grads[0].numpy(), dh2.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_csr_walk_matches_jax_kernel_at_a_hub_row(dtype):
+    """The CSR K6 walks (``dense_edge_csr``, key b*N + dst over the
+    flattened batch): row o's run holds exactly the live edges with that
+    key, in edge order, and the runs of consecutive rows follow each other
+    across graphs; the dead edges (w = 0, pad_batch's src = dst = 0) sit
+    after ``rowptr[B*N]``, in edge order.  Summing each run in that order,
+    edge by edge in float32 as the kernel does, gives JAX's interpret-mode
+    ``rgcn_spmm_fwd`` and the plain version, 1e-5 relative, with graph 1's
+    node 3 a hub of 45 or more in-edges (more than one 32-slot step of
+    the walk)."""
+    h, src, dst, w, N = _k6_inputs("padded", seed=3)
+    B, E = src.shape
+    dst[1, :45] = 3                                     # the hub
+    w[1, :45] = np.random.default_rng(4).standard_normal((45, 2))
+    live = (w != 0).any(-1)
+    csr = dense_edge_csr(_t(dst), _t(live), N)
+    perm, rowptr = csr.perm.numpy(), csr.rowptr.numpy()
+    assert perm.dtype == np.int32 and rowptr.shape == (B * N + 1,)
+    key = np.where(live, dst + N * np.arange(B)[:, None], B * N).reshape(-1)
+    np.testing.assert_array_equal(perm, np.argsort(key, kind="stable"))
+    np.testing.assert_array_equal(
+        rowptr, np.concatenate([[0], np.cumsum(np.bincount(
+            key[key < B * N], minlength=B * N))]))
+    np.testing.assert_array_equal(perm[rowptr[-1]:],
+                                  np.flatnonzero(~live.reshape(-1)))
+    hub = rowptr[N + 4] - rowptr[N + 3]
+    assert hub >= 45 and np.diff(rowptr).max() == hub
+
+    hj = jnp.asarray(h, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    hw = np.asarray(hj.astype(jnp.float32)).reshape(B * N, -1)
+    srcf, wf = src.reshape(-1), w.reshape(B * E, -1)
+    walk = np.zeros((B * N, wf.shape[1], hw.shape[1]), np.float32)
+    for o in range(B * N):
+        for e in perm[rowptr[o]:rowptr[o + 1]]:
+            walk[o] += wf[e][:, None] * hw[(e // E) * N + srcf[e]][None, :]
+    walk = walk.reshape(B, N, -1)
+    want = np.asarray(jax_spmm_fwd(hj, jnp.asarray(src), jnp.asarray(dst),
+                                   jnp.asarray(w), num_nodes=N,
+                                   interpret=True))
+    _scale_close(walk, want, 1e-5)
+    ht = _t(h).to(getattr(torch, dtype))
+    _scale_close(rgcn_spmm_dense_plain(ht, _t(src), _t(dst), _t(w),
+                                       N).numpy(), walk, 1e-5)
 
 
 # ---------------------------------------------------------------------------

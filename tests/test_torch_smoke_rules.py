@@ -150,7 +150,7 @@ def _source_kernels():
 
 
 @pytest.mark.parametrize("group", ["K1", "K2", "K3", "K4", "K5", "K1b",
-                                   "K7", "K8", "FIT_SPLIT"])
+                                   "K6", "K7", "K8", "FIT_SPLIT"])
 def test_timed_kernel_names_are_kernels_of_the_sources(group):
     """Every name chip_smoke's records are held to (``own=``) and the fit's
     device time is split by is a kernel the CUDA sources define: a name left
@@ -158,6 +158,7 @@ def test_timed_kernel_names_are_kernels_of_the_sources(group):
     names = {"K1": smoke.K1_KERNELS, "K2": smoke.K2_KERNELS,
              "K3": smoke.K3_KERNELS, "K4": smoke.K4_KERNELS,
              "K5": smoke.K5_KERNELS, "K1b": smoke.K1B_KERNELS,
+             "K6": smoke.K6_KERNELS,
              "K7": {**smoke.k7_kernels(16, torch.bfloat16),
                     **smoke.k7_kernels(64, torch.bfloat16),
                     **smoke.k7_kernels(64, torch.float32)},
