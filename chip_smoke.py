@@ -74,6 +74,22 @@ Phases, each reported on its own lines:
             ``warmup``.  No request may fail, every served plan must equal
             its closed-loop plan (labels, K, representatives), and K2 and
             K3 must have been launched;
+5c. fault  the fault protocol and the sanitizer on the card: on-device
+            kmeans++ (``init="device"``) fed the same Gumbel rows on the
+            card and on the CPU (equal indices) at cfd's fixture
+            embeddings (k_max 48) and a plan_serve request (d 16, k_max 8);
+            the sweep and the sequential reference seeded on the card
+            (equal labels and K), the device init's ms a program against
+            the numpy host init's, and K with each; a PlanService with
+            ``init="device"`` at the engine defaults (d 256, k_max 48,
+            iters 50) serving plans equal to its closed-loop plans inside
+            ``recompile_guard(0)``; a DeviceLost injected into a
+            ``data_devices=2`` service (every request served, one degraded
+            dispatch, width 1) and a poisoned request through
+            ``sanitize=True`` (only its future fails, one trip); then the
+            default phi-2 fit raising DeviceLost at its first chunk
+            boundary after checkpointing, and ``fit_resilient`` finishing
+            every step with parameters bit-equal to an uninterrupted fit;
 6. train    three training steps of the full-width encoder on the card
             against the same steps on the CPU with the same draws (loss
             1e-5, parameters 1e-4 relative);
@@ -138,6 +154,7 @@ repository's ``src/`` beside it; it imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import subprocess
@@ -1662,8 +1679,8 @@ def phase_serve(rows, dev):
     log(f"[serve] stats {json.dumps(stats, default=str)}")
     log(f"[serve] launches {json.dumps(launches)}")
     sweeps.check("serve", launches["kmeans_assign_fused"])
-    require(stats["errors"] == 0 and stats["served"] == 3,
-            f"serve: {stats['served']} served, {stats['errors']} errors")
+    require(stats["failed"] == 0 and stats["served"] == 3,
+            f"serve: {stats['served']} served, {stats['failed']} failed")
     for name, count in launches.items():
         require(count > 0, f"serve: kernel {name} was never launched")
     profile_request(dev, "cfd")
@@ -1815,6 +1832,249 @@ def phase_plan_serve(dev):
             f"{k2} K3 {k3}")
         require(k2 > 0 and k3 > 0,
                 f"plan_serve {label}: K2 {k2} / K3 {k3} launches")
+
+
+# ---------------------------------------------------------------------------
+# fault protocol, device init and the sanitizer
+# ---------------------------------------------------------------------------
+
+FAULT_SERVE_REQUESTS = 8  # requests of the d 256 fleet served with init="device"
+
+
+def _host_ms(fn, iters=20, warmup=3):
+    """ms a call on the host clock, the card synchronized before and after
+    the ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _fault_device_init(dev):
+    """On-device kmeans++: the card against the CPU on the same Gumbel rows
+    (equal indices), the sweep against the sequential reference with
+    ``init="device"`` on the card (equal labels and K), the device init's
+    time against the numpy host init's (ms a program, host clock, card
+    synchronized), and K under each seeding."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.clustering import (
+        _device_init, _kmeanspp_init, _pad_bucket, device_gumbel,
+        device_kmeanspp, select_k_and_cluster, sweep_cluster_stack,
+    )
+    from repro_torch.serving import synthetic_fleet
+
+    with np.load(FIXTURE) as z:
+        cfd = z["cfd:emb_distinct"][z["cfd:index"]]
+    req = synthetic_fleet(120, d=16, seed=0)[0]
+    cases = (("cfd fixture embeddings", cfd, 48, 0),
+             ("plan_serve request 0 (d 16)", req.embeddings, 8, req.seed))
+    for label, x, k_max, seed in cases:
+        n, d = x.shape
+        k_up = min(k_max, n - 1)
+        xb, pm = (torch.from_numpy(a) for a in _pad_bucket(x))
+        g = device_gumbel(seed, k_up, len(xb), "cpu")
+        want = device_kmeanspp(xb, pm, g)
+        got = device_kmeanspp(xb.to(dev), pm.to(dev), g.to(dev)).cpu()
+        require(torch.equal(got, want),
+                f"fault: {label}: device kmeans++ on the card drew "
+                f"{got.tolist()} against the CPU's {want.tolist()}")
+        xb_d, pm_d = xb.to(dev), pm.to(dev)
+        own = _device_init(xb_d, pm_d, seed, k_up).cpu()
+        dev_ms = _host_ms(lambda: _device_init(xb_d, pm_d, seed, k_up))
+        g_d = g.to(dev)
+        draw_ms = _host_ms(lambda: device_gumbel(seed, k_up, len(xb), dev))
+        loop_ms = _host_ms(lambda: device_kmeanspp(xb_d, pm_d, g_d))
+        host_ms = _host_ms(lambda: _kmeanspp_init(x, k_up, seed))
+        kw = dict(k_max=k_max, seed=seed, device=dev)
+        (ls, si), = sweep_cluster_stack([x], init="device", **kw)
+        lq, qi = select_k_and_cluster(x, init="device", **kw)
+        (_, hi), = sweep_cluster_stack([x], init="host", **kw)
+        log(f"[fault] device init {label}: n={n} d={d} k_up={k_up} bucket "
+            f"{len(xb)}: card == cpu on the same Gumbel rows "
+            f"({want[:8].tolist()} ...); torch-drawn indices "
+            f"{own[:8].tolist()} ...; device init {dev_ms:.3f} ms a "
+            f"program (host clock, synchronized; its Gumbel rows "
+            f"{draw_ms:.3f} ms, the D^2 loop {loop_ms:.3f} ms) vs numpy "
+            f"host init {host_ms:.3f} ms; K sweep {si['k']} sequential {qi['k']} "
+            f"(init='device') vs host-init K {hi['k']}; labels equal "
+            f"{bool(np.array_equal(ls, lq))}")
+        require(np.array_equal(ls, lq) and si["k"] == qi["k"],
+                f"fault: {label}: init='device' sweep K {si['k']} vs "
+                f"sequential K {qi['k']}, labels differ")
+
+
+def _fault_served_device_init(dev):
+    """A PlanService with ``init="device"`` at the engine defaults: every
+    served plan equals its closed-loop plan, and the warm requests build
+    nothing (``recompile_guard(0)``)."""
+    import numpy as np
+
+    from repro_torch.analysis import recompile_guard
+    from repro_torch.sampling.engine import PlanEngine, bucket_key
+    from repro_torch.serving import PlanService, synthetic_fleet
+
+    fleet = synthetic_fleet(FAULT_SERVE_REQUESTS, d=256, seed=0)
+    buckets = sorted({bucket_key(r.embeddings) for r in fleet})
+    kw = dict(k_max=48, iters=50, seed=0, init="device")
+    ref = PlanEngine(device=dev, **kw).plan_many(fleet)
+    _zero_counts()
+    with PlanService(device=dev, max_delay_ms=5.0, **kw) as svc:
+        svc.warmup(buckets)
+        t0 = time.perf_counter()
+        with recompile_guard(0, label="warm init='device' serve") as guard:
+            plans = [f.result(timeout=600)
+                     for f in [svc.submit(r) for r in fleet]]
+        wall = time.perf_counter() - t0
+        stats = svc.stats()
+    counts = _counts()
+    for i, (got, want) in enumerate(zip(plans, ref)):
+        require(np.array_equal(got.labels, want.labels)
+                and got.num_clusters == want.num_clusters
+                and got.reps == want.reps,
+                f"fault: served request {i} (init='device') differs from "
+                f"its closed-loop plan")
+    log(f"[fault] served init='device' (d 256, k_max 48, iters 50, buckets "
+        f"{buckets}): {stats['served']} / {len(fleet)} served in "
+        f"{wall:.3f} s, K {[p.num_clusters for p in plans]}, equal to the "
+        f"closed-loop plans; recompile_guard(0) builds {guard.builds}; "
+        f"launches K2 {counts['kmeans_assign_fused_batched']} K3 "
+        f"{counts['silhouette_sums']}")
+    require(stats["served"] == len(fleet) and stats["failed"] == 0,
+            f"fault: init='device' service failed {stats['failed']}")
+    require(counts["kmeans_assign_fused_batched"] > 0
+            and counts["silhouette_sums"] > 0,
+            "fault: init='device' service launched no K2 / K3")
+
+
+def _fault_drill(dev):
+    """A DeviceLost injected into a two-wide service degrades it; a
+    poisoned plan through ``sanitize=True`` fails only its own future."""
+    import numpy as np
+
+    from repro_torch.analysis import NonFiniteError
+    from repro_torch.distributed import DeviceLost
+    from repro_torch.serving import PlanService, synthetic_fleet
+
+    fleet = synthetic_fleet(8, d=16, seed=0)
+    fired = []
+
+    def lose_once():
+        if not fired:
+            fired.append(1)
+            raise DeviceLost("injected participant loss")
+
+    kw = dict(k_max=8, iters=10, seed=0, device=dev, max_delay_ms=2.0)
+    with PlanService(data_devices=2, fault_hook=lose_once, **kw) as svc:
+        plans = [f.result(timeout=600) for f in [svc.submit(r)
+                                                 for r in fleet]]
+        st = svc.stats()
+    eng = st["engine"]
+    log(f"[fault] drill data_devices=2 + one DeviceLost: served "
+        f"{st['served']} / {len(fleet)} failed {st['failed']} "
+        f"degraded_dispatches {eng['degraded_dispatches']} data_shards "
+        f"{eng['data_shards']}")
+    require(st["served"] == len(fleet) and st["failed"] == 0
+            and all(p.num_clusters >= 1 for p in plans),
+            "fault: a request failed under the injected DeviceLost")
+    require(eng["degraded_dispatches"] == 1 and eng["data_shards"] == 1,
+            f"fault: degraded {eng['degraded_dispatches']} to width "
+            f"{eng['data_shards']}")
+
+    poisoned = list(fleet[:3])
+    poisoned[1] = dataclasses.replace(poisoned[1],
+                                      extra={"score": float("nan")})
+    with PlanService(sanitize=True, **kw) as svc:
+        futs = [svc.submit(r) for r in poisoned]
+        outcome = []
+        for f in futs:
+            try:
+                outcome.append(bool(np.isfinite(
+                    f.result(timeout=600).labels).all()))
+            except NonFiniteError as e:
+                outcome.append(type(e).__name__)
+        st = svc.stats()
+    log(f"[fault] drill sanitize=True, request 1 poisoned: outcomes "
+        f"{outcome} sanitize_trips {st['sanitize_trips']} served "
+        f"{st['served']} failed {st['failed']}")
+    require(outcome == [True, "NonFiniteError", True]
+            and st["sanitize_trips"] == 1 and st["served"] == 2,
+            "fault: the sanitizer did not isolate the poisoned plan")
+
+
+def _fault_fit(dev):
+    """The default phi-2 fit with a fault at its first chunk boundary: the
+    fit checkpoints there and raises; ``fit_resilient`` resumes and
+    finishes with parameters bit-equal to an uninterrupted fit."""
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.rgcn import RGCNConfig
+    from repro_torch.core.train import (
+        ContrastiveTrainer, GCLTrainConfig, fit_resilient,
+    )
+    from repro_torch.distributed import DeviceLost
+
+    graphs = _phi2_training_graphs()
+    tc = GCLTrainConfig(checkpoint_every=40)
+    seen = []
+
+    def lose_first(done):
+        seen.append(done)
+        if len(seen) == 1:
+            raise DeviceLost("injected at the first boundary")
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck:
+        try:
+            ContrastiveTrainer(RGCNConfig(), tc, device=dev).fit(
+                graphs, checkpoint_dir=ck, fault_hook=lose_first)
+            raise SmokeFailure("fault: the fit did not raise DeviceLost")
+        except DeviceLost:
+            pass
+        saved = CheckpointManager(ck).latest_step()
+    require(saved == seen[0], f"fault: fit raised at boundary {seen[0]} "
+            f"but its latest checkpoint is {saved}")
+    seen.clear()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck:
+        enc, info = fit_resilient(RGCNConfig(), tc, graphs,
+                                  checkpoint_dir=ck, device_counts=[1, 1],
+                                  fault_hook=lose_first, device=dev)
+    res_s = time.perf_counter() - t0
+    full, full_info = ContrastiveTrainer(RGCNConfig(), tc,
+                                         device=dev).fit(graphs)
+    p_res, p_full = dict(enc.named_parameters()), dict(
+        full.named_parameters())
+    gap = _norm_gap(p_res, p_full)
+    _, equal = _param_gap(p_res, p_full)
+    steps = tc.steps
+    log(f"[fault] fit: DeviceLost at the first boundary (step {saved}, "
+        f"checkpointed there); fit_resilient {res_s:.2f} s: degradations "
+        f"{info['degradations']} resumed_from {info['resumed_from']} "
+        f"history {len(info['history'])} / {steps} boundaries {seen} "
+        f"chunk_len {info['chunk_len']}; parameters vs the uninterrupted "
+        f"fit: bits equal {equal} (|diff| / |full| {gap:.3e}); loss "
+        f"history equal {[h['loss'] for h in info['history']] == [h['loss'] for h in full_info['history']]}")
+    require(len(info["history"]) == steps and len(info["degradations"]) == 1
+            and info["resumed_from"] == saved,
+            f"fault: fit_resilient finished {len(info['history'])} steps")
+    require(equal, f"fault: fit_resilient parameters differ from the "
+            f"uninterrupted fit ({gap:.3e})")
+
+
+def phase_fault(dev):
+    _fault_device_init(dev)
+    _fault_served_device_init(dev)
+    _fault_drill(dev)
+    _fault_fit(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -2075,8 +2335,8 @@ def phase_fit_serve(rows, dev):
     launches = {r[0]: r[3].launches for r in rows}
     log(f"[fit+serve] stats {json.dumps(stats, default=str)}")
     log(f"[fit+serve] launches {json.dumps(launches)}")
-    require(stats["errors"] == 0 and stats["served"] == 3,
-            f"fit+serve: {stats['served']} served, {stats['errors']} errors")
+    require(stats["failed"] == 0 and stats["served"] == 3,
+            f"fit+serve: {stats['served']} served, {stats['failed']} failed")
     for name, count in launches.items():
         require(count > 0, f"fit+serve: kernel {name} was never launched")
     return launches
@@ -2799,6 +3059,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_plan_serve(dev)
     log(f"[phase] plan_serve {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_fault(dev)
+    log(f"[phase] fault {time.perf_counter() - t0:.2f} s")
     for name, phase in (("train", phase_train), ("resume", phase_resume),
                         ("fit", phase_fit)):
         t0 = time.perf_counter()

@@ -2,12 +2,15 @@
 Counterpart of ``repro/core/clustering.py``.
 
 For one program's embeddings, every candidate K in 2..k_max is fitted with
-Lloyd iterations from a kmeans++ seeding drawn on the host with numpy (the
-JAX default ``init="host"``), scored with a silhouette on a deterministic
-subsample, and the K-selection rule picks the result: maximise silhouette,
-prefer the smaller K on near-ties, collapse to K=1 below the floor.  Tiny
-programs (n <= 4) fall back to distance-threshold agglomeration on the
-host.  Two implementations share that rule:
+Lloyd iterations from a kmeans++ seeding, scored with a silhouette on a
+deterministic subsample, and the K-selection rule picks the result:
+maximise silhouette, prefer the smaller K on near-ties, collapse to K=1
+below the floor.  Tiny programs (n <= 4) fall back to distance-threshold
+agglomeration on the host.  The seeding is drawn on the host with numpy
+(``init="host"``, the default) or on the device (``init="device"``:
+``device_init_indices``, D^2 sampling over the program's padded points
+bucket, so both implementations draw the same indices).  Two
+implementations share that rule:
 
 - the sequential reference (``select_k_and_cluster``): one K-Means fit per
   candidate K, each Lloyd step one ``kmeans_assign`` call (K4) plus a
@@ -21,8 +24,6 @@ host.  Two implementations share that rule:
   candidate, and the silhouette arithmetic over all candidates is plain
   torch.  Points are padded to a power-of-two bucket with masks exactly as
   in JAX, so padding never moves a result.
-
-On-device kmeans++ (``init="device"``) is not ported: it raises.
 """
 
 from __future__ import annotations
@@ -64,11 +65,81 @@ def _kmeanspp_init(x, k, seed):
     return np.array(idx)
 
 
-def _no_device_init(init: str) -> None:
-    if init != "host":
-        raise NotImplementedError(
-            f"init={init!r}: on-device kmeans++ is not in the PyTorch port "
-            f"yet; the host seeding (init='host') is")
+def _check_init(init: str) -> None:
+    if init not in ("host", "device"):
+        raise ValueError(f"init must be 'host'|'device': {init!r}")
+
+
+def _pad_bucket(x: np.ndarray):
+    """(x padded with zero rows to its points bucket, the points mask)."""
+    n = len(x)
+    n_pad = bucket_points(n)
+    xb = np.zeros((n_pad, x.shape[1]), np.float32)
+    xb[:n] = x
+    return xb, (np.arange(n_pad) < n).astype(np.float32)
+
+
+def device_gumbel(seed: int, k_up: int, n_pad: int, device) -> torch.Tensor:
+    """(k_up, n_pad) float32 Gumbel noise on ``device``: row t is draw t's,
+    from a generator seeded with ``draw_seed(seed, t)`` (the port's
+    counterpart of ``fold_in(PRNGKey(seed), t)``), as JAX's ``gumbel``
+    makes it: ``-log(-log(u))``, u uniform in [tiny, 1)."""
+    from repro_torch.core.train import draw_seed
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    rows = torch.empty(k_up, n_pad, dtype=torch.float32, device=dev)
+    for t in range(k_up):
+        gen.manual_seed(draw_seed(seed, t))
+        rows[t].uniform_(generator=gen)
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(rows.clamp_min_(tiny)))
+
+
+def device_kmeanspp(x: torch.Tensor, pmask: torch.Tensor,
+                    gumbel: torch.Tensor) -> torch.Tensor:
+    """kmeans++ (D^2 sampling) over the live points (``pmask`` > 0) of
+    ``x`` (n_pad, d), one draw per row of ``gumbel`` (k_up, n_pad): draw t
+    is the argmax of its noise plus log D^2 (draw 0, and any draw once the
+    total D^2 is <= 1e-20, over the live points uniformly), as JAX's
+    ``categorical`` draws.  Returns (k_up,) int32 indices on ``x``'s
+    device; every prefix is a valid seeding.  Nothing is read back to the
+    host between draws."""
+    ninf = float("-inf")
+    base = torch.where(pmask > 0, 0.0, ninf)
+
+    def sqdist(i):                            # i: (1,) index, no host sync
+        return torch.sum((x - x.index_select(0, i)) ** 2, dim=1) * pmask
+
+    nxt = torch.argmax(gumbel[0] + base).view(1)
+    d = sqdist(nxt)
+    idx = [nxt]
+    for t in range(1, gumbel.shape[0]):
+        dlog = torch.where(d > 0, torch.log(torch.clamp_min(d, 1e-30)), ninf)
+        logits = torch.where(torch.sum(d) > 1e-20, dlog, base)
+        nxt = torch.argmax(gumbel[t] + logits).view(1)
+        d = torch.minimum(d, sqdist(nxt))
+        idx.append(nxt)
+    return torch.cat(idx).to(torch.int32)
+
+
+def _device_init(xb: torch.Tensor, pmask: torch.Tensor, seed: int,
+                 k_up: int) -> torch.Tensor:
+    return device_kmeanspp(xb, pmask, device_gumbel(seed, k_up, xb.shape[0],
+                                                    xb.device))
+
+
+def device_init_indices(x: np.ndarray, seed: int, k_up: int,
+                        device=None) -> np.ndarray:
+    """Host entry point of the on-device kmeans++ seeding: ``x`` (n, d) is
+    padded to its points bucket on the host and the k_up indices are drawn
+    on ``device`` (the card unless ``"cpu"``) at that shape, so the
+    sequential reference and the sweep draw identical indices."""
+    dev = resolve_device(device)
+    xb, pmask = _pad_bucket(np.asarray(x, np.float32))
+    idx = _device_init(torch.from_numpy(xb).to(dev),
+                       torch.from_numpy(pmask).to(dev), int(seed), k_up)
+    return idx.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -195,8 +266,11 @@ def select_k_and_cluster(
     candidate K, on ``device`` (the card unless ``"cpu"`` is asked for);
     returns (labels, info).  The silhouette is scored on a deterministic
     subsample when n > sil_cap.  One host sync per candidate (the compact
-    relabel, as in JAX); the scores come back in one pull at the end."""
-    _no_device_init(init)
+    relabel, as in JAX); the scores come back in one pull at the end.
+    ``init="device"`` draws the seeding once on the device
+    (``device_init_indices``' draws) and seeds each candidate K with its
+    first K indices."""
+    _check_init(init)
     x = np.asarray(x, np.float32)
     n = len(x)
     done, sil_idx = _host_preamble(x, seed, tiny_n, sil_cap)
@@ -205,10 +279,14 @@ def select_k_and_cluster(
     dev = resolve_device(device)
     xt = torch.from_numpy(x).to(dev)
     x_sil = xt if sil_idx is None else xt[torch.from_numpy(sil_idx).to(dev)]
+    if init == "device":
+        dev_init = torch.from_numpy(device_init_indices(
+            x, seed, min(k_max, n - 1), device=dev)).to(dev)
     results = {}
     scores = {}
     for k in range(2, min(k_max, n - 1) + 1):
-        init_idx = torch.from_numpy(_kmeanspp_init(x, k, seed)).to(dev)
+        init_idx = (dev_init[:k] if init == "device" else
+                    torch.from_numpy(_kmeanspp_init(x, k, seed)).to(dev))
         lab, _, _ = _kmeans_run(xt, init_idx, k, iters)
         # re-label compactly (empty clusters possible)
         _, lab = np.unique(lab.cpu().numpy(), return_inverse=True)
@@ -332,8 +410,10 @@ def sweep_cluster_stack(
     to its own power-of-two points bucket and every candidate K evaluated
     on ``device`` (the card unless ``"cpu"`` is asked for).  Tiny/trivial
     programs take the host fallback.  Returns a list of (labels, info)
-    aligned with ``xs``; ``seed`` is an int or a per-program sequence."""
-    _no_device_init(init)
+    aligned with ``xs``; ``seed`` is an int or a per-program sequence.
+    Seeds (``init``) are drawn at each program's own points bucket, so a
+    program's result never depends on the programs beside it."""
+    _check_init(init)
     dev = resolve_device(device)
     xs = [np.asarray(x, np.float32) for x in xs]
     seeds = ([int(seed)] * len(xs) if np.isscalar(seed)
@@ -352,25 +432,18 @@ def sweep_cluster_stack(
                       {"k": 1, "sil": 0.0, "mode": "degenerate",
                        "engine": "sweep"})
             continue
-        n, d = x.shape
-        n_pad = bucket_points(n)
-        xb = np.zeros((n_pad, d), np.float32)
-        xb[:n] = x
-        pmask = np.zeros(n_pad, np.float32)
-        pmask[:n] = 1.0
-        silm = np.zeros(n_pad, np.float32)
-        if sil_idx is None:
-            silm[:n] = 1.0
-        else:
-            silm[sil_idx] = 1.0
-        init_idx = np.zeros(k_max, np.int32)
+        n = len(x)
+        xb, pmask = (torch.from_numpy(a).to(dev) for a in _pad_bucket(x))
+        silm = np.zeros(len(xb), np.float32)
+        silm[np.arange(n) if sil_idx is None else sil_idx] = 1.0
         k_up = min(k_max, n - 1)
-        init_idx[:k_up] = _kmeanspp_init(x, k_up, seeds[i])
+        init_idx = torch.zeros(k_max, dtype=torch.int32, device=dev)
+        init_idx[:k_up] = (
+            _device_init(xb, pmask, seeds[i], k_up) if init == "device"
+            else torch.from_numpy(_kmeanspp_init(x, k_up, seeds[i])))
         labels_all, sil, ok = _sweep_core(
-            torch.from_numpy(xb).to(dev), torch.from_numpy(pmask).to(dev),
-            torch.from_numpy(init_idx).to(dev),
-            torch.from_numpy(silm).to(dev), k_max=k_max, iters=iters,
-            n_real=n)
+            xb, pmask, init_idx, torch.from_numpy(silm).to(dev), k_max=k_max,
+            iters=iters, n_real=n)
         out[i] = _finish_one(labels_all.cpu().numpy(), sil.cpu().numpy(),
                              ok.cpu().numpy(), n, ks, sil_floor, tie_tol)
     return out

@@ -16,6 +16,12 @@ the host once every ``log_every`` steps; a step itself makes no host sync
 (edge endpoints are validated on the host arrays before upload).  There
 is no ``jit``/``scan``: PyTorch runs eagerly, one step per loop turn.
 
+The fault protocol follows JAX's scan engine: its chunk boundaries (every
+``scan_chunk`` steps inside each same-bucket segment) are the points where
+``fit(fault_hook=, watchdog=)`` may raise
+:class:`~repro_torch.distributed.fault.DeviceLost`, after checkpointing,
+and ``fit_resilient`` resumes from that checkpoint at the next width.
+
 Inference (``embed`` / ``embed_stream``) turns kernel graphs into the
 256-d kernel embeddings z_k (paper §3.4): graphs are packed into size
 buckets, uploaded to the trainer's device and encoded by
@@ -58,6 +64,7 @@ from repro_torch.core.batching import (
 from repro_torch.core.contrastive import info_nce
 from repro_torch.core.graphs import KernelGraph, pad_batch
 from repro_torch.core.rgcn import EncodeDraws, RGCNConfig, RGCNEncoder
+from repro_torch.distributed.fault import DeviceLost, Watchdog
 from repro_torch.kernels import check_endpoints
 from repro_torch.optim.adamw import TrainConfig, adamw_init, adamw_update
 from repro_torch.sampling.store import flatten_tree, unflatten_tree
@@ -85,6 +92,10 @@ class GCLTrainConfig:
     val_fraction: float = 0.2
     log_every: int = 50
     seed: int = 0
+    #: steps between fault boundaries (JAX: the scan chunk length); the
+    #: effective length is min(scan_chunk, next_pow2(steps)), and chunks
+    #: restart at each same-bucket segment of the epoch plan
+    scan_chunk: int = 32
     #: snapshot (params, moments, history, cursor) every N steps (0 = off)
     checkpoint_every: int = 0
     opt: TrainConfig = field(
@@ -300,7 +311,9 @@ class ContrastiveTrainer:
 
     def fit(self, graphs: list[KernelGraph], verbose=False, *,
             checkpoint_dir: Optional[str] = None, resume: bool = True,
-            interrupt_after: Optional[int] = None):
+            interrupt_after: Optional[int] = None,
+            fault_hook: Optional[callable] = None,
+            watchdog: Optional[Watchdog] = None):
         """Train on an 80/20 split of the graphs; returns (encoder on the
         trainer's device, info).
 
@@ -308,7 +321,17 @@ class ContrastiveTrainer:
         ``tc.checkpoint_every`` steps; when the directory already holds one
         and ``resume`` is True, training continues from its cursor.
         ``interrupt_after=k`` raises :class:`FitInterrupted` right after the
-        checkpoint at step k."""
+        checkpoint at step k.
+
+        Fault protocol: ``fault_hook(done)`` runs at every chunk boundary
+        (JAX's scan chunks: ``tc.scan_chunk`` steps inside each segment,
+        counted from the segment's start, so a resumed fit meets the same
+        boundaries) and may raise
+        :class:`~repro_torch.distributed.fault.DeviceLost`; a ``watchdog``
+        brackets each chunk with ``step_start`` / ``step_end`` (the card
+        synchronized before the end) and a fired straggler SLO becomes
+        DeviceLost at the same boundary.  Either way the fit checkpoints
+        at the boundary first, so :func:`fit_resilient` resumes from it."""
         tc, rc = self.tc, self.rc
         _, val_idx, selections = self.split(len(graphs))
         enc = rgcn_mod.init_rgcn(tc.seed, rc).to(self.device)
@@ -316,7 +339,8 @@ class ContrastiveTrainer:
                     max_edges_per_graph=MAX_EDGES_PER_MICROBATCH)
         info = self._fit_steps(graphs, selections, enc, caps, verbose,
                                checkpoint_dir=checkpoint_dir, resume=resume,
-                               interrupt_after=interrupt_after)
+                               interrupt_after=interrupt_after,
+                               fault_hook=fault_hook, watchdog=watchdog)
         trunc_nodes = info["trunc_nodes"]
         if len(val_idx):
             packed, vmeta = pack_graphs([graphs[i] for i in val_idx], **caps)
@@ -346,10 +370,14 @@ class ContrastiveTrainer:
         return vals[0], dict(zip(m, vals[1:]))
 
     def _fit_steps(self, graphs, selections, enc, caps, verbose, *,
-                   checkpoint_dir, resume, interrupt_after) -> dict:
+                   checkpoint_dir, resume, interrupt_after, fault_hook=None,
+                   watchdog=None) -> dict:
         tc, rc, opt = self.tc, self.rc, self.opt
         plan = plan_epoch(graphs, selections, **caps)
         steps = plan.n_steps
+        chunk_len = min(tc.scan_chunk, bucket_size(max(steps, 1), 1))
+        wd_fired0 = watchdog.fired if watchdog is not None else 0
+        in_chunk = False
         params = dict(enc.named_parameters())
         mu, nu = adamw_init(params)
         mgr = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
@@ -383,6 +411,10 @@ class ContrastiveTrainer:
                 continue
             dev_seg = self._upload(seg.batches)
             for step in range(max(seg.start, start), seg.stop):
+                if not in_chunk:
+                    in_chunk = True
+                    if watchdog is not None:
+                        watchdog.step_start()
                 row = step - seg.start
                 batch = {k: v[row] for k, v in dev_seg.items()}
                 gen.manual_seed(draw_seed(tc.seed, step))
@@ -406,6 +438,34 @@ class ContrastiveTrainer:
                     raise FitInterrupted(
                         f"fit interrupted at step {done} "
                         f"(interrupt_after={interrupt_after})")
+                if (done - seg.start) % chunk_len and done != seg.stop:
+                    continue
+                # chunk boundary: a lost or straggling participant surfaces
+                # here, never mid-chunk, after the boundary is checkpointed
+                in_chunk = False
+                lost = None
+                if watchdog is not None:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    watchdog.step_end()
+                if fault_hook is not None:
+                    try:
+                        fault_hook(done)
+                    except DeviceLost as e:
+                        lost = e
+                if (lost is None and watchdog is not None
+                        and watchdog.fired > wd_fired0):
+                    lost = DeviceLost(
+                        f"chunk ending at step {done} exceeded the "
+                        f"watchdog SLO (straggling participant)")
+                if lost is not None:
+                    flush()
+                    if mgr is not None:
+                        if done > last_save:
+                            self._save_fit(mgr, enc, mu, nu, history, done)
+                            last_save, saves = done, saves + 1
+                        mgr.wait()
+                    raise lost
         flush()
         if mgr is not None:
             mgr.wait()
@@ -417,6 +477,7 @@ class ContrastiveTrainer:
             "host_syncs": host_syncs,
             "resumed_from": start,
             "checkpoint_saves": saves,
+            "chunk_len": chunk_len,
             "fit_s": time.perf_counter() - t0,
         }
 
@@ -642,3 +703,68 @@ class ContrastiveTrainer:
             "streaming": True,
             **stream_stats,
         })
+
+
+def fit_resilient(rc: RGCNConfig, tc: GCLTrainConfig,
+                  graphs: list[KernelGraph], *, checkpoint_dir: str,
+                  device_counts: Optional[list] = None,
+                  fault_hook: Optional[callable] = None,
+                  watchdog: Optional[Watchdog] = None,
+                  verbose: bool = False, device=None):
+    """Degrade-don't-abort driver, counterpart of JAX's ``fit_resilient``.
+
+    Fits at width ``device_counts[0]``; when the fit raises
+    :class:`~repro_torch.distributed.fault.DeviceLost` from a chunk
+    boundary (after checkpointing), the next width resumes from that
+    checkpoint instead of aborting.  ``device_counts`` defaults to halving
+    widths from the cards present (``torch.cuda.device_count()``; 1 on the
+    CPU) down to 1.  Returns ``(encoder, info)`` from the fit that
+    finished, with ``info["degradations"]`` recording each shrink and
+    ``info["data_shards"]`` the width that finished.  Raises DeviceLost
+    when every width failed, ValueError without a ``checkpoint_dir``.
+
+    The port's fit runs on one card (``device``, the card unless
+    ``"cpu"``): a width above the cards present raises ValueError, since
+    data-parallel fitting over several cards is not in the port yet
+    (ROADMAP A9b).  JAX's ``mesh_axes`` argument names the axes of the
+    mesh that width builds; one card has no mesh, so it has no
+    counterpart here.
+    """
+    if not checkpoint_dir:
+        raise ValueError("fit_resilient requires a checkpoint_dir — "
+                         "degradation resumes from checkpoints")
+    dev = resolve_device(device)
+    present = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if device_counts is None:
+        n, device_counts = present, []
+        while n >= 1:
+            device_counts.append(n)
+            n //= 2
+    wide = [n for n in device_counts if not 1 <= n <= present]
+    if wide:
+        raise ValueError(
+            f"fit_resilient: widths {wide} are outside 1..{present} (the "
+            f"cards present on {dev.type}); data-parallel fitting over "
+            f"several cards is not in the port yet (ROADMAP A9b)")
+    degradations: list[dict] = []
+    last: Optional[DeviceLost] = None
+    for i, ndev in enumerate(device_counts):
+        trainer = ContrastiveTrainer(rc, tc, device=dev)
+        try:
+            enc, info = trainer.fit(
+                graphs, verbose, checkpoint_dir=checkpoint_dir, resume=True,
+                fault_hook=fault_hook, watchdog=watchdog)
+            info["degradations"] = degradations
+            info["data_shards"] = ndev
+            return enc, info
+        except DeviceLost as e:
+            last = e
+            nxt = device_counts[i + 1] if i + 1 < len(device_counts) else None
+            degradations.append({"from_devices": ndev, "to_devices": nxt,
+                                 "error": str(e)})
+            if verbose:
+                print(f"[fit_resilient] {e} — degrading "
+                      f"{ndev} -> {nxt} devices", flush=True)
+    raise DeviceLost(
+        f"training failed at every mesh width {device_counts} "
+        f"(last: {last})") from last

@@ -73,6 +73,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: calls of ``build`` in this process (``builds()``)
+_builds = 0
 #: what the last build did: seconds, the library path and nvcc's
 #: ``-Xptxas -v`` report (registers, shared memory, spills per kernel)
 BUILD_INFO: dict = {}
@@ -98,9 +100,20 @@ def _digest(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def builds() -> int:
+    """How many times this process has built the kernel library or found
+    its build for these sources: one count per ``build`` call, which
+    ``library`` makes when it loads the library.  The port's counterpart
+    of the JAX engines' executable builds (``analysis.recompile_guard``
+    reads it)."""
+    return _builds
+
+
 def build() -> Path:
     """Compile every source in parallel and link them into one shared
     library (skipped when a library for the same sources exists)."""
+    global _builds
+    _builds += 1
     sources = _sources()
     lib_path = BUILD_DIR / f"libreprotorch-{_digest(sources)}.so"
     if lib_path.exists():

@@ -13,7 +13,11 @@ method.  Counterpart of ``repro/sampling/engine.py``.
   a request that fails there too becomes an Exception entry and counts in
   ``stats["errors"]``, a recovered one does not;
 - ``engine="sequential"`` serves every request through that reference
-  (the parity path).
+  (the parity path);
+- scale-out fault protocol: ``fault_hook`` runs before every sweep
+  dispatch, and a :class:`~repro_torch.distributed.fault.DeviceLost` from
+  it halves the program-axis shard width (``data_devices``) and retries
+  the same programs; at width 1 it propagates.
 
 There are no compiled executables to cache: ``warmup`` builds (or loads)
 the kernel library, so the first request does not pay the ``nvcc`` build,
@@ -30,10 +34,12 @@ from dataclasses import dataclass, field, replace
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.clustering import (
-    bucket_points, select_k_and_cluster, sweep_cluster_stack,
+    _check_init, bucket_points, select_k_and_cluster, sweep_cluster_stack,
 )
+from repro_torch.distributed.fault import DeviceLost
 from repro_torch.sampling.base import plan_from_labels
 from repro_torch.sim.simulate import SamplingPlan
 from repro_torch.utils.device import resolve_device
@@ -49,10 +55,16 @@ class PlanEngineConfig:
     tiny_n: int = 4
     sil_cap: int = 1200
     iters: int = 50
-    init: str = "host"           # host numpy kmeans++ (the only one ported)
+    init: str = "host"           # 'host' numpy kmeans++ | 'device' D^2 draws
     engine: str = "sweep"        # 'sweep' | 'sequential' (parity reference)
     max_batch: int = 8           # requests per service flush
     record_timings: bool = False  # stamp per-request dispatch telemetry
+    #: program-axis shard width the degradation loop starts from: 0 = every
+    #: card present (``torch.cuda.device_count()``; 1 for an engine on the
+    #: CPU).  The port sweeps one program per dispatch on the engine's one
+    #: device, so the width is bookkeeping only: placing a dispatch's
+    #: programs across several cards waits for a program axis in the sweep
+    data_devices: int = 0
 
 
 @dataclass
@@ -90,15 +102,25 @@ class PlanEngine:
         if self.cfg.engine not in ("sweep", "sequential"):
             raise ValueError(f"engine must be 'sweep'|'sequential': "
                              f"{self.cfg.engine!r}")
+        _check_init(self.cfg.init)
         self.device = resolve_device(device)
         self.stats = self._fresh_stats()
         #: the (points-bucket, dim, batch) keys ``warmup`` has swept
         self._warm: set = set()
+        present = (torch.cuda.device_count() if self.device.type == "cuda"
+                   else 1)
+        #: program-axis shard width: starts at ``data_devices`` and only
+        #: ever halves, when a dispatch raises DeviceLost
+        self._data_shards = max(1, self.cfg.data_devices or present)
+        #: fault injection point, called before every sweep dispatch; raise
+        #: DeviceLost from it to drive the degradation loop
+        self.fault_hook: Optional[Callable[[], None]] = None
 
     @staticmethod
     def _fresh_stats() -> dict:
         return {"programs": 0, "dispatches": 0, "errors": 0,
-                "warmed_executables": 0, "bucket_hist": []}
+                "warmed_executables": 0, "degraded_dispatches": 0,
+                "bucket_hist": []}
 
     def reset_stats(self) -> None:
         """Zero the instance counters (long-lived servers window their
@@ -131,7 +153,10 @@ class PlanEngine:
         sequential reference).  The port dispatches one program per sweep, so
         ``batch_sizes`` defaults to ``[1]``; every batch size takes the
         same path, and each new ``(points, dim, batch)`` key counts once.
-        Returns the number of keys warmed now: 0 when all were warm."""
+        With ``init="device"`` the bucket's sweep draws its seeding on the
+        device at the bucket's shape (k_up = min(k_max, points - 1)), the
+        key JAX's warm pool pre-builds its device init for.  Returns the
+        number of keys warmed now: 0 when all were warm."""
         lib = 0
         if self.device.type == "cuda":
             from repro_torch import kernels
@@ -230,6 +255,23 @@ class PlanEngine:
     def _sequential(self, x, seed):
         return select_k_and_cluster(x, seed=seed, **self._cluster_kwargs())
 
+    def _dispatch_chunk(self, xs: list, seeds: list):
+        """One sweep dispatch with the degradation loop: a DeviceLost (from
+        ``fault_hook``) halves the shard width and retries the same
+        programs, so a lost participant costs throughput, not requests; at
+        width 1 it propagates."""
+        while True:
+            try:
+                if self.fault_hook is not None:
+                    self.fault_hook()
+                return sweep_cluster_stack(xs, seed=seeds,
+                                           **self._cluster_kwargs())
+            except DeviceLost:
+                if self._data_shards <= 1:
+                    raise
+                self._data_shards //= 2
+                self.stats["degraded_dispatches"] += 1
+
     def _cluster_one(self, x, seed, errors: str):
         """One program through the configured engine.  Under
         ``errors="isolate"`` a failed sweep is retried through the
@@ -239,8 +281,7 @@ class PlanEngine:
         try:
             if self.cfg.engine == "sequential":
                 return self._sequential(x, seed)
-            return sweep_cluster_stack([x], seed=[seed],
-                                       **self._cluster_kwargs())[0]
+            return self._dispatch_chunk([x], [seed])[0]
         except Exception as e:
             if errors == "raise":
                 raise
@@ -303,4 +344,5 @@ class PlanEngine:
                                            seed=seed, extra=extra or {})])[0]
 
     def engine_stats(self) -> dict:
-        return dict(self.stats, device=str(self.device))
+        return dict(self.stats, device=str(self.device),
+                    data_shards=self._data_shards)

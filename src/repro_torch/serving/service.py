@@ -15,7 +15,14 @@
   (:meth:`repro_torch.sampling.engine.PlanEngine.warmup`), taking
   first-request costs off the serving path;
 - ``reset_stats`` windows the counters between measurement intervals
-  (:mod:`repro_torch.serving.loadgen` calls it before each load).
+  (:mod:`repro_torch.serving.loadgen` calls it before each load);
+- ``sanitize=True`` passes every served plan through the NaN/inf tripwire
+  (:func:`repro_torch.analysis.sanitize.check_finite`): a non-finite plan
+  fails only its own future and counts in ``stats()["sanitize_trips"]``;
+- ``fault_hook`` becomes the engine's (:attr:`PlanEngine.fault_hook`): a
+  DeviceLost from it degrades the engine's shard width instead of failing
+  futures, seen in ``stats()["engine"]`` (``degraded_dispatches``,
+  ``data_shards``).
 
 The dispatcher thread binds the engine's CUDA device before its first
 dispatch and launches on that thread's current (default) stream; results
@@ -35,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitize import NonFiniteError, check_finite
 from repro_torch.sampling.engine import PlanEngine, PlanRequest, bucket_key
 
 
@@ -67,12 +75,14 @@ class PlanService:
 
     ``engine`` defaults to a fresh :class:`PlanEngine` on ``device`` (the
     card unless ``"cpu"``) built from ``engine_overrides`` (k_max, iters,
-    seed, ...) with per-request timing telemetry on.
+    seed, init, data_devices, ...) with per-request timing telemetry on.
     """
 
     def __init__(self, engine: Optional[PlanEngine] = None, *,
                  max_batch: Optional[int] = None,
                  max_delay_ms: float = 5.0,
+                 sanitize: bool = False,
+                 fault_hook=None,
                  device=None,
                  **engine_overrides):
         if engine is None:
@@ -83,6 +93,9 @@ class PlanService:
             raise ValueError("pass device/engine_overrides only without "
                              "engine")
         self.engine = engine
+        if fault_hook is not None:
+            self.engine.fault_hook = fault_hook
+        self.sanitize = bool(sanitize)
         self.max_batch = int(max_batch or engine.cfg.max_batch)
         self.max_delay_s = float(max_delay_ms) / 1e3
         self._queues: dict[tuple, deque] = {}
@@ -99,7 +112,7 @@ class PlanService:
         return {
             "submitted": 0, "served": 0, "failed": 0, "dispatches": 0,
             "batch_sizes": [], "dispatch_s": [], "latencies_s": [],
-            "queue_depth_samples": [],
+            "queue_depth_samples": [], "sanitize_trips": 0,
             "flush_causes": {"fill": 0, "deadline": 0, "drain": 0},
         }
 
@@ -188,7 +201,6 @@ class PlanService:
         m["mean_dispatch_ms"] = (float(np.mean(disp)) * 1e3 if disp
                                  else None)
         m["engine"] = self.engine.engine_stats()
-        m["errors"] = m["failed"]           # requests whose future raised
         return m
 
     def raw_latencies_s(self) -> list[float]:
@@ -248,6 +260,8 @@ class PlanService:
             plans = self.engine.plan_many(reqs, errors="isolate")
         except Exception as e:  # engine-level failure: fail THIS batch only
             plans = [e] * len(pending)
+        if self.sanitize:
+            plans = [self._sanitize_plan(p) for p in plans]
         t1 = time.perf_counter()
         served = failed = 0
         lats = []
@@ -270,6 +284,19 @@ class PlanService:
             m["served"] += served
             m["failed"] += failed
             m["latencies_s"].extend(lats)
+
+    def _sanitize_plan(self, plan):
+        """The NaN/inf tripwire on one served plan: returns the plan, or the
+        NonFiniteError that fails its future in its place."""
+        if isinstance(plan, Exception) or plan is None:
+            return plan
+        try:
+            check_finite(plan, name="plan")
+        except NonFiniteError as e:
+            with self._mlock:
+                self.metrics["sanitize_trips"] += 1
+            return e
+        return plan
 
     # -- lifecycle -----------------------------------------------------------
     def close(self, timeout: Optional[float] = 30.0) -> None:

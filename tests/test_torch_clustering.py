@@ -1,7 +1,9 @@
 """The port's swept K-Means + silhouette K selection against the JAX sweep.
 
 Both sides seed kmeans++ on the host with numpy (``init="host"``), so the
-initial centroids are the same rows.  The port runs K2/K3's plain versions
+initial centroids are the same rows.  The on-device seeding
+(``init="device"``) is held to JAX's on JAX's own Gumbel draws (equal
+indices), and the port's sweep to its sequential reference.  The port runs K2/K3's plain versions
 on the CPU; JAX runs its jnp sweep.  Labels, K and mode must be equal.
 
 Silhouette scores: the port's score of its chosen K equals an exact float64
@@ -23,14 +25,24 @@ import torch
 
 from repro.core.clustering import sweep_cluster_stack as jax_sweep
 from repro_torch.core.clustering import (
-    _host_preamble, _kmeanspp_init, _sweep_core, bucket_points,
-    sweep_cluster_stack,
+    _host_preamble, _kmeanspp_init, _pad_bucket, _sweep_core, bucket_points,
+    device_gumbel, device_init_indices, device_kmeanspp, sweep_cluster_stack,
 )
 from repro_torch.kernels.kmeans_assign.ops import (
     kmeans_assign_fused_plain, silhouette_sums_plain,
 )
 
 SIL_TOL = 1e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: several test processes on one host would
+    otherwise oversubscribe the cores with spinning thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _exact_silhouette(x, labels, sil_idx):
@@ -109,9 +121,136 @@ def test_sweep_matches_jax_sweep(case):
                 _exact_silhouette(x, gl, sil_idx), abs=1e-5)
 
 
-def test_device_init_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        sweep_cluster_stack([_blobs(0, 20, 4, 2)], init="device",
+def jax_gumbel_rows(seed, k_up, n_pad):
+    """JAX's draws for ``_device_kmeanspp``: draw t's Gumbel noise from
+    ``fold_in(PRNGKey(seed), t)`` at the bucket shape (``categorical`` is
+    the argmax of that noise plus the logits)."""
+    import jax
+    import jax.numpy as jnp
+
+    key = jax.random.PRNGKey(seed)
+    return np.stack([np.asarray(jax.random.gumbel(
+        jax.random.fold_in(key, t), (n_pad,), jnp.float32))
+        for t in range(k_up)])
+
+
+def on_jax_draws(monkeypatch):
+    """Patch JAX's Gumbel rows in for the port's own draws (the port's
+    generators draw other numbers than JAX's threefry, as in the fit)."""
+    from repro_torch.core import clustering
+
+    monkeypatch.setattr(
+        clustering, "device_gumbel", lambda seed, k_up, n_pad, device:
+        torch.from_numpy(jax_gumbel_rows(seed, k_up, n_pad)).to(device))
+
+
+@pytest.mark.parametrize("seed", [0, 3, 11])
+@pytest.mark.parametrize("n,d,k_up,case", [
+    (20, 4, 8, "blobs"), (32, 8, 31, "blobs"), (45, 16, 12, "blobs"),
+    (130, 3, 48, "blobs"), (60, 8, 10, "duplicates"),
+    (40, 4, 10, "coincident"), (24, 1, 6, "normal")])
+def test_device_kmeanspp_on_jax_draws_equals_jax(seed, n, d, k_up, case):
+    """Fed JAX's own Gumbel rows, the port's on-device kmeans++ draws JAX's
+    ``device_init_indices`` exactly: below the bucket (n < n_pad), at it,
+    with duplicate rows, and with every point coincident (the total D^2
+    falls to 0 after the first draw and the draws go uniform)."""
+    from repro.core.clustering import device_init_indices as jax_init
+
+    if case == "blobs":
+        x = _blobs(seed, n, d, 4)
+    elif case == "duplicates":
+        x = _duplicates(seed, n, d, 5)
+    elif case == "coincident":
+        x = np.full((n, d), 1.5, np.float32)
+    else:
+        x = np.random.default_rng(seed).standard_normal((n, d)).astype(
+            np.float32)
+    xb, pmask = _pad_bucket(x)
+    got = device_kmeanspp(torch.from_numpy(xb), torch.from_numpy(pmask),
+                          torch.from_numpy(jax_gumbel_rows(seed, k_up,
+                                                            len(xb))))
+    assert got.dtype == torch.int32 and got.shape == (k_up,)
+    np.testing.assert_array_equal(got.numpy(), jax_init(x, seed, k_up))
+    assert got.max() < n                        # live points only
+
+
+def test_device_init_draws_at_the_bucket_shape():
+    """The port's own draws (torch generators seeded from (seed, t)):
+    deterministic, live points only, and taken at the bucket shape, so the
+    entry point and a direct call on the padded inputs agree."""
+    x = _blobs(5, 50, 8, 3)
+    a = device_init_indices(x, 7, 20, device="cpu")
+    np.testing.assert_array_equal(a, device_init_indices(x, 7, 20,
+                                                         device="cpu"))
+    assert a.dtype == np.int32 and a.max() < 50
+    xb, pmask = _pad_bucket(x)
+    g = device_gumbel(7, 20, len(xb), "cpu")
+    assert g.shape == (20, bucket_points(50)) and torch.isfinite(g).all()
+    np.testing.assert_array_equal(a, device_kmeanspp(
+        torch.from_numpy(xb), torch.from_numpy(pmask), g).numpy())
+    assert not np.array_equal(a, device_init_indices(x, 8, 20,
+                                                     device="cpu"))
+
+
+DEVICE_CASES = [c for c in CASES if c[0] in (
+    "blobs_3", "blobs_5_kmax48", "duplicates", "stack_mixed",
+    "all_identical")]
+
+
+@pytest.mark.parametrize("case", DEVICE_CASES,
+                         ids=[c[0] for c in DEVICE_CASES])
+def test_device_init_sweep_on_jax_draws_matches_jax_sweep(case,
+                                                          monkeypatch):
+    """init="device" on JAX's draws: the port's sweep equals JAX's sweep
+    with its on-device seeding (labels, K, mode; scores within SIL_TOL)."""
+    _, build, kw = case
+    on_jax_draws(monkeypatch)
+    xs = build()
+    got = sweep_cluster_stack(xs, device="cpu", init="device", **kw)
+    want = jax_sweep(xs, init="device", **kw)
+    for (gl, gi), (wl, wi) in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(gl), np.asarray(wl))
+        assert gi["k"] == wi["k"] and gi["mode"] == wi["mode"]
+        gs, ws = gi.get("scores", {}), wi.get("scores", {})
+        assert sorted(gs) == sorted(ws)
+        for k in ws:
+            np.testing.assert_allclose(gs[k], ws[k], rtol=0, atol=SIL_TOL,
+                                       err_msg=f"K={k}")
+
+
+@pytest.mark.parametrize("seed", [0, 2])
+def test_device_init_sweep_equals_sequential(seed):
+    """init="device": the sweep and the sequential reference seed from the
+    same draws and give equal labels and K (JAX's
+    ``test_device_init_parity``)."""
+    from repro_torch.core.clustering import select_k_and_cluster
+
+    x = _blobs(11 + seed, 120, 8, 4)
+    (ls, info_s), = sweep_cluster_stack([x], k_max=10, seed=seed,
+                                        init="device", device="cpu")
+    lq, info_q = select_k_and_cluster(x, k_max=10, seed=seed, init="device",
+                                      device="cpu")
+    np.testing.assert_array_equal(ls, lq)
+    assert info_s["k"] == info_q["k"] and info_s["mode"] == info_q["mode"]
+    assert info_s["sil"] == pytest.approx(info_q["sil"], abs=1e-5)
+
+
+def test_device_init_independent_of_batch_composition():
+    """A program's device draws are taken at its own points bucket, so a
+    much larger program beside it changes nothing."""
+    small = _blobs(1, 30, 8, 3)          # bucket 32
+    big = _blobs(2, 240, 8, 4)           # bucket 256
+    solo = sweep_cluster_stack([small], k_max=8, seed=3, init="device",
+                               device="cpu")[0]
+    batched = sweep_cluster_stack([small, big], k_max=8, seed=3,
+                                  init="device", device="cpu")[0]
+    np.testing.assert_array_equal(solo[0], batched[0])
+    assert solo[1]["k"] == batched[1]["k"]
+
+
+def test_unknown_init_raises():
+    with pytest.raises(ValueError, match="init"):
+        sweep_cluster_stack([_blobs(0, 20, 4, 2)], init="random",
                             device="cpu")
 
 

@@ -266,3 +266,15 @@ def test_loadgen_fleet_and_arrivals_are_bit_equal(n, d, seed):
     ja = j_loadgen.poisson_arrivals(n, 37.5, seed=seed)
     ta = t_loadgen.poisson_arrivals(n, 37.5, seed=seed)
     assert ja.dtype == ta.dtype and np.array_equal(ja, ta)
+
+
+def test_fault_module_is_a_verbatim_copy():
+    """``distributed/fault.py`` is standard library only: the port's copy
+    is the original byte for byte (no imports to rewrite)."""
+    from pathlib import Path
+
+    import repro_torch.distributed.fault as t_fault
+
+    src = Path(__file__).resolve().parent.parent / "src"
+    assert (Path(t_fault.__file__).read_bytes()
+            == (src / "repro" / "distributed" / "fault.py").read_bytes())

@@ -498,7 +498,7 @@ def test_program_served_on_card_matches_cpu():
         m.adopt(Artifacts("gcl", "enc", "enc", payload={"params": params}))
         with PlanService(device=device) as svc:
             plans[device] = svc.submit_program(m, get_program("nw")).result()
-            assert svc.stats()["errors"] == 0
+            assert svc.stats()["failed"] == 0
     assert plans["cuda"].num_clusters == plans["cpu"].num_clusters
     assert plans["cuda"].rep_indices() == plans["cpu"].rep_indices()
     assert np.array_equal(plans["cuda"].labels, plans["cpu"].labels)

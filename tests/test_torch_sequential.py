@@ -42,6 +42,7 @@ from repro_torch.core import clustering as tclust
 from repro_torch.kernels.kmeans_assign.ops import kmeans_assign_plain
 from repro_torch.sampling import engine as tengine
 from repro_torch.sampling.engine import PlanEngine, PlanRequest
+from test_torch_clustering import on_jax_draws
 from test_torch_reference import exact_silhouette as _exact_silhouette
 
 SIL_TOL = 1e-3
@@ -200,10 +201,40 @@ def test_select_k_and_cluster_on_fixture_embeddings(name, grid_fixture):
     assert plan_from_labels(labels, seqs, "x").rep_indices() == want["reps"]
 
 
-def test_device_init_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tclust.select_k_and_cluster(_blobs(0, 20, 4, 2), init="device",
-                                    device="cpu")
+DEVICE_CASES = [c for c in SELECT_CASES
+                if c[0] in ("blobs_3", "duplicates", "d12", "all_identical")]
+
+
+@pytest.mark.parametrize("case", DEVICE_CASES,
+                         ids=[c[0] for c in DEVICE_CASES])
+def test_select_k_and_cluster_device_init_matches_jax(case, monkeypatch):
+    """init="device" on JAX's own Gumbel draws: the port's sequential
+    reference equals JAX's (same tolerances as the host seeding)."""
+    _, build, kw = case
+    on_jax_draws(monkeypatch)
+    x = build()
+    _check_against(
+        tclust.select_k_and_cluster(x, device="cpu", init="device", **kw),
+        jclust.select_k_and_cluster(x, init="device", **kw), x, kw)
+
+
+def test_device_init_engines_agree():
+    """The port's own draws: the sweep engine, the sequential engine and
+    the sequential reference seeded on the device serve equal labels and
+    K; an unknown ``init`` is refused."""
+    xs = [_blobs(s, 40 + 25 * s, 8, 2 + s) for s in range(3)]
+    reqs = [PlanRequest(x, np.arange(len(x)), "m") for x in xs]
+    sweep = PlanEngine(k_max=8, init="device", device="cpu").plan_many(reqs)
+    seq = PlanEngine(k_max=8, init="device", engine="sequential",
+                     device="cpu").plan_many(reqs)
+    for x, a, b in zip(xs, sweep, seq):
+        np.testing.assert_array_equal(a.labels, b.labels)
+        assert a.num_clusters == b.num_clusters and a.reps == b.reps
+        lab, info = tclust.select_k_and_cluster(x, k_max=8, init="device",
+                                                device="cpu")
+        np.testing.assert_array_equal(lab, a.labels)
+    with pytest.raises(ValueError, match="init"):
+        PlanEngine(init="numpy", device="cpu")
 
 
 # -- PlanEngine: sequential engine and the isolate retry -----------------------

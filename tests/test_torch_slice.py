@@ -55,7 +55,7 @@ def test_served_plans_match_jax_gcl(name, jparams):
         plan = svc.submit_program(tm, prog).result(timeout=600)
         stats = svc.stats()
     ev = evaluate(plan, prog, "P1")
-    assert stats["served"] == 1 and stats["errors"] == 0
+    assert stats["served"] == 1 and stats["failed"] == 0
 
     z = tm.prepare(prog).payload["embeddings"]
     jz = np.asarray(jart.payload["embeddings"])
