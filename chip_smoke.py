@@ -13,7 +13,8 @@ Phases, each reported on its own lines:
             paths (K1 rgcn_fused, K2 kmeans_assign_fused, K3
             silhouette_sums, K5 rgcn_spmm_flat, K1b rgcn_fused_bwd, K6
             rgcn_spmm_dense, K4 kmeans_assign, K7 flash_attention, K8
-            ssd_intra_chunk) against its plain PyTorch version on the card
+            ssd_intra_chunk, K7b flash_attention_bwd) against its plain
+            PyTorch version on the card
             at the main-path shapes (K5 / K1b at the embed path's first
             micro-batch and the fit's bucket, D 64 / 128, f32 and bf16,
             equal bits on a repeat, the table rows from the fit's bucket at
@@ -31,6 +32,10 @@ Phases, each reported on its own lines:
             (``kmeans_assign_fused_batched``, one Lloyd step of cfd's
             sweep); K2 / K3 / K4 also at PKA's feature width d = 12; K7
             also over hd 16/64/256, G 1/3/8, S 64/512/1536, f32 and bf16;
+            K7b over hd 16/64/256, G 1/3, S 64/100/512, then at llama3.2-
+            3b's training shape (8, 256, 8, 3, 128), its table row, and the
+            prefill shape, f32 (1e-4) and bf16, a repeat bit-equal, with the
+            backward of scaled_dot_product_attention as its library call;
             K8 also at mamba's smoke shape and a single 64-row chunk), with
             its time, the plain version's, one library call's where there
             is one, and the least time the card could take (bound); K1 and
@@ -143,7 +148,20 @@ Phases, each reported on its own lines:
             prefill of all 2048 at its last position) in bf16 at full
             depth and in f32 at 4 layers, with 8 decode steps profiled for
             the step's device / host split, and one bf16 mamba prefill
-            (4 x 2048) profiled for its top device ops and K8's share.
+            (4 x 2048) profiled for its top device ops and K8's share;
+14. lm_train ``repro_torch.launch.train.main`` for llama3.2-3b at full width
+            and depth (28 layers, JAX's CLI defaults: batch 8 x 256 tokens,
+            lr 3e-4, 20 warmup steps), 30 steps: step ms (median after the
+            first), steps/s, tokens/s, peak memory, the loss of the first
+            and last steps (finite and falling), K7 and K7b once per layer
+            a step (these counts are K7b's ``launches``); 2 more steps
+            under torch.profiler (busy share, the device time split into
+            K7, K7b, matmuls, copies and the rest); then 8 steps at
+            full width and 2 layers against 4 steps, a checkpoint and
+            ``--resume auto`` (losses, params and moments bit-equal); then
+            one step at smoke width, 2 layers, f32, on the card and on the
+            CPU (loss 1e-5, every gradient leaf 1e-3 and every parameter
+            leaf after the update 1e-4 of its norm).
 
 Any mismatch or exception exits non-zero.  The last lines are the kernel
 table as one JSON object (K1's and K8's ``bound_ms`` is their 3xTF32
@@ -157,6 +175,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -265,6 +284,32 @@ DECODE_TOL = {"llama3.2-3b": 0.06, "mamba2-780m": 0.6}
 DECODE_TOL_F32 = 1e-4
 DECODE_F32_LAYERS = 4
 LM_PROFILE_STEPS = 8    # decode steps under torch.profiler
+#: K7b (``csrc/flash_attention_bwd.cu``): the llama3.2-3b training shape
+#: (JAX's CLI defaults, --batch 8 --seq-len 256) and the serving path's
+#: prefill shape; float32 within 1e-4 of the plain recompute (relative to
+#: the largest element), bfloat16 within one bfloat16 rounding of it
+LLAMA_TRAIN = (8, 256, 8, 3, 128)
+K7B_TOL_F32 = 1e-4
+#: the lm_train phase: ``repro_torch.launch.train.main`` for llama3.2-3b at
+#: full width and JAX's CLI defaults (batch 8 x 256 tokens, lr 3e-4, 20
+#: warmup steps), LM_TRAIN_STEPS steps at LM_TRAIN_LAYERS layers (None: all
+#: 28); then a resume check at full width and RESUME_LAYERS layers (RESUME_
+#: STEPS steps against half of them plus ``--resume auto``), and one step
+#: card vs CPU at smoke width, PARITY_LAYERS layers, float32
+#: how a profiled training step's device time is split (first match wins)
+TRAIN_SPLIT = (
+    ("K7 flash_attention", ("flash_attention_wgmma_kernel",)),
+    ("K7b flash_attention_bwd", ("k7b_",)),
+    ("matmuls (cuBLAS / CUTLASS)", ("gemm", "Gemm", "cutlass", "sm90_xmma",
+                                    "nvjet", "splitKreduce")),
+    ("copies and fills", ("Memcpy", "Memset", "direct_copy")),
+)
+TRAIN_PROFILE_STEPS = 2
+LM_TRAIN_ARCH = "llama3.2-3b"
+LM_TRAIN_STEPS = 30
+LM_TRAIN_LAYERS = None
+RESUME_LAYERS, RESUME_STEPS = 2, 8
+PARITY_LAYERS = 2
 #: torch.profiler records ``device_ms`` takes of one call before it falls
 #: back to the spin-primed span: CUPTI now and then drops part of a record
 RECORD_TRIES = 3
@@ -2137,7 +2182,7 @@ def phase_train(dev):
     for where in ("cpu", dev):
         enc = init_rgcn(tc.seed, rc).to(where)
         params = dict(enc.named_parameters())
-        mu, nu = adamw_init(params)
+        state = adamw_init(params, tc.opt)
         losses, grads = [], None
         t0 = time.perf_counter()
         for i, packed in enumerate(batches):
@@ -2150,7 +2195,8 @@ def phase_train(dev):
                 loss, _ = packed_loss(enc, rc, tc.tau, batch, draws)
                 grads = dict(zip(params, torch.autograd.grad(
                     loss, list(params.values()))))
-            m = train_step(enc, rc, tc.tau, tc.opt, batch, draws, mu, nu, i)
+            state, m = train_step(enc, rc, tc.tau, tc.opt, batch, draws,
+                                  state)
             losses.append(float(m[0]))
         out[str(where)] = (losses, grads, params, time.perf_counter() - t0)
     (l_cpu, g_cpu, p_cpu, s_cpu), (l_card, g_card, p_card, s_card) = \
@@ -2349,7 +2395,9 @@ def _all_wrappers():
     from repro_torch.kernels.rgcn_fused.ops import (
         rgcn_fused_agg_flat, rgcn_fused_bwd,
     )
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd,
+    )
     from repro_torch.kernels.rgcn_spmm.ops import (
         rgcn_spmm_dense, rgcn_spmm_flat,
     )
@@ -2365,6 +2413,7 @@ def _all_wrappers():
             "silhouette_sums": silhouette_sums,
             "kmeans_assign": kmeans_assign,
             "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "ssd_intra_chunk": ssd_intra_chunk}
 
 
@@ -2654,6 +2703,17 @@ def k7_kernels(hd, dtype):
     return {"flash_attention_mma_kernel": 1}
 
 
+def k7b_kernels(hd, dtype):
+    """K7b's kernels for a head width and input type: two tensor-core
+    (mma.sync) kernels for bf16 up to hd 128, three float32-FMA kernels
+    otherwise (``flash_attention_bwd`` in ``csrc/flash_attention_bwd.cu``)."""
+    import torch
+
+    if dtype == torch.bfloat16 and hd <= 128:
+        return {"k7b_dq_mma_kernel": 1, "k7b_dkdv_mma_kernel": 1}
+    return {"k7b_stats_kernel": 1, "k7b_dkdv_kernel": 1, "k7b_dq_kernel": 1}
+
+
 def _k7_check(dev, shape, dt, seed):
     """K7 against its plain version; (err, rel, q, k, v, scale)."""
     import math
@@ -2764,6 +2824,8 @@ def phase_lm_kernels(rows, dev):
                  "src/repro/kernels/flash_attention/kernel.py:108",
                  flash_attention, k7))
 
+    rows.append(_k7b(dev))
+
     # ---- K8: the mamba prefill, mamba's smoke shape, one 64-row chunk
     k8 = None
     for label, (B, nc, Q, nh, hp, ds) in (
@@ -2808,6 +2870,116 @@ def phase_lm_kernels(rows, dev):
     rows.append(("ssd_intra_chunk", "src/repro_torch/csrc/ssd_intra_chunk.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:62",
                  ssd_intra_chunk, k8))
+
+
+def _k7b_check(dev, shape, dt, seed):
+    """K7b against its plain version, and a second launch bit-equal;
+    (err, rel, inputs)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    )
+
+    B, S, K, G, hd = shape
+    q, k, v = _k7_inputs(dev, B, S, K, G, hd, dt, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g, device=dev).to(dt)
+    scale = hd ** -0.5
+    o = flash_attention(q, k, v, scale)
+    got = flash_attention_bwd(q, k, v, o, do, scale)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, o, do, scale)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    del want
+    err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    tol = K7B_TOL_F32 if dt == torch.float32 else BF16_TOL
+    require(rel <= tol, f"K7b {shape} {dt}: rel err {rel:.3e} > {tol}")
+    again = flash_attention_bwd(q, k, v, o, do, scale)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"K7b {shape} {dt}: two launches differ")
+    return err, rel, (q, k, v, o, do, scale)
+
+
+def _k7b(dev):
+    """K7b (flash-attention backward) against its plain version over hd x G
+    x S around the main shapes, then at llama3.2-3b's training shape (the
+    table's row: its time, the plain version's, the backward of
+    ``scaled_dot_product_attention`` with GQA expanded, and the bound) and
+    at the prefill shape."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_bwd_plain,
+    )
+
+    n, worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for hd in (16, 64, 256):
+        for G in (1, 3):
+            for S in (64, 100, 512):
+                for dt in (torch.float32, torch.bfloat16):
+                    _, rel, _ = _k7b_check(dev, (1, S, 2, G, hd), dt, n)
+                    worst[dt] = max(worst[dt], rel)
+                    n += 1
+    log(f"[kernels] K7b flash_attention_bwd: {n} shapes (hd 16/64/256, G "
+        f"1/3, S 64/100/512, f32 and bf16) within tolerance, repeats "
+        f"bit-equal: worst rel f32 {worst[torch.float32]:.3e} (tol "
+        f"{K7B_TOL_F32}) bf16 {worst[torch.bfloat16]:.3e} (tol "
+        f"{BF16_TOL:.3e})")
+    row = None
+    for shape, label in ((LLAMA_TRAIN, "train"), (LLAMA_PREFILL, "prefill")):
+        B, S, K, G, hd = shape
+        H = K * G
+        for dt in (torch.bfloat16, torch.float32):
+            err, rel, (q, k, v, o, do, scale) = _k7b_check(dev, shape, dt,
+                                                           7)
+            call = lambda: flash_attention_bwd(q, k, v, o, do, scale)  # noqa
+            ms = device_ms(call, 5, own=k7b_kernels(hd, dt))
+            esz = q.element_size()
+            bytes_ = (4 * B * S * H * hd + 4 * B * S * K * hd) * esz
+            ops = 10 * hd * B * H * S * (S + 1) // 2
+            b_ms, b_by = bound(bytes_, ops, PEAK_BF16_S
+                               if dt == torch.bfloat16 else PEAK_F32_S)
+            dname = "bf16" if dt == torch.bfloat16 else "f32"
+            extra = ""
+            if label == "train":
+                plain = device_ms(lambda: flash_attention_bwd_plain(
+                    q, k, v, o, do, scale), 3)
+                qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+                kh, vh = (t.repeat_interleave(G, dim=2).transpose(1, 2)
+                          .contiguous() for t in (k, v))
+                leaves = [t.requires_grad_(True) for t in (qh, kh, vh)]
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    *leaves, is_causal=True)
+                doh = do.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+                lib = device_ms(lambda: torch.autograd.grad(
+                    out, leaves, doh, retain_graph=True), 5)
+                extra = (f" plain device ms {plain.total:.4f} "
+                         f"[{plain.source}] library device ms "
+                         f"{lib.total:.4f} [{lib.source}] "
+                         f"(scaled_dot_product_attention backward, causal, "
+                         f"K / V expanded to {H} heads)")
+                if dt == torch.bfloat16:
+                    row = dict(err=err, ms=ms.own, plain_ms=plain.total,
+                               bound_ms=b_ms, bound_by=b_by,
+                               library_ms=lib.total)
+                del out, leaves, qh, kh, vh, doh
+            log(f"[kernels] K7b flash_attention_bwd {label} {shape} {dname}: "
+                f"max_abs_err {err:.3e} rel {rel:.3e}, repeat bit-equal; "
+                f"kernel device ms {ms.own:.4f} [{ms.source}]{extra} bound "
+                f"ms {b_ms:.4f} ({b_by}; "
+                f"{ops:.3e} ops, {bytes_ / 1e6:.1f} MB) achieved "
+                f"{ops / ms.own / 1e9:.2f} TFLOP/s")
+            del q, k, v, o, do
+            torch.cuda.empty_cache()
+    log(f"[kernels] K7b ptxas: {ptxas_report('k7b_dq_mma_kernel')}; "
+        f"{ptxas_report('k7b_dkdv_mma_kernel')}; "
+        f"{ptxas_report('k7b_dkdv_kernel')}; "
+        f"{ptxas_report('k7b_dq_kernel')}; "
+        f"{ptxas_report('k7b_stats_kernel')}")
+    return ("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention/ops.py:29",
+            flash_attention_bwd, row)
 
 
 def _lm_fixture_cfg(arch):
@@ -3017,6 +3189,216 @@ def phase_lm_serve(dev):
     return counts
 
 
+def _train_parity(dev):
+    """One train step of llama3.2-3b at smoke width, PARITY_LAYERS layers,
+    float32, batch 8 x 256, on the card and on the CPU in this process from
+    the same weights and batch: the loss within LOSS_TOL, every gradient
+    leaf within GRAD_TOL of its norm, the parameters after the update
+    within PARAM_TOL of theirs."""
+    import torch
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import smoke_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+
+    cfg = smoke_arch(LM_TRAIN_ARCH).replace(num_layers=PARITY_LAYERS)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=20, total_steps=30)
+    B, S = LLAMA_TRAIN[:2]
+    host = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    batch = TokenStream(cfg.vocab_size, S, B, seed=0).next()
+    out = {}
+    for where in ("cpu", dev):
+        params = tree_unflatten(host, [x.to(where).clone()
+                                       for x in tree_leaves(host)])
+        b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        grads = torch.autograd.grad(tf.lm_loss(cfg, params, b)[0], leaves)
+        state, m = make_train_step(cfg, tcfg)(adamw_init(params, tcfg), b)
+        out[str(where)] = (float(m["loss"]),
+                           [g.detach().cpu() for g in grads],
+                           [p.detach().cpu() for p in tree_leaves(
+                               state.params)])
+    (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = \
+        out["cpu"], out[str(dev)]
+
+    def worst(a, b):
+        return max(float((x - y).norm()) / max(float(y.norm()), 1e-30)
+                   for x, y in zip(a, b))
+
+    loss_gap = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_gap, param_gap = worst(g_card, g_cpu), worst(p_card, p_cpu)
+    log(f"[lm_train] step parity ({LM_TRAIN_ARCH} smoke width, "
+        f"{PARITY_LAYERS} layers, f32, batch {B}x{S}): loss card {l_card:.7f} "
+        f"cpu {l_cpu:.7f} rel gap {loss_gap:.3e} (tol {LOSS_TOL}); worst "
+        f"gradient leaf |card - cpu| / |cpu| {grad_gap:.3e} (tol "
+        f"{GRAD_TOL}); worst parameter leaf after the update {param_gap:.3e} "
+        f"(tol {PARAM_TOL})")
+    require(loss_gap <= LOSS_TOL, f"lm_train parity: loss gap {loss_gap:.3e}")
+    require(grad_gap <= GRAD_TOL, f"lm_train parity: gradient gap "
+            f"{grad_gap:.3e}")
+    require(param_gap <= PARAM_TOL, f"lm_train parity: parameter gap "
+            f"{param_gap:.3e}")
+
+
+def _profile_train_steps(cfg, state, dev):
+    """TRAIN_PROFILE_STEPS more steps of the trained state under
+    torch.profiler: wall and device busy time a step, the split of the
+    device time (K7, K7b, matmuls, copies, the rest) and the top ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import make_train_step
+
+    B, S = LLAMA_TRAIN[:2]
+    step = make_train_step(cfg, TrainConfig(learning_rate=3e-4,
+                                            warmup_steps=20,
+                                            total_steps=LM_TRAIN_STEPS))
+    data = TokenStream(cfg.vocab_size, S, B, seed=0)
+    data.skip(LM_TRAIN_STEPS)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                data.next().items()} for _ in range(TRAIN_PROFILE_STEPS)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / TRAIN_PROFILE_STEPS
+    busy_s, top = _device_profile(prof)
+    require(busy_s > 0, "lm_train: the profile recorded no device time")
+    busy = busy_s / TRAIN_PROFILE_STEPS
+    split: dict = {}
+    for t, key, count in top:
+        kind = next((k for k, marks in TRAIN_SPLIT
+                     if any(m in key for m in marks)),
+                    "other (elementwise, reductions: norms, RoPE, softmax "
+                    "CE, casts, AdamW)")
+        t0, n0 = split.get(kind, (0.0, 0))
+        split[kind] = (t0 + t / 1e6 / TRAIN_PROFILE_STEPS,
+                       n0 + count // TRAIN_PROFILE_STEPS)
+    ops = sum(c for _, _, c in top) / TRAIN_PROFILE_STEPS
+    log(f"[lm_train] profiled {TRAIN_PROFILE_STEPS} steps: {wall * 1e3:.2f} "
+        f"ms a step, device busy {busy * 1e3:.2f} ms a step (busy share "
+        f"{busy / wall:.3f}), ~{ops:.0f} device ops a step")
+    for kind, (t, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        log(f"[lm_train]   split {t * 1e3:9.3f} ms/step {100 * t / busy:5.1f} "
+            f"%  x{n:<6d} {kind}")
+    for t, key, count in top[:10]:
+        log(f"[lm_train]   {t / 1e3 / TRAIN_PROFILE_STEPS:9.3f} ms/step "
+            f"{100 * t / 1e6 / busy_s:5.1f} %  x{count:<6d} {key[:70]}")
+
+
+def _train_resume(dev):
+    """RESUME_STEPS steps at full width and RESUME_LAYERS layers, against
+    half of them, a checkpoint, and ``--resume auto`` to the end: the
+    resumed steps' losses and the final params, moments and step
+    bit-equal."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.optim.adamw import tree_leaves
+
+    base = ["--arch", LM_TRAIN_ARCH, "--num-layers", str(RESUME_LAYERS),
+            "--log-every", str(RESUME_STEPS)]
+    half = RESUME_STEPS // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        whole, resumed = {}, {}
+        train_main(base + ["--steps", str(RESUME_STEPS)], out=whole)
+        train_main(base + ["--steps", str(half), "--checkpoint-dir", tmp])
+        train_main(base + ["--steps", str(RESUME_STEPS), "--checkpoint-dir",
+                           tmp, "--resume", "auto"], out=resumed)
+        wall = time.perf_counter() - t0
+    a, b = whole["state"], resumed["state"]
+    loss_eq = ([float(r["loss"]) for r in whole["steps"][half:]]
+               == [float(r["loss"]) for r in resumed["steps"]])
+    leaves_eq = all(torch.equal(x.detach(), y.detach()) for name in
+                    ("params", "mu", "nu") for x, y in zip(
+                        tree_leaves(getattr(a, name)),
+                        tree_leaves(getattr(b, name))))
+    n = sum(p.numel() for p in tree_leaves(a.params))
+    log(f"[lm_train] resume ({LM_TRAIN_ARCH} full width, {RESUME_LAYERS} "
+        f"layers, {n / 1e6:.1f} M params): {RESUME_STEPS} steps vs {half} + "
+        f"--resume auto from step {resumed['start_step']}: losses "
+        f"bit-equal {loss_eq}, params / moments bit-equal {leaves_eq}, step "
+        f"{a.step} / {b.step}; {wall:.2f} s with the checkpoint")
+    require(resumed["start_step"] == half, "lm_train resume: did not resume")
+    require(loss_eq and leaves_eq and a.step == b.step == RESUME_STEPS,
+            "lm_train resume: the resumed run differs")
+
+
+def phase_lm_train(dev):
+    """This slice's main path: ``repro_torch.launch.train.main`` for
+    llama3.2-3b at full width, K7 and K7b once per attention layer a step;
+    then the resume check and step parity with the CPU.  Returns the train
+    run's launch counts."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_arch(LM_TRAIN_ARCH)
+    layers = LM_TRAIN_LAYERS or cfg.num_layers
+    argv = ["--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_STEPS),
+            "--log-every", "5"]
+    if LM_TRAIN_LAYERS:
+        argv += ["--num-layers", str(LM_TRAIN_LAYERS)]
+    torch.cuda.empty_cache()
+    out: dict = {}
+    _zero_counts()
+    t0 = time.perf_counter()
+    rc = train_main(argv, out=out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    losses = [float(r["loss"]) for r in out["steps"]]
+    ms = [r["ms"] for r in out["steps"]]
+    med = statistics.median(ms[1:])
+    k7, k7b = (counts[k] / LM_TRAIN_STEPS
+               for k in ("flash_attention", "flash_attention_bwd"))
+    n = sum(p.numel() for p in tree_leaves(out["state"].params))
+    B, S = LLAMA_TRAIN[:2]
+    log(f"[lm_train] {LM_TRAIN_ARCH} full width, {layers} of "
+        f"{cfg.num_layers} layers ({n / 1e9:.3f} B params, f32 params and "
+        f"moments, bf16 compute), batch {B}x{S}: rc {rc}, "
+        f"{LM_TRAIN_STEPS} steps in {wall:.2f} s (weights drawn on the card "
+        f"included); step ms median after the first {med:.2f} (first "
+        f"{ms[0]:.2f}, min {min(ms[1:]):.2f}, max {max(ms[1:]):.2f}), "
+        f"{1e3 / med:.3f} steps/s, {B * S * 1e3 / med:.0f} tokens/s; peak "
+        f"memory {out.get('peak_bytes', 0) / 2**30:.2f} GiB; loss first "
+        f"{losses[0]:.4f} last {losses[-1]:.4f}; K7 {k7:g} and K7b {k7b:g} "
+        f"launches a step (attention layers: {layers})")
+    require(rc == 0, f"lm_train: rc {rc}")
+    require(all(map(math.isfinite, losses)), "lm_train: non-finite loss")
+    require(losses[-1] < losses[0], "lm_train: the loss did not fall")
+    require(k7 == layers and k7b == layers,
+            f"lm_train: K7 / K7b launched {k7:g} / {k7b:g} times a step, "
+            f"not once per attention layer ({layers})")
+    cut = cfg if not LM_TRAIN_LAYERS else cfg.replace(
+        num_layers=LM_TRAIN_LAYERS)
+    _profile_train_steps(cut, out["state"], dev)
+    del out
+    torch.cuda.empty_cache()
+    _train_resume(dev)
+    torch.cuda.empty_cache()
+    _train_parity(dev)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -3070,7 +3452,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_fit_serve([r for r in rows if r[0] not in (
         "kmeans_assign", "rgcn_spmm_dense", "flash_attention",
-        "ssd_intra_chunk")], dev)
+        "flash_attention_bwd", "ssd_intra_chunk")], dev)
     log(f"[phase] fit+serve {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     sequential = phase_sequential(dev)
@@ -3088,6 +3470,10 @@ def main() -> int:
     log(f"[phase] lm_serve {time.perf_counter() - t0:.2f} s")
     for name in ("flash_attention", "ssd_intra_chunk"):
         launches[name] = lm[name]
+    t0 = time.perf_counter()
+    launches["flash_attention_bwd"] = phase_lm_train(dev)[
+        "flash_attention_bwd"]
+    log(f"[phase] lm_train {time.perf_counter() - t0:.2f} s")
     log(f"[phase] total {time.perf_counter() - t_all:.2f} s")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": repl,

@@ -1,9 +1,12 @@
-"""Step checkpoints for resumable fits (counterpart of
+"""Step checkpoints for resumable fits and LM training (counterpart of
 ``repro/checkpoint/manager.py``, without JAX).
 
 - one directory per step, ``step_<n>/``: one ``.npy`` per leaf of a nested
-  dict / list tree of arrays (leaves keyed by their '/'-joined paths) plus
-  ``manifest.json`` with each leaf's key, shape and dtype;
+  dict / list / NamedTuple tree of arrays or tensors (leaves keyed by their
+  '/'-joined paths; a NamedTuple's ``None`` fields have no leaves, as in
+  JAX's tree) plus ``manifest.json`` with each leaf's key, shape and dtype;
+  a bfloat16 tensor is stored as its 16-bit pattern (numpy has no
+  bfloat16) under the dtype ``bfloat16``;
 - atomic publish: everything is written to ``step_<n>.tmp`` and then
   renamed, so a crash mid-save never corrupts the latest checkpoint;
 - asynchronous save: one background thread writes while training goes on
@@ -11,8 +14,12 @@
   joins, and every save first waits for the one before);
 - retention: the last ``keep`` steps.
 
-The JAX manager's sharded restore (``restore`` onto a mesh) has no
-counterpart: the port runs on one card.
+``restore(like)`` rebuilds a tree shaped like ``like`` (a ``TrainState``
+whose leaves give each leaf's dtype, e.g. on the ``meta`` device) with
+every leaf in its dtype on the requested device, bit for bit; JAX's
+``shardings`` (an elastic restore onto a mesh) has no counterpart: the
+port runs on one card.  ``restore_tree`` needs no ``like``: bfloat16
+leaves come back widened to float32, exactly.
 """
 
 from __future__ import annotations
@@ -25,8 +32,11 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
-from repro_torch.sampling.store import flatten_tree, unflatten_tree
+from repro_torch.sampling.store import unflatten_tree
+
+BF16 = "bfloat16"
 
 
 class CheckpointManager:
@@ -54,22 +64,23 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, tree) -> None:
-        """Snapshot ``tree`` (nested dicts / lists of arrays or tensors)."""
+        """Snapshot ``tree`` (nested dicts / lists / NamedTuples of arrays
+        or tensors).  The leaves are copied to the host before this
+        returns: the caller may update them in place."""
         self.wait()
-        host = [(key, np.array(arr))          # a copy: the caller may mutate
-                for key, arr in flatten_tree(_to_numpy(tree)).items()]
+        host = list(_host_leaves(tree).items())
 
         def write():
             tmp = self._step_dir(step) + ".tmp"
             shutil.rmtree(tmp, ignore_errors=True)
             os.makedirs(tmp)
             manifest = {"step": step, "leaves": [], "time": time.time()}
-            for i, (key, arr) in enumerate(host):
+            for i, (key, (arr, dtype)) in enumerate(host):
                 fn = f"leaf_{i:05d}.npy"
                 np.save(os.path.join(tmp, fn), arr)
                 manifest["leaves"].append({"key": key, "file": fn,
                                            "shape": list(arr.shape),
-                                           "dtype": str(arr.dtype)})
+                                           "dtype": dtype})
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
             final = self._step_dir(step)
@@ -101,16 +112,78 @@ class CheckpointManager:
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        flat = {leaf["key"]: np.load(os.path.join(d, leaf["file"]))
-                for leaf in manifest["leaves"]}
+        flat = {}
+        for leaf in manifest["leaves"]:
+            arr = np.load(os.path.join(d, leaf["file"]))
+            if leaf["dtype"] == BF16:          # exact: bf16 is f32's top half
+                arr = (arr.astype(np.uint32) << 16).view(np.float32)
+            flat[leaf["key"]] = arr
         return unflatten_tree(flat), step
 
+    def restore(self, like, step: Optional[int] = None, *, device=None):
+        """Rebuild ``like``'s tree (dicts, lists and NamedTuples such as
+        ``TrainState``) from disk: tensor leaves in ``like``'s dtypes on
+        ``device`` (default the CPU), int leaves as ints.  Returns (tree,
+        step); raises FileNotFoundError without a checkpoint."""
+        self.wait()
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        d = self._step_dir(step)
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
 
-def _to_numpy(tree):
+        def load(key, ref):
+            meta = by_key[key]
+            arr = np.load(os.path.join(d, meta["file"]))
+            shape = tuple(getattr(ref, "shape", ()))
+            if tuple(arr.shape) != shape:
+                raise ValueError(f"checkpoint leaf {key} shape {arr.shape} "
+                                 f"!= {shape}")
+            if not isinstance(ref, torch.Tensor):
+                return type(ref)(arr)
+            t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+                 if meta["dtype"] == BF16 else torch.from_numpy(arr))
+            return t.to(device=device, dtype=ref.dtype)
+
+        def build(node, prefix):
+            if hasattr(node, "_asdict"):
+                return type(node)(**{
+                    k: None if v is None else build(v, f"{prefix}{k}/")
+                    for k, v in node._asdict().items()})
+            if isinstance(node, dict):
+                return {k: build(v, f"{prefix}{k}/") for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return [build(v, f"{prefix}{i}/") for i, v in enumerate(node)]
+            return load(prefix.rstrip("/"), node)
+
+        return build(like, ""), step
+
+
+def _host_leaves(tree, prefix: str = "") -> dict:
+    """{'/'-joined key: (host array, dtype name)}, every leaf a copy."""
+    if hasattr(tree, "_asdict"):                      # a NamedTuple
+        tree = {k: v for k, v in tree._asdict().items() if v is not None}
+    out = {}
     if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_to_numpy(v) for v in tree]
-    if hasattr(tree, "detach"):                       # a torch tensor
-        return tree.detach().cpu().numpy()
-    return np.asarray(tree)
+        for k, v in tree.items():
+            if "/" in str(k):
+                raise ValueError(f"tree key {k!r} contains '/'")
+            out.update(_host_leaves(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_host_leaves(v, f"{prefix}{i}/"))
+    elif isinstance(tree, torch.Tensor):
+        t = tree.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            out[prefix.rstrip("/")] = (
+                t.view(torch.int16).numpy().view(np.uint16), BF16)
+        else:
+            arr = t.numpy()
+            out[prefix.rstrip("/")] = (arr, str(arr.dtype))
+    else:
+        arr = np.array(tree)
+        out[prefix.rstrip("/")] = (arr, str(arr.dtype))
+    return out

@@ -1,7 +1,9 @@
 """Copy of ``repro/config.py`` for the PyTorch port (imports rewritten to
-``repro_torch``; the port imports nothing of ``repro``).  The train and mesh
-configs are left out: the port's training config is
-``repro_torch.optim.TrainConfig`` and it has no device mesh yet.
+``repro_torch``; the port imports nothing of ``repro``).  ``TrainConfig``
+is the one training config of the port (the LM launcher's and, as
+``GCLTrainConfig.opt``, the contrastive fit's); ``MeshConfig`` is carried
+for ``launch/train.py``'s ``--mesh``, which runs only the one-card
+``debug`` mesh.
 
 Config system: model / shape / train / mesh configs.
 
@@ -200,6 +202,54 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
     if shape.name == "long_500k" and not cfg.is_subquadratic():
         return False, "long_500k skipped: pure full-attention arch (see DESIGN.md)"
     return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Train / mesh configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 7e-4          # paper: AdamW lr 7e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    schedule: str = "cosine"             # paper: cosine annealing
+    grad_clip: float = 1.0
+    loss_scale: float = 1.0              # static scale on low-precision grads
+                                         # (unscaled inside adamw_update)
+    opt_dtype: str = "float32"           # bf16 moments for very large archs
+    grad_compress: bool = False          # error-feedback int8 DP compression
+    microbatch: int = 0                  # 0 = no gradient accumulation
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def batch_axes(self) -> tuple[str, ...]:
+        return ("pod", "data") if self.multi_pod else ("data",)
 
 
 # ---------------------------------------------------------------------------

@@ -66,7 +66,8 @@ from repro_torch.core.graphs import KernelGraph, pad_batch
 from repro_torch.core.rgcn import EncodeDraws, RGCNConfig, RGCNEncoder
 from repro_torch.distributed.fault import DeviceLost, Watchdog
 from repro_torch.kernels import check_endpoints
-from repro_torch.optim.adamw import TrainConfig, adamw_init, adamw_update
+from repro_torch.config import TrainConfig
+from repro_torch.optim.adamw import TrainState, adamw_init, apply_gradients
 from repro_torch.sampling.store import flatten_tree, unflatten_tree
 from repro_torch.utils.device import resolve_device
 
@@ -224,22 +225,25 @@ def dense_loss(enc: RGCNEncoder, rc: RGCNConfig, tau: float, batch: dict,
 
 
 def train_step(enc: RGCNEncoder, rc: RGCNConfig, tau: float,
-               opt: TrainConfig, batch: dict, draws: tuple, mu: dict,
-               nu: dict, step: int) -> torch.Tensor:
-    """One optimizer step in place on ``enc`` / ``mu`` / ``nu``: the scaled
-    loss is differentiated, AdamW unscales.  ``batch``'s edges must have
-    been validated (``check_endpoints``).  Returns the step's metrics as
-    one (len(METRIC_KEYS),) float32 tensor on the device (no host sync)."""
-    params = dict(enc.named_parameters())
+               opt: TrainConfig, batch: dict, draws: tuple,
+               state: TrainState):
+    """One optimizer step, in place on ``enc`` (``state.params`` is
+    ``dict(enc.named_parameters())``) and the state's moments: the scaled
+    loss is differentiated, ``apply_gradients`` compresses (with
+    ``opt.grad_compress``) and unscales.  ``batch``'s edges must have been
+    validated (``check_endpoints``).  Returns (the new state, the step's
+    metrics as one (len(METRIC_KEYS),) float32 tensor on the device: no
+    host sync)."""
+    params = state.params
     loss, m = packed_loss(enc, rc, tau, batch, draws, train=True)
     grads = torch.autograd.grad(loss * rc.policy.loss_scale,
                                 list(params.values()))
-    om = adamw_update(params, dict(zip(params, grads)), mu, nu, step, opt)
+    state, om = apply_gradients(state, dict(zip(params, grads)), opt)
     with torch.no_grad():      # metrics must not keep the step's graph
         lr = torch.full((), om["lr"], dtype=torch.float32,
                         device=loss.device)
-        return torch.stack([loss, m["nce_acc"], m["pos_sim"], m["neg_sim"],
-                            lr, om["grad_norm"]])
+        return state, torch.stack([loss, m["nce_acc"], m["pos_sim"],
+                                   m["neg_sim"], lr, om["grad_norm"]])
 
 
 def _params_fingerprint(params: RGCNEncoder) -> str:
@@ -378,12 +382,11 @@ class ContrastiveTrainer:
         chunk_len = min(tc.scan_chunk, bucket_size(max(steps, 1), 1))
         wd_fired0 = watchdog.fired if watchdog is not None else 0
         in_chunk = False
-        params = dict(enc.named_parameters())
-        mu, nu = adamw_init(params)
+        state = adamw_init(dict(enc.named_parameters()), opt)
         mgr = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
         start, history = 0, []
         if mgr is not None and resume and mgr.latest_step() is not None:
-            start, history = self._restore_fit(mgr, enc, mu, nu)
+            state, start, history = self._restore_fit(mgr, state)
 
         host_syncs = saves = 0
         last_save = start
@@ -419,8 +422,9 @@ class ContrastiveTrainer:
                 batch = {k: v[row] for k, v in dev_seg.items()}
                 gen.manual_seed(draw_seed(tc.seed, step))
                 draws = draw_step(gen, batch, rc)
-                pending.append(train_step(enc, rc, tc.tau, opt, batch,
-                                          draws, mu, nu, step))
+                state, metrics = train_step(enc, rc, tc.tau, opt, batch,
+                                            draws, state)
+                pending.append(metrics)
                 done = step + 1
                 if done % tc.log_every == 0 or done == steps:
                     flush()
@@ -430,7 +434,7 @@ class ContrastiveTrainer:
                              and done >= interrupt_after)
                 if due or (interrupt and mgr is not None):
                     flush()
-                    self._save_fit(mgr, enc, mu, nu, history, done)
+                    self._save_fit(mgr, state, history, done)
                     last_save, saves = done, saves + 1
                 if interrupt:
                     if mgr is not None:
@@ -462,7 +466,7 @@ class ContrastiveTrainer:
                     flush()
                     if mgr is not None:
                         if done > last_save:
-                            self._save_fit(mgr, enc, mu, nu, history, done)
+                            self._save_fit(mgr, state, history, done)
                             last_save, saves = done, saves + 1
                         mgr.wait()
                     raise lost
@@ -482,18 +486,20 @@ class ContrastiveTrainer:
         }
 
     # -- resume protocol -----------------------------------------------------
-    def _save_fit(self, mgr: CheckpointManager, enc, mu, nu, history,
+    def _save_fit(self, mgr: CheckpointManager, state: TrainState, history,
                   cursor: int) -> None:
         def nest(d):      # 'layers.0.basis' -> {"layers": [{"basis": .}]}
-            return unflatten_tree({k.replace(".", "/"): v.detach().cpu().numpy()
+            return unflatten_tree({k.replace(".", "/"): v.detach()
                                    for k, v in d.items()})
 
         mgr.save(cursor, {
             "state": {
-                "step": np.int64(cursor),
-                "params": nest(dict(enc.named_parameters())),
-                "mu": nest(mu),
-                "nu": nest(nu),
+                "step": np.int64(state.step),
+                "params": nest(state.params),
+                "mu": nest(state.mu),
+                "nu": nest(state.nu),
+                **({"compress_err": nest(state.compress_err)}
+                   if state.compress_err is not None else {}),
             },
             "seed": np.int64(self.tc.seed),
             "history": {k: np.asarray([h[k] for h in history], np.float32)
@@ -501,10 +507,11 @@ class ContrastiveTrainer:
             "cursor": np.int64(cursor),
         })
 
-    def _restore_fit(self, mgr: CheckpointManager, enc, mu, nu):
-        """Load the latest snapshot into ``enc`` / ``mu`` / ``nu``; returns
-        (cursor, history).  Refuses a checkpoint of another seed (the
-        epoch plan would not replay)."""
+    def _restore_fit(self, mgr: CheckpointManager, state: TrainState):
+        """Load the latest snapshot into ``state``'s tensors (the encoder's
+        parameters, the moments, the compression residual); returns
+        (state at the snapshot's step, cursor, history).  Refuses a
+        checkpoint of another seed (the epoch plan would not replay)."""
         tree, _ = mgr.restore_tree()
         if int(tree["seed"]) != self.tc.seed:
             raise ValueError(
@@ -512,8 +519,10 @@ class ContrastiveTrainer:
                 f"different seed; pass resume=False to refit")
         sd = tree["state"]
         with torch.no_grad():
-            for name, tgt in (("params", dict(enc.named_parameters())),
-                              ("mu", mu), ("nu", nu)):
+            for name in ("params", "mu", "nu", "compress_err"):
+                tgt = getattr(state, name)
+                if tgt is None:
+                    continue
                 flat = flatten_tree(sd[name])
                 for k, t in tgt.items():
                     t.copy_(torch.from_numpy(flat[k.replace(".", "/")]))
@@ -521,7 +530,7 @@ class ContrastiveTrainer:
         hist = tree["history"]
         history = [{k: float(hist[k][i]) for k in METRIC_KEYS}
                    for i in range(cursor)]
-        return cursor, history
+        return state._replace(step=int(sd["step"])), cursor, history
 
     # -- inference ----------------------------------------------------------
     def _embed_setup(self, params: RGCNEncoder, n_cap: int, e_cap: int

@@ -63,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -233,30 +234,9 @@ constexpr int MTHREADS = 128;
 constexpr int PAD = 8;          // bf16 elements of row padding (16 bytes)
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// the pair (x0, x1) as bf16 (x0 in the low half) and what rounding lost
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// c += a (16x16, row) . b (16x8, col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using bf16mma::ld32;
+using bf16mma::mma16816;
+using bf16mma::split;
 
 template <int HDMAX>
 __global__ void __launch_bounds__(MTHREADS)
@@ -402,10 +382,10 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t ah[4], al[4];
-      split_pair(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
-      split_pair(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
-      split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
-      split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
+      split(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
+      split(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
+      split(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
+      split(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         if (8 * n < hd) {
@@ -653,7 +633,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          split_pair(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
+          split(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
                      pl[kk][r]);
 
       // acc += P.V, V row-major in shared memory read through the

@@ -12,8 +12,10 @@ kmeans_assign  K2: fused masked K-Means assignment + per-cluster sums,
                the sequential reference (replace
                ``repro/kernels/kmeans_assign``)
 flash_attention
-               K7: GQA causal flash attention, forward (replaces
-               ``repro/kernels/flash_attention``)
+               K7: GQA causal flash attention (replaces
+               ``repro/kernels/flash_attention``), as an autograd
+               function whose backward is K7b (``jax.vjp`` of the oracle
+               in the JAX package)
 ssd_scan       K8: the Mamba-2 SSD intra-chunk outputs and chunk states,
                with the inter-chunk recurrence around it in torch
                (replaces ``repro/kernels/ssd_scan``)
@@ -67,6 +69,8 @@ SIGNATURES = {
     "rgcn_fused_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _F, _P],
     "ssd_intra_chunk": [_P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
 }

@@ -1,12 +1,23 @@
-"""K7 wrapper and its plain PyTorch version (counterpart of
-``repro/kernels/flash_attention/{kernel,ops,ref}.py``, forward only: the
-JAX backward is ``jax.vjp`` of the oracle and LM training is not ported).
+"""K7 / K7b wrappers and their plain PyTorch versions (counterpart of
+``repro/kernels/flash_attention/{kernel,ops,ref}.py``).
 
 ``flash_attention``        GQA causal attention: CUDA tensors launch
                            ``csrc/flash_attention.cu``, CPU tensors take
-                           ``flash_attention_plain``.
+                           ``flash_attention_plain``.  When a gradient is
+                           wanted it runs as a ``torch.autograd.Function``
+                           (JAX's ``custom_vjp``) whose backward is
+                           ``flash_attention_bwd``; it saves q, k, v and
+                           the output (K7b recomputes the row statistics).
 ``flash_attention_plain``  the kernel's arithmetic in torch ops: float32
                            scores, softmax and P.V, output in q's dtype.
+``flash_attention_bwd``    dq, dk, dv (JAX's backward is ``jax.vjp`` of the
+                           oracle): CUDA tensors launch K7b,
+                           ``csrc/flash_attention_bwd.cu``, CPU tensors
+                           take ``flash_attention_bwd_plain``.
+``flash_attention_bwd_plain``  float32 recompute of P, then dV = P^T dO,
+                           dP = dO V^T, dS = P (dP - D) with D = rowsum(dO
+                           O), dQ = scale dS K, dK = scale dS^T Q, dK and
+                           dV summed over each KV head's G query heads.
 
 Shapes: q (B,S,K,G,hd) (query head h = kv head h // G, group h % G, as
 ``q.reshape(B,S,K,G,hd)`` lays them out), k / v (B,S,K,hd).  The wrapper
@@ -63,8 +74,31 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """Causal GQA attention, out (B,S,K,G,hd) in q's dtype."""
+    """Causal GQA attention, out (B,S,K,G,hd) in q's dtype; differentiable
+    (backward: ``flash_attention_bwd``)."""
     _check_shapes(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, float(scale))
+    return _forward(q, k, v, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out = _forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         ctx.scale)
+        return dq, dk, dv, None
+
+
+def _forward(q, k, v, scale):
     if route(q) == "cpu":
         return flash_attention_plain(q, k, v, scale)
     B, S, K, G, hd = q.shape
@@ -86,3 +120,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 #: kernel launches made through this wrapper (CUDA tensors only)
 flash_attention.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, scale: float):
+    """(dq, dk, dv) in q's dtype: the gradients of causal GQA attention
+    with float32 softmax, recomputed in float32 (materializes the
+    (B,K,G,S,S) scores)."""
+    S = q.shape[1]
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    do32 = dout.float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", q32, k32) * scale
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~causal, NEG_INF), dim=-1)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, do32)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", do32, v32)
+    d = (do32 * out.float()).sum(-1).permute(0, 2, 3, 1)      # (B,K,G,S)
+    ds = p * (dp - d[..., None])
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, k32) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, out, dout, scale: float):
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v) with output ``out``
+    and its gradient ``dout`` (out's shape and dtype), in q's dtype."""
+    _check_shapes(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} does not match q "
+                             f"{tuple(q.shape)} {q.dtype}")
+    if route(q) == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, scale)
+    B, S, K, G, hd = q.shape
+    dev = q.device
+    for name, t in (("q", q), ("out", out), ("dout", dout)):
+        check(name, t, dtype=q.dtype, shape=(B, S, K, G, hd), device=dev)
+    for name, t in (("k", k), ("v", v)):
+        check(name, t, dtype=q.dtype, shape=(B, S, K, hd), device=dev)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v, out, dout, dq, dk, dv)):
+        raise ValueError("flash_attention_bwd: bfloat16 tensors must start "
+                         "on a 16-byte boundary (the kernel loads 16-byte "
+                         "rows)")
+    scratch = torch.empty(2 * B * K * G * S, dtype=torch.float32, device=dev)
+    launch("flash_attention_bwd", *(t.data_ptr() for t in
+                                    (q, k, v, out, dout, dq, dk, dv,
+                                     scratch)),
+           int(q.dtype == torch.bfloat16), B, S, K, G, hd, float(scale))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+#: kernel launches made through this wrapper (CUDA tensors only)
+flash_attention_bwd.launches = 0

@@ -1,11 +1,14 @@
 """K8 wrapper, its plain PyTorch version, and the SSD chunked scan around
 it (counterpart of ``repro/kernels/ssd_scan/{kernel,ops,ref}.py`` and of
-``ssd_chunked`` in ``repro/models/ssm.py``; forward only).
+``ssd_chunked`` in ``repro/models/ssm.py``; forward only on the card).
 
 ``ssd_intra_chunk``        the intra-chunk outputs and chunk states: CUDA
                            tensors launch ``csrc/ssd_intra_chunk.cu`` (its
                            three products as 3xTF32 tensor-core MMAs), CPU
-                           tensors take ``ssd_intra_chunk_plain``.
+                           tensors take ``ssd_intra_chunk_plain`` (and
+                           differentiate through it).  K8 has no backward
+                           kernel yet: a CUDA input that requires a
+                           gradient raises ``NotImplementedError``.
 ``ssd_scan``               the whole scan as the JAX wrapper runs it: the
                            chunked cumulative log-decay, K8, then the
                            inter-chunk recurrence (a loop over the chunks,
@@ -76,6 +79,12 @@ def ssd_intra_chunk(x, cum, dt, Bc, Cc):
     _check_intra(x, cum, dt, Bc, Cc)
     if route(x) == "cpu":
         return ssd_intra_chunk_plain(x, cum, dt, Bc, Cc)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, cum, dt, Bc, Cc)):
+        raise NotImplementedError(
+            "ssd_intra_chunk: K8 has no backward on the card yet (N2, the "
+            "SSD intra-chunk backward kernel); SSM and hybrid archs train "
+            "on the CPU only")
     B, nc, Q, nh, hp = x.shape
     ds = Bc.shape[-1]
     dev = x.device

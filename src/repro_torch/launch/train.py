@@ -1,0 +1,160 @@
+"""Training launcher (counterpart of ``repro/launch/train.py``):
+
+    python -m repro_torch.launch.train --arch llama3.2-3b --steps 100
+    python -m repro_torch.launch.train --arch mamba2-780m --smoke --device cpu \\
+        --checkpoint-dir /tmp/ck --resume auto
+
+JAX's flags, plus ``--device`` (``cuda`` unless ``cpu`` is given) and
+``--num-layers`` (cut the depth; the width stays the arch's).  A
+deterministic token stream (``data.TokenStream``, skipped to the resumed
+step), the train step of ``launch/steps.py`` with gradient accumulation
+(``--microbatch``) and int8 error-feedback compression
+(``--grad-compress``), atomic asynchronous checkpoints every
+``--checkpoint-every`` steps and at the end, ``--resume auto`` (or a step
+number), a straggler watchdog and a heartbeat file, and one ``[train]
+step ... loss= gnorm= lr= ...ms`` line every ``--log-every`` steps.  The
+initial weights are drawn from ``--seed`` by a ``torch.Generator`` on the
+device.  Only the one-card ``debug`` mesh runs: ``--mesh pod|multipod``
+raises.  On the card, attention layers run K7 forward and K7b backward;
+archs with SSM layers (K8 has no backward kernel yet) and MoE layers
+raise before the first step.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.config import MeshConfig, TrainConfig
+from repro_torch.configs import get_arch, smoke_arch
+from repro_torch.data import TokenStream
+from repro_torch.distributed.fault import Heartbeat, Watchdog
+from repro_torch.launch import steps as steps_mod
+from repro_torch.models import transformer as tf
+from repro_torch.optim import adamw_init
+from repro_torch.utils.device import resolve_device
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv=None, out: dict | None = None) -> int:
+    """Train and print the ``[train]`` lines.  ``out``, when given,
+    receives ``"steps"`` (one dict a step: step, loss (a 0-d tensor on the
+    device), ms), ``"state"`` (the final ``TrainState``), ``"start_step"``
+    and, on the card, ``"peak_bytes"``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--grad-compress", action="store_true")
+    ap.add_argument("--mesh", choices=["debug", "pod", "multipod"],
+                    default="debug")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--resume", default=None, help="'auto' or a step number")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="cut the depth to this many layers")
+    args = ap.parse_args(argv)
+
+    if args.mesh != "debug":
+        mc = MeshConfig(multi_pod=args.mesh == "multipod")
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: a {mc.shape} mesh of {mc.num_devices} "
+            f"devices; the port trains on one card (data parallelism over "
+            f"cards is A9b, the mesh tooling A15)")
+    dev = resolve_device(args.device)
+    cfg = smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
+    if args.num_layers is not None:
+        cfg = cfg.replace(num_layers=args.num_layers)
+    tf.require_trainable(cfg, dev)
+    tcfg = TrainConfig(
+        learning_rate=args.lr, warmup_steps=args.warmup,
+        total_steps=args.steps, microbatch=args.microbatch,
+        grad_compress=args.grad_compress, seed=args.seed,
+    )
+    data = TokenStream(
+        cfg.vocab_size, args.seq_len, args.batch, seed=args.seed,
+        frontend=cfg.frontend, d_model=cfg.d_model,
+        frontend_tokens=cfg.frontend_tokens,
+    )
+
+    ckpt = CheckpointManager(args.checkpoint_dir) if args.checkpoint_dir else None
+    watchdog = Watchdog(
+        on_straggler=lambda t: print(f"[watchdog] step exceeded {t:.1f}s SLO "
+                                     f"(straggler suspected)", flush=True)
+    )
+    hb = Heartbeat(os.path.join(tempfile.gettempdir(),
+                                f"repro_torch_heartbeat_{args.seed}.json"))
+    hb.start()
+
+    state, start_step = None, 0
+    if ckpt and args.resume:
+        step_arg = None if args.resume == "auto" else int(args.resume)
+        like = adamw_init(tf.init_params(cfg, None, device="meta"), tcfg)
+        try:
+            state, start_step = ckpt.restore(like, step=step_arg, device=dev)
+            data.skip(start_step)
+            print(f"[train] resumed from step {start_step}", flush=True)
+        except FileNotFoundError:
+            state = None
+    if state is None:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        state = adamw_init(tf.init_params(cfg, gen, device=dev), tcfg)
+    step_fn = steps_mod.make_train_step(cfg, tcfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    records = []
+
+    t_start = time.time()
+    for step in range(start_step, args.steps):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.next().items()}
+        watchdog.step_start()
+        state, metrics = step_fn(state, batch)
+        _sync(dev)  # the watchdog's SLO timing needs the step's completion
+        dt = watchdog.step_end()
+        hb.update(step)
+        records.append({"step": step, "loss": metrics["loss"],
+                        "ms": dt * 1e3})
+        if step % args.log_every == 0 or step == args.steps - 1:
+            m = {k: float(v) for k, v in metrics.items()}
+            print(
+                f"[train] step {step:5d} loss={m['loss']:.4f} "
+                f"gnorm={m.get('grad_norm', 0):.2f} lr={m.get('lr', 0):.2e} "
+                f"{dt * 1e3:.0f}ms", flush=True,
+            )
+        if ckpt and (step + 1) % args.checkpoint_every == 0:
+            ckpt.save(step + 1, state)
+    if ckpt:
+        ckpt.save(args.steps, state)
+        ckpt.wait()
+    hb.stop()
+    total = time.time() - t_start
+    print(f"[train] done: {args.steps - start_step} steps in {total:.1f}s "
+          f"({watchdog.fired} watchdog events)", flush=True)
+    if out is not None:
+        out.update(steps=records, state=state, start_step=start_step)
+        if dev.type == "cuda":
+            out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,11 +1,14 @@
-"""Shared layers of the LM backbone: norms, RoPE, SwiGLU MLP, embeddings
-(counterpart of ``repro/models/layers.py``).
+"""Shared layers of the LM backbone: norms, RoPE, SwiGLU MLP, embeddings,
+the chunked cross-entropy (counterpart of ``repro/models/layers.py``).
 
 Parameters are plain dicts of tensors in the JAX package's tree layout
 (``{"w1": (D, F), ...}``); every function is a pure function of them.  The
 logical-axes metadata of the JAX ``init_*`` functions (sharding hints) and
 the ``constrain`` calls are left out: the port has no device mesh yet.
-``chunked_cross_entropy`` waits for LM training.
+
+Gradients sum in a fixed order on the card: the embedding gather's
+backward is a one-hot matmul (``take_rows``), not ``index_add_``, which
+sums with atomics there.
 """
 
 from __future__ import annotations
@@ -142,12 +145,36 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig, *,
     return params
 
 
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        onehot = torch.zeros(idx.numel(), ctx.rows, dtype=grad.dtype,
+                             device=grad.device)
+        onehot.scatter_(1, idx[:, None], 1.0)      # one 1 a row: no sums
+        return onehot.t() @ grad, None
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table.index_select(0, idx)`` (idx (n,) int64); its gradient sums
+    the rows' gradients as a one-hot matmul, in a fixed order."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _TakeRows.apply(table, idx)
+    return table.index_select(0, idx)
+
+
 def embed_tokens(cfg: ModelConfig, p: dict, tokens: torch.Tensor
                  ) -> torch.Tensor:
     """tokens (B,S) integer -> (B,S,D) in the compute dtype (a gather on
     the device: no host sync)."""
     table = cast(p["tokens"], cfg.compute_dtype)
-    flat = table.index_select(0, tokens.reshape(-1).long())
+    flat = take_rows(table, tokens.reshape(-1).long())
     return flat.reshape(*tokens.shape, table.shape[1])
 
 
@@ -156,3 +183,35 @@ def lm_head_weight(cfg: ModelConfig, embed_params: dict) -> torch.Tensor:
     if cfg.tie_embeddings:
         return cast(embed_params["tokens"], cfg.compute_dtype).t()
     return cast(embed_params["lm_head"], cfg.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def chunked_cross_entropy(cfg: ModelConfig, h: torch.Tensor,
+                          w_head: torch.Tensor, labels: torch.Tensor
+                          ) -> torch.Tensor:
+    """Mean CE over labels >= 0; logits materialized ``loss_chunk`` tokens
+    at a time along seq (bounds the (B, chunk, V) forward transient for
+    257k vocabs), float32, the chunks summed in order, then the remainder.
+    h (B,S,D), w_head (D,V), labels (B,S) integer."""
+    B, S, D = h.shape
+    C = min(cfg.loss_chunk, S)
+    n_chunks = S // C
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    bounds = [(c * C, (c + 1) * C) for c in range(n_chunks)]
+    if S > n_chunks * C:
+        bounds.append((n_chunks * C, S))
+    for a, b in bounds:
+        y = labels[:, a:b].long()
+        logits = (h[:, a:b] @ w_head).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        # one index a row: the gather's backward writes, never sums
+        gold = logits.gather(-1, y.clamp(min=0)[..., None])[..., 0]
+        valid = (y >= 0).float()
+        tot = tot + torch.sum((lse - gold) * valid)
+        cnt = cnt + torch.sum(valid)
+    return tot / torch.clamp(cnt, min=1.0)

@@ -7,17 +7,21 @@ Parameters are a nested dict of tensors in the JAX params tree's layout —
 stacked on a leading ``blocks`` axis, so ``flatten_tree``'s keys
 (``blocks/pos0/mixer/wq``) name the same arrays in both packages
 (``repro_torch.interop.lm_params_from_jax``).  Depth is a Python loop over
-views of the stacked leaves: eager PyTorch has no ``scan``, and remat
-belongs to training, which is not ported.
+the stacked leaves' ``unbind`` views (eager PyTorch has no ``scan``); in
+training, ``unbind``'s backward stacks each leaf's per-block gradients
+once.  Activations are kept for the backward (JAX's remat policy is not
+ported).  ``lm_loss`` is the training objective (``launch/steps.py``).
 
 Leaves are kept in ``cfg.param_dtype``; JAX casts each matmul weight to
 ``cfg.compute_dtype`` on every use, and ``compute_params`` makes that cast
 once (the same numbers), after which every cast here is a no-op.
 
 MoE FFN layers (``repro/models/moe.py``) are a later slice: an arch with an
-``FFN_MOE`` position raises ``NotImplementedError``.  Decode caches are
-updated in place; ``decode_step`` returns the same cache tensors and a host
-int index (the decode loop never syncs with the card to advance it).
+``FFN_MOE`` position raises ``NotImplementedError``.  Training on the card
+also refuses SSM layers (``require_trainable``): K8 has no backward kernel
+yet.  Decode caches are updated in place; ``decode_step`` returns the same
+cache tensors and a host int index (the decode loop never syncs with the
+card to advance it).
 """
 
 from __future__ import annotations
@@ -31,8 +35,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.frontends import apply_frontend
 from repro_torch.models.layers import (
-    cast, dtype_of, embed_tokens, init_embedding, init_mlp, init_rmsnorm,
-    lm_head_weight, mlp_forward, rmsnorm,
+    cast, chunked_cross_entropy, dtype_of, embed_tokens, init_embedding,
+    init_mlp, init_rmsnorm, lm_head_weight, mlp_forward, rmsnorm,
 )
 
 #: leaves JAX casts to the compute dtype on use (the matmul weights)
@@ -48,7 +52,21 @@ def require_supported(cfg: ModelConfig) -> None:
     if any(s.ffn == FFN_MOE for s in cfg.layer_specs()):
         raise NotImplementedError(
             f"{cfg.arch_id}: MoE FFN layers (repro/models/moe.py) are not "
-            f"ported yet; the port serves the archs without MoE")
+            f"ported yet (A14); the port serves the archs without MoE")
+
+
+def require_trainable(cfg: ModelConfig, device) -> None:
+    """Raise for an arch that this slice of the port cannot train on
+    ``device``: MoE anywhere (``require_supported``); on the card, any SSM
+    layer, whose K8 has no backward kernel yet (N2).  The CPU trains SSM
+    and hybrid archs through K8's plain version."""
+    require_supported(cfg)
+    if torch.device(device).type == "cuda" and any(
+            s.mixer != MIXER_ATTN for s in cfg.layer_specs()):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: SSM layers train on the card only with K8's "
+            f"backward kernel (N2, the SSD intra-chunk backward), which is "
+            f"not written yet; train it with --device cpu")
 
 
 def _tree_map(fn, tree):
@@ -159,10 +177,11 @@ def _stack_forward(cfg: ModelConfig, blocks: dict, h, positions, mode: str,
                    caches: Optional[dict] = None, cache_index=None):
     """Blocks over depth.  Returns (h, new caches stacked over blocks)."""
     per_block = []
+    views = _tree_map(lambda x: x.unbind(0), blocks)
     for b in range(cfg.num_blocks):
         cache = None if caches is None else _block(caches, b)
-        h, nc = _block_forward(cfg, _block(blocks, b), h, positions, mode,
-                               cache, cache_index)
+        h, nc = _block_forward(cfg, _tree_map(lambda x: x[b], views), h,
+                               positions, mode, cache, cache_index)
         per_block.append(nc)
     if mode == "prefill":
         return h, _tree_stack(per_block)
@@ -191,6 +210,15 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     h, _ = _stack_forward(cfg, params["blocks"], h, positions, "train")
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def lm_loss(cfg: ModelConfig, params: dict, batch: dict):
+    """batch: {'tokens' (B,S_text), 'labels' (B,S_total), ['frontend']}.
+    Returns (CE + 0.01 aux, {"ce", "aux"})."""
+    h, aux = forward(cfg, params, batch["tokens"], batch.get("frontend"))
+    w_head = lm_head_weight(cfg, params["embed"])
+    loss = chunked_cross_entropy(cfg, h, w_head, batch["labels"])
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

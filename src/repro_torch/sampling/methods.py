@@ -62,17 +62,17 @@ def _artifacts(method: SamplingMethod, program: Program, payload: dict,
 
 
 #: fields of the JAX package's ``GCLSamplerConfig`` that the port's config
-#: leaves out, at the one value the port computes: the XLA-or-Pallas switch
-#: and f32 messages (the kernels' precision profile), f32 params, the scan
-#: engine with its eval stream and staging, and an optimizer without
-#: gradient compression or micro-batches
+#: leaves out or does not honour, at the one value the port computes: the
+#: XLA-or-Pallas switch and f32 messages (the kernels' precision profile),
+#: f32 params, the scan engine with its eval stream and staging, and an
+#: optimizer without micro-batches (neither package's fit reads
+#: ``TrainConfig.microbatch``)
 _JAX_ONLY = {
     "rgcn": {"use_pallas": False, "message_dtype": "float32"},
     "rgcn.policy": {"param_dtype": "float32"},
     "train": {"engine": "scan", "eval_fold": 123, "prefetch": True,
               "prefetch_depth": 1},
-    "train.opt": {"grad_compress": False, "microbatch": 0,
-                  "opt_dtype": "float32", "seed": 0},
+    "train.opt": {"microbatch": 0},
 }
 
 

@@ -4,7 +4,8 @@ and program fingerprints on a few paper programs; the sieve / stem_root
 partitions and PKA features; graph-store keys and entries (each package
 reads the other's) and the ingestion engine; generated scenario programs;
 ``lm:`` / ``model:`` traces; the model configs; the plan-serving load
-generator's fleets and arrival times."""
+generator's fleets and arrival times; the train and mesh configs; the LM
+token stream."""
 
 import dataclasses
 
@@ -18,6 +19,7 @@ import repro.core.baselines.sieve as j_sieve
 import repro.core.baselines.stem_root as j_stem
 import repro.core.batching as j_batching
 import repro.core.graphs as j_graphs
+import repro.data as j_data
 import repro.ingest as j_ingest
 import repro.ingest.store as j_ingest_store
 import repro.sampling.base as j_base
@@ -33,6 +35,7 @@ import repro_torch.core.baselines.sieve as t_sieve
 import repro_torch.core.baselines.stem_root as t_stem
 import repro_torch.core.batching as t_batching
 import repro_torch.core.graphs as t_graphs
+import repro_torch.data as t_data
 import repro_torch.ingest as t_ingest
 import repro_torch.ingest.store as t_ingest_store
 import repro_torch.sampling.base as t_base
@@ -248,6 +251,45 @@ def test_model_configs_are_equal():
         for shape in j_config.SHAPES:
             assert (j_config.model_flops(jc, j_config.SHAPES[shape])
                     == t_config.model_flops(tc, t_config.SHAPES[shape]))
+
+
+def test_train_and_mesh_configs_are_equal():
+    """One ``TrainConfig`` with JAX's fields and defaults (the LM launcher's
+    and the fit's); ``MeshConfig``'s shapes and axes."""
+    assert (dataclasses.asdict(j_config.TrainConfig())
+            == dataclasses.asdict(t_config.TrainConfig()))
+    for multi in (False, True):
+        jm, tm = j_config.MeshConfig(multi), t_config.MeshConfig(multi)
+        assert (jm.shape, jm.axes, jm.num_devices, jm.batch_axes) == (
+            tm.shape, tm.axes, tm.num_devices, tm.batch_axes)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"seed": 3, "num_hosts": 2, "host_id": 1},
+    {"frontend": "vision", "d_model": 8, "frontend_tokens": 4},
+    {"frontend": "audio", "d_model": 8}], ids=["text", "host", "vision",
+                                                "audio"])
+def test_token_stream_is_bit_equal(kw):
+    """``data/tokens.py`` is numpy only: the port's copy is the original
+    byte for byte, ``data/__init__.py`` with its import rewritten, and the
+    streams give equal batches, after a ``skip`` too."""
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parent.parent / "src"
+    assert ((src / "repro_torch" / "data" / "tokens.py").read_bytes()
+            == (src / "repro" / "data" / "tokens.py").read_bytes())
+    assert ((src / "repro_torch" / "data" / "__init__.py").read_text()
+            == (src / "repro" / "data" / "__init__.py").read_text().replace(
+                "from repro.", "from repro_torch."))
+    streams = [m.TokenStream(97, 24, 4, **kw) for m in (j_data, t_data)]
+    for step in range(3):
+        if step == 2:
+            for s in streams:
+                s.skip(7)
+        a, b = (s.next() for s in streams)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
 
 
 @pytest.mark.parametrize("n,d,seed", [(6, 8, 3), (40, 16, 0), (3, 256, 7)])

@@ -643,8 +643,8 @@ def test_training_step_on_card_matches_cpu():
         d = tuple(x.to(where) for x in draws)
         loss, _ = packed_loss(enc, rc, tc.tau, b, d)
         grads = torch.autograd.grad(loss, list(params.values()))
-        mu, nu = adamw_init(params)
-        m = train_step(enc, rc, tc.tau, tc.opt, b, d, mu, nu, 0)
+        _, m = train_step(enc, rc, tc.tau, tc.opt, b, d,
+                          adamw_init(params, tc.opt))
         out[str(where)] = (m.cpu(), dict(zip(params, grads)),
                            {k: p.detach().cpu() for k, p in params.items()})
     (m_cpu, g_cpu, p_cpu), (m_card, g_card, p_card) = out["cpu"], out[str(dev)]
@@ -883,6 +883,71 @@ def test_ssd_intra_chunk_kernel_matches_plain(shape):
         _close(g, w)
     again = ssd_intra_chunk(x, cum, dt.contiguous(), Bc, Cc)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 256, 8, 3, 128), (1, 100, 2, 2, 32),
+                                   (1, 512, 1, 8, 256), (2, 64, 4, 1, 16),
+                                   (1, 1024, 2, 3, 64), (1, 200, 2, 3, 96),
+                                   (2, 130, 1, 4, 48)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_matches_plain(shape, dtype):
+    """K7b at llama's head shape, Ss that are no multiple of its 32- and
+    64-row tiles, head widths that fill part of the tensor-core kernels'
+    column tiles (96, 48), the widest head (bf16 on the FMA kernels), MHA
+    at hd=16 and a 1024-token prompt:
+    dq, dk, dv against the plain float32 recompute; a second launch gives
+    the same bits (fixed-order sums, no atomics); autograd through
+    ``flash_attention`` on the card launches K7 then K7b once each."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    )
+
+    B, S, K, G, hd = shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(S + hd)
+    q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(dt)
+                   for s in ((B, S, K, G, hd), (B, S, K, hd), (B, S, K, hd),
+                             (B, S, K, G, hd)))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    out = flash_attention(*leaves, hd ** -0.5)
+    auto = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    out = out.detach()
+    got = flash_attention_bwd(q, k, v, out, do, hd ** -0.5)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, out, do, hd ** -0.5)
+    for g, a, w in zip(got, auto, want):
+        assert g.dtype == dt and torch.equal(g, a)
+        _close(g, w)
+    again = flash_attention_bwd(q, k, v, out, do, hd ** -0.5)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_lm_training_gradients_never_bypass_a_kernel():
+    """On the card K8 refuses a gradient (its backward kernel, N2, is not
+    written) and the training entry point refuses SSM archs before a step;
+    attention archs train through K7 / K7b."""
+    dev = _card()
+    from repro_torch.configs import smoke_arch
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+    from repro_torch.models.transformer import require_trainable
+
+    x = torch.zeros(1, 1, 64, 2, 16, device=dev, requires_grad=True)
+    cum = torch.zeros(1, 1, 2, 64, device=dev)
+    bc = torch.zeros(1, 1, 64, 16, device=dev)
+    with pytest.raises(NotImplementedError, match="N2"):
+        ssd_intra_chunk(x, cum, cum, bc, bc)
+    with torch.no_grad():
+        ssd_intra_chunk(x, cum, cum, bc, bc)
+    with pytest.raises(NotImplementedError, match="N2"):
+        require_trainable(smoke_arch("mamba2-780m"), dev)
+    require_trainable(smoke_arch("llama3.2-3b"), dev)
 
 
 @pytest.mark.cuda

@@ -329,6 +329,23 @@ def test_ablation_config_hash_matches_jax(ablation):
     assert config_hash(port.config()) == jax_config_hash(jax_m.config())
 
 
+@pytest.mark.parametrize("opt", [{"grad_compress": True},
+                                 {"opt_dtype": "bfloat16"}, {"seed": 5}],
+                         ids=["grad_compress", "bf16_moments", "seed"])
+def test_optimizer_options_config_hash_matches_jax(opt):
+    """JAX's optimizer options on the fit hash to JAX's key: the port's fit
+    honours them as JAX's does (``_JAX_ONLY`` no longer pins them)."""
+    import dataclasses as dc
+
+    from repro_torch.core.train import GCLTrainConfig
+
+    port = GCLMethod(GCLSamplerConfig(train=GCLTrainConfig(
+        opt=dc.replace(GCLTrainConfig().opt, **opt))), device="cpu")
+    jax_m = JGCLMethod(JSamplerConfig(train=JGCLTrainConfig(
+        opt=dc.replace(JGCLTrainConfig().opt, **opt))))
+    assert config_hash(port.config()) == jax_config_hash(jax_m.config())
+
+
 # ---------------------------------------------------------------------------
 # augmentation, the dense loss and its gradients
 # ---------------------------------------------------------------------------

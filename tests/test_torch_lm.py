@@ -508,15 +508,18 @@ def test_serve_cli_runs_on_the_cpu():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Importing every module of repro_torch (the LM slice included) loads
-    no module of jax or of the JAX package, and chip_smoke.py names
-    neither."""
+    """Importing every module of repro_torch (the LM slice and its training
+    modules included) loads no module of jax or of the JAX package, and
+    chip_smoke.py names neither."""
     code = (
         "import pkgutil, importlib, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "new = ('repro_torch.launch.train', 'repro_torch.launch.steps',\n"
+        "       'repro_torch.data.tokens', 'repro_torch.optim.grad_compress')\n"
+        "bad += [m + ' not imported' for m in new if m not in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,0 +1,432 @@
+"""LM training of the PyTorch port against the JAX package, on the CPU:
+K7b's plain version and autograd through the port's ``flash_attention``
+against ``jax.vjp(attention_ref)``; ``chunked_cross_entropy``; ``lm_loss``
+and its gradients; three steps of ``make_train_step`` under each of JAX's
+optimizer options; the train CLI's lines and its checkpoint resume; and
+the rules that keep a gradient on the card from bypassing a kernel.
+
+The port runs on CPU tensors, so every kernel wrapper takes its plain
+version.  Inputs come from numpy seeds; the model tests carry JAX
+``init_params`` weights into the port through ``lm_params_from_jax`` (the
+constant leaves perturbed so that a misplaced one shows).
+
+Tolerances: float32 1e-5 of the largest magnitude (the packages sum in
+other orders); bfloat16 attention gradients 3e-2 (JAX's oracle rounds the
+scores, P, dP and dS to bfloat16, the port's float32 recompute rounds only
+its outputs); a gradient leaf 1e-3 of its norm and a parameter leaf after
+three steps 1e-4 of its norm (Adam divides by sqrt(v), which magnifies
+summation-order noise where a gradient is small), a bfloat16 moment 2^-8
+of its norm (one bfloat16 rounding).
+"""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import TrainConfig as JTrainConfig
+from repro.configs import smoke_arch as j_smoke_arch
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.launch import steps as j_steps
+from repro.launch.steps import make_train_step as j_make_train_step
+from repro.models import layers as j_layers
+from repro.models import transformer as j_tf
+from repro.optim import adamw_init as j_adamw_init
+from repro.sampling.store import flatten_tree, unflatten_tree
+from repro_torch.config import TrainConfig
+from repro_torch.configs import smoke_arch
+from repro_torch.data import TokenStream
+from repro_torch.interop import lm_params_from_jax
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.launch import train as train_mod
+from repro_torch.launch import steps as t_steps
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import layers as t_layers
+from repro_torch.models import transformer as t_tf
+from repro_torch.optim import adamw_init
+from repro_torch.optim.adamw import tree_leaves
+
+TOL = 1e-5
+BF16_TOL = 3e-2
+PERTURB = ("scale", "norm", "dt_bias", "D_skip", "bq", "bk", "bv")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """torch on one intra-op thread: several test processes on one host
+    slow down by oversubscribing the cores with spinning thread pools."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _close(got, want, tol=TOL):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, (err, scale, err / scale)
+
+
+def _norm_close(got, want, tol):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    gap = float(np.linalg.norm(got - want))
+    assert gap <= tol * max(float(np.linalg.norm(want)), 1e-30), (
+        gap, float(np.linalg.norm(want)))
+
+
+def _np(t):
+    return t.detach().float().cpu().numpy()
+
+
+def _carried(arch, seed=0, **kw):
+    """(jax cfg, port cfg, jax params, port params): JAX init_params with
+    the constant leaves perturbed, carried across as numpy."""
+    jcfg = j_smoke_arch(arch).replace(**kw)
+    cfg = smoke_arch(arch).replace(**kw)
+    jparams, _ = j_tf.init_params(jcfg, jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed + 100)
+    flat = {}
+    for key, arr in flatten_tree(jparams).items():
+        arr = np.asarray(arr, np.float32)
+        if key.rsplit("/", 1)[-1] in PERTURB:
+            arr = (arr + 0.1 * rng.standard_normal(arr.shape)).astype(
+                np.float32)
+        flat[key] = arr
+    jparams = jax.tree_util.tree_map(jnp.asarray, unflatten_tree(flat))
+    return jcfg, cfg, jparams, lm_params_from_jax(flat, cfg)
+
+
+def _batches(cfg, n, B=2, S=64, seed=0):
+    ds = TokenStream(cfg.vocab_size, S, B, seed=seed, frontend=cfg.frontend,
+                     d_model=cfg.d_model, frontend_tokens=cfg.frontend_tokens)
+    return [ds.next() for _ in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# K7b: the flash-attention backward
+# ---------------------------------------------------------------------------
+
+ATTN_CASES = [(1, 64, 2, 1, 16), (2, 100, 2, 3, 32), (1, 512, 1, 4, 64),
+              (2, 96, 2, 2, 128)]
+
+
+def _attn_inputs(shape, dtype, seed):
+    B, S, K, G, hd = shape
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal(s).astype(np.float32)
+                   for s in ((B, S, K, G, hd), (B, S, K, hd), (B, S, K, hd),
+                             (B, S, K, G, hd)))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = getattr(torch, dtype)
+    jx = tuple(jnp.asarray(a).astype(jdt) for a in (q, k, v, do))
+    tx = tuple(torch.from_numpy(a).to(tdt) for a in (q, k, v, do))
+    return jx, tx, hd ** -0.5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ATTN_CASES)
+def test_flash_attention_bwd_matches_jax_vjp(shape, dtype):
+    """``flash_attention_bwd_plain`` (with JAX's forward output) and
+    autograd through the port's ``flash_attention`` give the dq, dk, dv of
+    ``jax.vjp(attention_ref)``: 1e-5 in float32, 3e-2 in bfloat16."""
+    (jq, jk, jv, jdo), (q, k, v, do), scale = _attn_inputs(
+        shape, dtype, sum(shape))
+    jout, vjp = jax.vjp(lambda a, b, c: attention_ref(a, b, c, scale),
+                        jq, jk, jv)
+    want = vjp(jdo)
+    tol = TOL if dtype == "float32" else BF16_TOL
+    out = torch.from_numpy(np.array(jout.astype(jnp.float32))).to(q.dtype)
+    plain = fa_ops.flash_attention_bwd_plain(q, k, v, out, do, scale)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    auto = torch.autograd.grad(fa_ops.flash_attention(*leaves, scale),
+                               leaves, do)
+    for got_p, got_a, w in zip(plain, auto, want):
+        assert got_p.dtype == q.dtype and got_a.dtype == q.dtype
+        w = np.asarray(w.astype(jnp.float32))
+        _close(_np(got_p), w, tol)
+        _close(_np(got_a), w, tol)
+
+
+@pytest.mark.parametrize("requires_grad", [False, True])
+def test_flash_attention_autograd_path_on_the_cpu(requires_grad):
+    """A tensor that requires a gradient reaches the autograd function (its
+    backward is ``flash_attention_bwd``, the plain version on the CPU, bit
+    for bit); one that does not, or one under ``no_grad``, takes the plain
+    forward with no graph.  Neither launches anything on the CPU."""
+    (_, _, _, _), (q, k, v, do), scale = _attn_inputs((2, 64, 2, 3, 16),
+                                                      "float32", 3)
+    launches = (fa_ops.flash_attention.launches,
+                fa_ops.flash_attention_bwd.launches)
+    leaves = [t.requires_grad_(requires_grad) for t in (q, k, v)]
+    out = fa_ops.flash_attention(*leaves, scale)
+    assert torch.equal(out.detach(),
+                       fa_ops.flash_attention_plain(q, k, v, scale))
+    if requires_grad:
+        assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+        got = torch.autograd.grad(out, leaves, do)
+        want = fa_ops.flash_attention_bwd_plain(q, k, v, out.detach(), do,
+                                                scale)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        with torch.no_grad():
+            assert fa_ops.flash_attention(*leaves, scale).grad_fn is None
+    else:
+        assert out.grad_fn is None
+    assert (fa_ops.flash_attention.launches,
+            fa_ops.flash_attention_bwd.launches) == launches
+
+
+def test_flash_attention_bwd_refuses_bad_shapes():
+    (_, _, _, _), (q, k, v, do), scale = _attn_inputs((1, 64, 2, 1, 16),
+                                                      "float32", 0)
+    with pytest.raises(ValueError, match="dout"):
+        fa_ops.flash_attention_bwd(q, k, v, q, do[:, :32], scale)
+    with pytest.raises(ValueError, match="out"):
+        fa_ops.flash_attention_bwd(q, k, v, q.bfloat16(), do, scale)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("S,chunk", [(50, 16), (48, 16), (20, 64)])
+def test_chunked_cross_entropy_matches_jax(S, chunk):
+    """CE with -1 labels (skipped) over full chunks and a remainder chunk,
+    and its gradients with respect to h and the head, against JAX's."""
+    cfg = smoke_arch("llama3.2-3b").replace(loss_chunk=chunk)
+    jcfg = j_smoke_arch("llama3.2-3b").replace(loss_chunk=chunk)
+    rng = np.random.default_rng(S)
+    h = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    w = (0.1 * rng.standard_normal((cfg.d_model, cfg.vocab_size))
+         ).astype(np.float32)
+    y = rng.integers(0, cfg.vocab_size, (2, S)).astype(np.int32)
+    y[0, :5] = -1
+    y[1, -3:] = -1
+    jl, (jgh, jgw) = jax.value_and_grad(
+        lambda a, b: j_layers.chunked_cross_entropy(jcfg, a, b, jnp.asarray(y)),
+        argnums=(0, 1))(jnp.asarray(h), jnp.asarray(w))
+    th, tw = (torch.from_numpy(a).requires_grad_(True) for a in (h, w))
+    tl = t_layers.chunked_cross_entropy(cfg, th, tw, torch.from_numpy(y))
+    gh, gw = torch.autograd.grad(tl, (th, tw))
+    _close(float(tl.detach()), float(jl), 1e-6)
+    _close(_np(gh), np.asarray(jgh), TOL)
+    _close(_np(gw), np.asarray(jgw), TOL)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m"])
+def test_lm_loss_and_gradients_match_jax(arch):
+    """``lm_loss`` (CE + 0.01 aux, {"ce", "aux"}) at smoke width on a
+    token-stream batch: the loss 1e-5, every gradient leaf 1e-3 of its
+    norm (mamba through K8's plain version)."""
+    jcfg, cfg, jp, tp = _carried(arch)
+    batch = _batches(cfg, 1)[0]
+    (jl, jaux), jg = jax.value_and_grad(
+        lambda p: j_tf.lm_loss(jcfg, p, {k: jnp.asarray(v)
+                                         for k, v in batch.items()}),
+        has_aux=True)(jp)
+    leaves = tree_leaves(tp)
+    for p in leaves:
+        p.requires_grad_(True)
+    tl, taux = t_tf.lm_loss(cfg, tp, {k: torch.from_numpy(v)
+                                      for k, v in batch.items()})
+    grads = torch.autograd.grad(tl, leaves)
+    _close(float(tl.detach()), float(jl))
+    _close(float(taux["ce"]), float(jaux["ce"]))
+    assert float(taux["aux"]) == float(jaux["aux"]) == 0.0
+    want = flatten_tree(jg)
+    got = dict(zip(_flat_keys(tp), (_np(g) for g in grads)))
+    assert set(got) == set(want)
+    for key in want:
+        _norm_close(got[key], np.asarray(want[key]), 1e-3)
+
+
+def _flat_keys(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [k for n, v in tree.items()
+                for k in _flat_keys(v, f"{prefix}{n}/")]
+    return [prefix.rstrip("/")]
+
+
+# ---------------------------------------------------------------------------
+# the train step under each optimizer option
+# ---------------------------------------------------------------------------
+
+OPTIONS = {"default": {}, "microbatch": {"microbatch": 2},
+           "loss_scale": {"loss_scale": 128.0},
+           "bf16_moments": {"opt_dtype": "bfloat16"},
+           "grad_compress": {"grad_compress": True}}
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_three_train_steps_match_jax(option):
+    """Three steps of ``make_train_step`` against JAX's on the same token
+    batches from the same weights: loss and grad_norm of every step 1e-5 /
+    1e-4, lr exactly, every parameter leaf (and moment, and compression
+    residual) after step 3 within 1e-4 of its norm; with compression, the
+    moments and the residual may differ in one element a leaf by an int8
+    quantum."""
+    kw = dict(learning_rate=3e-3, warmup_steps=1, total_steps=10,
+              **OPTIONS[option])
+    jtc, tc = JTrainConfig(**kw), TrainConfig(**kw)
+    jcfg, cfg, jp, tp = _carried("llama3.2-3b", seed=1)
+    jstate = j_adamw_init(jp, jtc)
+    state = adamw_init(tp, tc)
+    jstep = jax.jit(j_make_train_step(jcfg, jtc))
+    step = make_train_step(cfg, tc)
+    for batch in _batches(cfg, 3, B=4, S=32, seed=2):
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        state, m = step(state, {k: torch.from_numpy(v)
+                                for k, v in batch.items()})
+        assert set(m) == set(jm)
+        _close(float(m["loss"]), float(jm["loss"]))
+        _close(float(m["grad_norm"]), float(jm["grad_norm"]), 1e-4)
+        assert m["lr"] == float(jm["lr"])
+    assert state.step == int(jstate.step) == 3
+    for name in ("params", "mu", "nu", "compress_err"):
+        jt, tt = getattr(jstate, name), getattr(state, name)
+        assert (jt is None) == (tt is None)
+        if tt is None:
+            continue
+        want = flatten_tree(jt)
+        got = dict(zip(_flat_keys(tt), tree_leaves(tt)))
+        for key in want:
+            assert got[key].dtype == getattr(torch, str(want[key].dtype))
+            g, w = _np(got[key]), want[key].astype(np.float32)
+            if name != "params" and tc.grad_compress:
+                # an element whose (grad + residual) / scale lands on
+                # either side of a rounding boundary in the two packages
+                # takes another int8 code: its residual and moments move
+                # by a quantum; at most one such element a leaf.  The
+                # residual is at most half a quantum, 1/254 of the
+                # gradient's scale: 2e-3 of its largest element is 8e-6 of
+                # the gradient's
+                tol = 2e-3 if name == "compress_err" else 1e-4
+                off = np.abs(g - w) > tol * np.abs(w).max()
+                assert int(off.sum()) <= 1, (name, key, int(off.sum()))
+                continue
+            # a bf16 moment may sit one bf16 rounding (2^-8) from JAX's
+            # where the float32 values on either side of it differ by an ulp
+            tol = 2 ** -8 if got[key].dtype == torch.bfloat16 else 1e-4
+            _norm_close(g, w, tol)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m"])
+def test_prefill_and_decode_steps_match_jax(arch):
+    """``make_prefill_step`` (logits, caches and next index) and
+    ``make_decode_step`` (one token from a fresh decode state) against
+    JAX's, 1e-5."""
+    jcfg, cfg, jp, tp = _carried(arch)
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    jl, jstate = j_steps.make_prefill_step(jcfg)(jp, {"tokens":
+                                                      jnp.asarray(toks)})
+    tl, tstate = t_steps.make_prefill_step(cfg)(tp, {"tokens":
+                                                     torch.from_numpy(toks)})
+    _close(_np(tl), np.asarray(jl))
+    assert tstate["index"] == int(jstate["index"]) == 64
+    want = flatten_tree(jstate["caches"])
+    got = dict(zip(_flat_keys(tstate["caches"]),
+                   tree_leaves(tstate["caches"])))
+    assert set(got) == set(want)
+    for key in want:
+        _close(_np(got[key]), np.asarray(want[key], np.float32))
+    tok = toks[:, :1]
+    jl, _ = j_steps.make_decode_step(jcfg)(
+        jp, j_tf.init_decode_state(jcfg, 2, 8), {"tokens": jnp.asarray(tok)})
+    tl, ts = t_steps.make_decode_step(cfg)(
+        tp, t_tf.init_decode_state(cfg, 2, 8), {"tokens": torch.from_numpy(tok)})
+    _close(_np(tl), np.asarray(jl))
+    assert ts["index"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the CLI
+# ---------------------------------------------------------------------------
+
+LINE = re.compile(r"^\[train\] step +(\d+) loss=\d+\.\d{4} gnorm=\d+\.\d{2} "
+                  r"lr=\d\.\d{2}e[-+]\d{2} \d+ms$")
+
+
+def _cli(argv, capsys):
+    out = {}
+    assert train_mod.main(["--arch", "llama3.2-3b", "--smoke", "--device",
+                           "cpu", "--batch", "2", "--seq-len", "32",
+                           "--log-every", "2", *argv], out=out) == 0
+    return out, capsys.readouterr().out.splitlines()
+
+
+def test_train_cli_prints_jax_lines(capsys):
+    """``--smoke --device cpu``: one ``[train] step`` line every
+    ``--log-every`` steps and at the last, as JAX's launcher prints them,
+    then the ``done`` line; the loss is finite."""
+    out, lines = _cli(["--steps", "5"], capsys)
+    steps = [int(LINE.match(ln).group(1)) for ln in lines
+             if ln.startswith("[train] step")]
+    assert steps == [0, 2, 4]
+    assert all(LINE.match(ln) for ln in lines
+               if ln.startswith("[train] step"))
+    assert lines[-1].startswith("[train] done: 5 steps in ")
+    assert [r["step"] for r in out["steps"]] == list(range(5))
+    assert all(np.isfinite(float(r["loss"])) for r in out["steps"])
+    assert out["state"].step == 5
+
+
+def test_train_cli_resume_equals_the_uninterrupted_run(tmp_path, capsys):
+    """Six steps against three steps, then ``--resume auto`` to six from
+    the checkpoint (the token stream skipped to step 3): the losses of
+    steps 3-5 and the final params, moments and step bit-equal."""
+    whole, _ = _cli(["--steps", "6", "--checkpoint-dir",
+                     str(tmp_path / "a")], capsys)
+    _cli(["--steps", "3", "--checkpoint-dir", str(tmp_path / "b")], capsys)
+    resumed, lines = _cli(["--steps", "6", "--checkpoint-dir",
+                           str(tmp_path / "b"), "--resume", "auto"], capsys)
+    assert "[train] resumed from step 3" in lines
+    assert resumed["start_step"] == 3
+    assert [float(r["loss"]) for r in resumed["steps"]] == \
+        [float(r["loss"]) for r in whole["steps"][3:]]
+    a, b = whole["state"], resumed["state"]
+    assert a.step == b.step == 6
+    for name in ("params", "mu", "nu"):
+        for x, y in zip(tree_leaves(getattr(a, name)),
+                        tree_leaves(getattr(b, name))):
+            assert x.dtype == y.dtype and torch.equal(x.detach(), y.detach())
+
+
+def test_train_cli_refuses_a_mesh():
+    with pytest.raises(NotImplementedError, match="A9b"):
+        train_mod.main(["--arch", "llama3.2-3b", "--smoke", "--device", "cpu",
+                        "--mesh", "pod"])
+
+
+# ---------------------------------------------------------------------------
+# no gradient on the card bypasses a kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,missing", [
+    ("mamba2-780m", "N2"), ("jamba-v0.1-52b", "A14"), ("dbrx-132b", "A14")])
+def test_training_refuses_ssm_and_moe_archs_on_the_card(arch, missing,
+                                                        monkeypatch):
+    """The launcher raises before it draws weights or takes a step on the
+    card for an arch with SSM (K8 has no backward kernel: N2) or MoE (A14)
+    layers; the CPU trains the SSM archs."""
+    cfg = smoke_arch(arch)
+    with pytest.raises(NotImplementedError, match=missing):
+        t_tf.require_trainable(cfg, "cuda")
+    monkeypatch.setattr(train_mod, "resolve_device",
+                        lambda d: torch.device("cuda"))
+    monkeypatch.setattr(train_mod, "TokenStream", None)   # never reached
+    with pytest.raises(NotImplementedError, match=missing):
+        train_mod.main(["--arch", arch, "--smoke", "--steps", "1"])
+    if missing == "N2":
+        t_tf.require_trainable(cfg, "cpu")
+    t_tf.require_trainable(smoke_arch("llama3.2-3b"), "cuda")

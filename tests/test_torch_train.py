@@ -56,6 +56,8 @@ from repro_torch.core.train import (
 )
 from repro_torch.interop import params_from_jax, params_to_numpy
 from repro_torch.optim import SCHEDULES, TrainConfig, adamw_update
+from repro_torch.optim import TrainState as TTrainState
+from repro_torch.optim import adamw_init
 from repro_torch.sampling import evaluate, get_method
 from repro_torch.tracing.programs import get_program
 
@@ -192,8 +194,9 @@ def test_adamw_update_matches_jax(step, loss_scale):
                    *({k: jnp.asarray(v) for k, v in d.items()}
                      for d in (params, mu, nu))), jt)
     tp, tm, tn = ({k: _t(v) for k, v in d.items()} for d in (params, mu, nu))
-    m = adamw_update(tp, {k: _t(v) for k, v in grads.items()}, tm, tn, step,
-                     tcfg)
+    ts, m = adamw_update({k: _t(v) for k, v in grads.items()},
+                         TTrainState(step, tp, tm, tn), tcfg)
+    assert ts.step == step + 1
     assert float(jm["grad_norm"]) > 1.0                 # clipping active
     _scale_close(float(m["grad_norm"]), float(jm["grad_norm"]), 1e-6)
     _scale_close(m["lr"], float(jm["lr"]), 1e-6)
@@ -303,30 +306,64 @@ def test_three_steps_match_jax_engine(jparams):
     every step and every parameter after step 3 within 1e-4."""
     tc = GCLTrainConfig()
     jopt = JGCLTrainConfig().opt
-    assert dataclasses.asdict(tc.opt) == {
-        k: v for k, v in dataclasses.asdict(jopt).items()
-        if k in dataclasses.asdict(tc.opt)}
+    assert dataclasses.asdict(tc.opt) == dataclasses.asdict(jopt)
+    _three_engine_steps(jparams, tc.opt, jopt)
+
+
+@pytest.mark.parametrize("option", [{"grad_compress": True},
+                                    {"opt_dtype": "bfloat16"}],
+                         ids=["grad_compress", "bf16_moments"])
+def test_three_steps_with_jax_optimizer_options(jparams, option):
+    """The fit's step takes JAX's optimizer options as JAX's fit does (its
+    ``apply_gradients``): int8 error-feedback compression and bf16
+    moments, three steps on JAX's draws within 1e-4 (bf16 moments: plus
+    what one moment rounding can move a parameter), the residual and the
+    moments in their dtypes."""
+    opt = dataclasses.replace(GCLTrainConfig().opt, **option)
+    jopt = dataclasses.replace(JGCLTrainConfig().opt, **option)
+    state, tstate = _three_engine_steps(jparams, opt, jopt)
+    assert (tstate.compress_err is None) == (state.compress_err is None)
+    want_dt = jnp.dtype(jopt.opt_dtype)
+    assert all(str(v.dtype) == f"torch.{want_dt}"
+               for v in tstate.mu.values())
+    if tstate.compress_err is not None:
+        assert all(v.dtype == torch.float32
+                   for v in tstate.compress_err.values())
+
+
+def _three_engine_steps(jparams, opt, jopt):
     step = jax.jit(_engine_fns(JRC, jopt, TAU, None).step)
     from repro.optim.adamw import adamw_init as jax_adamw_init
 
     state = jax_adamw_init(jparams, jopt)
     enc = _encoder(jparams)
-    params = dict(enc.named_parameters())
-    mu = {k: torch.zeros_like(p) for k, p in params.items()}
-    nu = {k: torch.zeros_like(p) for k, p in params.items()}
+    tstate = adamw_init(dict(enc.named_parameters()), opt)
     base = jax.random.PRNGKey(3)
     for i, idx in enumerate([[0, 1, 2, 3], [4, 5, 6, 7], [1, 3, 8, 9]]):
         packed = _packed(idx)
         key = jax.random.fold_in(base, i)
         state, jm = step(state, _jb(packed), key)
-        got = train_step(enc, RC, TAU, tc.opt, _tb(packed),
-                         _jax_draws(key, packed), mu, nu, i)
+        tstate, got = train_step(enc, RC, TAU, opt, _tb(packed),
+                                 _jax_draws(key, packed), tstate)
         for j, k in enumerate(METRIC_KEYS):
             _scale_close(float(got[j]), float(jm[k]), 1e-4)
     want = flatten_tree(state.params)
     got = params_to_numpy(enc)
+    # a bf16 moment one rounding (2^-8) from JAX's, where the float32
+    # values on either side of it differ by an ulp, moves that element's
+    # update by up to 2^-8 of its size (|update| <= ~1 in Adam's first
+    # steps): at most 2^-8 x the sum of the rates, absolutely
+    lrs = [SCHEDULES[opt.schedule](t, base_lr=opt.learning_rate,
+                                   total_steps=opt.total_steps,
+                                   warmup_steps=opt.warmup_steps)
+           for t in (1, 2, 3)]
+    flip = 2 ** -8 * sum(lrs) if opt.opt_dtype == "bfloat16" else 0.0
     for k in want:
-        _scale_close(got[k], want[k], 1e-4)
+        w = np.asarray(want[k], np.float64)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(got[k], w, rtol=1e-4,
+                                   atol=1e-4 * scale + flip)
+    return state, tstate
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +426,28 @@ def test_interrupt_resume_bit_exact(tmp_path):
     assert len(i_full["history"]) == 8
     assert i_full["val_loss"] == i_res["val_loss"]
     assert i_full["host_syncs"] == 3 + 1         # ceil(8 / 3) flushes + val
+
+
+def test_resume_carries_the_optimizer_options_state(tmp_path):
+    """With int8 compression and bf16 moments the checkpoint carries the
+    error residual (float32) and the moments (bfloat16, as their bits), so
+    a resumed fit still equals the uninterrupted one bit for bit."""
+    opt = dataclasses.replace(_tc().opt, grad_compress=True,
+                              opt_dtype="bfloat16")
+    tc = _tc(checkpoint_every=3, opt=opt)
+    full, i_full = ContrastiveTrainer(RC, tc, device="cpu").fit(GRAPHS)
+    ck = str(tmp_path / "ck")
+    with pytest.raises(FitInterrupted):
+        ContrastiveTrainer(RC, tc, device="cpu").fit(
+            GRAPHS, checkpoint_dir=ck, interrupt_after=5)
+    tree, _ = CheckpointManager(ck).restore_tree()
+    assert "compress_err" in tree["state"]
+    res, i_res = ContrastiveTrainer(RC, tc, device="cpu").fit(
+        GRAPHS, checkpoint_dir=ck)
+    assert i_res["resumed_from"] == 5
+    a, b = params_to_numpy(full), params_to_numpy(res)
+    assert all(np.array_equal(a[k], b[k]) for k in a)
+    assert i_full["history"] == i_res["history"]
 
 
 def test_resume_refuses_foreign_seed(tmp_path):
