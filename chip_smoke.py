@@ -13,8 +13,9 @@ Phases, each reported on its own lines:
             paths (K1 rgcn_fused, K2 kmeans_assign_fused, K3
             silhouette_sums, K5 rgcn_spmm_flat, K1b rgcn_fused_bwd, K6
             rgcn_spmm_dense, K4 kmeans_assign, K7 flash_attention, K8
-            ssd_intra_chunk, K7b flash_attention_bwd) against its plain
-            PyTorch version on the card
+            ssd_intra_chunk, K7b flash_attention_bwd, K8b
+            ssd_intra_chunk_bwd) against its plain PyTorch version on the
+            card
             at the main-path shapes (K5 / K1b at the embed path's first
             micro-batch and the fit's bucket, D 64 / 128, f32 and bf16,
             equal bits on a repeat, the table rows from the fit's bucket at
@@ -36,7 +37,11 @@ Phases, each reported on its own lines:
             3b's training shape (8, 256, 8, 3, 128), its table row, and the
             prefill shape, f32 (1e-4) and bf16, a repeat bit-equal, with the
             backward of scaled_dot_product_attention as its library call;
-            K8 also at mamba's smoke shape and a single 64-row chunk), with
+            K8 also at mamba's smoke shape and a single 64-row chunk; K8b
+            at mamba's smoke training shape, mamba2-780m's training shape
+            (8, 1, 256, 48, 64, 128), its table row, and the prefill shape,
+            with a random dy and nonzero dstates, f32 within 1e-4, a repeat
+            bit-equal, its ptxas registers and spills), with
             its time, the plain version's, one library call's where there
             is one, and the least time the card could take (bound); K1 and
             K8, whose float32 products run as 3xTF32 on the tensor cores,
@@ -149,19 +154,22 @@ Phases, each reported on its own lines:
             depth and in f32 at 4 layers, with 8 decode steps profiled for
             the step's device / host split, and one bf16 mamba prefill
             (4 x 2048) profiled for its top device ops and K8's share;
-14. lm_train ``repro_torch.launch.train.main`` for llama3.2-3b at full width
-            and depth (28 layers, JAX's CLI defaults: batch 8 x 256 tokens,
-            lr 3e-4, 20 warmup steps), 30 steps: step ms (median after the
+14. lm_train ``repro_torch.launch.train.main`` at full width and depth
+            and JAX's CLI defaults (batch 8 x 256 tokens, lr 3e-4, 20
+            warmup steps) for llama3.2-3b (28 layers, 30 steps) and
+            mamba2-780m (48 layers, 20 steps): step ms (median after the
             first), steps/s, tokens/s, peak memory, the loss of the first
-            and last steps (finite and falling), K7 and K7b once per layer
-            a step (these counts are K7b's ``launches``); 2 more steps
-            under torch.profiler (busy share, the device time split into
-            K7, K7b, matmuls, copies and the rest); then 8 steps at
-            full width and 2 layers against 4 steps, a checkpoint and
-            ``--resume auto`` (losses, params and moments bit-equal); then
-            one step at smoke width, 2 layers, f32, on the card and on the
-            CPU (loss 1e-5, every gradient leaf 1e-3 and every parameter
-            leaf after the update 1e-4 of its norm).
+            and last steps (finite and falling), K7 and K7b (llama) or K8
+            and K8b (mamba) once per layer a step and the other pair never
+            (these counts are K7b's and K8b's ``launches``); 2 more steps of
+            each under torch.profiler (busy share, the device time split
+            into K7, K7b, K8, K8b, matmuls, copies and the rest); then 8
+            llama steps at full width and 2 layers against 4 steps, a
+            checkpoint and ``--resume auto`` (losses, params and moments
+            bit-equal); then one step of each arch at smoke width, 2
+            layers, f32, on the card and on the CPU (loss 1e-5, every
+            gradient leaf 1e-3 and every parameter leaf after the update
+            1e-4 of its norm).
 
 Any mismatch or exception exits non-zero.  The last lines are the kernel
 table as one JSON object (K1's and K8's ``bound_ms`` is their 3xTF32
@@ -290,23 +298,38 @@ LM_PROFILE_STEPS = 8    # decode steps under torch.profiler
 #: the largest element), bfloat16 within one bfloat16 rounding of it
 LLAMA_TRAIN = (8, 256, 8, 3, 128)
 K7B_TOL_F32 = 1e-4
-#: the lm_train phase: ``repro_torch.launch.train.main`` for llama3.2-3b at
-#: full width and JAX's CLI defaults (batch 8 x 256 tokens, lr 3e-4, 20
-#: warmup steps), LM_TRAIN_STEPS steps at LM_TRAIN_LAYERS layers (None: all
-#: 28); then a resume check at full width and RESUME_LAYERS layers (RESUME_
-#: STEPS steps against half of them plus ``--resume auto``), and one step
-#: card vs CPU at smoke width, PARITY_LAYERS layers, float32
+#: K8b (``csrc/ssd_intra_chunk_bwd.cu``): the mamba2-780m training shape
+#: (JAX's CLI defaults, --batch 8 --seq-len 256: one chunk of 256) and the
+#: serving path's prefill shape; within 1e-4 of the plain backward's
+#: largest element (dcum is a difference of row and column sums over the
+#: chunk's triangle, whose terms cancel, summed in other orders)
+MAMBA_TRAIN = (8, 1, 256, 48, 64, 128)
+K8B_TOL = 1e-4
+K8B_KERNELS = {"ssd_bwd_dcb_kernel": 1, "ssd_bwd_dx_kernel": 1,
+               "ssd_bwd_dbc_kernel": 1}
+#: the lm_train phase: ``repro_torch.launch.train.main`` at full width and
+#: JAX's CLI defaults (batch 8 x 256 tokens, lr 3e-4, 20 warmup steps) for
+#: each of LM_TRAIN_RUNS: (arch, steps, the forward and backward wrappers
+#: each of its layers launches once a step); LM_TRAIN_LAYERS layers (None:
+#: all of them); then a resume check of the first arch at full width and
+#: RESUME_LAYERS layers (RESUME_STEPS steps against half of them plus
+#: ``--resume auto``), and one step of each arch card vs CPU at smoke
+#: width, PARITY_LAYERS layers, float32
+LM_TRAIN_RUNS = (
+    ("llama3.2-3b", 30, ("flash_attention", "flash_attention_bwd")),
+    ("mamba2-780m", 20, ("ssd_intra_chunk", "ssd_intra_chunk_bwd")),
+)
 #: how a profiled training step's device time is split (first match wins)
 TRAIN_SPLIT = (
     ("K7 flash_attention", ("flash_attention_wgmma_kernel",)),
     ("K7b flash_attention_bwd", ("k7b_",)),
+    ("K8 ssd_intra_chunk", tuple(K8_KERNELS)),
+    ("K8b ssd_intra_chunk_bwd", tuple(K8B_KERNELS)),
     ("matmuls (cuBLAS / CUTLASS)", ("gemm", "Gemm", "cutlass", "sm90_xmma",
                                     "nvjet", "splitKreduce")),
     ("copies and fills", ("Memcpy", "Memset", "direct_copy")),
 )
 TRAIN_PROFILE_STEPS = 2
-LM_TRAIN_ARCH = "llama3.2-3b"
-LM_TRAIN_STEPS = 30
 LM_TRAIN_LAYERS = None
 RESUME_LAYERS, RESUME_STEPS = 2, 8
 PARITY_LAYERS = 2
@@ -2401,7 +2424,9 @@ def _all_wrappers():
     from repro_torch.kernels.rgcn_spmm.ops import (
         rgcn_spmm_dense, rgcn_spmm_flat,
     )
-    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.ops import (
+        ssd_intra_chunk, ssd_intra_chunk_bwd,
+    )
 
     return {"rgcn_fused_flat": rgcn_fused_agg_flat,
             "rgcn_fused_bwd": rgcn_fused_bwd,
@@ -2414,7 +2439,8 @@ def _all_wrappers():
             "kmeans_assign": kmeans_assign,
             "flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
-            "ssd_intra_chunk": ssd_intra_chunk}
+            "ssd_intra_chunk": ssd_intra_chunk,
+            "ssd_intra_chunk_bwd": ssd_intra_chunk_bwd}
 
 
 def _zero_counts():
@@ -2755,7 +2781,8 @@ def _k8_inputs(dev, B, nc, Q, nh, hp, ds, seed):
 
 def phase_lm_kernels(rows, dev):
     """K7 and K8 against their plain versions at the LM serving path's
-    shapes (llama3.2-3b's and mamba2-780m's prefill) and around them."""
+    shapes (llama3.2-3b's and mamba2-780m's prefill) and around them; K7b
+    and K8b at the training and prefill shapes."""
     import torch
 
     from repro_torch.kernels.flash_attention.ops import (
@@ -2870,6 +2897,82 @@ def phase_lm_kernels(rows, dev):
     rows.append(("ssd_intra_chunk", "src/repro_torch/csrc/ssd_intra_chunk.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:62",
                  ssd_intra_chunk, k8))
+
+    rows.append(_k8b(dev))
+
+
+def _k8b(dev):
+    """K8b (the SSD intra-chunk backward) against its plain version at
+    mamba's smoke training shape, then at mamba2-780m's training shape (the
+    table's row: its time, the plain version's and the bound) and at the
+    prefill shape, with a random dy and a nonzero dstates; a repeat
+    bit-equal."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import (
+        ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_plain,
+    )
+
+    row = None
+    for label, shape in (("smoke train", (8, 8, 32, 8, 16, 16)),
+                         ("train", MAMBA_TRAIN), ("prefill", MAMBA_PREFILL)):
+        B, nc, Q, nh, hp, ds = shape
+        args = _k8_inputs(dev, B, nc, Q, nh, hp, ds, nc + 1)
+        g = torch.Generator(device=dev).manual_seed(nc + 2)
+        dy = torch.randn((B, nc, Q, nh, hp), generator=g, device=dev)
+        dst = torch.randn((B, nc, nh, hp, ds), generator=g, device=dev)
+        got = ssd_intra_chunk_bwd(*args, dy, dst)
+        torch.cuda.synchronize()
+        want = ssd_intra_chunk_bwd_plain(*args, dy, dst)
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        del want
+        err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+        require(rel <= K8B_TOL, f"K8b {label}: rel err {rel:.3e} > "
+                f"{K8B_TOL} (dx, dcum, ddt, dBc, dCc: "
+                + ", ".join(f"{r:.2e}" for _, r in errs) + ")")
+        again = ssd_intra_chunk_bwd(*args, dy, dst)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"K8b {label}: two launches differ")
+        del again
+        tri = Q * (Q + 1) // 2
+        # dw and w^T dy over the triangle, u = B dst^T and (sd x)^T dst,
+        # dsd and the elementwise work on the triangle, per head; CB, dC
+        # and dB's CB term per chunk
+        ops = B * nc * (3 * 2 * ds * tri + nh * (
+            4 * hp * tri + 4 * Q * ds * hp + 2 * Q * hp + 6 * tri))
+        bytes_ = 4 * (3 * B * nc * Q * nh * hp + 4 * B * nc * nh * Q
+                      + 4 * B * nc * Q * ds + B * nc * nh * hp * ds)
+        b_ms, b_by = bound(bytes_, ops)
+        extra = ""
+        if label != "smoke train":
+            call = lambda: ssd_intra_chunk_bwd(*args, dy, dst)  # noqa: E731
+            ms = device_ms(call, 5, own=K8B_KERNELS)
+            call_ms = time_ms(call, 10)
+            extra = (f"; kernel device ms {ms.own:.4f} [{ms.source}] (call "
+                     f"ms {call_ms:.4f})")
+            if label == "train":
+                plain = device_ms(lambda: ssd_intra_chunk_bwd_plain(
+                    *args, dy, dst), 3)
+                extra += (f" plain device ms {plain.total:.4f} "
+                          f"[{plain.source}]")
+                row = dict(err=err, ms=ms.own, plain_ms=plain.total,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            extra += (f" achieved {ops / ms.own / 1e9:.2f} TFLOP/s, "
+                      f"{b_ms / ms.own:.3f} of the bound")
+        log(f"[kernels] K8b ssd_intra_chunk_bwd {label} (B, nc, Q, nh, hp, "
+            f"ds) = {shape}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+            f"{K8B_TOL}; dx, dcum, ddt, dBc, dCc "
+            + ", ".join(f"{r:.2e}" for _, r in errs)
+            + f"), repeat bit-equal{extra}; bound ms {b_ms:.4f} ({b_by}, "
+            f"float32 FMAs; {ops:.3e} ops, {bytes_ / 1e6:.1f} MB)")
+        del args, dy, dst, got
+        torch.cuda.empty_cache()
+    log(f"[kernels] K8b ptxas: {ptxas_report('ssd_bwd_dcb_kernel')}; "
+        f"{ptxas_report('ssd_bwd_dx_kernel')}; "
+        f"{ptxas_report('ssd_bwd_dbc_kernel')}")
+    return ("ssd_intra_chunk_bwd",
+            "src/repro_torch/csrc/ssd_intra_chunk_bwd.cu",
+            "src/repro/kernels/ssd_scan/ops.py:66", ssd_intra_chunk_bwd, row)
 
 
 def _k7b_check(dev, shape, dt, seed):
@@ -3189,8 +3292,8 @@ def phase_lm_serve(dev):
     return counts
 
 
-def _train_parity(dev):
-    """One train step of llama3.2-3b at smoke width, PARITY_LAYERS layers,
+def _train_parity(dev, arch):
+    """One train step of ``arch`` at smoke width, PARITY_LAYERS layers,
     float32, batch 8 x 256, on the card and on the CPU in this process from
     the same weights and batch: the loss within LOSS_TOL, every gradient
     leaf within GRAD_TOL of its norm, the parameters after the update
@@ -3205,7 +3308,7 @@ def _train_parity(dev):
     from repro_torch.optim import adamw_init
     from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 
-    cfg = smoke_arch(LM_TRAIN_ARCH).replace(num_layers=PARITY_LAYERS)
+    cfg = smoke_arch(arch).replace(num_layers=PARITY_LAYERS)
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=20, total_steps=30)
     B, S = LLAMA_TRAIN[:2]
     host = tf.init_params(cfg, torch.Generator().manual_seed(0),
@@ -3234,23 +3337,25 @@ def _train_parity(dev):
 
     loss_gap = abs(l_card - l_cpu) / abs(l_cpu)
     grad_gap, param_gap = worst(g_card, g_cpu), worst(p_card, p_cpu)
-    log(f"[lm_train] step parity ({LM_TRAIN_ARCH} smoke width, "
+    log(f"[lm_train] step parity ({arch} smoke width, "
         f"{PARITY_LAYERS} layers, f32, batch {B}x{S}): loss card {l_card:.7f} "
         f"cpu {l_cpu:.7f} rel gap {loss_gap:.3e} (tol {LOSS_TOL}); worst "
         f"gradient leaf |card - cpu| / |cpu| {grad_gap:.3e} (tol "
         f"{GRAD_TOL}); worst parameter leaf after the update {param_gap:.3e} "
         f"(tol {PARAM_TOL})")
-    require(loss_gap <= LOSS_TOL, f"lm_train parity: loss gap {loss_gap:.3e}")
-    require(grad_gap <= GRAD_TOL, f"lm_train parity: gradient gap "
+    require(loss_gap <= LOSS_TOL, f"lm_train parity {arch}: loss gap "
+            f"{loss_gap:.3e}")
+    require(grad_gap <= GRAD_TOL, f"lm_train parity {arch}: gradient gap "
             f"{grad_gap:.3e}")
-    require(param_gap <= PARAM_TOL, f"lm_train parity: parameter gap "
-            f"{param_gap:.3e}")
+    require(param_gap <= PARAM_TOL, f"lm_train parity {arch}: parameter "
+            f"gap {param_gap:.3e}")
 
 
-def _profile_train_steps(cfg, state, dev):
-    """TRAIN_PROFILE_STEPS more steps of the trained state under
-    torch.profiler: wall and device busy time a step, the split of the
-    device time (K7, K7b, matmuls, copies, the rest) and the top ops."""
+def _profile_train_steps(cfg, state, dev, steps):
+    """TRAIN_PROFILE_STEPS more steps of the state trained ``steps`` steps,
+    under torch.profiler: wall and device busy time a step, the split of
+    the device time (K7, K7b, K8, K8b, matmuls, copies, the rest) and the
+    top ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3261,9 +3366,9 @@ def _profile_train_steps(cfg, state, dev):
     B, S = LLAMA_TRAIN[:2]
     step = make_train_step(cfg, TrainConfig(learning_rate=3e-4,
                                             warmup_steps=20,
-                                            total_steps=LM_TRAIN_STEPS))
+                                            total_steps=steps))
     data = TokenStream(cfg.vocab_size, S, B, seed=0)
-    data.skip(LM_TRAIN_STEPS)
+    data.skip(steps)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in
                 data.next().items()} for _ in range(TRAIN_PROFILE_STEPS)]
     torch.cuda.synchronize()
@@ -3281,14 +3386,14 @@ def _profile_train_steps(cfg, state, dev):
         kind = next((k for k, marks in TRAIN_SPLIT
                      if any(m in key for m in marks)),
                     "other (elementwise, reductions: norms, RoPE, softmax "
-                    "CE, casts, AdamW)")
+                    "CE, casts, AdamW, the SSD scan's torch ops)")
         t0, n0 = split.get(kind, (0.0, 0))
         split[kind] = (t0 + t / 1e6 / TRAIN_PROFILE_STEPS,
                        n0 + count // TRAIN_PROFILE_STEPS)
     ops = sum(c for _, _, c in top) / TRAIN_PROFILE_STEPS
-    log(f"[lm_train] profiled {TRAIN_PROFILE_STEPS} steps: {wall * 1e3:.2f} "
-        f"ms a step, device busy {busy * 1e3:.2f} ms a step (busy share "
-        f"{busy / wall:.3f}), ~{ops:.0f} device ops a step")
+    log(f"[lm_train] {cfg.arch_id} profiled {TRAIN_PROFILE_STEPS} steps: "
+        f"{wall * 1e3:.2f} ms a step, device busy {busy * 1e3:.2f} ms a step "
+        f"(busy share {busy / wall:.3f}), ~{ops:.0f} device ops a step")
     for kind, (t, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
         log(f"[lm_train]   split {t * 1e3:9.3f} ms/step {100 * t / busy:5.1f} "
             f"%  x{n:<6d} {kind}")
@@ -3309,7 +3414,8 @@ def _train_resume(dev):
     from repro_torch.launch.train import main as train_main
     from repro_torch.optim.adamw import tree_leaves
 
-    base = ["--arch", LM_TRAIN_ARCH, "--num-layers", str(RESUME_LAYERS),
+    arch = LM_TRAIN_RUNS[0][0]
+    base = ["--arch", arch, "--num-layers", str(RESUME_LAYERS),
             "--log-every", str(RESUME_STEPS)]
     half = RESUME_STEPS // 2
     with tempfile.TemporaryDirectory() as tmp:
@@ -3328,7 +3434,7 @@ def _train_resume(dev):
                         tree_leaves(getattr(a, name)),
                         tree_leaves(getattr(b, name))))
     n = sum(p.numel() for p in tree_leaves(a.params))
-    log(f"[lm_train] resume ({LM_TRAIN_ARCH} full width, {RESUME_LAYERS} "
+    log(f"[lm_train] resume ({arch} full width, {RESUME_LAYERS} "
         f"layers, {n / 1e6:.1f} M params): {RESUME_STEPS} steps vs {half} + "
         f"--resume auto from step {resumed['start_step']}: losses "
         f"bit-equal {loss_eq}, params / moments bit-equal {leaves_eq}, step "
@@ -3338,11 +3444,11 @@ def _train_resume(dev):
             "lm_train resume: the resumed run differs")
 
 
-def phase_lm_train(dev):
-    """This slice's main path: ``repro_torch.launch.train.main`` for
-    llama3.2-3b at full width, K7 and K7b once per attention layer a step;
-    then the resume check and step parity with the CPU.  Returns the train
-    run's launch counts."""
+def _train_run(dev, arch, steps, pair):
+    """``repro_torch.launch.train.main`` for ``arch`` at full width,
+    ``steps`` steps: the forward and backward wrappers of ``pair`` once per
+    layer a step, the other LM wrappers never; then TRAIN_PROFILE_STEPS
+    profiled steps.  Returns the run's launch counts."""
     import statistics
 
     import torch
@@ -3351,10 +3457,9 @@ def phase_lm_train(dev):
     from repro_torch.launch.train import main as train_main
     from repro_torch.optim.adamw import tree_leaves
 
-    cfg = get_arch(LM_TRAIN_ARCH)
+    cfg = get_arch(arch)
     layers = LM_TRAIN_LAYERS or cfg.num_layers
-    argv = ["--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_STEPS),
-            "--log-every", "5"]
+    argv = ["--arch", arch, "--steps", str(steps), "--log-every", "5"]
     if LM_TRAIN_LAYERS:
         argv += ["--num-layers", str(LM_TRAIN_LAYERS)]
     torch.cuda.empty_cache()
@@ -3368,35 +3473,53 @@ def phase_lm_train(dev):
     losses = [float(r["loss"]) for r in out["steps"]]
     ms = [r["ms"] for r in out["steps"]]
     med = statistics.median(ms[1:])
-    k7, k7b = (counts[k] / LM_TRAIN_STEPS
-               for k in ("flash_attention", "flash_attention_bwd"))
+    lm = [name for _, _, names in LM_TRAIN_RUNS for name in names]
+    per_step = {k: counts[k] / steps for k in lm}
     n = sum(p.numel() for p in tree_leaves(out["state"].params))
     B, S = LLAMA_TRAIN[:2]
-    log(f"[lm_train] {LM_TRAIN_ARCH} full width, {layers} of "
-        f"{cfg.num_layers} layers ({n / 1e9:.3f} B params, f32 params and "
-        f"moments, bf16 compute), batch {B}x{S}: rc {rc}, "
-        f"{LM_TRAIN_STEPS} steps in {wall:.2f} s (weights drawn on the card "
-        f"included); step ms median after the first {med:.2f} (first "
-        f"{ms[0]:.2f}, min {min(ms[1:]):.2f}, max {max(ms[1:]):.2f}), "
-        f"{1e3 / med:.3f} steps/s, {B * S * 1e3 / med:.0f} tokens/s; peak "
-        f"memory {out.get('peak_bytes', 0) / 2**30:.2f} GiB; loss first "
-        f"{losses[0]:.4f} last {losses[-1]:.4f}; K7 {k7:g} and K7b {k7b:g} "
-        f"launches a step (attention layers: {layers})")
-    require(rc == 0, f"lm_train: rc {rc}")
-    require(all(map(math.isfinite, losses)), "lm_train: non-finite loss")
-    require(losses[-1] < losses[0], "lm_train: the loss did not fall")
-    require(k7 == layers and k7b == layers,
-            f"lm_train: K7 / K7b launched {k7:g} / {k7b:g} times a step, "
-            f"not once per attention layer ({layers})")
+    log(f"[lm_train] {arch} full width, {layers} of {cfg.num_layers} layers "
+        f"({n / 1e9:.3f} B params, f32 params and moments, "
+        f"{cfg.compute_dtype} compute), batch {B}x{S}: rc {rc}, {steps} "
+        f"steps in {wall:.2f} s (weights drawn on the card included); step "
+        f"ms median after the first {med:.2f} (first {ms[0]:.2f}, min "
+        f"{min(ms[1:]):.2f}, max {max(ms[1:]):.2f}), {1e3 / med:.3f} "
+        f"steps/s, {B * S * 1e3 / med:.0f} tokens/s; peak memory "
+        f"{out.get('peak_bytes', 0) / 2**30:.2f} GiB; loss first "
+        f"{losses[0]:.4f} last {losses[-1]:.4f}; launches a step: "
+        + ", ".join(f"{k} {v:g}" for k, v in per_step.items())
+        + f" (layers: {layers})")
+    require(rc == 0, f"lm_train {arch}: rc {rc}")
+    require(all(map(math.isfinite, losses)), f"lm_train {arch}: non-finite "
+            f"loss")
+    require(losses[-1] < losses[0], f"lm_train {arch}: the loss did not "
+            f"fall")
+    require(all(per_step[k] == (layers if k in pair else 0) for k in lm),
+            f"lm_train {arch}: launches a step {per_step}, expected "
+            f"{' and '.join(pair)} once per layer ({layers}) and no other")
     cut = cfg if not LM_TRAIN_LAYERS else cfg.replace(
         num_layers=LM_TRAIN_LAYERS)
-    _profile_train_steps(cut, out["state"], dev)
+    _profile_train_steps(cut, out["state"], dev, steps)
     del out
     torch.cuda.empty_cache()
+    return counts
+
+
+def phase_lm_train(dev):
+    """This slice's main path: ``repro_torch.launch.train.main`` at full
+    width for llama3.2-3b (K7 and K7b once per attention layer a step) and
+    mamba2-780m (K8 and K8b once per SSM layer a step); then the resume
+    check and each arch's step parity with the CPU.  Returns the launches
+    of K7b (llama's run) and K8b (mamba's run)."""
+    import torch
+
+    launches = {}
+    for arch, steps, pair in LM_TRAIN_RUNS:
+        launches[pair[1]] = _train_run(dev, arch, steps, pair)[pair[1]]
     _train_resume(dev)
     torch.cuda.empty_cache()
-    _train_parity(dev)
-    return counts
+    for arch, _, _ in LM_TRAIN_RUNS:
+        _train_parity(dev, arch)
+    return launches
 
 
 def main() -> int:
@@ -3452,7 +3575,8 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_fit_serve([r for r in rows if r[0] not in (
         "kmeans_assign", "rgcn_spmm_dense", "flash_attention",
-        "flash_attention_bwd", "ssd_intra_chunk")], dev)
+        "flash_attention_bwd", "ssd_intra_chunk", "ssd_intra_chunk_bwd")],
+        dev)
     log(f"[phase] fit+serve {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     sequential = phase_sequential(dev)
@@ -3471,8 +3595,7 @@ def main() -> int:
     for name in ("flash_attention", "ssd_intra_chunk"):
         launches[name] = lm[name]
     t0 = time.perf_counter()
-    launches["flash_attention_bwd"] = phase_lm_train(dev)[
-        "flash_attention_bwd"]
+    launches.update(phase_lm_train(dev))
     log(f"[phase] lm_train {time.perf_counter() - t0:.2f} s")
     log(f"[phase] total {time.perf_counter() - t_all:.2f} s")
     table = {"kernels": [

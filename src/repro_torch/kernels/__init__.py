@@ -18,7 +18,9 @@ flash_attention
                in the JAX package)
 ssd_scan       K8: the Mamba-2 SSD intra-chunk outputs and chunk states,
                with the inter-chunk recurrence around it in torch
-               (replaces ``repro/kernels/ssd_scan``)
+               (replaces ``repro/kernels/ssd_scan``), as an autograd
+               function whose backward is K8b (``jax.vjp`` of the oracle
+               in the JAX package)
 
 The CUDA C++ sources live in ``repro_torch/csrc/*.cu`` and expose a plain C
 interface (no PyTorch headers), so ``nvcc`` builds them in seconds: one
@@ -73,6 +75,8 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _F, _P],
     "ssd_intra_chunk": [_P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
+    "ssd_intra_chunk_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

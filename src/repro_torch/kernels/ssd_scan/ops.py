@@ -1,25 +1,33 @@
-"""K8 wrapper, its plain PyTorch version, and the SSD chunked scan around
-it (counterpart of ``repro/kernels/ssd_scan/{kernel,ops,ref}.py`` and of
-``ssd_chunked`` in ``repro/models/ssm.py``; forward only on the card).
+"""K8 / K8b wrappers, their plain PyTorch versions, and the SSD chunked
+scan around them (counterpart of ``repro/kernels/ssd_scan/{kernel,ops,
+ref}.py`` and of ``ssd_chunked`` in ``repro/models/ssm.py``).
 
 ``ssd_intra_chunk``        the intra-chunk outputs and chunk states: CUDA
                            tensors launch ``csrc/ssd_intra_chunk.cu`` (its
                            three products as 3xTF32 tensor-core MMAs), CPU
-                           tensors take ``ssd_intra_chunk_plain`` (and
-                           differentiate through it).  K8 has no backward
-                           kernel yet: a CUDA input that requires a
-                           gradient raises ``NotImplementedError``.
+                           tensors take ``ssd_intra_chunk_plain``.  When a
+                           gradient is wanted it runs as a
+                           ``torch.autograd.Function`` (JAX's ``custom_vjp``)
+                           whose backward is ``ssd_intra_chunk_bwd``; it
+                           saves its five inputs.
+``ssd_intra_chunk_bwd``    dx, dcum, ddt, dBc, dCc (JAX's backward is
+                           ``jax.vjp`` of the oracle): CUDA tensors launch
+                           K8b, ``csrc/ssd_intra_chunk_bwd.cu``, CPU tensors
+                           take ``ssd_intra_chunk_bwd_plain``, the gradient
+                           formulas written out in torch ops.
 ``ssd_scan``               the whole scan as the JAX wrapper runs it: the
                            chunked cumulative log-decay, K8, then the
                            inter-chunk recurrence (a loop over the chunks,
                            as JAX's ``lax.scan``) and the inter-chunk output.
+                           Autograd differentiates the torch ops around K8
+                           (the cumsum, the recurrence, the casts).
 ``ssd_chunked``            the plain oracle (``models/ssm.py:ssd_chunked``),
                            with an optional initial state.
 ``ssd_sequential_ref``     the O(S) recurrence, the ground-truth semantics.
 
 Shapes: x (B,S,nh,hp); dt (B,S,nh), already softplus'ed; A (nh,), negative;
 Bc / Cc (B,S,ds), shared over heads.  S must be a multiple of the chunk
-min(chunk, S), as JAX asserts.  The kernel takes chunks of up to 256 rows,
+min(chunk, S), as JAX asserts.  The kernels take chunks of up to 256 rows,
 hp <= 64 and ds <= 128 (every SSM config of the zoo); anything else raises,
 on either device.
 """
@@ -75,22 +83,40 @@ def ssd_intra_chunk_plain(x, cum, dt, Bc, Cc):
 
 def ssd_intra_chunk(x, cum, dt, Bc, Cc):
     """(y_intra, states) as ``ssd_intra_chunk_plain``, through K8 for CUDA
-    tensors."""
+    tensors; differentiable (backward: ``ssd_intra_chunk_bwd``)."""
     _check_intra(x, cum, dt, Bc, Cc)
-    if route(x) == "cpu":
-        return ssd_intra_chunk_plain(x, cum, dt, Bc, Cc)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, cum, dt, Bc, Cc)):
-        raise NotImplementedError(
-            "ssd_intra_chunk: K8 has no backward on the card yet (N2, the "
-            "SSD intra-chunk backward kernel); SSM and hybrid archs train "
-            "on the CPU only")
+        return _SSDIntraChunk.apply(x, cum, dt, Bc, Cc)
+    return _forward(x, cum, dt, Bc, Cc)
+
+
+class _SSDIntraChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cum, dt, Bc, Cc):
+        y, states = _forward(x, cum, dt, Bc, Cc)
+        ctx.save_for_backward(x, cum, dt, Bc, Cc)
+        return y, states
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        x, cum, dt, Bc, Cc = ctx.saved_tensors
+        return ssd_intra_chunk_bwd(x, cum, dt, Bc, Cc, dy.contiguous(),
+                                   dstates.contiguous())
+
+
+def _check_device(dev, **tensors) -> None:
+    for name, t in tensors.items():
+        check(name, t, dtype=torch.float32, shape=tuple(t.shape), device=dev)
+
+
+def _forward(x, cum, dt, Bc, Cc):
+    if route(x) == "cpu":
+        return ssd_intra_chunk_plain(x, cum, dt, Bc, Cc)
     B, nc, Q, nh, hp = x.shape
     ds = Bc.shape[-1]
     dev = x.device
-    for name, t in (("x", x), ("cum", cum), ("dt", dt), ("Bc", Bc),
-                    ("Cc", Cc)):
-        check(name, t, dtype=torch.float32, shape=tuple(t.shape), device=dev)
+    _check_device(dev, x=x, cum=cum, dt=dt, Bc=Bc, Cc=Cc)
     QP = -(-Q // 64) * 64           # CB's scratch: (B*nc, QP, QP) tiles
     cb = torch.empty(B * nc * QP * QP, dtype=torch.float32, device=dev)
     y = torch.empty(B, nc, Q, nh, hp, dtype=torch.float32, device=dev)
@@ -104,6 +130,95 @@ def ssd_intra_chunk(x, cum, dt, Bc, Cc):
 
 #: kernel launches made through this wrapper (CUDA tensors only)
 ssd_intra_chunk.launches = 0
+
+
+def ssd_intra_chunk_bwd_plain(x, cum, dt, Bc, Cc, dy, dstates):
+    """(dx, dcum, ddt, dBc, dCc), float32: the gradients of
+    ``ssd_intra_chunk_plain`` at (x, cum, dt, Bc, Cc) for the output
+    gradients dy (B,nc,Q,nh,hp) and dstates (B,nc,nh,hp,ds), written out.
+    Per (b, c, h), with L[q,s] = exp(cum[q] - cum[s]) for s <= q (else 0,
+    masked before the exp), w = CB L dt[s], E[s] = exp(cum[Q-1] - cum[s]),
+    sd = E dt and u[s,p] = sum_n B[s,n] dst[p,n]:
+
+      dw[q,s]  = dy[q,:] . x[s,:]                    (s <= q)
+      dx[s,:]  = sum_q w[q,s] dy[q,:] + sd[s] u[s,:]
+      g        = dw w;   dsd[s] = x[s,:] . u[s,:]
+      dcum[i]  = sum_s g[i,s] - sum_q g[q,i] - dsd[i] sd[i]
+                 + [i = Q-1] sum_s dsd[s] sd[s]
+      ddt[s]   = sum_q dw[q,s] CB[q,s] L[q,s] + dsd[s] E[s]
+      dCB      = sum_h dw L dt[s];   dC = dCB B
+      dB       = dCB^T C + sum_h (sd x)^T dst
+
+    The diagonal's terms of dcum (q = s; s = Q-1 in the states' term)
+    cancel in exact arithmetic and are kept, as JAX's vjp keeps them."""
+    Q = x.shape[2]
+    CB = torch.einsum("bcqn,bcsn->bcqs", Cc, Bc)[:, :, None]   # (B,nc,1,Q,Q)
+    diff = cum[..., :, None] - cum[..., None, :]               # (B,nc,nh,Q,Q)
+    causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(diff.masked_fill(~causal, NEG_INF))          # mask, then exp
+    dts = dt[..., None, :]                                     # dt[s]
+    w = CB * L * dts
+    dw = torch.einsum("bcqhp,bcshp->bchqs", dy, x)   # used only as dw L
+    E = torch.exp(cum[..., -1:] - cum)                         # (B,nc,nh,Q)
+    sd = E * dt
+    u = torch.einsum("bcsn,bchpn->bcshp", Bc, dstates)         # (B,nc,Q,nh,hp)
+    sd_s = sd.permute(0, 1, 3, 2)[..., None]                   # (B,nc,Q,nh,1)
+    dx = torch.einsum("bchqs,bcqhp->bcshp", w, dy) + sd_s * u
+    dsd = (x * u).sum(-1).permute(0, 1, 3, 2)                  # (B,nc,nh,Q)
+    dwL = dw * L
+    g = dwL * CB * dts
+    dcum = g.sum(-1) - g.sum(-2) - dsd * sd
+    dcum[..., -1] += (dsd * sd).sum(-1)
+    ddt = (dwL * CB).sum(-2) + dsd * E
+    dCB = (dwL * dts).sum(2)                                   # (B,nc,Q,Q)
+    dCc = torch.einsum("bcqs,bcsn->bcqn", dCB, Bc)
+    dBc = torch.einsum("bcqs,bcqn->bcsn", dCB, Cc) + torch.einsum(
+        "bcshp,bchpn->bcsn", x * sd_s, dstates)
+    return dx, dcum, ddt, dBc, dCc
+
+
+def ssd_intra_chunk_bwd(x, cum, dt, Bc, Cc, dy, dstates):
+    """(dx, dcum, ddt, dBc, dCc) of ``ssd_intra_chunk`` at (x, cum, dt, Bc,
+    Cc) for the output gradients dy (y_intra's shape) and dstates (the
+    states'), float32: K8b for CUDA tensors, the plain version on the
+    CPU."""
+    _check_intra(x, cum, dt, Bc, Cc)
+    B, nc, Q, nh, hp = x.shape
+    ds = Bc.shape[-1]
+    for name, t, shape in (("dy", dy, x.shape),
+                           ("dstates", dstates, (B, nc, nh, hp, ds))):
+        if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32:
+            raise ValueError(f"ssd_intra_chunk_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype}, expected "
+                             f"{tuple(shape)} torch.float32")
+    if route(x) == "cpu":
+        return ssd_intra_chunk_bwd_plain(x, cum, dt, Bc, Cc, dy, dstates)
+    dev = x.device
+    _check_device(dev, x=x, cum=cum, dt=dt, Bc=Bc, Cc=Cc, dy=dy,
+                  dstates=dstates)
+    QP = -(-Q // 64) * 64
+    T = QP // 64
+    # CB and dCB over (B*nc, QP, QP); the per-head partial sums of dcum's
+    # rows, dcum's columns and ddt over each 64 x 64 tile, (B*nc*nh, T,
+    # QP) each; sd, (B*nc*nh, QP)
+    scratch = torch.empty(2 * B * nc * QP * QP
+                          + (3 * T + 1) * B * nc * nh * QP,
+                          dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    dcum = torch.empty_like(cum)
+    ddt = torch.empty_like(dt)
+    dBc = torch.empty_like(Bc)
+    dCc = torch.empty_like(Cc)
+    launch("ssd_intra_chunk_bwd", *(t.data_ptr() for t in
+                                    (x, cum, dt, Bc, Cc, dy, dstates, scratch,
+                                     dx, dcum, ddt, dBc, dCc)),
+           B, nc, Q, nh, hp, ds)
+    ssd_intra_chunk_bwd.launches += 1
+    return dx, dcum, ddt, dBc, dCc
+
+
+#: kernel launches made through this wrapper (CUDA tensors only)
+ssd_intra_chunk_bwd.launches = 0
 
 
 def _chunked_inputs(x, dt, A, Bc, Cc, chunk: int):

@@ -17,11 +17,11 @@ Leaves are kept in ``cfg.param_dtype``; JAX casts each matmul weight to
 once (the same numbers), after which every cast here is a no-op.
 
 MoE FFN layers (``repro/models/moe.py``) are a later slice: an arch with an
-``FFN_MOE`` position raises ``NotImplementedError``.  Training on the card
-also refuses SSM layers (``require_trainable``): K8 has no backward kernel
-yet.  Decode caches are updated in place; ``decode_step`` returns the same
-cache tensors and a host int index (the decode loop never syncs with the
-card to advance it).
+``FFN_MOE`` position raises ``NotImplementedError`` (``require_supported``),
+in serving and in training.  On the card, attention layers train through
+K7 / K7b and SSM layers through K8 / K8b.  Decode caches are updated in
+place; ``decode_step`` returns the same cache tensors and a host int index
+(the decode loop never syncs with the card to advance it).
 """
 
 from __future__ import annotations
@@ -48,25 +48,14 @@ COMPUTE_LEAVES = frozenset({
 
 
 def require_supported(cfg: ModelConfig) -> None:
-    """Raise for an arch this slice of the port does not run."""
+    """Raise for an arch this slice of the port neither serves nor trains,
+    on any device: MoE layers.  Attention layers train through K7 / K7b on
+    the card and SSM layers through K8 / K8b; the CPU takes their plain
+    versions."""
     if any(s.ffn == FFN_MOE for s in cfg.layer_specs()):
         raise NotImplementedError(
             f"{cfg.arch_id}: MoE FFN layers (repro/models/moe.py) are not "
             f"ported yet (A14); the port serves the archs without MoE")
-
-
-def require_trainable(cfg: ModelConfig, device) -> None:
-    """Raise for an arch that this slice of the port cannot train on
-    ``device``: MoE anywhere (``require_supported``); on the card, any SSM
-    layer, whose K8 has no backward kernel yet (N2).  The CPU trains SSM
-    and hybrid archs through K8's plain version."""
-    require_supported(cfg)
-    if torch.device(device).type == "cuda" and any(
-            s.mixer != MIXER_ATTN for s in cfg.layer_specs()):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: SSM layers train on the card only with K8's "
-            f"backward kernel (N2, the SSD intra-chunk backward), which is "
-            f"not written yet; train it with --device cpu")
 
 
 def _tree_map(fn, tree):

@@ -928,26 +928,153 @@ def test_flash_attention_bwd_kernel_matches_plain(shape, dtype):
     assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
+#: K8b against its plain version: 1e-4 of the largest element, since dcum
+#: is a difference of row and column sums over the (Q, Q) triangle whose
+#: terms cancel, summed in other orders by the kernel and the plain version
+K8B_TOL = 1e-4
+
+
+def _k8b_inputs(dev, shape, seed):
+    """K8's inputs as the mamba mixer makes them, a random dy and a nonzero
+    dstates."""
+    B, nc, Q, nh, hp, ds = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    x = randn(B, nc, Q, nh, hp)
+    dt = torch.nn.functional.softplus(randn(B, nc, nh, Q) - 1.0)
+    A = -torch.linspace(1.0, 16.0, nh, device=dev)
+    cum = torch.cumsum(dt * A[None, None, :, None], dim=-1).contiguous()
+    args = (x, cum, dt.contiguous(), randn(B, nc, Q, ds), randn(B, nc, Q, ds))
+    return args, randn(B, nc, Q, nh, hp), randn(B, nc, nh, hp, ds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1, 256, 48, 64, 128),
+                                   (4, 8, 256, 48, 64, 128),
+                                   (8, 8, 32, 8, 16, 16),
+                                   (2, 1, 200, 5, 64, 128),
+                                   (1, 3, 48, 3, 24, 40),
+                                   (1, 2, 100, 3, 10, 13),
+                                   (1, 2, 100, 3, 9, 13)])
+def test_ssd_intra_chunk_bwd_kernel_matches_plain(shape):
+    """K8b at mamba2-780m's training shape (8 x 256 tokens, one chunk), its
+    prefill shape, the smoke shape the step parity trains (8 x 256 tokens
+    in chunks of 32), a ragged chunk of 200 rows over 4 tiles, sizes that
+    are multiples of none of its tiles and head and state widths that are
+    no multiple of 4: dx, dcum, ddt, dBc, dCc against the plain backward,
+    with a random dy and a nonzero dstates; a second launch gives the same
+    bits (fixed-order sums, no atomics); autograd through
+    ``ssd_intra_chunk`` launches K8 then K8b once each, with the same
+    bits."""
+    dev = _card()
+    from repro_torch.kernels.ssd_scan.ops import (
+        ssd_intra_chunk, ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_plain,
+    )
+
+    args, dy, dst = _k8b_inputs(dev, shape, sum(shape))
+    before = ssd_intra_chunk_bwd.launches
+    got = ssd_intra_chunk_bwd(*args, dy, dst)
+    torch.cuda.synchronize()
+    assert ssd_intra_chunk_bwd.launches == before + 1
+    want = ssd_intra_chunk_bwd_plain(*args, dy, dst)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= K8B_TOL * max(scale, 1e-30)
+    del want
+    again = ssd_intra_chunk_bwd(*args, dy, dst)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    before = (ssd_intra_chunk.launches, ssd_intra_chunk_bwd.launches)
+    auto = torch.autograd.grad(ssd_intra_chunk(*leaves), leaves, (dy, dst))
+    torch.cuda.synchronize()
+    assert (ssd_intra_chunk.launches, ssd_intra_chunk_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(torch.equal(g, a) for g, a in zip(got, auto))
+
+
+@pytest.mark.cuda
+def test_ssd_intra_chunk_bwd_rejects_what_the_kernel_does_not_take():
+    dev = _card()
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk_bwd
+
+    args, dy, dst = _k8b_inputs(dev, (1, 1, 32, 2, 16, 8), 0)
+    x, cum, dt, Bc, Cc = args
+    with pytest.raises(ValueError):               # dy: wrong shape
+        ssd_intra_chunk_bwd(*args, dy[:, :, :16], dst)
+    with pytest.raises(ValueError):               # dstates: wrong dtype
+        ssd_intra_chunk_bwd(*args, dy, dst.double())
+    with pytest.raises(ValueError):               # dy not contiguous
+        ssd_intra_chunk_bwd(*args, dy.transpose(3, 4).contiguous()
+                            .transpose(3, 4), dst)
+    with pytest.raises(ValueError):               # dstates on the CPU
+        ssd_intra_chunk_bwd(*args, dy, dst.cpu())
+    with pytest.raises(ValueError):               # cum not contiguous
+        ssd_intra_chunk_bwd(x, cum.transpose(2, 3).contiguous()
+                            .transpose(2, 3), dt, Bc, Cc, dy, dst)
+    with pytest.raises(TypeError):                # x float64
+        ssd_intra_chunk_bwd(x.double(), cum, dt, Bc, Cc, dy, dst)
+    with pytest.raises(ValueError):               # ds > 128
+        big = torch.zeros(1, 1, 32, 256, device=dev)
+        ssd_intra_chunk_bwd(x, cum, dt, big, big, dy,
+                            torch.zeros(1, 1, 2, 16, 256, device=dev))
+    with pytest.raises(ValueError):               # Q > 256
+        z = torch.zeros(1, 1, 320, 2, 16, device=dev)
+        c = torch.zeros(1, 1, 2, 320, device=dev)
+        b = torch.zeros(1, 1, 320, 8, device=dev)
+        ssd_intra_chunk_bwd(z, c, c, b, b, z, dst)
+
+
 @pytest.mark.cuda
 def test_lm_training_gradients_never_bypass_a_kernel():
-    """On the card K8 refuses a gradient (its backward kernel, N2, is not
-    written) and the training entry point refuses SSM archs before a step;
-    attention archs train through K7 / K7b."""
+    """On the card a gradient through an SSM layer launches K8 then K8b
+    (never the plain backward), one each per mamba layer of a training
+    loss, and the training entry point accepts SSM archs; MoE archs are
+    still refused (A14); attention archs train through K7 / K7b."""
     dev = _card()
     from repro_torch.configs import smoke_arch
-    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
-    from repro_torch.models.transformer import require_trainable
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd,
+    )
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import tree_leaves
 
-    x = torch.zeros(1, 1, 64, 2, 16, device=dev, requires_grad=True)
-    cum = torch.zeros(1, 1, 2, 64, device=dev)
-    bc = torch.zeros(1, 1, 64, 16, device=dev)
-    with pytest.raises(NotImplementedError, match="N2"):
-        ssd_intra_chunk(x, cum, cum, bc, bc)
-    with torch.no_grad():
-        ssd_intra_chunk(x, cum, cum, bc, bc)
-    with pytest.raises(NotImplementedError, match="N2"):
-        require_trainable(smoke_arch("mamba2-780m"), dev)
-    require_trainable(smoke_arch("llama3.2-3b"), dev)
+    plain = ssd_ops.ssd_intra_chunk_bwd_plain
+    called = []
+    ssd_ops.ssd_intra_chunk_bwd_plain = lambda *a: called.append(a) or \
+        plain(*a)
+    try:
+        for arch in ("mamba2-780m", "llama3.2-3b"):
+            cfg = smoke_arch(arch).replace(num_layers=3)
+            tf.require_supported(cfg)
+            params = tf.init_params(cfg, torch.Generator(device=dev)
+                                    .manual_seed(0), device=dev)
+            leaves = tree_leaves(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenStream(
+                cfg.vocab_size, 64, 2, seed=0).next().items()}
+            wrappers = (ssd_ops.ssd_intra_chunk, ssd_ops.ssd_intra_chunk_bwd,
+                        flash_attention, flash_attention_bwd)
+            before = [w.launches for w in wrappers]
+            grads = torch.autograd.grad(tf.lm_loss(cfg, params, batch)[0],
+                                        leaves)
+            torch.cuda.synchronize()
+            got = [w.launches - b for w, b in zip(wrappers, before)]
+            assert got == ([3, 3, 0, 0] if arch.startswith("mamba")
+                           else [0, 0, 3, 3]), (arch, got)
+            assert all(bool(torch.isfinite(g).all()) for g in grads)
+    finally:
+        ssd_ops.ssd_intra_chunk_bwd_plain = plain
+    assert called == []
+    for arch in ("jamba-v0.1-52b", "dbrx-132b"):
+        with pytest.raises(NotImplementedError, match="A14"):
+            tf.require_supported(smoke_arch(arch))
 
 
 @pytest.mark.cuda

@@ -1,9 +1,11 @@
 """LM training of the PyTorch port against the JAX package, on the CPU:
 K7b's plain version and autograd through the port's ``flash_attention``
-against ``jax.vjp(attention_ref)``; ``chunked_cross_entropy``; ``lm_loss``
-and its gradients; three steps of ``make_train_step`` under each of JAX's
-optimizer options; the train CLI's lines and its checkpoint resume; and
-the rules that keep a gradient on the card from bypassing a kernel.
+against ``jax.vjp(attention_ref)``; K8b's plain version and autograd
+through the port's ``ssd_scan`` against ``jax.vjp(ssd_ref)``;
+``chunked_cross_entropy``; ``lm_loss`` and its gradients; three steps of
+``make_train_step`` under each of JAX's optimizer options (and mamba's);
+the train CLI's lines and its checkpoint resume; and the rules that keep a
+gradient on the card from bypassing a kernel.
 
 The port runs on CPU tensors, so every kernel wrapper takes its plain
 version.  Inputs come from numpy seeds; the model tests carry JAX
@@ -16,7 +18,12 @@ scores, P, dP and dS to bfloat16, the port's float32 recompute rounds only
 its outputs); a gradient leaf 1e-3 of its norm and a parameter leaf after
 three steps 1e-4 of its norm (Adam divides by sqrt(v), which magnifies
 summation-order noise where a gradient is small), a bfloat16 moment 2^-8
-of its norm (one bfloat16 rounding).
+of its norm (one bfloat16 rounding).  The SSD scan's dA 1e-4 of its
+largest element: dA sums dt times the reverse cumsum of dcum over the
+batch and the sequence, whose terms cancel, so each package's float32 dA
+strays from a float64 evaluation of the same gradient by more than 1e-5
+of its largest element; the test holds both packages' dA to that float64
+evaluation at the same 1e-4.
 """
 
 import re
@@ -30,6 +37,7 @@ import torch
 from repro.config import TrainConfig as JTrainConfig
 from repro.configs import smoke_arch as j_smoke_arch
 from repro.kernels.flash_attention.ref import attention_ref
+from repro.kernels.ssd_scan.ref import ssd_ref
 from repro.launch import steps as j_steps
 from repro.launch.steps import make_train_step as j_make_train_step
 from repro.models import layers as j_layers
@@ -41,6 +49,7 @@ from repro_torch.configs import smoke_arch
 from repro_torch.data import TokenStream
 from repro_torch.interop import lm_params_from_jax
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch import train as train_mod
 from repro_torch.launch import steps as t_steps
 from repro_torch.launch.steps import make_train_step
@@ -51,6 +60,7 @@ from repro_torch.optim.adamw import tree_leaves
 
 TOL = 1e-5
 BF16_TOL = 3e-2
+DA_TOL = 1e-4
 PERTURB = ("scale", "norm", "dt_bias", "D_skip", "bq", "bk", "bv")
 
 
@@ -193,6 +203,177 @@ def test_flash_attention_bwd_refuses_bad_shapes():
 
 
 # ---------------------------------------------------------------------------
+# K8b: the SSD intra-chunk backward
+# ---------------------------------------------------------------------------
+
+#: (B, S, nh, hp, ds, chunk): four chunks; one chunk (Q = S); two ragged
+#: chunks of 100 rows, no multiple of 64
+SSD_CASES = [(2, 64, 3, 8, 5, 16), (1, 40, 2, 4, 3, 64),
+             (2, 200, 3, 6, 7, 100)]
+
+
+def _ssd_inputs(shape, seed):
+    """(x, dt, A, Bc, Cc) as the mixer makes them, dy and a nonzero
+    d(final_state), float32 numpy."""
+    B, S, nh, hp, ds, _ = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, nh, hp)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, nh)) - 1.0)).astype(
+        np.float32)
+    A = -np.linspace(1.0, 4.0, nh).astype(np.float32)
+    Bc, Cc = (rng.standard_normal((B, S, ds)).astype(np.float32)
+              for _ in range(2))
+    dy = rng.standard_normal((B, S, nh, hp)).astype(np.float32)
+    dfinal = rng.standard_normal((B, nh, hp, ds)).astype(np.float32)
+    return (x, dt, A, Bc, Cc), dy, dfinal
+
+
+def _ssd_bwd_by_hand(args, chunk, dy, dfinal):
+    """(dx, ddt, dA, dBc, dCc) of the port's ``ssd_scan`` with the intra-
+    chunk part's gradients from ``ssd_intra_chunk_bwd_plain`` called
+    directly; autograd takes only the torch ops around it (the inter-chunk
+    recurrence, the chunked cumsum, the casts)."""
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    xr, cum_h, dt_h, Br, Cr = ssd_ops._chunked_inputs(*leaves, chunk)
+    intra = [t.detach() for t in (xr, cum_h, dt_h, Br, Cr)]
+    with torch.no_grad():
+        y_intra, states = ssd_ops.ssd_intra_chunk_plain(*intra)
+    y_intra.requires_grad_(True)
+    states.requires_grad_(True)
+    B, _, _, nh, hp = xr.shape
+    init = torch.zeros(B, nh, hp, Br.shape[-1])
+    y, final = ssd_ops._inter_chunk(y_intra, states, cum_h, Cr, init,
+                                    xr.dtype)
+    d_y_intra, d_states, d_cum, d_C = torch.autograd.grad(
+        (y, final), (y_intra, states, cum_h, Cr),
+        (torch.from_numpy(dy), torch.from_numpy(dfinal)), retain_graph=True)
+    dx, dcum, ddt, dB, dC = ssd_ops.ssd_intra_chunk_bwd_plain(
+        *intra, d_y_intra, d_states)
+    return torch.autograd.grad(
+        (xr, cum_h, dt_h, Br, Cr), leaves,
+        (dx, dcum + d_cum, ddt, dB, dC + d_C))
+
+
+def _ssd_grads_f64(args, chunk, dy, dfinal):
+    """The five gradients of the SSD scan in float64, through the port's
+    plain pieces without their float32 casts (dA's reference)."""
+    leaves = [torch.from_numpy(a).double().requires_grad_(True)
+              for a in args]
+    x, dt, A, Bc, Cc = leaves
+    B, S, nh, hp = x.shape
+    ds, Q = Bc.shape[-1], min(chunk, S)
+    nc = S // Q
+    cum = torch.cumsum((dt * A).reshape(B, nc, Q, nh), 2).permute(0, 1, 3, 2)
+    Br, Cr = Bc.reshape(B, nc, Q, ds), Cc.reshape(B, nc, Q, ds)
+    y_intra, states = ssd_ops.ssd_intra_chunk_plain(
+        x.reshape(B, nc, Q, nh, hp), cum,
+        dt.reshape(B, nc, Q, nh).permute(0, 1, 3, 2), Br, Cr)
+    y, final = ssd_ops._inter_chunk(
+        y_intra, states, cum, Cr,
+        torch.zeros(B, nh, hp, ds, dtype=torch.float64), torch.float64)
+    return torch.autograd.grad(
+        (y, final), leaves, (torch.from_numpy(dy).double(),
+                             torch.from_numpy(dfinal).double()))
+
+
+@pytest.mark.parametrize("shape", SSD_CASES)
+def test_ssd_intra_chunk_bwd_matches_jax_vjp(shape):
+    """K8b's plain version, called directly and chained through the torch
+    ops around it, and autograd through the port's ``ssd_scan`` (whose
+    backward is that plain version on the CPU) against ``jax.vjp`` of
+    JAX's ``ssd_ref`` (what JAX's ``_bwd`` runs), with random dy and a
+    nonzero d(final_state): dx, ddt, dBc, dCc 1e-5 and dA 1e-4 of each
+    gradient's largest element, and both packages' dA within 1e-4 of a
+    float64 evaluation.  The plain backward also equals autograd through
+    ``ssd_intra_chunk_plain`` within 1e-5."""
+    chunk = shape[-1]
+    args, dy, dfinal = _ssd_inputs(shape, sum(shape))
+    _, vjp = jax.vjp(lambda *a: ssd_ref(*a, chunk),
+                     *(jnp.asarray(a) for a in args))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dfinal)))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    y, final = ssd_ops.ssd_scan(*leaves, chunk)
+    auto = torch.autograd.grad((y, final), leaves,
+                               (torch.from_numpy(dy),
+                                torch.from_numpy(dfinal)))
+    by_hand = _ssd_bwd_by_hand(args, chunk, dy, dfinal)
+    for name, a, h, w in zip(("dx", "ddt", "dA", "dBc", "dCc"), auto,
+                             by_hand, want):
+        w = np.asarray(w)
+        tol = DA_TOL if name == "dA" else TOL
+        _close(_np(a), w, tol)
+        _close(_np(h), w, tol)
+    exact = _ssd_grads_f64(args, chunk, dy, dfinal)[2].numpy()
+    _close(_np(auto[2]), exact, DA_TOL)
+    _close(np.asarray(want[2]), exact, DA_TOL)
+    # the written-out formulas against torch's own derivative of K8's
+    # plain forward, on the intra-chunk inputs
+    xr, cum_h, dt_h, Br, Cr = (t.detach() for t in ssd_ops._chunked_inputs(
+        *(torch.from_numpy(a) for a in args), chunk))
+    rng = np.random.default_rng(7)
+    gy = torch.from_numpy(rng.standard_normal(xr.shape).astype(np.float32))
+    gs = torch.from_numpy(rng.standard_normal(
+        (*xr.shape[:2], xr.shape[3], xr.shape[4], Br.shape[-1])).astype(
+            np.float32))
+    inner = [t.clone().requires_grad_(True) for t in (xr, cum_h, dt_h, Br,
+                                                      Cr)]
+    ref = torch.autograd.grad(ssd_ops.ssd_intra_chunk_plain(*inner), inner,
+                              (gy, gs))
+    got = ssd_ops.ssd_intra_chunk_bwd_plain(xr, cum_h, dt_h, Br, Cr, gy, gs)
+    for g, r in zip(got, ref):
+        _close(_np(g), _np(r))
+
+
+@pytest.mark.parametrize("requires_grad", [False, True])
+def test_ssd_intra_chunk_autograd_path_on_the_cpu(requires_grad):
+    """A tensor that requires a gradient reaches the autograd function (its
+    backward is ``ssd_intra_chunk_bwd``, the plain version on the CPU, bit
+    for bit); one that does not, or one under ``no_grad``, takes the plain
+    forward with no graph.  Neither launches anything on the CPU."""
+    (x, dt, A, Bc, Cc), _, _ = _ssd_inputs((2, 64, 3, 8, 5, 32), 5)
+    args = [t.detach() for t in ssd_ops._chunked_inputs(
+        *(torch.from_numpy(a) for a in (x, dt, A, Bc, Cc)), 32)]
+    rng = np.random.default_rng(6)
+    gy, gs = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for s in (args[0].shape, (2, 2, 3, 8, 5)))
+    launches = (ssd_ops.ssd_intra_chunk.launches,
+                ssd_ops.ssd_intra_chunk_bwd.launches)
+    leaves = [t.requires_grad_(requires_grad) for t in args]
+    y, states = ssd_ops.ssd_intra_chunk(*leaves)
+    want = ssd_ops.ssd_intra_chunk_plain(*args)
+    assert torch.equal(y.detach(), want[0])
+    assert torch.equal(states.detach(), want[1])
+    if requires_grad:
+        assert type(y.grad_fn).__name__ == "_SSDIntraChunkBackward"
+        got = torch.autograd.grad((y, states), leaves, (gy, gs))
+        ref = ssd_ops.ssd_intra_chunk_bwd_plain(*(t.detach() for t in args),
+                                                gy, gs)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+        with torch.no_grad():
+            assert ssd_ops.ssd_intra_chunk(*leaves)[0].grad_fn is None
+    else:
+        assert y.grad_fn is None
+    assert (ssd_ops.ssd_intra_chunk.launches,
+            ssd_ops.ssd_intra_chunk_bwd.launches) == launches
+
+
+def test_ssd_intra_chunk_bwd_refuses_bad_shapes():
+    (x, dt, A, Bc, Cc), _, _ = _ssd_inputs((1, 32, 2, 4, 3, 32), 0)
+    args = [t.detach() for t in ssd_ops._chunked_inputs(
+        *(torch.from_numpy(a) for a in (x, dt, A, Bc, Cc)), 32)]
+    dy = torch.zeros_like(args[0])
+    dst = torch.zeros(1, 1, 2, 4, 3)
+    with pytest.raises(ValueError, match="dy"):
+        ssd_ops.ssd_intra_chunk_bwd(*args, dy[:, :, :16], dst)
+    with pytest.raises(ValueError, match="dstates"):
+        ssd_ops.ssd_intra_chunk_bwd(*args, dy, dst.double())
+    with pytest.raises(ValueError, match="takes Q"):
+        big = torch.zeros(1, 1, 32, 256)
+        ssd_ops.ssd_intra_chunk_bwd(args[0], args[1], args[2], big, big, dy,
+                                    torch.zeros(1, 1, 2, 4, 256))
+
+
+# ---------------------------------------------------------------------------
 # loss
 # ---------------------------------------------------------------------------
 
@@ -265,18 +446,21 @@ OPTIONS = {"default": {}, "microbatch": {"microbatch": 2},
            "grad_compress": {"grad_compress": True}}
 
 
-@pytest.mark.parametrize("option", list(OPTIONS))
-def test_three_train_steps_match_jax(option):
+@pytest.mark.parametrize("option,arch", [
+    *(pytest.param(o, "llama3.2-3b", id=o) for o in OPTIONS),
+    pytest.param("default", "mamba2-780m", id="mamba2-780m-default")])
+def test_three_train_steps_match_jax(option, arch):
     """Three steps of ``make_train_step`` against JAX's on the same token
     batches from the same weights: loss and grad_norm of every step 1e-5 /
     1e-4, lr exactly, every parameter leaf (and moment, and compression
     residual) after step 3 within 1e-4 of its norm; with compression, the
     moments and the residual may differ in one element a leaf by an int8
-    quantum."""
+    quantum.  llama3.2-3b under each option; mamba2-780m (its SSD layers'
+    backward through K8b's plain version) under the default."""
     kw = dict(learning_rate=3e-3, warmup_steps=1, total_steps=10,
               **OPTIONS[option])
     jtc, tc = JTrainConfig(**kw), TrainConfig(**kw)
-    jcfg, cfg, jp, tp = _carried("llama3.2-3b", seed=1)
+    jcfg, cfg, jp, tp = _carried(arch, seed=1)
     jstate = j_adamw_init(jp, jtc)
     state = adamw_init(tp, tc)
     jstep = jax.jit(j_make_train_step(jcfg, jtc))
@@ -413,20 +597,35 @@ def test_train_cli_refuses_a_mesh():
 
 
 @pytest.mark.parametrize("arch,missing", [
-    ("mamba2-780m", "N2"), ("jamba-v0.1-52b", "A14"), ("dbrx-132b", "A14")])
+    pytest.param("mamba2-780m", None, id="mamba2-780m-N2"),
+    ("jamba-v0.1-52b", "A14"), ("dbrx-132b", "A14")])
 def test_training_refuses_ssm_and_moe_archs_on_the_card(arch, missing,
                                                         monkeypatch):
-    """The launcher raises before it draws weights or takes a step on the
-    card for an arch with SSM (K8 has no backward kernel: N2) or MoE (A14)
-    layers; the CPU trains the SSM archs."""
-    cfg = smoke_arch(arch)
-    with pytest.raises(NotImplementedError, match=missing):
-        t_tf.require_trainable(cfg, "cuda")
-    monkeypatch.setattr(train_mod, "resolve_device",
-                        lambda d: torch.device("cuda"))
-    monkeypatch.setattr(train_mod, "TokenStream", None)   # never reached
-    with pytest.raises(NotImplementedError, match=missing):
-        train_mod.main(["--arch", arch, "--smoke", "--steps", "1"])
-    if missing == "N2":
-        t_tf.require_trainable(cfg, "cpu")
-    t_tf.require_trainable(smoke_arch("llama3.2-3b"), "cuda")
+    """The launcher raises before it draws weights or takes a step for an
+    arch with MoE layers (A14), on the card as on the CPU; an SSM arch
+    trains on the card (K8 forward, K8b backward: N2) and on the CPU."""
+    class Stop(Exception):
+        pass
+
+    seen = []
+
+    def stream(*a, **kw):              # reached: the launcher accepted it
+        seen.append(kw.get("seed"))
+        raise Stop
+
+    for device in ("cuda", "cpu"):
+        monkeypatch.setattr(train_mod, "resolve_device",
+                            lambda d, device=device: torch.device(device))
+        if missing is None:
+            t_tf.require_supported(smoke_arch(arch))
+            monkeypatch.setattr(train_mod, "TokenStream", stream)
+            with pytest.raises(Stop):
+                train_mod.main(["--arch", arch, "--smoke", "--steps", "1"])
+        else:
+            with pytest.raises(NotImplementedError, match=missing):
+                t_tf.require_supported(smoke_arch(arch))
+            monkeypatch.setattr(train_mod, "TokenStream", None)  # not reached
+            with pytest.raises(NotImplementedError, match=missing):
+                train_mod.main(["--arch", arch, "--smoke", "--steps", "1"])
+    assert seen == ([0, 0] if missing is None else [])
+    t_tf.require_supported(smoke_arch("llama3.2-3b"))

@@ -150,7 +150,8 @@ def _source_kernels():
 
 
 @pytest.mark.parametrize("group", ["K1", "K2", "K3", "K4", "K5", "K1b",
-                                   "K6", "K7", "K7b", "K8", "FIT_SPLIT"])
+                                   "K6", "K7", "K7b", "K8", "K8b",
+                                   "FIT_SPLIT"])
 def test_timed_kernel_names_are_kernels_of_the_sources(group):
     """Every name chip_smoke's records are held to (``own=``) and the fit's
     device time is split by is a kernel the CUDA sources define: a name left
@@ -165,7 +166,7 @@ def test_timed_kernel_names_are_kernels_of_the_sources(group):
              "K7b": {**smoke.k7b_kernels(128, torch.bfloat16),
                      **smoke.k7b_kernels(256, torch.bfloat16),
                      **smoke.k7b_kernels(128, torch.float32)},
-             "K8": smoke.K8_KERNELS,
+             "K8": smoke.K8_KERNELS, "K8b": smoke.K8B_KERNELS,
              "FIT_SPLIT": [m for label, marks in smoke.FIT_SPLIT
                            if label.startswith("K") for m in marks]}[group]
     defined = _source_kernels()
