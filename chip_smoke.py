@@ -41,7 +41,11 @@ Phases, each reported on its own lines:
             at mamba's smoke training shape, mamba2-780m's training shape
             (8, 1, 256, 48, 64, 128), its table row, and the prefill shape,
             with a random dy and nonzero dstates, f32 within 1e-4, a repeat
-            bit-equal, its ptxas registers and spills), with
+            bit-equal, its ptxas registers and spills); K7 also at the MoE
+            archs' prefill shapes (dbrx / grok G = 6, jamba G = 4), K7b at
+            dbrx's training shape (8, 256, 8, 6, 128), K8 at jamba's SSD
+            prefill (nh = 128), each timed beside its plain version, its
+            library call and its bound, with
             its time, the plain version's, one library call's where there
             is one, and the least time the card could take (bound); K1 and
             K8, whose float32 products run as 3xTF32 on the tensor cores,
@@ -139,16 +143,20 @@ Phases, each reported on its own lines:
             ``launches`` of K1, K1b, K2, K3 and K5 in the kernel table (K2's
             count batched calls, at most iters + 1 a sweep);
 12. lm_reference the JAX fixture ``src/repro_torch/assets/reference_lm.npz``
-            (smoke-width llama3.2-3b and mamba2-780m, two layers, f32, B=2,
-            a 1024-token prompt): the card's prefill logits and its decode
-            logits fed JAX's 16 greedy tokens within 1e-4 relative, and the
-            same greedy picks where JAX's top two logits are clear;
+            (smoke-width llama3.2-3b and mamba2-780m at two layers, and
+            jamba-v0.1-52b at one block of 8 layers with its MoE FFNs routed
+            in two groups of 512; f32, B=2, a 1024-token prompt): the card's
+            prefill logits and its decode logits fed JAX's 16 greedy tokens
+            within 1e-4 relative, the same greedy picks where JAX's top two
+            logits are clear, and K7 / K8 once per attention / mamba layer;
 13. lm_serve ``repro_torch.launch.serve.main`` for llama3.2-3b and
-            mamba2-780m at full width (2 batches x 4 requests of a 2048-token
-            prompt + 32 greedy tokens): prefill ms, decode tok/s, peak
-            memory, finite logits; K7 launched once per llama layer and
-            prefill, K8 once per mamba layer and prefill (these counts are
-            K7's and K8's ``launches``); then decode-vs-prefill at full
+            mamba2-780m at full width and depth, then dbrx-132b (2 of 40
+            layers), grok-1-314b (1 of 64) and jamba-v0.1-52b (8 of 32) at
+            full width (2 batches x 4 requests of a 2048-token prompt + 32
+            greedy tokens): prefill ms, decode tok/s, peak memory, finite
+            logits; K7 launched once per attention layer and prefill, K8
+            once per mamba layer and prefill (these counts are K7's and
+            K8's ``launches``); then decode-vs-prefill at full
             width (prefill 1536, decode 512 teacher-forced, against the
             prefill of all 2048 at its last position) in bf16 at full
             depth and in f32 at 4 layers, with 8 decode steps profiled for
@@ -163,13 +171,16 @@ Phases, each reported on its own lines:
             and K8b (mamba) once per layer a step and the other pair never
             (these counts are K7b's and K8b's ``launches``); 2 more steps of
             each under torch.profiler (busy share, the device time split
-            into K7, K7b, K8, K8b, matmuls, copies and the rest); then 8
+            into K7, K7b, K8, K8b, matmuls, copies and the rest); then
+            dbrx-132b at full width and 1 layer, 10 steps of
+            ``launch/steps.make_train_step`` with bf16 moments (step ms,
+            peak memory, finite losses, K7 and K7b once a step); then 8
             llama steps at full width and 2 layers against 4 steps, a
             checkpoint and ``--resume auto`` (losses, params and moments
-            bit-equal); then one step of each arch at smoke width, 2
-            layers, f32, on the card and on the CPU (loss 1e-5, every
-            gradient leaf 1e-3 and every parameter leaf after the update
-            1e-4 of its norm).
+            bit-equal); then one step of llama and mamba at smoke width, 2
+            layers, and of jamba at one block of 8 layers, f32, on the card
+            and on the CPU (loss 1e-5, every gradient leaf 1e-3 and every
+            parameter leaf after the update 1e-4 of its norm).
 
 Any mismatch or exception exits non-zero.  The last lines are the kernel
 table as one JSON object (K1's and K8's ``bound_ms`` is their 3xTF32
@@ -243,9 +254,22 @@ PLATFORMS = ["P1", "P2", "P3"]
 #: the LM serving path: both archs at full width, 2 batches x 4 requests of
 #: a 2048-token prompt + 32 greedy tokens
 LM_ARCHS = ("llama3.2-3b", "mamba2-780m")
+#: the archs of the JAX fixture ``reference_lm.npz``
+LM_FIXTURE_ARCHS = LM_ARCHS + ("jamba-v0.1-52b",)
 LM_BATCH, LM_PROMPT, LM_TOKENS, LM_REQUESTS = 4, 2048, 32, 2
 LLAMA_PREFILL = (LM_BATCH, LM_PROMPT, 8, 3, 128)     # K7: (B, S, K, G, hd)
 MAMBA_PREFILL = (LM_BATCH, LM_PROMPT // 256, 256, 48, 64, 128)  # K8
+#: the MoE archs served at full width and a cut depth (layers): dbrx 2 of
+#: 40, grok 1 of 64, jamba one period block of 8 of 32 (1 attention layer,
+#: 7 mamba layers, 4 MoE FFNs); the same requests as LM_ARCHS
+MOE_SERVE = (("dbrx-132b", 2), ("grok-1-314b", 1), ("jamba-v0.1-52b", 8))
+#: K7 / K7b / K8 at the MoE archs' shapes: dbrx's and grok's prefill q
+#: (G = 6), jamba's (G = 4), dbrx's training shape, jamba's SSD prefill
+#: (nh = 128)
+DBRX_PREFILL = (LM_BATCH, LM_PROMPT, 8, 6, 128)
+JAMBA_PREFILL = (LM_BATCH, LM_PROMPT, 8, 4, 128)
+DBRX_TRAIN = (8, 256, 8, 6, 128)
+JAMBA_SSD_PREFILL = (LM_BATCH, LM_PROMPT // 256, 256, 128, 64, 128)
 BF16_TOL = 2 ** -7      # a bf16 kernel output vs plain: one bf16 rounding
 #: the kernels K2's, K3's and K4's wrappers launch per call (``device_ms``'s
 #: ``own``)
@@ -333,6 +357,25 @@ TRAIN_PROFILE_STEPS = 2
 LM_TRAIN_LAYERS = None
 RESUME_LAYERS, RESUME_STEPS = 2, 8
 PARITY_LAYERS = 2
+#: the step parity's archs (jamba at one block of 8 layers: attention,
+#: SSM and MoE layers in one step) and whether the parameters after the
+#: card's whole step are held to the CPU's at PARAM_TOL.  jamba's are not:
+#: its deepest SSM layer's dt_bias starts at 0 and has a gradient element
+#: within ~60x of Adam's eps, where the first update g / (|g| + eps)
+#: magnifies the card's float32 summation-order noise on that element
+#: ~60-fold (a relative gradient noise of 1e-5 of the leaf's largest
+#: element gives a parameter gap of 5.8e-4 on the CPU alone).  For jamba
+#: the card's optimizer is held instead to PARAM_TOL on the CPU's
+#: gradients, and its gradients to GRAD_TOL; the whole step's gap is
+#: printed.
+PARITY_ARCHS = (("llama3.2-3b", True), ("mamba2-780m", True),
+                ("jamba-v0.1-52b", False))
+#: dbrx-132b trained at full width and MOE_TRAIN_LAYERS layer(s) with
+#: bfloat16 moments (JAX's ``TrainConfig.opt_dtype``; its train CLI has no
+#: flag for it, so the step of ``launch/steps.py`` is driven directly):
+#: f32 params and grads, bf16 moments and compute copy, ~13 bytes a
+#: parameter; with float32 moments it would be ~17
+MOE_TRAIN = ("dbrx-132b", 1, 10)       # (arch, layers, steps)
 #: torch.profiler records ``device_ms`` takes of one call before it falls
 #: back to the spin-primed span: CUPTI now and then drops part of a record
 RECORD_TRIES = 3
@@ -2899,6 +2942,125 @@ def phase_lm_kernels(rows, dev):
                  ssd_intra_chunk, k8))
 
     rows.append(_k8b(dev))
+    _moe_kernel_shapes(dev)
+
+
+def _moe_kernel_shapes(dev):
+    """K7, K7b and K8 at the shapes the MoE archs give them, against their
+    plain versions with the tolerances above, each timed beside its plain
+    version, its library call (K7: SDPA, causal, GQA; K7b: SDPA's backward,
+    K / V expanded) and its bound: K7 at dbrx's / grok's prefill (G = 6)
+    and jamba's (G = 4), K7b at dbrx's training shape (G = 6), K8 at
+    jamba's SSD prefill (nh = 128), with a repeat bit-equal."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.ssd_scan.ops import (
+        ssd_intra_chunk, ssd_intra_chunk_plain,
+    )
+
+    bf16 = torch.bfloat16
+    for label, shape in (("dbrx / grok prefill", DBRX_PREFILL),
+                         ("jamba prefill", JAMBA_PREFILL)):
+        B, S, K, G, hd = shape
+        H = K * G
+        err, rel, q, k, v, scale = _k7_check(dev, shape, bf16, 5)
+        again = flash_attention(q, k, v, scale)
+        same = torch.equal(again, flash_attention(q, k, v, scale))
+        require(same, f"K7 {label}: two calls differ")
+        ms = device_ms(lambda: flash_attention(q, k, v, scale), 5,
+                       own=k7_kernels(hd, bf16))
+        plain = device_ms(lambda: flash_attention_plain(q, k, v, scale), 3)
+        qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+        kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        lib = device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True), 5)
+        bytes_ = (2 * B * S * H * hd + 2 * B * S * K * hd) * 2
+        ops = 4 * B * H * hd * S * (S + 1) // 2
+        b_ms, b_by = bound(bytes_, ops, PEAK_BF16_S)
+        log(f"[kernels] K7 flash_attention {label} {shape} bf16: "
+            f"max_abs_err {err:.3e} rel {rel:.3e} (tol {BF16_TOL:.3e}), "
+            f"repeat bit-equal; kernel device ms {ms.own:.4f} [{ms.source}] "
+            f"plain device ms {plain.total:.4f} [{plain.source}] library "
+            f"device ms {lib.total:.4f} [{lib.source}] "
+            f"(scaled_dot_product_attention, causal, GQA) bound ms "
+            f"{b_ms:.4f} ({b_by}; {ops:.3e} ops, {bytes_ / 1e6:.1f} MB) "
+            f"achieved {ops / ms.own / 1e9:.2f} TFLOP/s")
+        del q, k, v, qh, kh, vh, again
+        torch.cuda.empty_cache()
+
+    B, S, K, G, hd = DBRX_TRAIN
+    H = K * G
+    for dt in (bf16, torch.float32):
+        err, rel, (q, k, v, o, do, scale) = _k7b_check(dev, DBRX_TRAIN, dt,
+                                                       11)
+        ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, do, scale), 5,
+                       own=k7b_kernels(hd, dt))
+        plain = device_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, o, do, scale), 3)
+        qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+        kh, vh = (t.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+                  for t in (k, v))
+        leaves = [t.requires_grad_(True) for t in (qh, kh, vh)]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True)
+        doh = do.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+        lib = device_ms(lambda: torch.autograd.grad(
+            out, leaves, doh, retain_graph=True), 5)
+        esz = q.element_size()
+        bytes_ = (4 * B * S * H * hd + 4 * B * S * K * hd) * esz
+        ops = 10 * hd * B * H * S * (S + 1) // 2
+        b_ms, b_by = bound(bytes_, ops, PEAK_BF16_S if dt == bf16
+                           else PEAK_F32_S)
+        tol = BF16_TOL if dt == bf16 else K7B_TOL_F32
+        log(f"[kernels] K7b flash_attention_bwd dbrx train {DBRX_TRAIN} "
+            f"{'bf16' if dt == bf16 else 'f32'}: max_abs_err {err:.3e} rel "
+            f"{rel:.3e} (tol {tol:.3e}), repeat bit-equal; kernel device ms "
+            f"{ms.own:.4f} [{ms.source}] plain device ms {plain.total:.4f} "
+            f"[{plain.source}] library device ms {lib.total:.4f} "
+            f"[{lib.source}] (scaled_dot_product_attention backward, causal, "
+            f"K / V expanded to {H} heads) bound ms {b_ms:.4f} ({b_by}; "
+            f"{ops:.3e} ops, {bytes_ / 1e6:.1f} MB) achieved "
+            f"{ops / ms.own / 1e9:.2f} TFLOP/s")
+        del q, k, v, o, do, qh, kh, vh, doh, leaves, out
+        torch.cuda.empty_cache()
+
+    B, nc, Q, nh, hp, ds = JAMBA_SSD_PREFILL
+    args = _k8_inputs(dev, B, nc, Q, nh, hp, ds, 13)
+    got = ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    want = ssd_intra_chunk_plain(*args)
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    del want
+    err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    require(rel <= KERNEL_TOL, f"K8 jamba prefill: rel err {rel:.3e} > "
+            f"{KERNEL_TOL}")
+    again = ssd_intra_chunk(*args)
+    require(all(torch.equal(g, a) for g, a in zip(got, again)),
+            "K8 jamba prefill: two calls differ")
+    del got, again
+    ms = device_ms(lambda: ssd_intra_chunk(*args), 5, own=K8_KERNELS)
+    plain = device_ms(lambda: ssd_intra_chunk_plain(*args), 3)
+    tri = Q * (Q + 1) // 2
+    ops = B * nc * (2 * ds * tri + nh * (
+        4 * tri + 2 * hp * tri + 3 * Q + Q * ds + 2 * Q * ds * hp))
+    bytes_ = 4 * (2 * B * nc * Q * nh * hp + 2 * B * nc * nh * Q
+                  + 2 * B * nc * Q * ds + B * nc * nh * hp * ds)
+    b_ms, b_by = bound(bytes_, ops)
+    tc_ms, tc_by = tf32x3_bound(bytes_, ops)
+    log(f"[kernels] K8 ssd_intra_chunk jamba prefill (B, nc, Q, nh, hp, ds) "
+        f"= {JAMBA_SSD_PREFILL}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+        f"{KERNEL_TOL}), repeat bit-equal; kernel device ms {ms.own:.4f} "
+        f"[{ms.source}] plain device ms {plain.total:.4f} [{plain.source}] "
+        f"bound ms {b_ms:.4f} ({b_by}, float32 FMAs; {ops:.3e} ops, "
+        f"{bytes_ / 1e6:.1f} MB); 3xTF32 design bound ms {tc_ms:.4f} "
+        f"({tc_by})")
+    del args
+    torch.cuda.empty_cache()
 
 
 def _k8b(dev):
@@ -3086,10 +3248,20 @@ def _k7b(dev):
 
 
 def _lm_fixture_cfg(arch):
+    """The fixture's config: smoke width, two blocks; jamba one block of 8
+    layers routed in MoE groups of 512 (its 1024-token prompt in two)."""
     from repro_torch.configs import smoke_arch
 
     base = smoke_arch(arch)
+    if base.num_experts:
+        return base.replace(moe_seq_chunk=512)
     return base.replace(num_layers=2 * base.block_size)
+
+
+def _mixer_layers(cfg):
+    """(attention layers, mamba layers) of ``cfg``."""
+    attn = sum(s.mixer == "attention" for s in cfg.layer_specs())
+    return attn * cfg.num_blocks, (cfg.block_size - attn) * cfg.num_blocks
 
 
 def phase_lm_reference(dev):
@@ -3106,7 +3278,7 @@ def phase_lm_reference(dev):
 
     with np.load(LM_FIXTURE) as f:
         ref = {k: f[k] for k in f.files}
-    for arch in LM_ARCHS:
+    for arch in LM_FIXTURE_ARCHS:
         cfg = _lm_fixture_cfg(arch)
         pre = f"{arch}:param:"
         params = lm_params_from_jax({k[len(pre):]: v for k, v in ref.items()
@@ -3143,11 +3315,13 @@ def phase_lm_reference(dev):
             f"{launched['ssd_intra_chunk']}")
         require(worst <= LM_TOL, f"lm_reference {arch}: rel err {worst:.3e}")
         require(equal == checked, f"lm_reference {arch}: greedy tokens differ")
-        kernel = "flash_attention" if arch.startswith("llama") \
-            else "ssd_intra_chunk"
-        require(launched[kernel] == cfg.num_layers,
-                f"lm_reference {arch}: {kernel} launched "
-                f"{launched[kernel]} times, not once per layer")
+        attn, mamba = _mixer_layers(cfg)
+        require((launched["flash_attention"], launched["ssd_intra_chunk"])
+                == (attn, mamba),
+                f"lm_reference {arch}: K7 / K8 launched "
+                f"{launched['flash_attention']} / "
+                f"{launched['ssd_intra_chunk']} times, not once per "
+                f"attention / mamba layer ({attn} / {mamba})")
 
 
 def _profile_prefill(cfg, params, toks):
@@ -3239,50 +3413,81 @@ def _decode_vs_prefill(dev, arch, compute_dtype, tol, num_layers=None):
             f"{rel:.3e} > {tol}")
 
 
-def phase_lm_serve(dev):
-    """This slice's main path: ``repro_torch.launch.serve.main`` for
-    llama3.2-3b and mamba2-780m at full width, then the decode-vs-prefill
-    check.  Returns the serve runs' launch counts."""
+def _serve(arch, layers=None):
+    """``repro_torch.launch.serve.main`` for ``arch`` at full width on
+    LM_REQUESTS batches of LM_BATCH x LM_PROMPT + LM_TOKENS tokens, its
+    depth cut to ``layers`` (the launcher's ``get_arch`` narrowed for the
+    call; serve has no depth flag, as JAX's has none): rc 0, finite logits,
+    K7 launched once per attention layer and prefill and K8 once per mamba
+    layer and prefill.  Returns the run's launch counts."""
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import tree_leaves
 
-    _zero_counts()
-    per_arch = {}
-    for arch in LM_ARCHS:
-        before = _counts()
-        recs: list = []
-        t0 = time.perf_counter()
-        rc = serve_main(["--arch", arch, "--batch", str(LM_BATCH),
+    cfg = get_arch(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    before = _counts()
+    recs: list = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    serve.get_arch = lambda a: cfg
+    try:
+        rc = serve.main(["--arch", arch, "--batch", str(LM_BATCH),
                          "--prompt-len", str(LM_PROMPT), "--tokens",
                          str(LM_TOKENS), "--requests", str(LM_REQUESTS)],
                         out=recs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        per_arch[arch] = {k: v - before[k] for k, v in _counts().items()}
-        for r in recs:
-            log(f"[lm_serve] {arch} batch {r['batch']}: prefill "
-                f"{LM_BATCH}x{LM_PROMPT} {r['prefill_s'] * 1e3:.2f} ms, decode "
-                f"{LM_TOKENS} tokens {r['decode_s'] * 1e3:.2f} ms "
-                f"({r['tok_s']:.1f} tok/s), peak memory "
-                f"{r['peak_bytes'] / 2**30:.2f} GiB, finite logits "
-                f"{r['finite']}, sample {r['tokens'][0, :8].tolist()}")
-        log(f"[lm_serve] {arch}: rc {rc}, {len(recs)} batches in {wall:.2f} s "
-            f"(weights drawn on the card included); launches "
-            f"{json.dumps(per_arch[arch])}")
-        require(rc == 0 and len(recs) == LM_REQUESTS,
-                f"lm_serve {arch}: rc {rc}")
-        require(all(r["finite"] for r in recs),
-                f"lm_serve {arch}: non-finite logits")
+    finally:
+        serve.get_arch = get_arch
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    for r in recs:
+        log(f"[lm_serve] {arch} batch {r['batch']}: prefill "
+            f"{LM_BATCH}x{LM_PROMPT} {r['prefill_s'] * 1e3:.2f} ms, decode "
+            f"{LM_TOKENS} tokens {r['decode_s'] * 1e3:.2f} ms "
+            f"({r['tok_s']:.1f} tok/s), peak memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB, finite logits "
+            f"{r['finite']}, sample {r['tokens'][0, :8].tolist()}")
+    attn, mamba = _mixer_layers(cfg)
+    n = sum(p.numel() for p in tree_leaves(tf.init_params(cfg, None,
+                                                          device="meta")))
+    log(f"[lm_serve] {arch} ({cfg.num_layers} of {get_arch(arch).num_layers} "
+        f"layers, {n / 1e9:.3f} B params, {cfg.compute_dtype}): rc {rc}, "
+        f"{len(recs)} batches in {wall:.2f} s (weights drawn on the card "
+        f"included); peak memory of the whole call "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{json.dumps({k: v for k, v in launched.items() if v})}")
+    require(rc == 0 and len(recs) == LM_REQUESTS,
+            f"lm_serve {arch}: rc {rc}")
+    require(all(r["finite"] for r in recs),
+            f"lm_serve {arch}: non-finite logits")
+    require((launched["flash_attention"], launched["ssd_intra_chunk"])
+            == (attn * LM_REQUESTS, mamba * LM_REQUESTS),
+            f"lm_serve {arch}: K7 / K8 launched "
+            f"{launched['flash_attention']} / {launched['ssd_intra_chunk']} "
+            f"times, not once per attention / mamba layer ({attn} / "
+            f"{mamba}) and prefill")
+    return launched
+
+
+def phase_lm_serve(dev):
+    """This slice's main path: ``repro_torch.launch.serve.main`` for
+    llama3.2-3b and mamba2-780m at full width and depth, and for the MoE
+    archs at full width and a cut depth (MOE_SERVE); then the
+    decode-vs-prefill check.  Returns the serve runs' launch counts."""
+    import torch
+
+    _zero_counts()
+    for arch in LM_ARCHS:
+        _serve(arch)
+    for arch, layers in MOE_SERVE:
+        _serve(arch, layers)
     counts = _counts()
-    llama, mamba = (get_arch(a) for a in LM_ARCHS)
-    require(per_arch["llama3.2-3b"]["flash_attention"]
-            == llama.num_layers * LM_REQUESTS,
-            "lm_serve: K7 was not launched once per llama layer and prefill")
-    require(per_arch["mamba2-780m"]["ssd_intra_chunk"]
-            == mamba.num_layers * LM_REQUESTS,
-            "lm_serve: K8 was not launched once per mamba layer and prefill")
     for arch in LM_ARCHS:
         _decode_vs_prefill(dev, arch, "bfloat16", DECODE_TOL[arch])
         torch.cuda.empty_cache()
@@ -3292,23 +3497,27 @@ def phase_lm_serve(dev):
     return counts
 
 
-def _train_parity(dev, arch):
-    """One train step of ``arch`` at smoke width, PARITY_LAYERS layers,
-    float32, batch 8 x 256, on the card and on the CPU in this process from
-    the same weights and batch: the loss within LOSS_TOL, every gradient
-    leaf within GRAD_TOL of its norm, the parameters after the update
-    within PARAM_TOL of theirs."""
+def _train_parity(dev, arch, whole_step=True):
+    """One train step of ``arch`` at smoke width, PARITY_LAYERS layers (one
+    block where a block is longer), float32, batch 8 x 256, on the card and
+    on the CPU in this process from the same weights and batch: the loss
+    within LOSS_TOL, every gradient leaf within GRAD_TOL of its norm, the
+    parameters after the update within PARAM_TOL of theirs; without
+    ``whole_step``, the parameters after the card's optimizer applied to
+    the CPU's gradients (the whole step's gap printed beside them)."""
     import torch
 
     from repro_torch.config import TrainConfig
     from repro_torch.configs import smoke_arch
     from repro_torch.data import TokenStream
+    from repro_torch.interop import _flatten
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as tf
-    from repro_torch.optim import adamw_init
+    from repro_torch.optim import adamw_init, apply_gradients
     from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 
-    cfg = smoke_arch(arch).replace(num_layers=PARITY_LAYERS)
+    cfg = smoke_arch(arch)
+    cfg = cfg.replace(num_layers=max(PARITY_LAYERS, cfg.block_size))
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=20, total_steps=30)
     B, S = LLAMA_TRAIN[:2]
     host = tf.init_params(cfg, torch.Generator().manual_seed(0),
@@ -3330,23 +3539,38 @@ def _train_parity(dev, arch):
                                state.params)])
     (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = \
         out["cpu"], out[str(dev)]
+    if not whole_step:
+        params = tree_unflatten(host, [x.to(dev).clone()
+                                       for x in tree_leaves(host)])
+        grads = tree_unflatten(host, [g.to(dev) for g in g_cpu])
+        state, _ = apply_gradients(adamw_init(params, tcfg), grads, tcfg)
+        p_opt = [p.detach().cpu() for p in tree_leaves(state.params)]
+
+    names = list(_flatten(host))         # tree_leaves' order
 
     def worst(a, b):
-        return max(float((x - y).norm()) / max(float(y.norm()), 1e-30)
-                   for x, y in zip(a, b))
+        return max((float((x - y).norm()) / max(float(y.norm()), 1e-30),
+                    name) for x, y, name in zip(a, b, names))
 
     loss_gap = abs(l_card - l_cpu) / abs(l_cpu)
-    grad_gap, param_gap = worst(g_card, g_cpu), worst(p_card, p_cpu)
+    (grad_gap, grad_leaf), (param_gap, param_leaf) = (
+        worst(g_card, g_cpu), worst(p_card, p_cpu))
+    held = "" if whole_step else " (printed, not held)"
     log(f"[lm_train] step parity ({arch} smoke width, "
-        f"{PARITY_LAYERS} layers, f32, batch {B}x{S}): loss card {l_card:.7f} "
+        f"{cfg.num_layers} layers, f32, batch {B}x{S}): loss card {l_card:.7f} "
         f"cpu {l_cpu:.7f} rel gap {loss_gap:.3e} (tol {LOSS_TOL}); worst "
-        f"gradient leaf |card - cpu| / |cpu| {grad_gap:.3e} (tol "
-        f"{GRAD_TOL}); worst parameter leaf after the update {param_gap:.3e} "
-        f"(tol {PARAM_TOL})")
+        f"gradient leaf |card - cpu| / |cpu| {grad_gap:.3e} ({grad_leaf}; "
+        f"tol {GRAD_TOL}); worst parameter leaf after the update "
+        f"{param_gap:.3e} ({param_leaf}; tol {PARAM_TOL}){held}")
     require(loss_gap <= LOSS_TOL, f"lm_train parity {arch}: loss gap "
             f"{loss_gap:.3e}")
     require(grad_gap <= GRAD_TOL, f"lm_train parity {arch}: gradient gap "
             f"{grad_gap:.3e}")
+    if not whole_step:
+        param_gap, param_leaf = worst(p_opt, p_cpu)
+        log(f"[lm_train] step parity ({arch}): the card's optimizer on the "
+            f"CPU's gradients, worst parameter leaf {param_gap:.3e} "
+            f"({param_leaf}; tol {PARAM_TOL})")
     require(param_gap <= PARAM_TOL, f"lm_train parity {arch}: parameter "
             f"gap {param_gap:.3e}")
 
@@ -3504,21 +3728,95 @@ def _train_run(dev, arch, steps, pair):
     return counts
 
 
+def _train_moe(dev):
+    """MOE_TRAIN: ``launch/steps.make_train_step`` at full width, JAX's CLI
+    defaults (lr 3e-4, 20 warmup steps, batch 8 x 256 of the token
+    stream) and bf16 moments, the weights drawn on the card from seed 0
+    as the train launcher draws them: step ms (median after the first),
+    peak memory, the first and last losses (finite), K7 and K7b once per
+    attention layer a step and K8 / K8b never."""
+    import statistics
+
+    import torch
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    arch, layers, steps = MOE_TRAIN
+    cfg = get_arch(arch).replace(num_layers=layers)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=20,
+                       total_steps=steps, opt_dtype="bfloat16")
+    B, S = LLAMA_TRAIN[:2]
+    data = TokenStream(cfg.vocab_size, S, B, seed=0, frontend=cfg.frontend,
+                       d_model=cfg.d_model,
+                       frontend_tokens=cfg.frontend_tokens)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = adamw_init(tf.init_params(cfg, gen, device=dev), tcfg)
+    n = sum(p.numel() for p in tree_leaves(state.params))
+    step_fn = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _zero_counts()
+    losses, ms = [], []
+    for _ in range(steps):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.next().items()}
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    attn, mamba = _mixer_layers(cfg)
+    per_step = {k: counts[k] / steps for k in (
+        "flash_attention", "flash_attention_bwd", "ssd_intra_chunk",
+        "ssd_intra_chunk_bwd")}
+    med = statistics.median(ms[1:])
+    log(f"[lm_train] {arch} full width, {layers} of "
+        f"{get_arch(arch).num_layers} layers ({n / 1e9:.3f} B params, f32 "
+        f"params and grads, bf16 moments, {cfg.compute_dtype} compute), "
+        f"batch {B}x{S}: weights and moments drawn in {init_s:.2f} s; "
+        f"{steps} steps, step ms median after the first {med:.2f} (first "
+        f"{ms[0]:.2f}, min {min(ms[1:]):.2f}, max {max(ms[1:]):.2f}), "
+        f"{B * S * 1e3 / med:.0f} tokens/s; peak memory {peak / 2**30:.2f} "
+        f"GiB; loss first {losses[0]:.4f} last {losses[-1]:.4f}; launches "
+        f"a step: " + ", ".join(f"{k} {v:g}" for k, v in per_step.items()))
+    require(all(map(math.isfinite, losses)), f"lm_train {arch}: non-finite "
+            f"loss")
+    require(per_step == {"flash_attention": attn, "flash_attention_bwd": attn,
+                         "ssd_intra_chunk": mamba,
+                         "ssd_intra_chunk_bwd": mamba},
+            f"lm_train {arch}: launches a step {per_step}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+
 def phase_lm_train(dev):
     """This slice's main path: ``repro_torch.launch.train.main`` at full
     width for llama3.2-3b (K7 and K7b once per attention layer a step) and
-    mamba2-780m (K8 and K8b once per SSM layer a step); then the resume
-    check and each arch's step parity with the CPU.  Returns the launches
-    of K7b (llama's run) and K8b (mamba's run)."""
+    mamba2-780m (K8 and K8b once per SSM layer a step); dbrx-132b's MoE
+    training at full width and one layer (MOE_TRAIN); then the resume
+    check and the step parity with the CPU of llama, mamba and jamba.
+    Returns the launches of K7b (llama's run) and K8b (mamba's run)."""
     import torch
 
     launches = {}
     for arch, steps, pair in LM_TRAIN_RUNS:
         launches[pair[1]] = _train_run(dev, arch, steps, pair)[pair[1]]
+    _train_moe(dev)
     _train_resume(dev)
     torch.cuda.empty_cache()
-    for arch, _, _ in LM_TRAIN_RUNS:
-        _train_parity(dev, arch)
+    for arch, whole_step in PARITY_ARCHS:
+        _train_parity(dev, arch, whole_step)
     return launches
 
 

@@ -23,8 +23,8 @@ and the ``errors="isolate"`` retry.
 
 The LM zoo's serving entry point (``python -m repro_torch.launch.serve
 --arch <id>``) runs batched prefill — attention through K7, the Mamba-2
-SSD scan through K8 — and greedy KV / SSM-cache decode over ``models/``,
-for every arch without MoE layers.
+SSD scan through K8, the MoE FFN in torch ops — and greedy KV / SSM-cache
+decode over ``models/``, for every arch of the zoo.
 
 Entry points take ``device=``: they run on ``cuda`` unless the caller asks
 for ``"cpu"`` (as the tests do), and raise when no card is present.  A CUDA

@@ -111,7 +111,7 @@ def lm_params_from_jax(flat: dict[str, np.ndarray], cfg, *,
     """The port's LM params (nested dict of tensors in ``cfg.param_dtype``
     on ``device``, default the CPU) holding the JAX params given in
     ``flatten_tree``'s layout.  Every leaf of ``cfg``'s tree must be present
-    with its shape, and nothing else.  MoE archs raise."""
+    with its shape, and nothing else."""
     from repro_torch.models.transformer import init_params
 
     want = _flatten(init_params(cfg, None, device="meta"))

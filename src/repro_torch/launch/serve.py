@@ -9,9 +9,10 @@ Each of ``--requests`` batches draws ``--batch`` prompts from the same
 (attention through K7, SSD through K8 on the card), splices the prefill
 caches into decode caches of ``prompt + tokens`` positions, and decodes
 ``--tokens`` tokens greedily.  Weights are random, drawn from ``--seed`` by
-a ``torch.Generator`` on the device.  The decode loop keeps the tokens on
-the device and synchronizes only where the timings are read.  It runs on
-``cuda`` unless given ``--device cpu``; archs with MoE layers raise.
+a ``torch.Generator`` on the device, each leaf cast to the compute dtype
+as it is drawn (``init_compute_params``: the float32 tree is never held).
+The decode loop keeps the tokens on the device and synchronizes only where
+the timings are read.  It runs on ``cuda`` unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -52,9 +53,8 @@ def main(argv=None, out: list | None = None) -> int:
 
     dev = resolve_device(args.device)
     cfg = smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
-    tf.require_supported(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = tf.compute_params(cfg, tf.init_params(cfg, gen, device=dev))
+    params = tf.init_compute_params(cfg, gen, device=dev)
     max_seq = args.prompt_len + args.tokens + cfg.frontend_tokens
     rng = np.random.default_rng(args.seed)
     tl = text_len(cfg, args.prompt_len + cfg.frontend_tokens)

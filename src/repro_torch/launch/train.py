@@ -16,8 +16,9 @@ step ... loss= gnorm= lr= ...ms`` line every ``--log-every`` steps.  The
 initial weights are drawn from ``--seed`` by a ``torch.Generator`` on the
 device.  Only the one-card ``debug`` mesh runs: ``--mesh pod|multipod``
 raises.  On the card, attention layers run K7 forward and K7b backward,
-SSM layers K8 forward and K8b backward; archs with MoE layers raise
-before the first step.
+SSM layers K8 forward and K8b backward; MoE layers run in torch ops
+(``models/moe.py``), their dispatch and combine backwards fixed-order
+gathers.
 """
 
 from __future__ import annotations
@@ -83,7 +84,6 @@ def main(argv=None, out: dict | None = None) -> int:
     cfg = smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
     if args.num_layers is not None:
         cfg = cfg.replace(num_layers=args.num_layers)
-    tf.require_supported(cfg)
     tcfg = TrainConfig(
         learning_rate=args.lr, warmup_steps=args.warmup,
         total_steps=args.steps, microbatch=args.microbatch,

@@ -1,6 +1,7 @@
 """The LM backbone of the model zoo (counterpart of ``repro/models``):
-prefill through K7 (attention) and K8 (SSD), KV / SSM-cache decode.
-``lm_loss`` waits for LM training; MoE archs raise."""
+prefill through K7 (attention) and K8 (SSD), the MoE FFN
+(``models/moe.py``), KV / SSM-cache decode, and ``lm_loss`` for
+training."""
 
 from repro_torch.models.transformer import (  # noqa: F401
     decode_step,

@@ -37,7 +37,7 @@ def _dense_init(gen: torch.Generator, shape, scale=None, *,
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                       device=device) * scale
+                       device=device).mul_(scale)
 
 
 def cast(x: torch.Tensor, dtype: str | torch.dtype) -> torch.Tensor:

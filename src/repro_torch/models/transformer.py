@@ -1,5 +1,6 @@
 """LM backbone: period-structured blocks (attention / Mamba-2 mixers,
-dense or no FFN) over depth (counterpart of ``repro/models/transformer.py``).
+dense / MoE / no FFN) over depth (counterpart of
+``repro/models/transformer.py``).
 
 Parameters are a nested dict of tensors in the JAX params tree's layout —
 ``{"embed": {"tokens", ["lm_head"]}, "blocks": {"pos<i>": {"norm1",
@@ -15,10 +16,11 @@ ported).  ``lm_loss`` is the training objective (``launch/steps.py``).
 Leaves are kept in ``cfg.param_dtype``; JAX casts each matmul weight to
 ``cfg.compute_dtype`` on every use, and ``compute_params`` makes that cast
 once (the same numbers), after which every cast here is a no-op.
+``init_compute_params`` draws that tree directly, each leaf cast as it is
+drawn, so serving never holds the float32 tree.
 
-MoE FFN layers (``repro/models/moe.py``) are a later slice: an arch with an
-``FFN_MOE`` position raises ``NotImplementedError`` (``require_supported``),
-in serving and in training.  On the card, attention layers train through
+MoE FFN layers run ``models/moe.py``; ``forward`` returns the sum of their
+aux losses over the layers.  On the card, attention layers train through
 K7 / K7b and SSM layers through K8 / K8b.  Decode caches are updated in
 place; ``decode_step`` returns the same cache tensors and a host int index
 (the decode loop never syncs with the card to advance it).
@@ -32,6 +34,7 @@ import torch
 
 from repro_torch.config import FFN_MOE, FFN_NONE, MIXER_ATTN, ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.frontends import apply_frontend
 from repro_torch.models.layers import (
@@ -45,17 +48,6 @@ COMPUTE_LEAVES = frozenset({
     "w1", "w2", "w3", "in_z", "in_x", "in_B", "in_C", "in_dt",
     "conv_x", "conv_B", "conv_C", "out",
 })
-
-
-def require_supported(cfg: ModelConfig) -> None:
-    """Raise for an arch this slice of the port neither serves nor trains,
-    on any device: MoE layers.  Attention layers train through K7 / K7b on
-    the card and SSM layers through K8 / K8b; the CPU takes their plain
-    versions."""
-    if any(s.ffn == FFN_MOE for s in cfg.layer_specs()):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MoE FFN layers (repro/models/moe.py) are not "
-            f"ported yet (A14); the port serves the archs without MoE")
 
 
 def _tree_map(fn, tree):
@@ -76,24 +68,56 @@ def _tree_stack(trees: list):
     return torch.stack(trees)
 
 
+def _tree_put(dst, src, b: int) -> None:
+    """dst[b] = src, leaf by leaf."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _tree_put(dst[k], src[k], b)
+    else:
+        dst[b].copy_(src)
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 
-def _init_block(cfg: ModelConfig, gen, device) -> dict:
+def _init_block(cfg: ModelConfig, gen, device, leaf) -> dict:
+    """One block's params; ``leaf(name, x)`` sets each leaf's dtype as it
+    is drawn."""
+    def draw(init, *args):
+        return _tree_map_named(leaf, init(*args, device=device))
+
     params = {}
     for i, spec in enumerate(cfg.layer_specs()):
-        pp = {"norm1": init_rmsnorm(cfg.d_model, device=device)}
-        if spec.mixer == MIXER_ATTN:
-            pp["mixer"] = attn_mod.init_attention(gen, cfg, device=device)
-        else:
-            pp["mixer"] = ssm_mod.init_ssm(gen, cfg, device=device)
+        pp = {"norm1": draw(init_rmsnorm, cfg.d_model)}
+        pp["mixer"] = draw(attn_mod.init_attention if spec.mixer == MIXER_ATTN
+                           else ssm_mod.init_ssm, gen, cfg)
         if spec.ffn != FFN_NONE:
-            pp["norm2"] = init_rmsnorm(cfg.d_model, device=device)
-            pp["ffn"] = init_mlp(gen, cfg, device=device)
+            pp["norm2"] = draw(init_rmsnorm, cfg.d_model)
+            pp["ffn"] = draw(moe_mod.init_moe if spec.ffn == FFN_MOE
+                             else init_mlp, gen, cfg)
         params[f"pos{i}"] = pp
     return params
+
+
+def _init_tree(cfg: ModelConfig, gen, device, leaf) -> dict:
+    """Blocks drawn one after another into leaves stacked over blocks (one
+    block's draw beside the stack at a time; one block is a view)."""
+    embed = _tree_map_named(leaf, init_embedding(gen, cfg, device=device))
+    nb, stacked = cfg.num_blocks, None
+    for b in range(nb):
+        blk = _init_block(cfg, gen, device, leaf)
+        if nb == 1:
+            stacked = _tree_map(lambda x: x[None], blk)
+            break
+        if stacked is None:
+            stacked = _tree_map(lambda x: x.new_empty((nb, *x.shape)), blk)
+        _tree_put(stacked, blk, b)
+        del blk
+    final_norm = _tree_map_named(leaf, init_rmsnorm(cfg.d_model,
+                                                    device=device))
+    return {"embed": embed, "blocks": stacked, "final_norm": final_norm}
 
 
 def init_params(cfg: ModelConfig, gen: Optional[torch.Generator], *,
@@ -102,24 +126,32 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator], *,
     with ``_dense_init``'s scales, block leaves stacked over blocks, in
     ``cfg.param_dtype``.  ``device="meta"`` (``gen=None``) gives the shapes
     and dtypes only."""
-    require_supported(cfg)
     pdt = dtype_of(cfg.param_dtype)
-    params = {
-        "embed": init_embedding(gen, cfg, device=device),
-        "blocks": _tree_stack([_init_block(cfg, gen, device)
-                               for _ in range(cfg.num_blocks)]),
-        "final_norm": init_rmsnorm(cfg.d_model, device=device),
-    }
-    return _tree_map(lambda x: x.to(pdt), params)
+    return _init_tree(cfg, gen, device, lambda name, x: x.to(pdt))
 
 
 def compute_params(cfg: ModelConfig, params: dict) -> dict:
     """The params with every matmul weight cast to ``cfg.compute_dtype``
-    once (the cast JAX makes on each use); norms, A_log, D_skip and
-    dt_bias stay in ``param_dtype``, as JAX uses them."""
+    once (the cast JAX makes on each use); norms, A_log, D_skip, dt_bias
+    and the MoE router stay in ``param_dtype``, as JAX uses them."""
     dt = dtype_of(cfg.compute_dtype)
     return _tree_map_named(
         lambda name, x: cast(x, dt) if name in COMPUTE_LEAVES else x, params)
+
+
+def init_compute_params(cfg: ModelConfig, gen: torch.Generator, *,
+                        device=None) -> dict:
+    """``compute_params(cfg, init_params(cfg, gen, device=device))``, bit
+    for bit, with each leaf cast as soon as it is drawn: the peak is the
+    compute tree and one layer's float32 draw, not the whole float32
+    tree beside its copy (serving)."""
+    pdt, dt = dtype_of(cfg.param_dtype), dtype_of(cfg.compute_dtype)
+
+    def leaf(name, x):
+        x = x.to(pdt)
+        return cast(x, dt) if name in COMPUTE_LEAVES else x
+
+    return _init_tree(cfg, gen, device, leaf)
 
 
 def _block(blocks: dict, b: int) -> dict:
@@ -133,8 +165,10 @@ def _block(blocks: dict, b: int) -> dict:
 
 def _block_forward(cfg: ModelConfig, bp: dict, h: torch.Tensor, positions,
                    mode: str, caches: Optional[dict], cache_index):
-    """One period block (cfg.block_size layers).  Returns (h, new_caches)."""
-    new_caches = {}
+    """One period block (cfg.block_size layers).  Returns (h, new_caches,
+    aux): the block's MoE aux losses summed in layer order (None without
+    MoE layers)."""
+    new_caches, aux = {}, None
     for i, spec in enumerate(cfg.layer_specs()):
         pp = bp[f"pos{i}"]
         r = rmsnorm(pp["norm1"], h, cfg.norm_eps)
@@ -156,25 +190,33 @@ def _block_forward(cfg: ModelConfig, bp: dict, h: torch.Tensor, positions,
         h = h + out
         if spec.ffn != FFN_NONE:
             r = rmsnorm(pp["norm2"], h, cfg.norm_eps)
-            h = h + mlp_forward(cfg, pp["ffn"], r)
+            if spec.ffn == FFN_MOE:
+                out, a = moe_mod.moe_forward(cfg, pp["ffn"], r)
+                aux = a if aux is None else aux + a
+            else:
+                out = mlp_forward(cfg, pp["ffn"], r)
+            h = h + out
         if mode in ("prefill", "decode"):
             new_caches[f"pos{i}"] = nc if nc is not None else {}
-    return h, new_caches
+    return h, new_caches, aux
 
 
 def _stack_forward(cfg: ModelConfig, blocks: dict, h, positions, mode: str,
                    caches: Optional[dict] = None, cache_index=None):
-    """Blocks over depth.  Returns (h, new caches stacked over blocks)."""
-    per_block = []
+    """Blocks over depth.  Returns (h, new caches stacked over blocks, the
+    MoE aux losses summed over blocks in order; None without MoE)."""
+    per_block, aux = [], None
     views = _tree_map(lambda x: x.unbind(0), blocks)
     for b in range(cfg.num_blocks):
         cache = None if caches is None else _block(caches, b)
-        h, nc = _block_forward(cfg, _tree_map(lambda x: x[b], views), h,
-                               positions, mode, cache, cache_index)
+        h, nc, a = _block_forward(cfg, _tree_map(lambda x: x[b], views), h,
+                                  positions, mode, cache, cache_index)
         per_block.append(nc)
+        if a is not None:
+            aux = a if aux is None else aux + a
     if mode == "prefill":
-        return h, _tree_stack(per_block)
-    return h, caches        # decode: updated in place; train: None
+        return h, _tree_stack(per_block), aux
+    return h, caches, aux   # decode: updated in place; train: None
 
 
 # ---------------------------------------------------------------------------
@@ -192,13 +234,14 @@ def _embed(cfg, params, tokens, frontend):
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             frontend=None):
-    """Full forward to the final hidden states.  Returns (h, aux_loss); the
-    aux loss is MoE's and is 0 here."""
-    require_supported(cfg)
+    """Full forward to the final hidden states.  Returns (h, aux_loss): the
+    MoE layers' load-balance losses summed over depth (0 without MoE)."""
     h, positions = _embed(cfg, params, tokens, frontend)
-    h, _ = _stack_forward(cfg, params["blocks"], h, positions, "train")
+    h, _, aux = _stack_forward(cfg, params["blocks"], h, positions, "train")
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def lm_loss(cfg: ModelConfig, params: dict, batch: dict):
@@ -214,9 +257,8 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             frontend=None):
     """Prefill: returns (last-position logits (B,V) float32, caches stacked
     over blocks, next_index S)."""
-    require_supported(cfg)
     h, positions = _embed(cfg, params, tokens, frontend)
-    h, caches = _stack_forward(cfg, params["blocks"], h, positions,
+    h, caches, _ = _stack_forward(cfg, params["blocks"], h, positions,
                                "prefill")
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = (h[:, -1] @ lm_head_weight(cfg, params["embed"])).float()
@@ -226,7 +268,6 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       prefilled: int = 0, *, device=None) -> dict:
     """Zero decode caches (leaves stacked over blocks, compute dtype)."""
-    require_supported(cfg)
     dt = dtype_of(cfg.compute_dtype)
     nb = cfg.num_blocks
     caches = {}
@@ -247,10 +288,9 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
                 tokens: torch.Tensor):
     """One decode step.  tokens (B,1) -> (logits (B,V) float32, new state);
     the caches are written in place."""
-    require_supported(cfg)
     h = embed_tokens(cfg, params["embed"], tokens)
     idx = state["index"]
-    h, caches = _stack_forward(cfg, params["blocks"], h, None, "decode",
+    h, caches, _ = _stack_forward(cfg, params["blocks"], h, None, "decode",
                                caches=state["caches"], cache_index=idx)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = (h[:, 0] @ lm_head_weight(cfg, params["embed"])).float()

@@ -54,15 +54,16 @@ def tree_leaves(tree) -> list:
 
 def tree_unflatten(like, leaves):
     """``leaves`` (in ``tree_leaves`` order) in the dict structure of
-    ``like``."""
-    it = iter(leaves)
+    ``like``.  No closure: a recursive inner function would form a
+    reference cycle holding ``leaves`` (a step's gradients) until the
+    garbage collector runs, which card memory does not trigger."""
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in node.items()}
-        return next(it)
 
-    return build(like)
+def _build(node, it):
+    if isinstance(node, dict):
+        return {k: _build(v, it) for k, v in node.items()}
+    return next(it)
 
 
 def _map(fn, tree):

@@ -1032,8 +1032,9 @@ def test_ssd_intra_chunk_bwd_rejects_what_the_kernel_does_not_take():
 def test_lm_training_gradients_never_bypass_a_kernel():
     """On the card a gradient through an SSM layer launches K8 then K8b
     (never the plain backward), one each per mamba layer of a training
-    loss, and the training entry point accepts SSM archs; MoE archs are
-    still refused (A14); attention archs train through K7 / K7b."""
+    loss; attention layers train through K7 / K7b; jamba's block (one
+    attention layer, seven mamba layers, four MoE FFNs) and dbrx's MoE
+    layers launch the same kernels per mixer."""
     dev = _card()
     from repro_torch.configs import smoke_arch
     from repro_torch.kernels.flash_attention.ops import (
@@ -1049,9 +1050,12 @@ def test_lm_training_gradients_never_bypass_a_kernel():
     ssd_ops.ssd_intra_chunk_bwd_plain = lambda *a: called.append(a) or \
         plain(*a)
     try:
-        for arch in ("mamba2-780m", "llama3.2-3b"):
-            cfg = smoke_arch(arch).replace(num_layers=3)
-            tf.require_supported(cfg)
+        for arch, layers, want in (
+                ("mamba2-780m", 3, [3, 3, 0, 0]),
+                ("llama3.2-3b", 3, [0, 0, 3, 3]),
+                ("jamba-v0.1-52b", 8, [7, 7, 1, 1]),
+                ("dbrx-132b", 3, [0, 0, 3, 3])):
+            cfg = smoke_arch(arch).replace(num_layers=layers)
             params = tf.init_params(cfg, torch.Generator(device=dev)
                                     .manual_seed(0), device=dev)
             leaves = tree_leaves(params)
@@ -1066,15 +1070,58 @@ def test_lm_training_gradients_never_bypass_a_kernel():
                                         leaves)
             torch.cuda.synchronize()
             got = [w.launches - b for w, b in zip(wrappers, before)]
-            assert got == ([3, 3, 0, 0] if arch.startswith("mamba")
-                           else [0, 0, 3, 3]), (arch, got)
+            assert got == want, (arch, got)
             assert all(bool(torch.isfinite(g).all()) for g in grads)
     finally:
         ssd_ops.ssd_intra_chunk_bwd_plain = plain
     assert called == []
-    for arch in ("jamba-v0.1-52b", "dbrx-132b"):
-        with pytest.raises(NotImplementedError, match="A14"):
-            tf.require_supported(smoke_arch(arch))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dbrx-132b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_backward_on_card_is_bit_equal(arch, dtype):
+    """One MoE layer at D 256, 16 experts, routed in 2 chunks with dropped
+    slots: two backward passes on the card give the same bits (no sum
+    depends on atomics' order), and the output and gradients agree with
+    the CPU's (float32: 1e-5 of the largest output element, 1e-4 of each
+    gradient's norm; bfloat16: 2^-6 of the output, 2^-5 of each norm)."""
+    dev = _card()
+    from repro_torch.configs import smoke_arch
+    from repro_torch.models import moe
+
+    cfg = smoke_arch(arch).replace(
+        d_model=256, d_ff=384, num_experts=16, top_k=min(
+            smoke_arch(arch).top_k * 2, 4), moe_seq_chunk=128,
+        capacity_factor=1.0, compute_dtype=dtype)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(1)
+    h = torch.from_numpy(rng.standard_normal((3, 256, 256)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    ct = torch.from_numpy(rng.standard_normal((3, 256, 256)).astype(
+        np.float32))
+
+    def grads(d):
+        pd = {k: v.to(d).requires_grad_(True) for k, v in p.items()}
+        hd = h.to(d).requires_grad_(True)
+        out, aux = moe.moe_forward(cfg, pd, hd)
+        loss = (out.float() * ct.to(d)).sum() + aux
+        names = sorted(pd)
+        return out, torch.autograd.grad(loss, [hd] + [pd[n] for n in names])
+
+    out1, g1 = grads(dev)
+    out2, g2 = grads(dev)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    out_cpu, g_cpu = grads("cpu")
+    otol, gtol = (1e-5, 1e-4) if dtype == "float32" else (2 ** -6, 2 ** -5)
+    scale = float(out_cpu.detach().float().abs().max())
+    assert float((out1.float().cpu() - out_cpu.float()).abs().max()) <= \
+        otol * scale
+    for a, b in zip(g1, g_cpu):
+        a, b = a.float().cpu(), b.float()
+        assert float((a - b).norm()) <= gtol * float(b.norm())
 
 
 @pytest.mark.cuda
@@ -1113,11 +1160,13 @@ def test_lm_wrappers_reject_what_the_kernels_do_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m",
+                                  "jamba-v0.1-52b", "dbrx-132b"])
 def test_lm_prefill_and_decode_on_card_match_cpu(arch):
-    """A smoke-width model (two layers, float32) on the card through K7 /
-    K8 against the same weights on the CPU: prefill logits, then 4
-    teacher-forced decode steps, within 1e-4 of their scale."""
+    """A smoke-width model (two blocks, float32) on the card through K7 /
+    K8 (and the MoE FFN) against the same weights on the CPU: prefill
+    logits, then 4 teacher-forced decode steps, within 1e-4 of their
+    scale."""
     dev = _card()
     from repro_torch.configs import smoke_arch
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -1125,7 +1174,8 @@ def test_lm_prefill_and_decode_on_card_match_cpu(arch):
     from repro_torch.launch.serve import _splice_prefill
     from repro_torch.models import transformer as tf
 
-    cfg = smoke_arch(arch).replace(num_layers=2)
+    base = smoke_arch(arch)
+    cfg = base.replace(num_layers=2 * base.block_size)
     params = tf.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(
@@ -1146,7 +1196,9 @@ def test_lm_prefill_and_decode_on_card_match_cpu(arch):
             out.append(logits)
         runs[str(d)] = (out, launched)
     (cpu, _), (card, launched) = runs["cpu"], runs[str(dev)]
-    assert launched == ((2, 0) if arch.startswith("llama") else (0, 2))
+    specs = cfg.layer_specs()
+    attn = sum(s.mixer == "attention" for s in specs) * cfg.num_blocks
+    assert launched == (attn, cfg.num_layers - attn)
     for got, want in zip(card, cpu):
         scale = float(want.abs().max())
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale

@@ -1,7 +1,8 @@
 """The LM zoo's serving path of the PyTorch port against the JAX package, on
 the CPU: layers, K7's and K8's plain versions, the attention and SSM
-mixers, prefill and decode for every arch without MoE, the param interop,
-the serve CLI, and the committed fixture ``reference_lm.npz``.
+mixers, prefill and decode for every arch of the zoo (the MoE FFN's own
+tests are in ``test_torch_moe.py``), the param interop, the serve CLI, and
+the committed fixture ``reference_lm.npz``.
 
 The JAX side runs its own functions (Pallas kernels in interpret mode where
 a test is about a kernel); the port runs on CPU tensors, so every kernel
@@ -44,7 +45,9 @@ from repro.models import transformer as j_tf
 from repro.models.frontends import apply_frontend as j_apply_frontend
 from repro.sampling.store import flatten_tree, unflatten_tree
 from repro_torch.configs import smoke_arch
-from repro_torch.interop import lm_params_from_jax, lm_params_to_numpy
+from repro_torch.interop import (
+    _flatten, lm_params_from_jax, lm_params_to_numpy,
+)
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention, flash_attention_plain,
 )
@@ -65,9 +68,10 @@ NON_MOE = ["llama3.2-3b", "granite-3-2b", "qwen2-72b", "yi-34b",
            "mamba2-780m", "musicgen-medium", "paligemma-3b"]
 MOE = ["dbrx-132b", "grok-1-314b", "jamba-v0.1-52b"]
 TOL = 1e-5
-#: the fixture: smoke widths at two layers, B=2, a 1024-token prompt (two
-#: 512-row K7 blocks; 32 K8 chunks of 32), 16 greedy tokens
-FIX_ARCHS = ("llama3.2-3b", "mamba2-780m")
+#: the fixture: smoke widths at two blocks (jamba: one block of 8 layers,
+#: routed in MoE groups of 512), B=2, a 1024-token prompt (two 512-row K7
+#: blocks; 32 K8 chunks of 32; two MoE groups), 16 greedy tokens
+FIX_ARCHS = ("llama3.2-3b", "mamba2-780m", "jamba-v0.1-52b")
 FIX_B, FIX_PROMPT, FIX_TOKENS = 2, 1024, 16
 #: constant-initialized leaves, perturbed before a comparison
 PERTURB = ("scale", "norm", "dt_bias", "D_skip", "bq", "bk", "bv")
@@ -370,7 +374,7 @@ def _tree_np(tree):
 
 
 # ---------------------------------------------------------------------------
-# the backbone: prefill and decode for every arch without MoE
+# the backbone: prefill and decode for every arch
 # ---------------------------------------------------------------------------
 
 
@@ -387,12 +391,14 @@ def _prompts(cfg, B, S, seed):
     return toks, None if fe is None else fe.astype(np.float32)
 
 
-@pytest.mark.parametrize("arch", NON_MOE)
+@pytest.mark.parametrize("arch", NON_MOE + MOE)
 def test_prefill_and_decode_match_jax(arch):
     """Prefill logits and caches, then 3 teacher-forced decode steps
     (logits), against the JAX backbone with the same weights; S = 64 gives
-    mamba two SSD chunks."""
-    jcfg, cfg, jp, tp = _carried(arch, num_layers=2 * j_smoke_arch(
+    mamba two SSD chunks.  Two blocks, but jamba's one block of 8 layers;
+    a decode step routes each MoE layer's group of one token."""
+    blocks = 1 if arch == "jamba-v0.1-52b" else 2
+    jcfg, cfg, jp, tp = _carried(arch, num_layers=blocks * j_smoke_arch(
         arch).block_size)
     B, S, steps = 2, 64, 3
     toks, fe = _prompts(cfg, B, S, seed=11)
@@ -444,21 +450,12 @@ def test_decode_matches_prefill(arch):
     _close(_np(logits), _np(want))
 
 
-@pytest.mark.parametrize("arch", MOE)
-def test_moe_archs_raise(arch):
-    cfg = smoke_arch(arch)
-    with pytest.raises(NotImplementedError, match="moe"):
-        t_tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_tf.init_decode_state(cfg, 1, 8)
-
-
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
 def test_lm_params_round_trip(param_dtype):
-    cfg = smoke_arch("jamba-v0.1-52b")
-    with pytest.raises(NotImplementedError):
-        lm_params_from_jax({}, cfg)
-    for arch in ("qwen2-72b", "mamba2-780m", "paligemma-3b"):
+    with pytest.raises(KeyError):
+        lm_params_from_jax({}, smoke_arch("jamba-v0.1-52b"))
+    for arch in ("qwen2-72b", "mamba2-780m", "paligemma-3b",
+                 "jamba-v0.1-52b"):
         jcfg = j_smoke_arch(arch).replace(param_dtype=param_dtype)
         jparams, _ = j_tf.init_params(jcfg, jax.random.PRNGKey(1))
         flat = {k: np.asarray(v) for k, v in flatten_tree(jparams).items()}
@@ -475,6 +472,34 @@ def test_lm_params_round_trip(param_dtype):
         bad = dict(flat, **{"final_norm/scale": np.zeros(3, np.float32)})
         with pytest.raises(ValueError):
             lm_params_from_jax(bad, smoke_arch(arch))
+
+
+@pytest.mark.parametrize("arch,blocks,param_dtype", [
+    ("dbrx-132b", 2, "float32"), ("jamba-v0.1-52b", 1, "float32"),
+    ("llama3.2-3b", 3, "bfloat16")])
+def test_init_compute_params_equals_compute_params_of_init(arch, blocks,
+                                                           param_dtype):
+    """The serving path's draw, each leaf cast as it is drawn, is bit-equal
+    to ``compute_params(cfg, init_params(cfg, gen))`` (bf16 compute): the
+    same keys, dtypes and bits, the router, norms and SSM constants in
+    ``param_dtype``."""
+    base = smoke_arch(arch)
+    cfg = base.replace(num_layers=blocks * base.block_size,
+                       param_dtype=param_dtype, compute_dtype="bfloat16")
+    want = t_tf.compute_params(cfg, t_tf.init_params(
+        cfg, torch.Generator().manual_seed(3), device="cpu"))
+    got = t_tf.init_compute_params(cfg, torch.Generator().manual_seed(3),
+                                   device="cpu")
+    want, got = _flatten(want), _flatten(got)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        assert got[key].shape[0] == cfg.num_blocks or \
+            not key.startswith("blocks/"), key
+        assert torch.equal(got[key], want[key]), key
+        leaf = key.rsplit("/", 1)[-1]
+        assert (got[key].dtype == torch.bfloat16) == (
+            leaf in t_tf.COMPUTE_LEAVES or param_dtype == "bfloat16"), key
 
 
 # ---------------------------------------------------------------------------
@@ -503,6 +528,10 @@ def test_serve_cli_runs_on_the_cpu():
     rec: list = []
     from repro_torch.launch.serve import main
     assert main(["--arch", "llama3.2-3b", "--smoke", "--device", "cpu",
+                 "--requests", "1", "--tokens", "4"], out=rec) == 0
+    assert rec[0]["finite"] and rec[0]["tokens"].shape == (4, 4)
+    rec = []
+    assert main(["--arch", "jamba-v0.1-52b", "--smoke", "--device", "cpu",
                  "--requests", "1", "--tokens", "4"], out=rec) == 0
     assert rec[0]["finite"] and rec[0]["tokens"].shape == (4, 4)
 
@@ -539,6 +568,8 @@ def test_port_imports_neither_jax_nor_repro():
 
 def _fixture_cfg(arch, port=True):
     base = (smoke_arch if port else j_smoke_arch)(arch)
+    if base.num_experts:
+        return base.replace(moe_seq_chunk=FIX_PROMPT // 2)
     return base.replace(num_layers=2 * base.block_size)
 
 
