@@ -152,11 +152,20 @@ Phases, each reported on its own lines:
 13. lm_serve ``repro_torch.launch.serve.main`` for llama3.2-3b and
             mamba2-780m at full width and depth, then dbrx-132b (2 of 40
             layers), grok-1-314b (1 of 64) and jamba-v0.1-52b (8 of 32) at
-            full width (2 batches x 4 requests of a 2048-token prompt + 32
-            greedy tokens): prefill ms, decode tok/s, peak memory, finite
-            logits; K7 launched once per attention layer and prefill, K8
-            once per mamba layer and prefill (these counts are K7's and
-            K8's ``launches``); then decode-vs-prefill at full
+            full width, then granite-3-2b, qwen2-72b, yi-34b, paligemma-3b
+            and musicgen-medium at full width and the depth the dry run
+            picks (all layers where its serving peak with 10 % headroom
+            fits the card, else the most whole blocks that do; printed)
+            (2 batches x 4 requests of a 2048-token prompt, paligemma's 256
+            image tokens among them, + 32 greedy tokens): prefill ms, decode
+            tok/s, peak memory, finite logits; K7 launched once per
+            attention layer and prefill, K8 once per mamba layer and
+            prefill (these counts are K7's and K8's ``launches``); the dry
+            run of each prefill beside the second batch's (predicted peak
+            against the measured one, the bound against the measured ms,
+            the model FLOPs' share of the bf16 peak), the predicted peak
+            held within 10 % and the roofline share at most 1.05 for the
+            first five archs; then decode-vs-prefill at full
             width (prefill 1536, decode 512 teacher-forced, against the
             prefill of all 2048 at its last position) in bf16 at full
             depth and in f32 at 4 layers, with 8 decode steps profiled for
@@ -174,13 +183,21 @@ Phases, each reported on its own lines:
             into K7, K7b, K8, K8b, matmuls, copies and the rest); then
             dbrx-132b at full width and 1 layer, 10 steps of
             ``launch/steps.make_train_step`` with bf16 moments (step ms,
-            peak memory, finite losses, K7 and K7b once a step); then 8
+            peak memory, finite losses, K7 and K7b once a step); the dry
+            run of each of these three steps beside its median step and
+            peak, held as phase 13's; then 8
             llama steps at full width and 2 layers against 4 steps, a
             checkpoint and ``--resume auto`` (losses, params and moments
             bit-equal); then one step of llama and mamba at smoke width, 2
             layers, and of jamba at one block of 8 layers, f32, on the card
             and on the CPU (loss 1e-5, every gradient leaf 1e-3 and every
-            parameter leaf after the update 1e-4 of its norm).
+            parameter leaf after the update 1e-4 of its norm);
+15. dryrun ``python -m repro_torch.launch.dryrun --all``, started on the
+            host (no card) beside phase 2 and read here: one line per (arch
+            x shape) cell (fits, argument and temp GiB, FLOPs, the compute
+            and memory terms, the dominant one), every applicable cell
+            ``ok`` and ``long_500k`` skipped on the pure-attention archs;
+            the roofline's HBM_BYTES within 3 % of the card's memory.
 
 Any mismatch or exception exits non-zero.  The last lines are the kernel
 table as one JSON object (K1's and K8's ``bound_ms`` is their 3xTF32
@@ -197,6 +214,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -205,13 +223,6 @@ ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "src" / "repro_torch" / "assets" / "reference_phi2.npz"
 GRID_FIXTURE = FIXTURE.parent / "reference_grid.json"
 LM_FIXTURE = FIXTURE.parent / "reference_lm.npz"
-
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32
-# outside the tensor cores (the kernels here run float32 FMAs)
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
-PEAK_BF16_S = 989e12    # dense bf16 tensor-core rate
-PEAK_TF32_S = 495e12    # dense TF32 tensor-core rate: K1 and K8 run 3xTF32
 
 KERNEL_TOL = 1e-5       # max |kernel - plain| / max |plain|
 # Training on the card against the CPU.  The encoder's gradient jumps where
@@ -379,6 +390,22 @@ MOE_TRAIN = ("dbrx-132b", 1, 10)       # (arch, layers, steps)
 #: torch.profiler records ``device_ms`` takes of one call before it falls
 #: back to the spin-primed span: CUPTI now and then drops part of a record
 RECORD_TRIES = 3
+#: the dry run (``repro_torch.launch.dryrun``) held to the card on the LM
+#: steps phases 13 and 14 measure: its predicted peak (arguments + temp)
+#: within PEAK_TOL of the measured one (``max_memory_allocated`` less what
+#: was allocated before the step's arguments), and its roofline share
+#: (``step_time_bound_s`` over the measured step) at most SHARE_MAX
+PEAK_TOL = 0.10
+SHARE_MAX = 1.05
+#: the zoo's other five archs, served at full width and the depth the
+#: dry run finds: the whole arch where its serving peak with PEAK_TOL of
+#: headroom fits the card, else the most whole blocks that do
+DEPTH_ARCHS = ("granite-3-2b", "qwen2-72b", "yi-34b", "paligemma-3b",
+               "musicgen-medium")
+#: ``python -m repro_torch.launch.dryrun --all`` runs on the host beside the
+#: card phases (one process, no card) and must end within this many seconds
+#: of its start
+DRYRUN_TIMEOUT = 1000
 
 
 def log(*a):
@@ -565,18 +592,6 @@ def device_ms(fn, iters, own=None) -> DeviceTime:
     return DeviceTime(t, t, "spin-primed")
 
 
-def bound(bytes_, ops, peak=PEAK_F32_S):
-    t_bytes, t_ops = bytes_ / PEAK_BYTES_S, ops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def tf32x3_bound(bytes_, ops):
-    """(ms, by) of a 3xTF32 design: three tensor-core passes over the
-    operations at the TF32 rate, against the bytes."""
-    return bound(bytes_, 3 * ops, PEAK_TF32_S)
-
-
 def ptxas_report(kernel):
     """ptxas's registers and spill bytes of each compiled entry whose name
     holds ``kernel`` (the build's ``-Xptxas -v`` report), as text."""
@@ -710,6 +725,7 @@ def phase_kernels(rows, dev):
     from repro_torch.kernels.rgcn_fused.ops import (
         rgcn_fused_agg_flat, rgcn_fused_agg_flat_plain,
     )
+    from repro_torch.launch.roofline import bound, tf32x3_bound
 
     rng = np.random.default_rng(0)
 
@@ -977,6 +993,7 @@ def phase_k4(rows, dev):
         kmeans_assign, kmeans_assign_fused, kmeans_assign_fused_plain,
         kmeans_assign_plain, silhouette_sums, silhouette_sums_plain,
     )
+    from repro_torch.launch.roofline import bound
 
     k4 = None
     for label, x_np, c_np in _k4_inputs():
@@ -1127,6 +1144,7 @@ def _k5_k1b(rows, dev, rng, batches):
     from repro_torch.kernels.rgcn_spmm.ops import (
         rgcn_spmm_flat, rgcn_spmm_flat_plain,
     )
+    from repro_torch.launch.roofline import bound
 
     nb = 2
     res = {}
@@ -1381,6 +1399,7 @@ def _k6_check(dev, label, h, src, dst, w, N, timed):
     from repro_torch.kernels.rgcn_spmm.ops import (
         rgcn_spmm_dense, rgcn_spmm_dense_plain,
     )
+    from repro_torch.launch.roofline import bound
 
     B, _, D = h.shape
     E, nb = w.shape[1], w.shape[2]
@@ -2829,10 +2848,13 @@ def phase_lm_kernels(rows, dev):
     import torch
 
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain,
+        flash_attention, flash_attention_cost, flash_attention_plain,
     )
     from repro_torch.kernels.ssd_scan.ops import (
-        ssd_intra_chunk, ssd_intra_chunk_plain,
+        ssd_intra_chunk, ssd_intra_chunk_cost, ssd_intra_chunk_plain,
+    )
+    from repro_torch.launch.roofline import (
+        PEAK_BF16_S, PEAK_F32_S, bound, tf32x3_bound,
     )
 
     # ---- K7: every hd x G x S x dtype around the main shape, then it ----
@@ -2869,9 +2891,7 @@ def phase_lm_kernels(rows, dev):
         lib_ms, _, lib_src = device_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=True, enable_gqa=True), 5)
-        esz = q.element_size()
-        bytes_ = (2 * B * S * H * hd + 2 * B * S * K * hd) * esz
-        ops = 4 * B * H * hd * S * (S + 1) // 2
+        ops, bytes_ = flash_attention_cost(B, S, K, G, hd, q.element_size())
         b_ms, b_by = bound(bytes_, ops, PEAK_BF16_S if dt == torch.bfloat16
                            else PEAK_F32_S)
         dname = "bf16" if dt == torch.bfloat16 else "f32"
@@ -2917,11 +2937,7 @@ def phase_lm_kernels(rows, dev):
                                   own=K8_KERNELS)
         plain_ms, _, plain_src = device_ms(
             lambda: ssd_intra_chunk_plain(*args), 3)
-        tri = Q * (Q + 1) // 2
-        ops = B * nc * (2 * ds * tri + nh * (
-            4 * tri + 2 * hp * tri + 3 * Q + Q * ds + 2 * Q * ds * hp))
-        bytes_ = 4 * (2 * B * nc * Q * nh * hp + 2 * B * nc * nh * Q
-                      + 2 * B * nc * Q * ds + B * nc * nh * hp * ds)
+        ops, bytes_ = ssd_intra_chunk_cost(B, nc, Q, nh, hp, ds)
         b_ms, b_by = bound(bytes_, ops)
         tc_ms, tc_by = tf32x3_bound(bytes_, ops)
         log(f"[kernels] K8 ssd_intra_chunk {label} (B, nc, Q, nh, hp, ds) = "
@@ -2955,11 +2971,14 @@ def _moe_kernel_shapes(dev):
     import torch
 
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-        flash_attention_plain,
+        flash_attention, flash_attention_bwd, flash_attention_bwd_cost,
+        flash_attention_bwd_plain, flash_attention_cost, flash_attention_plain,
     )
     from repro_torch.kernels.ssd_scan.ops import (
-        ssd_intra_chunk, ssd_intra_chunk_plain,
+        ssd_intra_chunk, ssd_intra_chunk_cost, ssd_intra_chunk_plain,
+    )
+    from repro_torch.launch.roofline import (
+        PEAK_BF16_S, PEAK_F32_S, bound, tf32x3_bound,
     )
 
     bf16 = torch.bfloat16
@@ -2979,8 +2998,7 @@ def _moe_kernel_shapes(dev):
         lib = device_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=True, enable_gqa=True), 5)
-        bytes_ = (2 * B * S * H * hd + 2 * B * S * K * hd) * 2
-        ops = 4 * B * H * hd * S * (S + 1) // 2
+        ops, bytes_ = flash_attention_cost(B, S, K, G, hd, 2)
         b_ms, b_by = bound(bytes_, ops, PEAK_BF16_S)
         log(f"[kernels] K7 flash_attention {label} {shape} bf16: "
             f"max_abs_err {err:.3e} rel {rel:.3e} (tol {BF16_TOL:.3e}), "
@@ -3011,9 +3029,8 @@ def _moe_kernel_shapes(dev):
         doh = do.reshape(B, S, H, hd).transpose(1, 2).contiguous()
         lib = device_ms(lambda: torch.autograd.grad(
             out, leaves, doh, retain_graph=True), 5)
-        esz = q.element_size()
-        bytes_ = (4 * B * S * H * hd + 4 * B * S * K * hd) * esz
-        ops = 10 * hd * B * H * S * (S + 1) // 2
+        ops, bytes_ = flash_attention_bwd_cost(B, S, K, G, hd,
+                                               q.element_size())
         b_ms, b_by = bound(bytes_, ops, PEAK_BF16_S if dt == bf16
                            else PEAK_F32_S)
         tol = BF16_TOL if dt == bf16 else K7B_TOL_F32
@@ -3045,11 +3062,7 @@ def _moe_kernel_shapes(dev):
     del got, again
     ms = device_ms(lambda: ssd_intra_chunk(*args), 5, own=K8_KERNELS)
     plain = device_ms(lambda: ssd_intra_chunk_plain(*args), 3)
-    tri = Q * (Q + 1) // 2
-    ops = B * nc * (2 * ds * tri + nh * (
-        4 * tri + 2 * hp * tri + 3 * Q + Q * ds + 2 * Q * ds * hp))
-    bytes_ = 4 * (2 * B * nc * Q * nh * hp + 2 * B * nc * nh * Q
-                  + 2 * B * nc * Q * ds + B * nc * nh * hp * ds)
+    ops, bytes_ = ssd_intra_chunk_cost(B, nc, Q, nh, hp, ds)
     b_ms, b_by = bound(bytes_, ops)
     tc_ms, tc_by = tf32x3_bound(bytes_, ops)
     log(f"[kernels] K8 ssd_intra_chunk jamba prefill (B, nc, Q, nh, hp, ds) "
@@ -3072,8 +3085,10 @@ def _k8b(dev):
     import torch
 
     from repro_torch.kernels.ssd_scan.ops import (
-        ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_plain,
+        ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_cost,
+        ssd_intra_chunk_bwd_plain,
     )
+    from repro_torch.launch.roofline import bound
 
     row = None
     for label, shape in (("smoke train", (8, 8, 32, 8, 16, 16)),
@@ -3096,14 +3111,7 @@ def _k8b(dev):
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"K8b {label}: two launches differ")
         del again
-        tri = Q * (Q + 1) // 2
-        # dw and w^T dy over the triangle, u = B dst^T and (sd x)^T dst,
-        # dsd and the elementwise work on the triangle, per head; CB, dC
-        # and dB's CB term per chunk
-        ops = B * nc * (3 * 2 * ds * tri + nh * (
-            4 * hp * tri + 4 * Q * ds * hp + 2 * Q * hp + 6 * tri))
-        bytes_ = 4 * (3 * B * nc * Q * nh * hp + 4 * B * nc * nh * Q
-                      + 4 * B * nc * Q * ds + B * nc * nh * hp * ds)
+        ops, bytes_ = ssd_intra_chunk_bwd_cost(B, nc, Q, nh, hp, ds)
         b_ms, b_by = bound(bytes_, ops)
         extra = ""
         if label != "smoke train":
@@ -3175,8 +3183,10 @@ def _k7b(dev):
     import torch
 
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_bwd, flash_attention_bwd_cost,
+        flash_attention_bwd_plain,
     )
+    from repro_torch.launch.roofline import PEAK_BF16_S, PEAK_F32_S, bound
 
     n, worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
     for hd in (16, 64, 256):
@@ -3200,9 +3210,8 @@ def _k7b(dev):
                                                            7)
             call = lambda: flash_attention_bwd(q, k, v, o, do, scale)  # noqa
             ms = device_ms(call, 5, own=k7b_kernels(hd, dt))
-            esz = q.element_size()
-            bytes_ = (4 * B * S * H * hd + 4 * B * S * K * hd) * esz
-            ops = 10 * hd * B * H * S * (S + 1) // 2
+            ops, bytes_ = flash_attention_bwd_cost(B, S, K, G, hd,
+                                                   q.element_size())
             b_ms, b_by = bound(bytes_, ops, PEAK_BF16_S
                                if dt == torch.bfloat16 else PEAK_F32_S)
             dname = "bf16" if dt == torch.bfloat16 else "f32"
@@ -3413,13 +3422,122 @@ def _decode_vs_prefill(dev, arch, compute_dtype, tol, num_layers=None):
             f"{rel:.3e} > {tol}")
 
 
-def _serve(arch, layers=None):
+def _serve_shape():
+    """The serving prefill as a dry-run shape: LM_BATCH prompts of
+    LM_PROMPT positions (a vision arch's prefix tokens among them)."""
+    from repro_torch.config import KIND_PREFILL, ShapeConfig
+
+    return ShapeConfig("serve_prefill", LM_PROMPT, LM_BATCH, KIND_PREFILL)
+
+
+def _dry_prediction(label, cfg, shape, tcfg, ms, peak, hold=True):
+    """The dry run of one step (``lower_one`` at ``cfg`` and ``shape``, on
+    the host) beside the card's measurement of it: its predicted peak
+    (arguments + temp) against ``peak`` bytes, its bound against ``ms``
+    (the roofline share) and the model FLOPs over ``ms`` at the bf16 peak;
+    with ``hold``, the peak within PEAK_TOL and the share at most
+    SHARE_MAX."""
+    from repro_torch.launch.dryrun import lower_one
+    from repro_torch.launch.roofline import PEAK_BF16_S
+
+    t0 = time.perf_counter()
+    rec = lower_one(cfg, shape, tcfg)
+    m, rl, cost = rec["memory"], rec["roofline"], rec["cost"]
+    args, temp = m["argument_bytes_per_device"], m["temp_bytes_per_device"]
+    gap = (args + temp) / peak - 1.0
+    share = rl["step_time_bound_s"] * 1e3 / ms
+    mfu = rec["model_flops"] / (ms / 1e3 * PEAK_BF16_S)
+    log(f"[dryrun] {label}: predicted peak {(args + temp) / 2**30:.3f} GiB "
+        f"(arguments {args / 2**30:.3f} + temp {temp / 2**30:.3f}) measured "
+        f"{peak / 2**30:.3f} GiB, gap {100 * gap:+.2f} % (tol "
+        f"{100 * PEAK_TOL:.0f} %); bound {rl['step_time_bound_s'] * 1e3:.3f} "
+        f"ms ({rl['dominant']}: compute {rl['compute_s'] * 1e3:.3f} ms, "
+        f"memory {rl['memory_s'] * 1e3:.3f} ms; "
+        f"{cost['flops_per_device']:.4e} FLOPs "
+        f"{json.dumps({k: f'{v:.3e}' for k, v in cost['flops_by_dtype'].items()})}, "
+        f"{cost['bytes_per_device']:.4e} bytes) against {ms:.3f} ms "
+        f"measured: roofline share {share:.4f} (max {SHARE_MAX}); model "
+        f"FLOPs {rec['model_flops']:.4e}, {mfu:.4f} of the bf16 peak; meta "
+        f"run {time.perf_counter() - t0:.2f} s"
+        + ("" if hold else " (printed, not held)"))
+    if hold:
+        require(abs(gap) <= PEAK_TOL, f"dry run {label}: predicted peak "
+                f"{args + temp} bytes, measured {peak}: gap {gap:+.3f}")
+        require(share <= SHARE_MAX, f"dry run {label}: roofline share "
+                f"{share:.4f} > {SHARE_MAX}")
+    return rec
+
+
+def _serve_need(cfg):
+    """The bytes ``serve.main`` needs for ``cfg`` at chip_smoke's requests,
+    by the dry run: the larger of the weights' draw
+    (``init_compute_params`` on ``meta``) and the prefill's arguments and
+    temp with the decode state of LM_PROMPT + LM_TOKENS positions beside
+    them."""
+    from repro_torch.config import KIND_DECODE, ShapeConfig
+    from repro_torch.launch.dryrun import StepCounter, lower_one
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.specs import decode_state_specs
+    from repro_torch.optim.adamw import tree_leaves
+
+    m = lower_one(cfg, _serve_shape())["memory"]
+    init = StepCounter([])
+    with init:
+        tf.init_compute_params(cfg, None, device="meta")
+    state = decode_state_specs(cfg, ShapeConfig(
+        "serve_decode", LM_PROMPT + LM_TOKENS, LM_BATCH, KIND_DECODE))
+    dstate = sum(t.nbytes for t in tree_leaves(state["caches"]))
+    return max(init.peak, m["argument_bytes_per_device"]
+               + m["temp_bytes_per_device"] + dstate)
+
+
+def _serve_depth(arch):
+    """The layers ``arch`` serves at on this card, by the dry run: all of
+    them where ``_serve_need`` with PEAK_TOL of headroom fits the card's
+    memory, else the largest whole number of blocks that does."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.roofline import HBM_BYTES
+
+    cfg = get_arch(arch)
+    total = torch.cuda.get_device_properties(0).total_memory
+    budget = min(HBM_BYTES, total) / (1 + PEAK_TOL)
+
+    def need(nb):
+        return _serve_need(cfg.replace(num_layers=nb * cfg.block_size))
+
+    t0 = time.perf_counter()
+    nb, full = cfg.num_blocks, need(cfg.num_blocks)
+    if full > budget and nb > 1:
+        one = need(1)
+        per = (full - one) / (nb - 1)
+        nb = max(1, min(nb - 1, int((budget - one) // per) + 1))
+        while nb > 1 and need(nb) > budget:
+            nb -= 1
+        while nb + 1 < cfg.num_blocks and need(nb + 1) <= budget:
+            nb += 1
+    got = need(nb)
+    log(f"[lm_serve] {arch}: the dry run's serving need at all "
+        f"{cfg.num_layers} layers {full / 2**30:.3f} GiB against a budget "
+        f"of {budget / 2**30:.3f} GiB (the card's {total / 2**30:.3f} GiB / "
+        f"{1 + PEAK_TOL}): serving {nb * cfg.block_size} layers, need "
+        f"{got / 2**30:.3f} GiB ({time.perf_counter() - t0:.2f} s of meta "
+        f"runs)")
+    require(got <= budget, f"{arch}: not even one block fits the card")
+    return nb * cfg.block_size
+
+
+def _serve(arch, layers=None, hold=True):
     """``repro_torch.launch.serve.main`` for ``arch`` at full width on
-    LM_REQUESTS batches of LM_BATCH x LM_PROMPT + LM_TOKENS tokens, its
-    depth cut to ``layers`` (the launcher's ``get_arch`` narrowed for the
-    call; serve has no depth flag, as JAX's has none): rc 0, finite logits,
-    K7 launched once per attention layer and prefill and K8 once per mamba
-    layer and prefill.  Returns the run's launch counts."""
+    LM_REQUESTS batches of LM_BATCH x LM_PROMPT + LM_TOKENS tokens (a
+    vision arch's prefix tokens among the LM_PROMPT), its depth cut to
+    ``layers`` (the launcher's ``get_arch`` narrowed for the call; serve
+    has no depth flag, as JAX's has none): rc 0, finite logits, K7 launched
+    once per attention layer and prefill and K8 once per mamba layer and
+    prefill; then the dry run of the prefill beside the second batch's
+    (``_dry_prediction``, held with ``hold``).  Returns the run's launch
+    counts."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -3430,6 +3548,8 @@ def _serve(arch, layers=None):
     cfg = get_arch(arch)
     if layers is not None:
         cfg = cfg.replace(num_layers=layers)
+    prompt = LM_PROMPT - (cfg.frontend_tokens if cfg.frontend == "vision"
+                          else 0)
     before = _counts()
     recs: list = []
     torch.cuda.empty_cache()
@@ -3438,7 +3558,7 @@ def _serve(arch, layers=None):
     serve.get_arch = lambda a: cfg
     try:
         rc = serve.main(["--arch", arch, "--batch", str(LM_BATCH),
-                         "--prompt-len", str(LM_PROMPT), "--tokens",
+                         "--prompt-len", str(prompt), "--tokens",
                          str(LM_TOKENS), "--requests", str(LM_REQUESTS)],
                         out=recs)
     finally:
@@ -3472,14 +3592,20 @@ def _serve(arch, layers=None):
             f"{launched['flash_attention']} / {launched['ssd_intra_chunk']} "
             f"times, not once per attention / mamba layer ({attn} / "
             f"{mamba}) and prefill")
+    r = recs[-1]
+    _dry_prediction(f"{arch} ({cfg.num_layers} layers) serve prefill "
+                    f"{LM_BATCH} x {LM_PROMPT}, batch {r['batch']}", cfg,
+                    _serve_shape(), None, r["prefill_s"] * 1e3,
+                    r["prefill_peak_bytes"], hold)
     return launched
 
 
 def phase_lm_serve(dev):
     """This slice's main path: ``repro_torch.launch.serve.main`` for
-    llama3.2-3b and mamba2-780m at full width and depth, and for the MoE
-    archs at full width and a cut depth (MOE_SERVE); then the
-    decode-vs-prefill check.  Returns the serve runs' launch counts."""
+    llama3.2-3b and mamba2-780m at full width and depth, for the MoE
+    archs at full width and a cut depth (MOE_SERVE), and for DEPTH_ARCHS at
+    full width and the depth the dry run picks (``_serve_depth``); then
+    the decode-vs-prefill check.  Returns the serve runs' launch counts."""
     import torch
 
     _zero_counts()
@@ -3487,6 +3613,8 @@ def phase_lm_serve(dev):
         _serve(arch)
     for arch, layers in MOE_SERVE:
         _serve(arch, layers)
+    for arch in DEPTH_ARCHS:
+        _serve(arch, _serve_depth(arch), hold=False)
     counts = _counts()
     for arch in LM_ARCHS:
         _decode_vs_prefill(dev, arch, "bfloat16", DECODE_TOL[arch])
@@ -3671,12 +3799,15 @@ def _train_resume(dev):
 def _train_run(dev, arch, steps, pair):
     """``repro_torch.launch.train.main`` for ``arch`` at full width,
     ``steps`` steps: the forward and backward wrappers of ``pair`` once per
-    layer a step, the other LM wrappers never; then TRAIN_PROFILE_STEPS
-    profiled steps.  Returns the run's launch counts."""
+    layer a step, the other LM wrappers never; the dry run of its step
+    beside the median step and the run's peak (``_dry_prediction``); then
+    TRAIN_PROFILE_STEPS profiled steps.  Returns the run's launch
+    counts."""
     import statistics
 
     import torch
 
+    from repro_torch.config import KIND_TRAIN, ShapeConfig, TrainConfig
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import main as train_main
     from repro_torch.optim.adamw import tree_leaves
@@ -3722,6 +3853,11 @@ def _train_run(dev, arch, steps, pair):
             f"{' and '.join(pair)} once per layer ({layers}) and no other")
     cut = cfg if not LM_TRAIN_LAYERS else cfg.replace(
         num_layers=LM_TRAIN_LAYERS)
+    _dry_prediction(f"{arch} ({layers} layers) train step {B} x {S}, "
+                    f"median", cut, ShapeConfig("train", S, B, KIND_TRAIN),
+                    TrainConfig(learning_rate=3e-4, warmup_steps=20,
+                                total_steps=steps),
+                    med, out["peak_bytes"] - out["base_bytes"])
     _profile_train_steps(cut, out["state"], dev, steps)
     del out
     torch.cuda.empty_cache()
@@ -3734,12 +3870,13 @@ def _train_moe(dev):
     stream) and bf16 moments, the weights drawn on the card from seed 0
     as the train launcher draws them: step ms (median after the first),
     peak memory, the first and last losses (finite), K7 and K7b once per
-    attention layer a step and K8 / K8b never."""
+    attention layer a step and K8 / K8b never; the dry run of its step
+    beside the median step and the steps' peak."""
     import statistics
 
     import torch
 
-    from repro_torch.config import TrainConfig
+    from repro_torch.config import KIND_TRAIN, ShapeConfig, TrainConfig
     from repro_torch.configs import get_arch
     from repro_torch.data import TokenStream
     from repro_torch.launch.steps import make_train_step
@@ -3756,6 +3893,7 @@ def _train_moe(dev):
                        d_model=cfg.d_model,
                        frontend_tokens=cfg.frontend_tokens)
     torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3764,6 +3902,8 @@ def _train_moe(dev):
     step_fn = make_train_step(cfg, tcfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     losses, ms = [], []
     for _ in range(steps):
@@ -3775,7 +3915,8 @@ def _train_moe(dev):
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
     counts = _counts()
-    peak = torch.cuda.max_memory_allocated()
+    step_peak = torch.cuda.max_memory_allocated()
+    peak = max(init_peak, step_peak)
     attn, mamba = _mixer_layers(cfg)
     per_step = {k: counts[k] / steps for k in (
         "flash_attention", "flash_attention_bwd", "ssd_intra_chunk",
@@ -3796,6 +3937,10 @@ def _train_moe(dev):
                          "ssd_intra_chunk": mamba,
                          "ssd_intra_chunk_bwd": mamba},
             f"lm_train {arch}: launches a step {per_step}")
+    _dry_prediction(f"{arch} ({layers} layer{'s' * (layers > 1)}, bf16 "
+                    f"moments) train step {B} x {S}, median", cfg,
+                    ShapeConfig("train", S, B, KIND_TRAIN), tcfg, med,
+                    step_peak - base)
     del state, step_fn
     torch.cuda.empty_cache()
 
@@ -3820,6 +3965,70 @@ def phase_lm_train(dev):
     return launches
 
 
+def _start_dryrun(tmp):
+    """``python -m repro_torch.launch.dryrun --all`` in a process of its
+    own on the host (no card visible to it), its artifact and log in
+    ``tmp``."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    with open(Path(tmp) / "dryrun.log", "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--out", str(Path(tmp) / "dryrun.json")],
+            stdout=out, stderr=subprocess.STDOUT, env=env, cwd=tmp)
+
+
+def phase_dryrun(proc, t_start, tmp):
+    """The dry run of every (arch x shape) cell (``proc``, started at
+    ``t_start``): one line a cell, every applicable cell ``ok`` and
+    ``long_500k`` skipped on the pure-attention archs; and the roofline's
+    ``HBM_BYTES`` against the card's memory."""
+    import torch
+
+    from repro_torch.config import SHAPES, shape_applicable
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.launch.roofline import HBM_BYTES
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[dryrun] the card's memory {total} bytes ({total / 2**30:.3f} "
+        f"GiB), HBM_BYTES {HBM_BYTES} ({HBM_BYTES / 2**30:.3f} GiB): "
+        f"{100 * (total / HBM_BYTES - 1):+.2f} %")
+    require(abs(total / HBM_BYTES - 1) <= 0.03,
+            f"HBM_BYTES {HBM_BYTES} is not the card's {total}")
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT
+                                   - (time.perf_counter() - t_start)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SmokeFailure(f"dryrun --all ran past {DRYRUN_TIMEOUT} s")
+    tail = (Path(tmp) / "dryrun.log").read_text().splitlines()[-3:]
+    log(f"[dryrun] --all on the host beside the card's phases: rc {rc}, "
+        f"read {time.perf_counter() - t_start:.1f} s after its start; "
+        + " / ".join(tail))
+    require(rc == 0, "dryrun --all failed")
+    results = json.loads((Path(tmp) / "dryrun.json").read_text())
+    for r in results:
+        if r["status"] != "ok":
+            log(f"[dryrun] {r['arch']} x {r['shape']}: {r['status']} "
+                f"({r.get('reason', r.get('error'))})")
+            continue
+        m, rl = r["memory"], r["roofline"]
+        log(f"[dryrun] {r['arch']} x {r['shape']}: fits {m['fits']}, "
+            f"arguments {m['argument_bytes_per_device'] / 2**30:.2f} GiB, "
+            f"temp {m['temp_bytes_per_device'] / 2**30:.2f} GiB, "
+            f"{r['cost']['flops_per_device']:.4e} FLOPs, compute "
+            f"{rl['compute_s']:.4e} s, memory {rl['memory_s']:.4e} s -> "
+            f"{rl['dominant']} (useful FLOPs "
+            f"{rl['useful_flop_ratio']:.3f}); meta run {r['lower_s']} s")
+    want = {(a, sh): "ok" if shape_applicable(get_arch(a), SHAPES[sh])[0]
+            else "skipped" for a in list_archs() for sh in SHAPES}
+    got = {(r["arch"], r["shape"]): r["status"] for r in results}
+    require(got == want, f"dryrun --all: cells {got}, expected {want}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3841,6 +4050,24 @@ def main() -> int:
     dev = resolve_device("cuda")              # TF32 off, device bound
     t_all = time.perf_counter()
     smi_line = phase_device()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = _start_dryrun(tmp)
+        try:
+            table = _phases(dev, t_all, (proc, time.perf_counter(), tmp))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    print(json.dumps(table))
+    print(smi_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _phases(dev, t_all, dry):
+    """Every phase after ``device``, in order; the kernel table."""
     t0 = time.perf_counter()
     phase_build()
     log(f"[phase] build {time.perf_counter() - t0:.2f} s")
@@ -3895,6 +4122,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(phase_lm_train(dev))
     log(f"[phase] lm_train {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_dryrun(*dry)
+    log(f"[phase] dryrun {time.perf_counter() - t0:.2f} s (waiting included)")
     log(f"[phase] total {time.perf_counter() - t_all:.2f} s")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": repl,
@@ -3904,12 +4134,7 @@ def main() -> int:
          **{k: m[k] for k in ("launches_counted", "fma_bound_ms", "d64_ms",
                               "d64_bound_ms") if k in m}}
         for name, source, repl, _, m in rows]}
-    print(json.dumps(table))
-    print(smi_line)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return table
 
 
 if __name__ == "__main__":

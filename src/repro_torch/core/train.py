@@ -66,6 +66,7 @@ from repro_torch.core.graphs import KernelGraph, pad_batch
 from repro_torch.core.rgcn import EncodeDraws, RGCNConfig, RGCNEncoder
 from repro_torch.distributed.fault import DeviceLost, Watchdog
 from repro_torch.kernels import check_endpoints
+from repro_torch.launch.mesh import widths
 from repro_torch.config import TrainConfig
 from repro_torch.optim.adamw import TrainState, adamw_init, apply_gradients
 from repro_torch.sampling.store import flatten_tree, unflatten_tree
@@ -726,8 +727,8 @@ def fit_resilient(rc: RGCNConfig, tc: GCLTrainConfig,
     :class:`~repro_torch.distributed.fault.DeviceLost` from a chunk
     boundary (after checkpointing), the next width resumes from that
     checkpoint instead of aborting.  ``device_counts`` defaults to halving
-    widths from the cards present (``torch.cuda.device_count()``; 1 on the
-    CPU) down to 1.  Returns ``(encoder, info)`` from the fit that
+    widths from the cards present (``launch/mesh.widths``: the cards, or
+    1 on the CPU) down to 1.  Returns ``(encoder, info)`` from the fit that
     finished, with ``info["degradations"]`` recording each shrink and
     ``info["data_shards"]`` the width that finished.  Raises DeviceLost
     when every width failed, ValueError without a ``checkpoint_dir``.
@@ -743,13 +744,14 @@ def fit_resilient(rc: RGCNConfig, tc: GCLTrainConfig,
         raise ValueError("fit_resilient requires a checkpoint_dir — "
                          "degradation resumes from checkpoints")
     dev = resolve_device(device)
-    present = torch.cuda.device_count() if dev.type == "cuda" else 1
+    allowed = widths(dev.type)
+    present = len(allowed)
     if device_counts is None:
         n, device_counts = present, []
         while n >= 1:
             device_counts.append(n)
             n //= 2
-    wide = [n for n in device_counts if not 1 <= n <= present]
+    wide = [n for n in device_counts if n not in allowed]
     if wide:
         raise ValueError(
             f"fit_resilient: widths {wide} are outside 1..{present} (the "

@@ -205,6 +205,19 @@ def check(name: str, t: torch.Tensor, *, dtype, shape: tuple,
         raise ValueError(f"{name}: must be contiguous")
 
 
+def tally(name: str, ops: float, bytes_: float, dtype: str) -> None:
+    """Count one kernel call made on ``meta`` tensors (which launch
+    nothing) in every active dispatch mode that takes kernel tallies (the
+    dry run's ``launch/dryrun.StepCounter``): its operations, run at
+    ``dtype``'s rate (``launch/roofline.RATES``), and its bytes."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in _get_current_dispatch_mode_stack():
+        record = getattr(mode, "kernel", None)
+        if record is not None:
+            record(name, ops, bytes_, dtype)
+
+
 def route(t: torch.Tensor) -> str:
     """'cuda' -> launch the kernel; 'cpu' -> the plain version.  Anything
     else raises: there is no third path."""

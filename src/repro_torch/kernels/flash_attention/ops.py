@@ -25,13 +25,19 @@ takes what the JAX kernel takes: float32 or bfloat16 (all three alike), hd
 a multiple of 16 up to 256, and S at most one 512-row block or a multiple
 of it (JAX asserts S % min(512, S) == 0).  Anything else raises, on either
 device.
+
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) both wrappers return
+``meta`` outputs of the kernel's shapes, allocate its workspace on ``meta``
+and ``tally`` the call's operations and bytes (``flash_attention_cost``,
+``flash_attention_bwd_cost``, which chip_smoke's kernel table uses too);
+they neither launch a kernel nor run a plain version.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check, launch, route
+from repro_torch.kernels import check, launch, route, tally
 
 #: the JAX kernel's default block: S must be <= BLOCK or a multiple of it
 BLOCK = 512
@@ -57,6 +63,28 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if S > BLOCK and S % BLOCK:
         raise ValueError(f"flash_attention: S={S} is neither <= {BLOCK} nor "
                          f"a multiple of {BLOCK}")
+
+
+def flash_attention_cost(B, S, K, G, hd, esz):
+    """(operations, bytes) of one K7 call on q (B,S,K,G,hd): 4 hd
+    operations per causal (query, key) pair and head (QK^T and PV); q, k, v
+    read once and the output written once, ``esz`` bytes an element."""
+    H = K * G
+    return (4 * B * H * hd * S * (S + 1) // 2,
+            (2 * B * S * H * hd + 2 * B * S * K * hd) * esz)
+
+
+def flash_attention_bwd_cost(B, S, K, G, hd, esz):
+    """(operations, bytes) of one K7b call: 10 hd operations per causal
+    pair and head (S = QK^T, dP = dO V^T, dV, dQ, dK); q, k, v, out, dout
+    read once and dq, dk, dv written once."""
+    H = K * G
+    return (10 * hd * B * H * S * (S + 1) // 2,
+            (4 * B * S * H * hd + 4 * B * S * K * hd) * esz)
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -99,6 +127,10 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def _forward(q, k, v, scale):
+    if q.device.type == "meta":
+        tally("flash_attention", *flash_attention_cost(
+            *q.shape, q.element_size()), _dtype_name(q))
+        return torch.empty_like(q)
     if route(q) == "cpu":
         return flash_attention_plain(q, k, v, scale)
     B, S, K, G, hd = q.shape
@@ -150,9 +182,17 @@ def flash_attention_bwd(q, k, v, out, dout, scale: float):
             raise ValueError(f"flash_attention_bwd: {name} "
                              f"{tuple(t.shape)} {t.dtype} does not match q "
                              f"{tuple(q.shape)} {q.dtype}")
+    B, S, K, G, hd = q.shape
+    if q.device.type == "meta":         # the CUDA branch's allocations
+        grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        scratch = torch.empty(2 * B * K * G * S, dtype=torch.float32,
+                              device="meta")
+        tally("flash_attention_bwd", *flash_attention_bwd_cost(
+            B, S, K, G, hd, q.element_size()), _dtype_name(q))
+        del scratch
+        return grads
     if route(q) == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, scale)
-    B, S, K, G, hd = q.shape
     dev = q.device
     for name, t in (("q", q), ("out", out), ("dout", dout)):
         check(name, t, dtype=q.dtype, shape=(B, S, K, G, hd), device=dev)

@@ -30,13 +30,20 @@ Bc / Cc (B,S,ds), shared over heads.  S must be a multiple of the chunk
 min(chunk, S), as JAX asserts.  The kernels take chunks of up to 256 rows,
 hp <= 64 and ds <= 128 (every SSM config of the zoo); anything else raises,
 on either device.
+
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) K8's and K8b's
+wrappers return ``meta`` outputs of the kernels' shapes, allocate their
+workspace on ``meta`` and ``tally`` the call's operations and bytes
+(``ssd_intra_chunk_cost``, ``ssd_intra_chunk_bwd_cost``, which chip_smoke's
+kernel table uses too); they neither launch a kernel nor run a plain
+version.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import check, launch, route
+from repro_torch.kernels import check, launch, route, tally
 
 MAX_Q, MAX_HP, MAX_DS = 256, 64, 128
 NEG_INF = -1e30
@@ -62,6 +69,32 @@ def _check_intra(x, cum, dt, Bc, Cc) -> None:
         raise ValueError(f"ssd_intra_chunk: takes Q <= {MAX_Q}, hp <= "
                          f"{MAX_HP}, ds <= {MAX_DS}; got Q={Q}, hp={hp}, "
                          f"ds={ds}")
+
+
+def ssd_intra_chunk_cost(B, nc, Q, nh, hp, ds):
+    """(operations, bytes) of one K8 call: CB over each chunk's causal
+    triangle, then per head the decay and weights on it, the weighted sum
+    over x and the chunk states; the five inputs read once and y and the
+    states written once, float32."""
+    tri = Q * (Q + 1) // 2
+    ops = B * nc * (2 * ds * tri + nh * (
+        4 * tri + 2 * hp * tri + 3 * Q + Q * ds + 2 * Q * ds * hp))
+    bytes_ = 4 * (2 * B * nc * Q * nh * hp + 2 * B * nc * nh * Q
+                  + 2 * B * nc * Q * ds + B * nc * nh * hp * ds)
+    return ops, bytes_
+
+
+def ssd_intra_chunk_bwd_cost(B, nc, Q, nh, hp, ds):
+    """(operations, bytes) of one K8b call: dw and w^T dy over the
+    triangle, u = B dst^T and (sd x)^T dst, dsd and the elementwise work on
+    the triangle, per head; CB, dC and dB's CB term per chunk.  The seven
+    inputs read once and the five gradients written once, float32."""
+    tri = Q * (Q + 1) // 2
+    ops = B * nc * (3 * 2 * ds * tri + nh * (
+        4 * hp * tri + 4 * Q * ds * hp + 2 * Q * hp + 6 * tri))
+    bytes_ = 4 * (3 * B * nc * Q * nh * hp + 4 * B * nc * nh * Q
+                  + 4 * B * nc * Q * ds + B * nc * nh * hp * ds)
+    return ops, bytes_
 
 
 def ssd_intra_chunk_plain(x, cum, dt, Bc, Cc):
@@ -111,13 +144,22 @@ def _check_device(dev, **tensors) -> None:
 
 
 def _forward(x, cum, dt, Bc, Cc):
-    if route(x) == "cpu":
-        return ssd_intra_chunk_plain(x, cum, dt, Bc, Cc)
     B, nc, Q, nh, hp = x.shape
     ds = Bc.shape[-1]
+    QP = -(-Q // 64) * 64           # CB's scratch: (B*nc, QP, QP) tiles
+    if x.device.type == "meta":     # the CUDA branch's allocations
+        cb = torch.empty(B * nc * QP * QP, dtype=torch.float32, device="meta")
+        y = torch.empty(B, nc, Q, nh, hp, dtype=torch.float32, device="meta")
+        states = torch.empty(B, nc, nh, hp, ds, dtype=torch.float32,
+                             device="meta")
+        tally("ssd_intra_chunk", *ssd_intra_chunk_cost(B, nc, Q, nh, hp, ds),
+              "tf32x3")
+        del cb
+        return y, states
+    if route(x) == "cpu":
+        return ssd_intra_chunk_plain(x, cum, dt, Bc, Cc)
     dev = x.device
     _check_device(dev, x=x, cum=cum, dt=dt, Bc=Bc, Cc=Cc)
-    QP = -(-Q // 64) * 64           # CB's scratch: (B*nc, QP, QP) tiles
     cb = torch.empty(B * nc * QP * QP, dtype=torch.float32, device=dev)
     y = torch.empty(B, nc, Q, nh, hp, dtype=torch.float32, device=dev)
     states = torch.empty(B, nc, nh, hp, ds, dtype=torch.float32, device=dev)
@@ -191,19 +233,25 @@ def ssd_intra_chunk_bwd(x, cum, dt, Bc, Cc, dy, dstates):
             raise ValueError(f"ssd_intra_chunk_bwd: {name} "
                              f"{tuple(t.shape)} {t.dtype}, expected "
                              f"{tuple(shape)} torch.float32")
-    if route(x) == "cpu":
-        return ssd_intra_chunk_bwd_plain(x, cum, dt, Bc, Cc, dy, dstates)
-    dev = x.device
-    _check_device(dev, x=x, cum=cum, dt=dt, Bc=Bc, Cc=Cc, dy=dy,
-                  dstates=dstates)
     QP = -(-Q // 64) * 64
     T = QP // 64
     # CB and dCB over (B*nc, QP, QP); the per-head partial sums of dcum's
     # rows, dcum's columns and ddt over each 64 x 64 tile, (B*nc*nh, T,
     # QP) each; sd, (B*nc*nh, QP)
-    scratch = torch.empty(2 * B * nc * QP * QP
-                          + (3 * T + 1) * B * nc * nh * QP,
-                          dtype=torch.float32, device=dev)
+    n_scratch = 2 * B * nc * QP * QP + (3 * T + 1) * B * nc * nh * QP
+    if x.device.type == "meta":     # the CUDA branch's allocations
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device="meta")
+        grads = tuple(torch.empty_like(t) for t in (x, cum, dt, Bc, Cc))
+        tally("ssd_intra_chunk_bwd",
+              *ssd_intra_chunk_bwd_cost(B, nc, Q, nh, hp, ds), "float32")
+        del scratch
+        return grads
+    if route(x) == "cpu":
+        return ssd_intra_chunk_bwd_plain(x, cum, dt, Bc, Cc, dy, dstates)
+    dev = x.device
+    _check_device(dev, x=x, cum=cum, dt=dt, Bc=Bc, Cc=Cc, dy=dy,
+                  dstates=dstates)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     dcum = torch.empty_like(cum)
     ddt = torch.empty_like(dt)

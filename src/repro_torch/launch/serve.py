@@ -38,7 +38,9 @@ def main(argv=None, out: list | None = None) -> int:
     """Serve the batches and print one line per batch.  ``out``, when
     given, receives one dict per batch: prefill / decode seconds, tok/s,
     the sampled tokens, whether every logit was finite, the peak device
-    memory (CUDA) and the last decode logits."""
+    memory (CUDA; the prefill's alone as ``prefill_peak_bytes``, less what
+    was allocated before the weights were drawn) and the last decode
+    logits."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -52,6 +54,8 @@ def main(argv=None, out: list | None = None) -> int:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    cuda = dev.type == "cuda"
+    base = torch.cuda.memory_allocated(dev) if cuda else None
     cfg = smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = tf.init_compute_params(cfg, gen, device=dev)
@@ -71,13 +75,15 @@ def main(argv=None, out: list | None = None) -> int:
             fe = rng.standard_normal((args.batch, tl, cfg.d_model))
         if fe is not None:
             fe = torch.from_numpy(fe.astype(np.float32)).to(dev)
-        if dev.type == "cuda":
+        if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
         _sync(dev)
         t0 = time.perf_counter()
         logits, caches, idx = tf.prefill(cfg, params, prompts, fe)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
+        prefill_peak = (torch.cuda.max_memory_allocated(dev) - base if cuda
+                        else None)
         finite = torch.isfinite(logits).all()
 
         state = tf.init_decode_state(cfg, args.batch, max_seq, prefilled=idx,
@@ -94,10 +100,10 @@ def main(argv=None, out: list | None = None) -> int:
             out_tokens.append(tok)
         _sync(dev)
         t_decode = time.perf_counter() - t0
+        del state                   # the caches go before the next prefill
         seq = torch.cat(out_tokens, dim=1).cpu()
         tok_s = args.tokens * args.batch / max(t_decode, 1e-9)
-        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-                else None)
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
         mem = f"; peak {peak / 2**30:.2f} GiB" if peak is not None else ""
         print(f"[serve] batch {req}: prefill {tl} toks x{args.batch} in "
               f"{t_prefill * 1e3:.0f}ms; decode {args.tokens} toks in "
@@ -107,7 +113,7 @@ def main(argv=None, out: list | None = None) -> int:
             out.append(dict(batch=req, prefill_s=t_prefill, decode_s=t_decode,
                             tok_s=tok_s, tokens=seq.numpy(),
                             finite=bool(finite), peak_bytes=peak,
-                            logits=logits))
+                            prefill_peak_bytes=prefill_peak, logits=logits))
     return 0
 
 

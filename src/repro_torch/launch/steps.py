@@ -11,11 +11,13 @@ gradients are ``torch.autograd.grad`` of the loss with respect to every
 parameter leaf; the leaves are made to require gradients on the first
 step.
 
-The JAX module's sharding trees (``abstract_params``,
-``train_state_shardings``, ``batch_shardings``, ...) place arrays on a
-device mesh; the port runs on one card and has none of them.  The shapes
-and dtypes that ``train_state_specs`` gives JAX's restore are a
-``TrainState`` of ``meta`` tensors here (``launch/train.py``).
+``abstract_params`` and ``train_state_specs`` are JAX's shape-only
+trees: ``meta`` tensors of the parameters' and the ``TrainState``'s
+shapes and dtypes, no storage allocated (the train launcher's restore
+target and the dry run's arguments, ``launch/dryrun.py``).  The JAX
+module's sharding trees (``param_shardings``, ``train_state_shardings``,
+``batch_shardings``, ...) place arrays on a device mesh; the port runs on
+one card and has none of them (ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.models import transformer as tf
-from repro_torch.optim import TrainState, apply_gradients
+from repro_torch.optim import TrainState, adamw_init, apply_gradients
 from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 
 
@@ -91,3 +93,15 @@ def make_decode_step(cfg: ModelConfig):
         return tf.decode_step(cfg, params, state, batch["tokens"])
 
     return decode_step
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree's shapes and dtypes (``cfg.param_dtype``) as
+    ``meta`` tensors."""
+    return tf.init_params(cfg, None, device="meta")
+
+
+def train_state_specs(cfg: ModelConfig, tcfg: TrainConfig) -> TrainState:
+    """``adamw_init`` of ``abstract_params``: a ``TrainState`` of ``meta``
+    tensors (moments in ``tcfg.opt_dtype``)."""
+    return adamw_init(abstract_params(cfg), tcfg)

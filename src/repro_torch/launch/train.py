@@ -36,6 +36,7 @@ from repro_torch.configs import get_arch, smoke_arch
 from repro_torch.data import TokenStream
 from repro_torch.distributed.fault import Heartbeat, Watchdog
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import widths
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw_init
 from repro_torch.utils.device import resolve_device
@@ -50,7 +51,8 @@ def main(argv=None, out: dict | None = None) -> int:
     """Train and print the ``[train]`` lines.  ``out``, when given,
     receives ``"steps"`` (one dict a step: step, loss (a 0-d tensor on the
     device), ms), ``"state"`` (the final ``TrainState``), ``"start_step"``
-    and, on the card, ``"peak_bytes"``."""
+    and, on the card, ``"peak_bytes"`` and ``"base_bytes"`` (what was
+    allocated before the weights were drawn)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -74,13 +76,15 @@ def main(argv=None, out: dict | None = None) -> int:
                     help="cut the depth to this many layers")
     args = ap.parse_args(argv)
 
+    dev = resolve_device(args.device)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
     if args.mesh != "debug":
         mc = MeshConfig(multi_pod=args.mesh == "multipod")
         raise NotImplementedError(
             f"--mesh {args.mesh}: a {mc.shape} mesh of {mc.num_devices} "
-            f"devices; the port trains on one card (data parallelism over "
-            f"cards is A9b, the mesh tooling A15)")
-    dev = resolve_device(args.device)
+            f"devices, where {dev.type} takes widths up to "
+            f"{max(widths(dev.type), default=0)}; the port trains on one "
+            f"card (data parallelism over cards is A9b)")
     cfg = smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
     if args.num_layers is not None:
         cfg = cfg.replace(num_layers=args.num_layers)
@@ -107,7 +111,7 @@ def main(argv=None, out: dict | None = None) -> int:
     state, start_step = None, 0
     if ckpt and args.resume:
         step_arg = None if args.resume == "auto" else int(args.resume)
-        like = adamw_init(tf.init_params(cfg, None, device="meta"), tcfg)
+        like = steps_mod.train_state_specs(cfg, tcfg)
         try:
             state, start_step = ckpt.restore(like, step=step_arg, device=dev)
             data.skip(start_step)
@@ -152,7 +156,8 @@ def main(argv=None, out: dict | None = None) -> int:
     if out is not None:
         out.update(steps=records, state=state, start_step=start_step)
         if dev.type == "cuda":
-            out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            out.update(peak_bytes=torch.cuda.max_memory_allocated(dev),
+                       base_bytes=base)
     return 0
 
 

@@ -1161,12 +1161,15 @@ def test_lm_wrappers_reject_what_the_kernels_do_not_take():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m",
-                                  "jamba-v0.1-52b", "dbrx-132b"])
+                                  "jamba-v0.1-52b", "dbrx-132b",
+                                  "granite-3-2b", "qwen2-72b", "yi-34b",
+                                  "paligemma-3b", "musicgen-medium"])
 def test_lm_prefill_and_decode_on_card_match_cpu(arch):
     """A smoke-width model (two blocks, float32) on the card through K7 /
-    K8 (and the MoE FFN) against the same weights on the CPU: prefill
-    logits, then 4 teacher-forced decode steps, within 1e-4 of their
-    scale."""
+    K8 (and the MoE FFN, qwen2's QKV bias, paligemma's MQA and vision
+    prefix, musicgen's audio conditioning) against the same weights on the
+    CPU: prefill logits of 256 positions, then 4 teacher-forced decode
+    steps, within 1e-4 of their scale."""
     dev = _card()
     from repro_torch.configs import smoke_arch
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -1178,19 +1181,30 @@ def test_lm_prefill_and_decode_on_card_match_cpu(arch):
     cfg = base.replace(num_layers=2 * base.block_size)
     params = tf.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (2, 260)).astype(np.int32))
+    rng = np.random.default_rng(0)
+    P = 256 - (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, P + 4)).astype(np.int32))
+    fe = None
+    if cfg.frontend == "vision":
+        fe = rng.standard_normal((2, cfg.frontend_tokens, cfg.d_model))
+    elif cfg.frontend == "audio":
+        fe = rng.standard_normal((2, P, cfg.d_model))
+    if fe is not None:
+        fe = torch.from_numpy(fe.astype(np.float32))
     runs = {}
     for d in ("cpu", dev):
         p = tf._tree_map(lambda t: t.to(d), params)
         before = (flash_attention.launches, ssd_intra_chunk.launches)
-        logits, caches, idx = tf.prefill(cfg, p, toks[:, :256].to(d))
+        logits, caches, idx = tf.prefill(cfg, p, toks[:, :P].to(d),
+                                         None if fe is None else fe.to(d))
         launched = (flash_attention.launches - before[0],
                     ssd_intra_chunk.launches - before[1])
+        assert idx == 256
         state = _splice_prefill(cfg, tf.init_decode_state(
             cfg, 2, 260, idx, device=d), caches, idx)
         out = [logits]
-        for t in range(256, 260):
+        for t in range(P, P + 4):
             logits, state = tf.decode_step(cfg, p, state,
                                            toks[:, t:t + 1].to(d))
             out.append(logits)
