@@ -197,7 +197,17 @@ Phases, each reported on its own lines:
             x shape) cell (fits, argument and temp GiB, FLOPs, the compute
             and memory terms, the dominant one), every applicable cell
             ``ok`` and ``long_500k`` skipped on the pure-attention archs;
-            the roofline's HBM_BYTES within 3 % of the card's memory.
+            the roofline's HBM_BYTES within 3 % of the card's memory;
+16. lint  ``python -m repro_torch.analysis.lint --check-baseline`` on this
+            checkout (no card): rc 0, the findings equal to
+            ``src/repro_torch/analysis/baseline.json``;
+17. examples the five twins ``examples/*_torch.py`` in this process
+            through ``main(argv)`` on the card at their defaults (output
+            paths in a fresh temporary directory): rc 0, the lines their
+            originals print with a finite error and speedup, each twin's
+            hand kernels launched (quickstart, sampled_simulation,
+            train_sampler: K1, K1b, K5, K2, K3; serve_lm: K8; lm_pretrain:
+            K7, K7b), and each twin's wall time on an ``[examples]`` line.
 
 Any mismatch or exception exits non-zero.  The last lines are the kernel
 table as one JSON object (K1's and K8's ``bound_ms`` is their 3xTF32
@@ -212,6 +222,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -406,6 +417,8 @@ DEPTH_ARCHS = ("granite-3-2b", "qwen2-72b", "yi-34b", "paligemma-3b",
 #: card phases (one process, no card) and must end within this many seconds
 #: of its start
 DRYRUN_TIMEOUT = 1000
+#: the linter's run over the checkout (a few seconds on one host core)
+LINT_TIMEOUT = 120
 
 
 def log(*a):
@@ -4029,6 +4042,129 @@ def phase_dryrun(proc, t_start, tmp):
     require(got == want, f"dryrun --all: cells {got}, expected {want}")
 
 
+def phase_lint():
+    """``python -m repro_torch.analysis.lint --check-baseline`` on the tree
+    this script runs from (no card needed): exit 0, the findings equal to
+    the checked-in baseline."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.lint",
+         "--check-baseline"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, timeout=LINT_TIMEOUT)
+    for line in proc.stdout.splitlines():
+        log(f"[lint] {line}")
+    log(f"[lint] rc {proc.returncode} in {time.perf_counter() - t0:.2f} s")
+    require(proc.returncode == 0,
+            "lint --check-baseline failed: a new or stale finding")
+
+
+def _finite(text):
+    return math.isfinite(float(text))
+
+
+def _check_quickstart(out):
+    require(out[0].startswith("== nw: ") and out[0].endswith(
+        " kernel invocations =="), f"quickstart: {out[0]!r}")
+    head = out.index("method         clusters  reps  error %  speedup")
+    rows = [line.split() for line in out[head + 1:]]
+    require([r[0] for r in rows] == ["GCL-Sampler", "PKA", "Sieve",
+                                     "STEM+ROOT"], f"quickstart rows {rows}")
+    for r in rows:
+        require(_finite(r[-2]) and _finite(r[-1].rstrip("x")),
+                f"quickstart: error / speedup not finite in {r}")
+
+
+def _check_sampled_simulation(out):
+    text = "\n".join(out)
+    err = re.search(r"\(err (\S+)%\)", text)
+    sp = re.search(r"kernel-time speedup \(eq.6\): (\S+)x", text)
+    require(re.search(r"^clusters: \d+  reps: \d+$", text, re.M)
+            and err and _finite(err.group(1)) and sp
+            and _finite(sp.group(1)), "sampled_simulation: " + text)
+
+
+def _check_train_sampler(out):
+    m = re.match(r"K=\d+ \(silhouette mode: \S+\) -> error (\S+)%, "
+                 r"speedup (\S+)x$", out[-1])
+    require(m and _finite(m.group(1)) and _finite(m.group(2))
+            and any(line.startswith("training done in") for line in out),
+            f"train_sampler: {out[-3:]}")
+
+
+def _check_serve_lm(out):
+    require(len(out) == 2 and all(
+        line.startswith(f"[serve] batch {i}: prefill 64 toks x4")
+        for i, line in enumerate(out)), f"serve_lm: {out}")
+
+
+def _check_lm_pretrain(out):
+    losses = [float(m.group(1)) for m in
+              (re.search(r"loss=(\S+)", line) for line in out) if m]
+    require(len(losses) == 16 and all(map(math.isfinite, losses))
+            and out[-1].startswith("[train] done: 300 steps"),
+            f"lm_pretrain: {out[-2:]}")
+
+
+#: (twin, argv beyond its defaults, hand kernels it must launch, check):
+#: the twins run at their defaults, their output paths in a fresh directory
+#: so nothing replays
+FIT_KERNELS = ("rgcn_fused_flat", "rgcn_fused_bwd", "rgcn_spmm_flat",
+               "kmeans_assign_fused_batched", "silhouette_sums")
+EXAMPLE_RUNS = (
+    ("quickstart", lambda tmp: ["--out", str(Path(tmp) / "quickstart")],
+     FIT_KERNELS, _check_quickstart),
+    ("sampled_simulation", lambda tmp: [], FIT_KERNELS,
+     _check_sampled_simulation),
+    ("train_sampler", lambda tmp: [], FIT_KERNELS, _check_train_sampler),
+    ("serve_lm", lambda tmp: [], ("ssd_intra_chunk",), _check_serve_lm),
+    ("lm_pretrain", lambda tmp: ["--checkpoint-dir", str(Path(tmp) / "ck")],
+     ("flash_attention", "flash_attention_bwd"), _check_lm_pretrain),
+)
+
+
+def phase_examples(dev):
+    """The five twins ``examples/*_torch.py`` in this process through their
+    ``main(argv)`` on the card: exit 0, the lines their originals print
+    (finite error and speedup), each hand kernel of the twin's path
+    launched (the wrappers' counts, zeroed before each twin), and the
+    twin's wall time."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+
+    for name, extra, kernels, check in EXAMPLE_RUNS:
+        path = ROOT / "examples" / f"{name}_torch.py"
+        spec = importlib.util.spec_from_file_location(f"_twin_{name}", path)
+        twin = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(twin)
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = extra(tmp)
+            buf = io.StringIO()
+            torch.cuda.synchronize(dev)
+            _zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = twin.main(argv)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            counts = _counts()
+        out = buf.getvalue().splitlines()
+        for line in out:
+            log(f"[examples]   {line}")
+        launched = {k: counts[k] for k in kernels}
+        log(f"[examples] {name}_torch.main({argv}): rc {rc}, wall "
+            f"{wall:.2f} s, launches {launched}")
+        require(rc == 0, f"examples: {name} exited {rc}")
+        check([line for line in out if line.strip()])
+        for k, n in launched.items():
+            require(n > 0, f"examples: {name} never launched {k}")
+
+
 def main() -> int:
     try:
         import torch
@@ -4125,6 +4261,12 @@ def _phases(dev, t_all, dry):
     t0 = time.perf_counter()
     phase_dryrun(*dry)
     log(f"[phase] dryrun {time.perf_counter() - t0:.2f} s (waiting included)")
+    t0 = time.perf_counter()
+    phase_lint()
+    log(f"[phase] lint {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_examples(dev)
+    log(f"[phase] examples {time.perf_counter() - t0:.2f} s")
     log(f"[phase] total {time.perf_counter() - t_all:.2f} s")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": repl,

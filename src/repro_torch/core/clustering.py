@@ -109,6 +109,7 @@ def device_kmeanspp(x: torch.Tensor, pmask: torch.Tensor,
     base = torch.where(pmask > 0, 0.0, ninf)
 
     def sqdist(i):                            # i: (1,) index, no host sync
+        # lint: allow[R4] seeding: no gradient flows through the clustering
         return torch.sum((x - x.index_select(0, i)) ** 2, dim=1) * pmask
 
     nxt = torch.argmax(gumbel[0] + base).view(1)
@@ -289,6 +290,7 @@ def select_k_and_cluster(
                     torch.from_numpy(_kmeanspp_init(x, k, seed)).to(dev))
         lab, _, _ = _kmeans_run(xt, init_idx, k, iters)
         # re-label compactly (empty clusters possible)
+        # lint: allow[R1] the sequential per-K reference reads each K's labels
         _, lab = np.unique(lab.cpu().numpy(), return_inverse=True)
         if lab.max() == 0:
             continue

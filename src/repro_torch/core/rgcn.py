@@ -223,6 +223,7 @@ def _layer_epilogue(lp: RGCNLayer, rc: RGCNConfig, agg, h, node_mask, *,
     return out if last else rc.policy.cast_compute(out)
 
 
+# lint: allow[R4] degree counts: sums of 0/1 mask values, exact in any order
 def edge_norm_packed(dst, etype, emask, num_nodes: int,
                      num_relations: int) -> torch.Tensor:
     """Per-edge degree normalizer 1/|N_r(dst_e)| for a packed batch (the
@@ -319,11 +320,13 @@ def _four_sum_readout(h, node_mask, warp_seg, warp_graph, num_graphs: int):
     nmask = node_mask.to(h.dtype)
     wsum = h.new_zeros(W, h.shape[1]).index_add_(0, warp_seg.long(),
                                                  h * nmask[:, None])
+    # lint: allow[R4] counts: sums of 0/1 mask values, exact in any order
     wcnt = nmask.new_zeros(W).index_add_(0, warp_seg.long(), nmask)
     warp_mean = wsum / torch.clamp_min(wcnt, 1.0)[:, None]
     valid = (wcnt > 0).to(h.dtype)
     gsum = h.new_zeros(num_graphs, h.shape[1]).index_add_(
         0, warp_graph.long(), warp_mean * valid[:, None])
+    # lint: allow[R4] counts: sums of 0/1 mask values, exact in any order
     gcnt = valid.new_zeros(num_graphs).index_add_(0, warp_graph.long(), valid)
     return gsum / torch.clamp_min(gcnt, 1.0)[:, None]
 
@@ -332,6 +335,7 @@ def _four_sum_readout(h, node_mask, warp_seg, warp_graph, num_graphs: int):
 # Dense path (core/graphs.pad_batch layout: (B, N) nodes, (B, E) edges)
 # ---------------------------------------------------------------------------
 
+# lint: allow[R4] degree counts: sums of 0/1 mask values, exact in any order
 def edge_norm_dense(dst, etype, emask, num_nodes: int,
                     num_relations: int) -> torch.Tensor:
     """Per-edge degree normalizer 1/|N_r(dst_e)| of each graph of a dense

@@ -102,6 +102,7 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
     """A numpy array (float32, or JAX's bfloat16 through ml_dtypes, widened
     exactly) as a CPU tensor."""
     if arr.dtype.name == "bfloat16":
+        # lint: allow[R5] JAX's bfloat16 leaves keep their dtype: an exchange, not a compute cast
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.array(arr))
 

@@ -50,6 +50,7 @@ def edge_index(src, dst, wnorm, num_nodes: int) -> EdgeIndex:
                      if torch.is_grad_enabled() else None)
 
 
+# lint: allow[R4] plain version: route() sends it CPU tensors only
 def rgcn_fused_agg_flat_plain(h, basis, src, dst, coef, wnorm,
                               num_nodes: int) -> torch.Tensor:
     """agg (P,O) = sum_k basis[k] . sum_{e: dst_e=v} coef[e,k]*wnorm[e]*h[src_e].
@@ -113,6 +114,7 @@ def rgcn_fused_flat_fwd(h, basis, src, dst, coef, wnorm, num_nodes: int, *,
     return out
 
 
+# lint: allow[R4] plain version: route() sends it CPU tensors only
 def rgcn_fused_bwd_plain(h, t, src, dst, coef, wnorm, num_nodes: int):
     """(dh (P,D) in h's dtype, dcoef (Q,nb) f32) for t = g @ basisflat^T
     (P, nb*D): dh[u] = sum_{e: src_e=u} sum_k w[e,k] t[dst_e,k],

@@ -30,6 +30,7 @@ from repro_torch.kernels import (
 )
 
 
+# lint: allow[R4] plain version: route() sends it CPU tensors only
 def rgcn_spmm_flat_plain(h, src, dst, w, num_nodes: int) -> torch.Tensor:
     """s (P, nb*D) f32 = segment-sum over dst of w[e,k] * h[src_e] (the
     model is ``rgcn_spmm/ref.py``: gather in h's dtype, products and sums
@@ -129,6 +130,7 @@ def rgcn_message_agg_flat(h, basis, src, dst, w, num_nodes: int, *,
 # Dense batches (core/graphs.pad_batch): K6
 # ---------------------------------------------------------------------------
 
+# lint: allow[R4] plain version: route() sends it CPU tensors only
 def rgcn_spmm_dense_plain(h, src, dst, w, num_nodes: int) -> torch.Tensor:
     """s (B, N, nb*D) f32 = per graph, segment-sum over dst of
     w[b,e,k] * h[b, src[b,e]] (the model is ``rgcn_spmm/ref.py:

@@ -138,6 +138,7 @@ def main(argv=None, out: dict | None = None) -> int:
         records.append({"step": step, "loss": metrics["loss"],
                         "ms": dt * 1e3})
         if step % args.log_every == 0 or step == args.steps - 1:
+            # lint: allow[R1] CLI reporting, once a log_every steps
             m = {k: float(v) for k, v in metrics.items()}
             print(
                 f"[train] step {step:5d} loss={m['loss']:.4f} "

@@ -166,6 +166,7 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     the rows' gradients as a one-hot matmul, in a fixed order."""
     if torch.is_grad_enabled() and table.requires_grad:
         return _TakeRows.apply(table, idx)
+    # lint: allow[R4] no autograd graph here: a gradient takes _TakeRows
     return table.index_select(0, idx)
 
 
