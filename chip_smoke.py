@@ -293,6 +293,10 @@ JAMBA_PREFILL = (LM_BATCH, LM_PROMPT, 8, 4, 128)
 DBRX_TRAIN = (8, 256, 8, 6, 128)
 JAMBA_SSD_PREFILL = (LM_BATCH, LM_PROMPT // 256, 256, 128, 64, 128)
 BF16_TOL = 2 ** -7      # a bf16 kernel output vs plain: one bf16 rounding
+#: K7's log-sum-exp output vs ``torch.logsumexp`` of the plain scaled
+#: scores, relative to the largest (float32 sums in another order; the
+#: wgmma kernel's exp2 on the special-function unit)
+LSE_TOL = 1e-5
 #: the kernels K2's, K3's and K4's wrappers launch per call (``device_ms``'s
 #: ``own``)
 K2_KERNELS = {"k2_prep_kernel": 1, "k2_assign_kernel": 1,
@@ -351,8 +355,8 @@ K7B_TOL_F32 = 1e-4
 #: chunk's triangle, whose terms cancel, summed in other orders)
 MAMBA_TRAIN = (8, 1, 256, 48, 64, 128)
 K8B_TOL = 1e-4
-K8B_KERNELS = {"ssd_bwd_dcb_kernel": 1, "ssd_bwd_dx_kernel": 1,
-               "ssd_bwd_dbc_kernel": 1}
+K8B_KERNELS = {"ssd_bwd_dcb_tf32_kernel": 1, "ssd_bwd_dx_tf32_kernel": 1,
+               "ssd_bwd_dbs_tf32_kernel": 1, "ssd_bwd_dbc_tf32_kernel": 1}
 #: the lm_train phase: ``repro_torch.launch.train.main`` at full width and
 #: JAX's CLI defaults (batch 8 x 256 tokens, lr 3e-4, 20 warmup steps) for
 #: each of LM_TRAIN_RUNS: (arch, steps, the forward and backward wrappers
@@ -603,6 +607,20 @@ def device_ms(fn, iters, own=None) -> DeviceTime:
         f"({why}): "
         f"{t:.4f} ms is the call's device span behind a spin kernel")
     return DeviceTime(t, t, "spin-primed")
+
+
+def own_split_ms(fn, iters, own):
+    """{kernel: device ms a call} for each kernel of ``own`` ({name:
+    launches per call}), from a torch.profiler record of ``iters`` calls
+    that ``profile_verdict`` accepts, taken up to ``RECORD_TRIES`` times;
+    None when every record is refused."""
+    for _ in range(RECORD_TRIES):
+        events = _record(fn, iters)
+        ok, _ = profile_verdict([(k, c) for k, c, _ in events], iters, own)
+        if ok:
+            return {o: sum(t for k, _, t in events if o in k) / 1e3 / iters
+                    for o in own}
+    return None
 
 
 def ptxas_report(kernel):
@@ -2805,12 +2823,17 @@ def k7_kernels(hd, dtype):
 
 
 def k7b_kernels(hd, dtype):
-    """K7b's kernels for a head width and input type: two tensor-core
-    (mma.sync) kernels for bf16 up to hd 128, three float32-FMA kernels
-    otherwise (``flash_attention_bwd`` in ``csrc/flash_attention_bwd.cu``)."""
-    import torch
+    """K7b's kernels for a head width and input type
+    (``flash_attention_bwd`` in ``csrc/flash_attention_bwd.cu``): for bf16
+    at hd 64 / 128 the D prologue and the wgmma kernel of both block roles;
+    two tensor-core (mma.sync) kernels for the other bf16 widths up to 128;
+    three float32-FMA kernels otherwise."""
+    from repro_torch.kernels.flash_attention.ops import bwd_route
 
-    if dtype == torch.bfloat16 and hd <= 128:
+    route = bwd_route(dtype, hd)
+    if route == "wgmma":
+        return {"k7b_dvec_kernel": 1, "k7b_wgmma_kernel": 1}
+    if route == "mma":
         return {"k7b_dq_mma_kernel": 1, "k7b_dkdv_mma_kernel": 1}
     return {"k7b_stats_kernel": 1, "k7b_dkdv_kernel": 1, "k7b_dq_kernel": 1}
 
@@ -2861,7 +2884,8 @@ def phase_lm_kernels(rows, dev):
     import torch
 
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_cost, flash_attention_plain,
+        flash_attention, flash_attention_cost, flash_attention_lse,
+        flash_attention_plain,
     )
     from repro_torch.kernels.ssd_scan.ops import (
         ssd_intra_chunk, ssd_intra_chunk_cost, ssd_intra_chunk_plain,
@@ -2922,6 +2946,14 @@ def phase_lm_kernels(rows, dev):
         if dt == torch.bfloat16:
             k7 = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                       bound_by=b_by, library_ms=lib_ms)
+            # the training forward's variant, which also writes each row's
+            # log-sum-exp for K7b
+            lse_ms = device_ms(lambda: flash_attention_lse(q, k, v, scale), 5,
+                               own=k7_kernels(hd, dt))
+            log(f"[kernels] K7 flash_attention {LLAMA_PREFILL} bf16 with "
+                f"the log-sum-exp output: kernel device ms "
+                f"{lse_ms.own:.4f} [{lse_ms.source}]; without it {ms:.4f} "
+                f"[{ms_src}] ({lse_ms.own / ms - 1:+.2%})")
         del q, k, v, qh, kh, vh
     rows.append(("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention/kernel.py:108",
@@ -3027,9 +3059,10 @@ def _moe_kernel_shapes(dev):
     B, S, K, G, hd = DBRX_TRAIN
     H = K * G
     for dt in (bf16, torch.float32):
-        err, rel, (q, k, v, o, do, scale) = _k7b_check(dev, DBRX_TRAIN, dt,
-                                                       11)
-        ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, do, scale), 5,
+        err, rel, (q, k, v, o, do, scale, lse) = _k7b_check(
+            dev, DBRX_TRAIN, dt, 11)
+        ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, do, scale,
+                                                   lse), 5,
                        own=k7b_kernels(hd, dt))
         plain = device_ms(lambda: flash_attention_bwd_plain(
             q, k, v, o, do, scale), 3)
@@ -3056,7 +3089,7 @@ def _moe_kernel_shapes(dev):
             f"K / V expanded to {H} heads) bound ms {b_ms:.4f} ({b_by}; "
             f"{ops:.3e} ops, {bytes_ / 1e6:.1f} MB) achieved "
             f"{ops / ms.own / 1e9:.2f} TFLOP/s")
-        del q, k, v, o, do, qh, kh, vh, doh, leaves, out
+        del q, k, v, o, do, lse, qh, kh, vh, doh, leaves, out
         torch.cuda.empty_cache()
 
     B, nc, Q, nh, hp, ds = JAMBA_SSD_PREFILL
@@ -3091,20 +3124,23 @@ def _moe_kernel_shapes(dev):
 
 def _k8b(dev):
     """K8b (the SSD intra-chunk backward) against its plain version at
-    mamba's smoke training shape, then at mamba2-780m's training shape (the
-    table's row: its time, the plain version's and the bound) and at the
-    prefill shape, with a random dy and a nonzero dstates; a repeat
-    bit-equal."""
+    mamba's smoke training shape, two ragged shapes (Q < 256 and no multiple
+    of 64, nc > 1, hp < 64, ds < 128, widths no multiple of 4), then at
+    mamba2-780m's training shape (the table's row: its time, each kernel's,
+    the plain version's and the bounds) and at the prefill shape, with a
+    random dy and a nonzero dstates; a repeat bit-equal."""
     import torch
 
     from repro_torch.kernels.ssd_scan.ops import (
         ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_cost,
         ssd_intra_chunk_bwd_plain,
     )
-    from repro_torch.launch.roofline import bound
+    from repro_torch.launch.roofline import bound, tf32x3_bound
 
     row = None
     for label, shape in (("smoke train", (8, 8, 32, 8, 16, 16)),
+                         ("ragged", (2, 3, 200, 5, 24, 40)),
+                         ("ragged, odd widths", (1, 2, 100, 3, 9, 13)),
                          ("train", MAMBA_TRAIN), ("prefill", MAMBA_PREFILL)):
         B, nc, Q, nh, hp, ds = shape
         args = _k8_inputs(dev, B, nc, Q, nh, hp, ds, nc + 1)
@@ -3126,8 +3162,9 @@ def _k8b(dev):
         del again
         ops, bytes_ = ssd_intra_chunk_bwd_cost(B, nc, Q, nh, hp, ds)
         b_ms, b_by = bound(bytes_, ops)
+        tc_ms, tc_by = tf32x3_bound(bytes_, ops)
         extra = ""
-        if label != "smoke train":
+        if label in ("train", "prefill"):
             call = lambda: ssd_intra_chunk_bwd(*args, dy, dst)  # noqa: E731
             ms = device_ms(call, 5, own=K8B_KERNELS)
             call_ms = time_ms(call, 10)
@@ -3139,32 +3176,40 @@ def _k8b(dev):
                 extra += (f" plain device ms {plain.total:.4f} "
                           f"[{plain.source}]")
                 row = dict(err=err, ms=ms.own, plain_ms=plain.total,
-                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                           bound_ms=tc_ms, bound_by=tc_by, library_ms=None,
+                           fma_bound_ms=b_ms)
+                split = own_split_ms(call, 5, K8B_KERNELS)
+                extra += " (split, torch.profiler: " + (", ".join(
+                    f"{k} {t:.4f}" for k, t in split.items()) if split
+                    else "not measured, every record refused") + ")"
             extra += (f" achieved {ops / ms.own / 1e9:.2f} TFLOP/s, "
-                      f"{b_ms / ms.own:.3f} of the bound")
+                      f"{tc_ms / ms.own:.3f} of the 3xTF32 bound")
         log(f"[kernels] K8b ssd_intra_chunk_bwd {label} (B, nc, Q, nh, hp, "
             f"ds) = {shape}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
             f"{K8B_TOL}; dx, dcum, ddt, dBc, dCc "
             + ", ".join(f"{r:.2e}" for _, r in errs)
-            + f"), repeat bit-equal{extra}; bound ms {b_ms:.4f} ({b_by}, "
-            f"float32 FMAs; {ops:.3e} ops, {bytes_ / 1e6:.1f} MB)")
+            + f"), repeat bit-equal{extra}; 3xTF32 design bound ms "
+            f"{tc_ms:.4f} ({tc_by}); bound ms {b_ms:.4f} ({b_by}, float32 "
+            f"FMAs; {ops:.3e} ops, {bytes_ / 1e6:.1f} MB)")
         del args, dy, dst, got
         torch.cuda.empty_cache()
-    log(f"[kernels] K8b ptxas: {ptxas_report('ssd_bwd_dcb_kernel')}; "
-        f"{ptxas_report('ssd_bwd_dx_kernel')}; "
-        f"{ptxas_report('ssd_bwd_dbc_kernel')}")
+    log("[kernels] K8b ptxas: " + "; ".join(ptxas_report(k)
+                                            for k in K8B_KERNELS))
     return ("ssd_intra_chunk_bwd",
             "src/repro_torch/csrc/ssd_intra_chunk_bwd.cu",
             "src/repro/kernels/ssd_scan/ops.py:66", ssd_intra_chunk_bwd, row)
 
 
 def _k7b_check(dev, shape, dt, seed):
-    """K7b against its plain version, and a second launch bit-equal;
-    (err, rel, inputs)."""
+    """K7b against its plain version (the softmax recompute), from the
+    output and log-sum-exp of K7's forward with the log-sum-exp (the output
+    held to the plain one at K7's KERNEL_TOL / BF16_TOL, the log-sum-exp at
+    LSE_TOL), and a second launch bit-equal; (err, rel, inputs)."""
     import torch
 
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_lse,
+        flash_attention_plain,
     )
 
     B, S, K, G, hd = shape
@@ -3172,19 +3217,29 @@ def _k7b_check(dev, shape, dt, seed):
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     do = torch.randn(q.shape, generator=g, device=dev).to(dt)
     scale = hd ** -0.5
-    o = flash_attention(q, k, v, scale)
-    got = flash_attention_bwd(q, k, v, o, do, scale)
+    o, lse = flash_attention_lse(q, k, v, scale)
+    o_want, lse_want = flash_attention_plain(q, k, v, scale, return_lse=True)
+    o_tol = KERNEL_TOL if dt == torch.float32 else BF16_TOL   # K7's own
+    _, o_err = rel_err(o, o_want)
+    require(o_err <= o_tol, f"K7 {shape} {dt} with the log-sum-exp: output "
+            f"rel err {o_err:.3e} > {o_tol}")
+    _, lse_err = rel_err(lse, lse_want)
+    require(lse_err <= LSE_TOL, f"K7 {shape} {dt}: log-sum-exp rel err "
+            f"{lse_err:.3e} > {LSE_TOL}")
+    del o_want, lse_want
+    got = flash_attention_bwd(q, k, v, o, do, scale, lse)
     torch.cuda.synchronize()
     want = flash_attention_bwd_plain(q, k, v, o, do, scale)
     errs = [rel_err(a, b) for a, b in zip(got, want)]
     del want
     err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
     tol = K7B_TOL_F32 if dt == torch.float32 else BF16_TOL
-    require(rel <= tol, f"K7b {shape} {dt}: rel err {rel:.3e} > {tol}")
-    again = flash_attention_bwd(q, k, v, o, do, scale)
+    require(rel <= tol, f"K7b {shape} {dt}: rel err {rel:.3e} > {tol} (dq, "
+            f"dk, dv: " + ", ".join(f"{r:.2e}" for _, r in errs) + ")")
+    again = flash_attention_bwd(q, k, v, o, do, scale, lse)
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"K7b {shape} {dt}: two launches differ")
-    return err, rel, (q, k, v, o, do, scale)
+    return err, rel, (q, k, v, o, do, scale, lse)
 
 
 def _k7b(dev):
@@ -3196,32 +3251,39 @@ def _k7b(dev):
     import torch
 
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention_bwd, flash_attention_bwd_cost,
+        bwd_route, flash_attention_bwd, flash_attention_bwd_cost,
         flash_attention_bwd_plain,
     )
     from repro_torch.launch.roofline import PEAK_BF16_S, PEAK_F32_S, bound
 
     n, worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for hd in (16, 64, 256):
-        for G in (1, 3):
+    wgmma_worst = 0.0
+    for hd in (16, 64, 128, 256):
+        for G in (1, 3, 6):
             for S in (64, 100, 512):
                 for dt in (torch.float32, torch.bfloat16):
                     _, rel, _ = _k7b_check(dev, (1, S, 2, G, hd), dt, n)
                     worst[dt] = max(worst[dt], rel)
+                    if bwd_route(dt, hd) == "wgmma":
+                        wgmma_worst = max(wgmma_worst, rel)
                     n += 1
-    log(f"[kernels] K7b flash_attention_bwd: {n} shapes (hd 16/64/256, G "
-        f"1/3, S 64/100/512, f32 and bf16) within tolerance, repeats "
-        f"bit-equal: worst rel f32 {worst[torch.float32]:.3e} (tol "
-        f"{K7B_TOL_F32}) bf16 {worst[torch.bfloat16]:.3e} (tol "
-        f"{BF16_TOL:.3e})")
+    log(f"[kernels] K7b flash_attention_bwd: {n} shapes (hd 16/64/128/256, "
+        f"G 1/3/6, S 64/100/512, f32 and bf16) within tolerance, the "
+        f"forward's output with the log-sum-exp within the same tolerance "
+        f"and its log-sum-exp within {LSE_TOL} of the plain ones, repeats "
+        f"bit-equal: worst rel "
+        f"f32 {worst[torch.float32]:.3e} (tol {K7B_TOL_F32}) bf16 "
+        f"{worst[torch.bfloat16]:.3e} (tol {BF16_TOL:.3e}); the wgmma route "
+        f"(P and dS rounded to bf16 once) {wgmma_worst:.3e}")
     row = None
     for shape, label in ((LLAMA_TRAIN, "train"), (LLAMA_PREFILL, "prefill")):
         B, S, K, G, hd = shape
         H = K * G
         for dt in (torch.bfloat16, torch.float32):
-            err, rel, (q, k, v, o, do, scale) = _k7b_check(dev, shape, dt,
-                                                           7)
-            call = lambda: flash_attention_bwd(q, k, v, o, do, scale)  # noqa
+            err, rel, (q, k, v, o, do, scale, lse) = _k7b_check(
+                dev, shape, dt, 7)
+            call = lambda: flash_attention_bwd(  # noqa: E731
+                q, k, v, o, do, scale, lse)
             ms = device_ms(call, 5, own=k7b_kernels(hd, dt))
             ops, bytes_ = flash_attention_bwd_cost(B, S, K, G, hd,
                                                    q.element_size())
@@ -3241,11 +3303,11 @@ def _k7b(dev):
                 doh = do.reshape(B, S, H, hd).transpose(1, 2).contiguous()
                 lib = device_ms(lambda: torch.autograd.grad(
                     out, leaves, doh, retain_graph=True), 5)
-                extra = (f" plain device ms {plain.total:.4f} "
-                         f"[{plain.source}] library device ms "
-                         f"{lib.total:.4f} [{lib.source}] "
-                         f"(scaled_dot_product_attention backward, causal, "
-                         f"K / V expanded to {H} heads)")
+                extra += (f" plain device ms {plain.total:.4f} "
+                          f"[{plain.source}] library device ms "
+                          f"{lib.total:.4f} [{lib.source}] "
+                          f"(scaled_dot_product_attention backward, causal, "
+                          f"K / V expanded to {H} heads)")
                 if dt == torch.bfloat16:
                     row = dict(err=err, ms=ms.own, plain_ms=plain.total,
                                bound_ms=b_ms, bound_by=b_by,
@@ -3257,9 +3319,11 @@ def _k7b(dev):
                 f"ms {b_ms:.4f} ({b_by}; "
                 f"{ops:.3e} ops, {bytes_ / 1e6:.1f} MB) achieved "
                 f"{ops / ms.own / 1e9:.2f} TFLOP/s")
-            del q, k, v, o, do
+            del q, k, v, o, do, lse
             torch.cuda.empty_cache()
-    log(f"[kernels] K7b ptxas: {ptxas_report('k7b_dq_mma_kernel')}; "
+    log(f"[kernels] K7b ptxas: {ptxas_report('k7b_wgmma_kernel')}; "
+        f"{ptxas_report('k7b_dvec_kernel')}; "
+        f"{ptxas_report('k7b_dq_mma_kernel')}; "
         f"{ptxas_report('k7b_dkdv_mma_kernel')}; "
         f"{ptxas_report('k7b_dkdv_kernel')}; "
         f"{ptxas_report('k7b_dq_kernel')}; "
@@ -3716,11 +3780,11 @@ def _train_parity(dev, arch, whole_step=True):
             f"gap {param_gap:.3e}")
 
 
-def _profile_train_steps(cfg, state, dev, steps):
-    """TRAIN_PROFILE_STEPS more steps of the state trained ``steps`` steps,
-    under torch.profiler: wall and device busy time a step, the split of
-    the device time (K7, K7b, K8, K8b, matmuls, copies, the rest) and the
-    top ops."""
+def _profile_train_steps(cfg, state, dev, steps, tcfg=None):
+    """TRAIN_PROFILE_STEPS more steps of the state trained ``steps`` steps
+    (under ``tcfg``, by default JAX's CLI defaults), under torch.profiler:
+    wall and device busy time a step, the split of the device time (K7,
+    K7b, K8, K8b, matmuls, copies, the rest) and the top ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3729,9 +3793,9 @@ def _profile_train_steps(cfg, state, dev, steps):
     from repro_torch.launch.steps import make_train_step
 
     B, S = LLAMA_TRAIN[:2]
-    step = make_train_step(cfg, TrainConfig(learning_rate=3e-4,
-                                            warmup_steps=20,
-                                            total_steps=steps))
+    step = make_train_step(cfg, tcfg or TrainConfig(learning_rate=3e-4,
+                                                    warmup_steps=20,
+                                                    total_steps=steps))
     data = TokenStream(cfg.vocab_size, S, B, seed=0)
     data.skip(steps)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in
@@ -3884,7 +3948,8 @@ def _train_moe(dev):
     as the train launcher draws them: step ms (median after the first),
     peak memory, the first and last losses (finite), K7 and K7b once per
     attention layer a step and K8 / K8b never; the dry run of its step
-    beside the median step and the steps' peak."""
+    beside the median step and the steps' peak; then two steps profiled
+    (``_profile_train_steps``)."""
     import statistics
 
     import torch
@@ -3954,6 +4019,7 @@ def _train_moe(dev):
                     f"moments) train step {B} x {S}, median", cfg,
                     ShapeConfig("train", S, B, KIND_TRAIN), tcfg, med,
                     step_peak - base)
+    _profile_train_steps(cfg, state, dev, steps, tcfg)
     del state, step_fn
     torch.cuda.empty_cache()
 

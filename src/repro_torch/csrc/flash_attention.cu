@@ -58,6 +58,13 @@
 //
 // Any hd that is a multiple of 16 up to 256 and any S run; the wrapper
 // enforces what the JAX kernel accepts.
+//
+// Optional output: each row's float32 log-sum-exp of its scaled causal
+// scores, lse[b, h, i] = max + log(sum), for the backward (K7b), which
+// then needs no statistics sweep of its own.  Every kernel takes it as a
+// pointer that may be null (the serving path passes none): a row's four
+// (or sixteen) lanes already hold its max and sum, so writing it costs
+// one store per row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,7 +92,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int S, int K, int G, int hd, float scale) {
+                           float* __restrict__ lse, int S, int K, int G,
+                           int hd, float scale) {
   extern __shared__ float smem[];
   const int ld = hd + 1;               // padded row stride of the tiles
   float* qs = smem;                    // BQ x ld
@@ -215,6 +223,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     const int qp = q0 + rg * RPT + i;
     if (qp >= S) continue;
     const float denom = fmaxf(l[i], 1e-20f);
+    if (lse != nullptr && cl == 0)
+      lse[(static_cast<size_t>(b) * K * G + h) * S + qp] = m[i] + logf(l[i]);
     float* orow = o + q_off + static_cast<size_t>(qp) * q_row;
 #pragma unroll
     for (int j = 0; j < HDMAX / 16; ++j) {
@@ -243,7 +253,8 @@ __global__ void __launch_bounds__(MTHREADS)
 flash_attention_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ o,
-                           int S, int K, int G, int hd, float scale) {
+                           float* __restrict__ lse, int S, int K, int G,
+                           int hd, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ldq = hd + PAD;            // q / K tile row stride
   const int ldv = MK + PAD;            // V^T tile row stride
@@ -399,6 +410,11 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   }
 
   const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
+  if (lse != nullptr && t == 0) {
+    float* lrow = lse + (static_cast<size_t>(b) * K * G + h) * S;
+    if (row0 < S) lrow[row0] = m0 + logf(l0);
+    if (row1 < S) lrow[row1] = m1 + logf(l1);
+  }
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     if (8 * n >= hd) continue;
@@ -425,6 +441,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
 constexpr int WM = 128;          // query rows per block: 2 consumer warpgroups
 constexpr int WTHREADS = 384;    // consumer warpgroups 0, 1; producer 2
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 struct WCfg {
@@ -475,14 +492,17 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
 // q / o are 4-D tensor maps over (hd, H, S, B), k / v over (hd, K, S, B),
 // all with 64-column boxes in the 128-byte swizzle layout.  Block
 // (b * H + h, y) owns query rows q0 .. q0 + 127 of head h, q0 counted from
-// the end (the longest rows of the causal triangle start first).
-template <int HD>
+// the end (the longest rows of the causal triangle start first).  LSE: the
+// variant that also writes each row's log-sum-exp (after the output, when
+// the accumulator is dead), so the serving path's variant keeps its
+// registers.
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(WTHREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
-                             bf16* __restrict__ o, int S, int H, int G,
-                             float scale_log2) {
+                             bf16* __restrict__ o, float* __restrict__ lse,
+                             int S, int H, int G, float scale_log2) {
   using C = WCfg<HD>;
   constexpr int BN = C::BN, STAGES = C::STAGES, NCH = C::NCH;
   extern __shared__ __align__(1024) unsigned char wsmem[];
@@ -677,6 +697,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * n) =
             __floats2bfloat162_rn(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
     }
+    if (LSE && t == 0) {
+      // m is the raw scores' max: lse = scale m + log(l)
+      const float scale = scale_log2 * LN2;
+      float* lrow = lse + (static_cast<size_t>(b) * H + h) * S;
+      if (row0 < S) lrow[row0] = fmaf(m0, scale, logf(l0));
+      if (row1 < S) lrow[row1] = fmaf(m1, scale, logf(l1));
+    }
   }
 }
 
@@ -685,8 +712,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // ---------------------------------------------------------------------------
 
 template <int HDMAX>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int K, int G, int hd, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int K, int G, int hd, float scale,
+               cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((BQ + 2 * BK) * (hd + 1) + BQ * (BK + 1));
   auto kern = flash_attention_f32_kernel<HDMAX>;
@@ -697,14 +725,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + BQ - 1) / BQ, K * G, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, K, G, hd,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, K, G,
+      hd, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HDMAX>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int K, int G, int hd, float scale, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int K, int G, int hd, float scale,
+               cudaStream_t stream) {
   const size_t smem =
       sizeof(bf16) * ((MQ + MK) * (hd + PAD) + hd * (MK + PAD));
   auto kern = flash_attention_mma_kernel<HDMAX>;
@@ -715,13 +744,15 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + MQ - 1) / MQ, K * G, B);
   kern<<<grid, MTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, K, G, hd, scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, K, G, hd,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int K, int G, float scale, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int S, int K, int G, float scale,
+                 cudaStream_t stream) {
   using C = WCfg<HD>;
   const uint64_t H = static_cast<uint64_t>(K) * G, row = HD * 2;
   CUtensorMap tq, tk, tv;
@@ -738,33 +769,37 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
       !hopper::bf16_map_4d(&tk, k, kv_dims, kv_strides, kv_box) ||
       !hopper::bf16_map_4d(&tv, v, kv_dims, kv_strides, kv_box))
     return static_cast<int>(cudaErrorNotSupported);
-  auto kern = flash_attention_wgmma_kernel<HD>;
+  auto kern = lse != nullptr ? flash_attention_wgmma_kernel<HD, true>
+                             : flash_attention_wgmma_kernel<HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(B * H), (S + WM - 1) / WM);
   kern<<<grid, WTHREADS, C::SMEM, stream>>>(tq, tk, tv, static_cast<bf16*>(o),
-                                            S, static_cast<int>(H), G,
+                                            lse, S, static_cast<int>(H), G,
                                             scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
-#define FA_DISPATCH(LAUNCH)                                             \
-  if (hd <= 16) return LAUNCH<16>(q, k, v, o, B, S, K, G, hd, scale, s); \
-  if (hd <= 32) return LAUNCH<32>(q, k, v, o, B, S, K, G, hd, scale, s); \
-  if (hd <= 64) return LAUNCH<64>(q, k, v, o, B, S, K, G, hd, scale, s); \
-  if (hd <= 128) return LAUNCH<128>(q, k, v, o, B, S, K, G, hd, scale, s); \
-  return LAUNCH<256>(q, k, v, o, B, S, K, G, hd, scale, s);
+#define FA_DISPATCH(LAUNCH)                                                  \
+  if (hd <= 16) return LAUNCH<16>(q, k, v, o, lse, B, S, K, G, hd, scale, s); \
+  if (hd <= 32) return LAUNCH<32>(q, k, v, o, lse, B, S, K, G, hd, scale, s); \
+  if (hd <= 64) return LAUNCH<64>(q, k, v, o, lse, B, S, K, G, hd, scale, s); \
+  if (hd <= 128)                                                             \
+    return LAUNCH<128>(q, k, v, o, lse, B, S, K, G, hd, scale, s);           \
+  return LAUNCH<256>(q, k, v, o, lse, B, S, K, G, hd, scale, s);
 
 }  // namespace
 
 // q, o: (B, S, K, G, hd); k, v: (B, S, K, hd); all contiguous, float32
 // (is_bf16 = 0) or bfloat16 (is_bf16 = 1, every pointer 16-byte aligned).
-// hd a multiple of 16 in [16, 256].  Every element of o is written.
-// Returns cudaGetLastError() after the launch.
+// lse: null, or (B, K, G, S) float32, each row's log-sum-exp of its scaled
+// causal scores.  hd a multiple of 16 in [16, 256].  Every element of o
+// (and of lse) is written.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int is_bf16, int B, int S, int K,
-                               int G, int hd, float scale, void* stream) {
+                               void* o, float* lse, int is_bf16, int B,
+                               int S, int K, int G, int hd, float scale,
+                               void* stream) {
   if (B < 0 || S < 0 || K < 1 || G < 1 || hd < 16 || hd > 256 || hd % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16 && ((reinterpret_cast<uintptr_t>(q) |
@@ -775,9 +810,12 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (hd == 64) return launch_wgmma<64>(q, k, v, o, B, S, K, G, scale, s);
-    if (hd == 128) return launch_wgmma<128>(q, k, v, o, B, S, K, G, scale, s);
-    if (hd == 256) return launch_wgmma<256>(q, k, v, o, B, S, K, G, scale, s);
+    if (hd == 64)
+      return launch_wgmma<64>(q, k, v, o, lse, B, S, K, G, scale, s);
+    if (hd == 128)
+      return launch_wgmma<128>(q, k, v, o, lse, B, S, K, G, scale, s);
+    if (hd == 256)
+      return launch_wgmma<256>(q, k, v, o, lse, B, S, K, G, scale, s);
     FA_DISPATCH(launch_mma)
   }
   FA_DISPATCH(launch_f32)

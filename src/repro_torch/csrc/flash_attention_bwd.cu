@@ -17,8 +17,37 @@
 // bfloat16; dQ, dK, dV come out in the same type.  D_i = dO_i . O_i is the
 // flash-attention form of sum_j P[i,j] dP[i,j] (equal for the exact O).
 //
-// bfloat16 with hd <= 128 (the training path): mma.sync m16n8k16 on the
-// tensor cores, two kernels, launched in this order on the caller's stream:
+// Routes, by input:
+//
+// bfloat16, hd 64 / 128 (the training path): wgmma + TMA, with each row's
+// log-sum-exp taken from K7's forward (no statistics sweep), two kernels:
+//   k7b_dvec_kernel   D_i = dO_i . O_i, one half-warp a row, into a float32
+//                     scratch;
+//   k7b_wgmma_kernel  one warpgroup a block, two roles, both reading only
+//                     inputs (so one launch holds both).  dK / dV blocks
+//                     own 64 keys of one (kv head, batch) and walk the G
+//                     heads and, for each, the 64-row query tiles at or
+//                     after their keys: S^T = K Q^T and
+//                     dP^T = V dO^T as wgmma with both operands in shared
+//                     memory, P^T = exp(scale S^T - lse) and dS^T = P^T
+//                     (dP^T - D) on the accumulator registers, then dV +=
+//                     P^T dO and dK += dS^T Q as wgmma with P^T / dS^T as
+//                     bf16 register fragments and the row-major dO / Q
+//                     tiles read through the descriptor's transpose.  dQ
+//                     blocks own 64 query rows of one (head, batch) and walk
+//                     the key tiles up to the diagonal: S = Q K^T, dP = dO
+//                     V^T, dS, dQ += dS K.  A block's own tiles load once;
+//                     the streamed pair comes by TMA (128-byte swizzle) into
+//                     a 2-stage ring, one pair ahead of the products.  Blocks
+//                     are ordered longest first (the first key tiles, the
+//                     last query tiles).  dQ stays in the block that owns
+//                     its rows: no atomics.
+// P and dS are rounded to bf16 once as they enter their products (as JAX's
+// vjp of the oracle rounds them); S, dP and every sum are float32, and the
+// outputs round to bf16 once.
+//
+// bfloat16, other hd <= 128: mma.sync m16n8k16 on the tensor cores, two
+// kernels, launched in this order on the caller's stream:
 //   k7b_dq_mma_kernel    one block of 4 warps per (64 query rows, head,
 //                        batch), 16 rows a warp.  A first sweep over the key
 //                        tiles computes each row's max and sum of its
@@ -32,12 +61,10 @@
 //                        the block's first key: S^T = K Q^T, dP^T = V dO^T,
 //                        then dV += P^T dO and dK += dS^T Q.
 // S and dP multiply bf16 inputs exactly; P and dS enter their products as
-// bf16 high + low parts (two MMAs, ~16 bits kept, as K7 splits P), so the
-// sums are float32-grade and only the outputs round to bf16.  (JAX's vjp
-// of the oracle rounds P and dS to bf16 once; the plain float32 recompute
-// is the reference here.)  Tiles are staged in shared
-// memory row-major and, for the B operands of dQ, dK and dV, transposed;
-// rows are padded by 16 bytes, so a warp's fragment loads hit 32 banks.
+// bf16 high + low parts (two MMAs, ~16 bits kept, as K7 splits P).  Tiles
+// are staged in shared memory row-major and, for the B operands of dQ, dK
+// and dV, transposed; rows are padded by 16 bytes, so a warp's fragment
+// loads hit 32 banks.
 //
 // float32, or bfloat16 with hd > 128: float32 FMAs out of shared memory,
 // three kernels:
@@ -61,17 +88,19 @@
 // at the llama3.2-3b training shape (B=8, S=256, K=8, G=3, hd=128, bf16)
 // that is 8.1e9 operations against 67 MB of inputs and outputs: 8.2 us at
 // the 989 TFLOP/s bf16 tensor-core peak and 20 us at 3.35 TB/s, so it is
-// bound by bytes.  The mma.sync design issues 1.8x the operations (S
-// twice, the three P / dS products twice) at mma.sync's rate, with each
-// tile staged through registers; wgmma, TMA
-// and the statistics taken from K7's forward are later work.  The float32
-// FMA design is bound by shared memory (one 4-byte load per ~1.6 FMAs).
+// bound by bytes.  The wgmma design issues 1.4x the operations (the dQ
+// blocks recompute S and dP) over whole 64 x 64 tiles, reads D's 4 bytes a
+// row once more, and streams each K / V tile to every dQ block of its
+// head and each Q / dO tile to every dK / dV block of its kv head from L2.
+// The float32 FMA design is bound by shared memory (one 4-byte load per
+// ~1.6 FMAs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -449,7 +478,7 @@ k7b_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16, hd <= 128: mma.sync m16n8k16 on the tensor cores
+// bfloat16, hd <= 128 other than 64 / 128: mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
 using bf16mma::ld32;
@@ -847,6 +876,413 @@ int launch_mma(const void* q, const void* k, const void* v, const void* o,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, hd 64 / 128: wgmma + TMA, the row statistics from the forward
+// ---------------------------------------------------------------------------
+
+constexpr int WR = 64;            // rows a block owns: wgmma's m64
+constexpr int WTHREADS = 128;     // one warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+struct WCfg {
+  static constexpr int NCH = HD / 64;          // 128-byte column chunks
+  static constexpr int CHUNK = WR * 128;       // bytes of a 64-row chunk
+  static constexpr int TILE = NCH * CHUNK;     // bytes of a 64-row tile
+  // two own tiles, a 2-stage ring of two streamed tiles, the statistics
+  // ring (2 x 2 x 64 floats), barriers, 1 KB to align to the swizzle line
+  static constexpr int SMEM = 6 * TILE + 1024 + 256 + 1024;
+};
+
+// 2^x on the special-function unit (as K7's forward)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HD == 64) hopper::wgmma_rs_n64(d, a, db, 1);
+  else hopper::wgmma_rs_n128(d, a, db, 1);
+}
+
+// d (64 x 64) = A (64 rows of a tile at a_base) . B^T (64 rows at b_base)
+// over HD: both K-major, 128-byte swizzled (issued and committed, not
+// waited for)
+template <int HD>
+__device__ __forceinline__ void wgmma_rows(float (&d)[32], uint32_t a_base,
+                                           uint32_t b_base) {
+  using C = WCfg<HD>;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * C::CHUNK + (kk & 3) * 32;
+    hopper::wgmma_ss_n64(d, hopper::desc_sw128(a_base + off, 16, 1024),
+                         hopper::desc_sw128(b_base + off, 16, 1024), kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// acc (64 x HD) += X (64 x 64: the accumulator fragments x, rounded to
+// bf16 once) . Y (64 rows of a tile at y_base, N-major: read row-major
+// through the descriptor's transpose); issued, not committed.  The x
+// fragments of n-tiles 2kk, 2kk+1 are the A operand of rows 16kk..16kk+15
+// of Y; `f` receives them (it must live until the product is waited for).
+template <int HD>
+__device__ __forceinline__ void wgmma_frag(float (&acc)[HD / 2],
+                                           const float (&x)[32],
+                                           uint32_t (&f)[4][4],
+                                           uint32_t y_base) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      f[kk][r] = pack(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+  hopper::fence_regs(f[0]);
+  hopper::fence_regs(f[1]);
+  hopper::fence_regs(f[2]);
+  hopper::fence_regs(f[3]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<HD>(acc, f[kk], hopper::desc_sw128(y_base + kk * 2048,
+                                                 WCfg<HD>::CHUNK, 1024));
+}
+
+// a (64 x HD) accumulator, scaled, to bf16 rows [r0, r0 + 64) of one head
+// (row stride `row` elements), rows past S dropped
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out,
+                                           const float (&acc)[HD / 2],
+                                           float mul, int r0, int S,
+                                           size_t row) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = r0 + warp * 16 + g, row1 = row0 + 8;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    if (row0 < S)
+      *reinterpret_cast<uint32_t*>(out + row0 * row + 8 * n + 2 * t) =
+          pack(mul * acc[4 * n], mul * acc[4 * n + 1]);
+    if (row1 < S)
+      *reinterpret_cast<uint32_t*>(out + row1 * row + 8 * n + 2 * t) =
+          pack(mul * acc[4 * n + 2], mul * acc[4 * n + 3]);
+  }
+}
+
+// D_i = dO_i . O_i in float32, one half-warp a row (16-byte loads, a fixed
+// butterfly), into dvec[(b * H + h) * S + i]
+__global__ void __launch_bounds__(256)
+k7b_dvec_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                float* __restrict__ dvec, int rows, int S, int H, int hd) {
+  const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 4;
+  const int ln = threadIdx.x & 15;
+  float sum = 0.f;
+  if (r < rows) {
+    const size_t base = static_cast<size_t>(r) * hd;
+    for (int c = ln * 8; c < hd; c += 128) {
+      const uint4 a = ld128(o + base + c), d = ld128(dout + base + c);
+      const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 af = __bfloat1622float2(ap[e]);
+        const float2 df = __bfloat1622float2(dp[e]);
+        sum = fmaf(af.x, df.x, sum);
+        sum = fmaf(af.y, df.y, sum);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (ln == 0 && r < rows) {
+    const int b = r / (S * H), rem = r - b * S * H;
+    const int i = rem / H, h = rem - i * H;
+    dvec[(static_cast<size_t>(b) * H + h) * S + i] = sum;
+  }
+}
+
+// One warpgroup a block, two roles.  Blocks [0, n_kv): dK and dV of 64 keys
+// of one (kv head, batch), walking the G heads and, for each, the 64-row
+// query tiles at or after the block's keys; blocks [n_kv, n_kv + n_q): dQ
+// of 64 query rows of one (head, batch), walking the key tiles up to the
+// diagonal.  Both orders put the longest blocks first.  The block's own two
+// tiles (K, V or Q, dO) load once; the streamed pair (Q, dO or K, V) comes
+// by TMA into a 2-stage ring, one tile pair ahead of the products.
+// q / dout are tensor maps over (hd, H, S, B), k / v over (hd, K, S, B),
+// 64-column boxes of 64 rows, 128-byte swizzled.  lse: the forward's
+// (B, H, S) log-sum-exp; dvec: (B, H, S).
+template <int HD>
+__global__ void __launch_bounds__(WTHREADS, 2)
+k7b_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse, const float* __restrict__ dvec,
+                 bf16* __restrict__ dq, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, int S, int K, int G, int B,
+                 float scale) {
+  using C = WCfg<HD>;
+  extern __shared__ __align__(1024) unsigned char wsmem[];
+  unsigned char* own =
+      wsmem + ((1024 - (hopper::smem_addr(wsmem) & 1023)) & 1023);
+  unsigned char* ring = own + 2 * C::TILE;          // stage s: 2 tiles
+  float* stat = reinterpret_cast<float*>(ring + 4 * C::TILE);  // [2][2][64]
+  uint64_t* bar_own = reinterpret_cast<uint64_t*>(stat + 256);
+  uint64_t* full = bar_own + 1;                     // [2]
+
+  const int H = K * G, nt = (S + WR - 1) / WR;
+  const int n_kv = nt * K * B;
+  const int x = blockIdx.x;
+  const bool kv_role = x < n_kv;
+  int b, head, tile, n_it, span = 1;
+  if (kv_role) {             // key tile `tile`, kv head `head`
+    tile = x / (K * B);
+    const int r = x - tile * K * B;
+    b = r / K;
+    head = r - b * K;
+    span = nt - tile;        // query tiles a head
+    n_it = G * span;
+  } else {                   // query tile `tile`, head `head`
+    const int y = x - n_kv;
+    const int rank = y / (H * B);
+    const int r = y - rank * H * B;
+    b = r / H;
+    head = r - b * H;
+    tile = nt - 1 - rank;
+    n_it = tile + 1;
+  }
+  const int r0 = tile * WR;  // the block's first row (key or query)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float scale_log2 = scale * LOG2E;
+
+  // the streamed pair of iteration u: (head, first row) of its tiles
+  auto stream_at = [&](int u, int& hh, int& rr) {
+    if (kv_role) {
+      hh = head * G + u / span;
+      rr = (tile + u % span) * WR;
+    } else {
+      hh = head / G;   // the kv head of the streamed K / V
+      rr = u * WR;
+    }
+  };
+  auto load_stream = [&](int u) {
+    const int s = u & 1;
+    int hh, rr;
+    stream_at(u, hh, rr);
+    unsigned char* a = ring + s * 2 * C::TILE;
+    hopper::mbar_expect_tx(&full[s], 2 * C::TILE);
+    for (int c = 0; c < C::NCH; ++c) {
+      hopper::tma_load_4d(a + c * C::CHUNK, kv_role ? &tq : &tk, &full[s],
+                          c * 64, hh, rr, b);
+      hopper::tma_load_4d(a + C::TILE + c * C::CHUNK, kv_role ? &tdo : &tv,
+                          &full[s], c * 64, hh, rr, b);
+    }
+  };
+  // the statistics of iteration u's query rows (dK / dV role): log2-scaled
+  // lse and D of the 64 rows, thread tid < 64 holding row tid
+  auto stat_row = [&](int u, float& l2, float& d) {
+    int hh, rr;
+    stream_at(u, hh, rr);
+    const int i = rr + tid;
+    const size_t at = (static_cast<size_t>(b) * H + hh) * S + i;
+    l2 = i < S ? lse[at] * LOG2E : 0.f;
+    d = i < S ? dvec[at] : 0.f;
+  };
+
+  if (tid == 0) {
+    hopper::mbar_init(bar_own, 1);
+    hopper::mbar_init(&full[0], 1);
+    hopper::mbar_init(&full[1], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar_own, 2 * C::TILE);
+    for (int c = 0; c < C::NCH; ++c) {
+      if (kv_role) {
+        hopper::tma_load_4d(own + c * C::CHUNK, &tk, bar_own, c * 64, head,
+                            r0, b);
+        hopper::tma_load_4d(own + C::TILE + c * C::CHUNK, &tv, bar_own,
+                            c * 64, head, r0, b);
+      } else {
+        hopper::tma_load_4d(own + c * C::CHUNK, &tq, bar_own, c * 64, head,
+                            r0, b);
+        hopper::tma_load_4d(own + C::TILE + c * C::CHUNK, &tdo, bar_own,
+                            c * 64, head, r0, b);
+      }
+    }
+    load_stream(0);
+    if (n_it > 1) load_stream(1);
+  }
+
+  const uint32_t own_a = hopper::smem_addr(own);
+  const uint32_t own_b = own_a + C::TILE;
+  float acc0[HD / 2], acc1[HD / 2];   // dK, dV (kv role); dQ (q role: acc0)
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc0[i] = acc1[i] = 0.f;
+  float sc[32] = {}, dp[32] = {};
+  uint32_t fa[4][4] = {}, fb[4][4] = {};
+
+  // the q role's two rows' statistics, for every iteration
+  const int row0 = r0 + warp * 16 + g, row1 = row0 + 8;
+  float lq0 = 0.f, lq1 = 0.f, dq0 = 0.f, dq1 = 0.f;
+  float nl = 0.f, nd = 0.f;           // kv role: iteration u + 2's row
+  if (kv_role) {
+    if (tid < WR) {
+      stat_row(0, stat[tid], stat[128 + tid]);
+      if (n_it > 1) stat_row(1, stat[64 + tid], stat[192 + tid]);
+    }
+    __syncthreads();
+  } else {
+    const size_t at = (static_cast<size_t>(b) * H + head) * S;
+    if (row0 < S) {
+      lq0 = lse[at + row0] * LOG2E;
+      dq0 = dvec[at + row0];
+    }
+    if (row1 < S) {
+      lq1 = lse[at + row1] * LOG2E;
+      dq1 = dvec[at + row1];
+    }
+  }
+  hopper::mbar_wait(bar_own, 0);
+
+  for (int u = 0; u < n_it; ++u) {
+    const int s = u & 1;
+    if (kv_role && tid < WR && u + 2 < n_it) stat_row(u + 2, nl, nd);
+    int hh, rr;
+    stream_at(u, hh, rr);
+    const uint32_t sa = hopper::smem_addr(ring + s * 2 * C::TILE);
+    const uint32_t sb = sa + C::TILE;
+    hopper::mbar_wait(&full[s], (u >> 1) & 1);
+    hopper::wgmma_fence();
+    // kv role: S^T = K Q^T, dP^T = V dO^T (rows keys, columns queries);
+    // q role: S = Q K^T, dP = dO V^T (rows queries, columns keys)
+    wgmma_rows<HD>(sc, own_a, sa);
+    wgmma_rows<HD>(dp, own_b, sb);
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(sc);
+    // P (kv role: P^T) from the forward's log-sum-exp; masked on the
+    // diagonal tile and past S
+    const bool edge = rr == r0 || rr + WR > S || r0 + WR > S;
+    const float* lcol = stat + s * 64;
+    const float* dcol = stat + 128 + s * 64;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);   // column in the tile
+        const int rl = warp * 16 + g + (e < 2 ? 0 : 8);
+        int key, query;
+        float l2;
+        if (kv_role) {
+          key = r0 + rl;
+          query = rr + c;
+          l2 = lcol[c];
+        } else {
+          key = rr + c;
+          query = r0 + rl;
+          l2 = e < 2 ? lq0 : lq1;
+        }
+        float p = ex2(fmaf(sc[4 * n + e], scale_log2, -l2));
+        if (edge && (key > query || query >= S)) p = 0.f;
+        sc[4 * n + e] = p;
+      }
+    if (kv_role) {   // dV += P^T dO, queued behind dP^T
+      wgmma_frag<HD>(acc1, sc, fa, sb);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();   // dP^T (the older group) is done
+    } else {
+      hopper::wgmma_wait<0>();
+    }
+    hopper::fence_regs(dp);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float d = kv_role ? dcol[8 * n + 2 * t + (e & 1)]
+                                : (e < 2 ? dq0 : dq1);
+        dp[4 * n + e] = sc[4 * n + e] * (dp[4 * n + e] - d);   // dS
+      }
+    // kv role: dK += dS^T Q; q role: dQ += dS K
+    wgmma_frag<HD>(acc0, dp, fb, sa);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc0);
+    hopper::fence_regs(acc1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {   // the fragments lived until here
+      hopper::fence_regs(fa[kk]);
+      hopper::fence_regs(fb[kk]);
+    }
+    __syncthreads();           // stage s and its statistics are consumed
+    if (u + 2 < n_it) {
+      if (tid == 0) load_stream(u + 2);
+      if (kv_role && tid < WR) {
+        stat[s * 64 + tid] = nl;
+        stat[128 + s * 64 + tid] = nd;
+      }
+    }
+  }
+
+  if (kv_role) {
+    const size_t row = static_cast<size_t>(K) * HD;
+    const size_t base = static_cast<size_t>(b) * S * row +
+                        static_cast<size_t>(head) * HD;
+    store_rows<HD>(dk + base, acc0, scale, r0, S, row);
+    store_rows<HD>(dv + base, acc1, 1.f, r0, S, row);
+  } else {
+    const size_t row = static_cast<size_t>(H) * HD;
+    store_rows<HD>(dq + static_cast<size_t>(b) * S * row +
+                       static_cast<size_t>(head) * HD,
+                   acc0, scale, r0, S, row);
+  }
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, void* dq, void* dk,
+                 void* dv, float* dvec, int B, int S, int K, int G,
+                 float scale, cudaStream_t stream) {
+  using C = WCfg<HD>;
+  const int H = K * G;
+  const uint64_t row = HD * 2;
+  CUtensorMap tq, tk, tv, tdo;
+  const uint64_t q_dims[4] = {HD, static_cast<uint64_t>(H),
+                              static_cast<uint64_t>(S),
+                              static_cast<uint64_t>(B)};
+  const uint64_t q_strides[3] = {row, H * row, S * H * row};
+  const uint64_t kv_dims[4] = {HD, static_cast<uint64_t>(K),
+                               static_cast<uint64_t>(S),
+                               static_cast<uint64_t>(B)};
+  const uint64_t kv_strides[3] = {row, K * row, S * K * row};
+  const uint32_t box[4] = {64, 1, WR, 1};
+  if (!hopper::bf16_map_4d(&tq, q, q_dims, q_strides, box) ||
+      !hopper::bf16_map_4d(&tdo, dout, q_dims, q_strides, box) ||
+      !hopper::bf16_map_4d(&tk, k, kv_dims, kv_strides, box) ||
+      !hopper::bf16_map_4d(&tv, v, kv_dims, kv_strides, box))
+    return static_cast<int>(cudaErrorNotSupported);
+  auto kern = k7b_wgmma_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = B * S * H;
+  k7b_dvec_kernel<<<(rows + 15) / 16, 256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), dvec,
+      rows, S, H, HD);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int nt = (S + WR - 1) / WR;
+  const int n_kv = nt * K * B, n_q = nt * H * B;
+  kern<<<n_kv + n_q, WTHREADS, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, lse, dvec, static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, K, G, B, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // launcher
 // ---------------------------------------------------------------------------
 
@@ -910,20 +1346,47 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // q, o, dout, dq: (B, S, K, G, hd); k, v, dk, dv: (B, S, K, hd); all
-// contiguous, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1).  scratch:
-// 2 * B * K * G * S floats (each row's log-sum-exp, then D).  hd a multiple
-// of 16 in [16, 256].  Every element of dq, dk and dv is written.  Returns
-// cudaGetLastError() after the last launch.
+// contiguous, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1, every
+// pointer 16-byte aligned).  hd a multiple of 16 in [16, 256].  lse: the
+// forward's (B, K, G, S) float32 log-sum-exp of each row's scaled causal
+// scores; read (and required) by the bfloat16 hd 64 / 128 route only.
+// scratch: B * K * G * S floats (D) on that route, 2 * B * K * G * S (each
+// row's log-sum-exp, then D) on the others; n_scratch: its length in
+// floats, cudaErrorInvalidValue (and no launch) when shorter.  Every
+// element of dq, dk and dv is written.  Returns cudaGetLastError() after the last launch.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
-                                   const void* dout, void* dq, void* dk,
-                                   void* dv, float* scratch, int is_bf16,
-                                   int B, int S, int K, int G, int hd,
-                                   float scale, void* stream) {
+                                   const void* dout, const float* lse_in,
+                                   void* dq, void* dk, void* dv,
+                                   float* scratch, long long n_scratch,
+                                   int is_bf16, int B, int S,
+                                   int K, int G, int hd, float scale,
+                                   void* stream) {
   if (B < 0 || S < 0 || K < 1 || G < 1 || hd < 16 || hd > 256 || hd % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool wgmma = is_bf16 && (hd == 64 || hd == 128);
+  if (wgmma && (lse_in == nullptr ||
+                ((reinterpret_cast<uintptr_t>(q) |
+                  reinterpret_cast<uintptr_t>(k) |
+                  reinterpret_cast<uintptr_t>(v) |
+                  reinterpret_cast<uintptr_t>(o) |
+                  reinterpret_cast<uintptr_t>(dout) |
+                  reinterpret_cast<uintptr_t>(dq) |
+                  reinterpret_cast<uintptr_t>(dk) |
+                  reinterpret_cast<uintptr_t>(dv)) & 15)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(B) * K * G * S;
+  if (n_scratch < (wgmma ? rows : 2 * rows))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wgmma) {
+    if (hd == 64)
+      return launch_wgmma<64>(q, k, v, o, dout, lse_in, dq, dk, dv, scratch,
+                              B, S, K, G, scale, s);
+    return launch_wgmma<128>(q, k, v, o, dout, lse_in, dq, dk, dv, scratch,
+                             B, S, K, G, scale, s);
+  }
   float* lse = scratch;
   float* dvec = scratch + static_cast<size_t>(B) * K * G * S;
   if (is_bf16 && hd <= 128) {

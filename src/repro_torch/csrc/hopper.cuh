@@ -85,6 +85,21 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
+// registers that an in-flight wgmma writes (its accumulator) or reads (its
+// A fragments): an empty asm that "modifies" them, placed after the wait
+// and before the issue, so the compiler moves no use of them across either
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
 // shared-memory matrix descriptor of a tile in the 128-byte swizzle layout
 // (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): start address, leading
 // byte offset, stride byte offset (both in bytes here, 16-byte units in the

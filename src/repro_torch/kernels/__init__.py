@@ -58,6 +58,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C signature of every exported launcher (all return cudaGetLastError())
 SIGNATURES = {
     "rgcn_fused_flat": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
@@ -70,13 +71,13 @@ SIGNATURES = {
     "rgcn_spmm_dense": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rgcn_fused_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _P],
-    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                             _I, _I, _I, _I, _I, _I, _F, _P],
     "ssd_intra_chunk": [_P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
-    "ssd_intra_chunk_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _I, _I, _I, _I, _I, _I, _P],
+    "ssd_intra_chunk_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P,
+                            _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

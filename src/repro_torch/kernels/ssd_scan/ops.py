@@ -12,7 +12,9 @@ ref}.py`` and of ``ssd_chunked`` in ``repro/models/ssm.py``).
                            saves its five inputs.
 ``ssd_intra_chunk_bwd``    dx, dcum, ddt, dBc, dCc (JAX's backward is
                            ``jax.vjp`` of the oracle): CUDA tensors launch
-                           K8b, ``csrc/ssd_intra_chunk_bwd.cu``, CPU tensors
+                           K8b, ``csrc/ssd_intra_chunk_bwd.cu`` (its
+                           products as 3xTF32 tensor-core MMAs, dCB and dB's
+                           state term over groups of heads), CPU tensors
                            take ``ssd_intra_chunk_bwd_plain``, the gradient
                            formulas written out in torch ops.
 ``ssd_scan``               the whole scan as the JAX wrapper runs it: the
@@ -219,6 +221,27 @@ def ssd_intra_chunk_bwd_plain(x, cum, dt, Bc, Cc, dy, dstates):
     return dx, dcum, ddt, dBc, dCc
 
 
+#: K8b's head groups: dCB is summed over at most BWD_GROUPS groups of
+#: heads and dB's state term over at most BWD_STATE_GROUPS, each group's
+#: partial in the scratch
+BWD_GROUPS, BWD_STATE_GROUPS = 3, 6
+
+
+def ssd_intra_chunk_bwd_scratch(B, nc, Q, nh, hp, ds) -> int:
+    """float32 elements of K8b's workspace (the layout of
+    ``csrc/ssd_intra_chunk_bwd.cu``), QP = Q rounded up to 64, T = QP / 64,
+    NG = min(nh, 3) and NGS = min(nh, 6) head groups: CB over (B*nc, QP,
+    QP); each group's partial dCB, (NG, B*nc, QP, QP); the per-head partial
+    sums of dcum's rows, dcum's columns and ddt over each 64 x 64 tile,
+    (B*nc*nh, T, QP) each; sd, (B*nc*nh, QP); each state group's part of
+    dB's state term, (NGS, B*nc, QP, ds)."""
+    QP = -(-Q // 64) * 64
+    T, BC = QP // 64, B * nc
+    NG, NGS = min(nh, BWD_GROUPS), min(nh, BWD_STATE_GROUPS)
+    return ((1 + NG) * BC * QP * QP + (3 * T + 1) * BC * nh * QP
+            + NGS * BC * QP * ds)
+
+
 def ssd_intra_chunk_bwd(x, cum, dt, Bc, Cc, dy, dstates):
     """(dx, dcum, ddt, dBc, dCc) of ``ssd_intra_chunk`` at (x, cum, dt, Bc,
     Cc) for the output gradients dy (y_intra's shape) and dstates (the
@@ -233,17 +256,12 @@ def ssd_intra_chunk_bwd(x, cum, dt, Bc, Cc, dy, dstates):
             raise ValueError(f"ssd_intra_chunk_bwd: {name} "
                              f"{tuple(t.shape)} {t.dtype}, expected "
                              f"{tuple(shape)} torch.float32")
-    QP = -(-Q // 64) * 64
-    T = QP // 64
-    # CB and dCB over (B*nc, QP, QP); the per-head partial sums of dcum's
-    # rows, dcum's columns and ddt over each 64 x 64 tile, (B*nc*nh, T,
-    # QP) each; sd, (B*nc*nh, QP)
-    n_scratch = 2 * B * nc * QP * QP + (3 * T + 1) * B * nc * nh * QP
+    n_scratch = ssd_intra_chunk_bwd_scratch(B, nc, Q, nh, hp, ds)
     if x.device.type == "meta":     # the CUDA branch's allocations
         scratch = torch.empty(n_scratch, dtype=torch.float32, device="meta")
         grads = tuple(torch.empty_like(t) for t in (x, cum, dt, Bc, Cc))
         tally("ssd_intra_chunk_bwd",
-              *ssd_intra_chunk_bwd_cost(B, nc, Q, nh, hp, ds), "float32")
+              *ssd_intra_chunk_bwd_cost(B, nc, Q, nh, hp, ds), "tf32x3")
         del scratch
         return grads
     if route(x) == "cpu":
@@ -258,8 +276,9 @@ def ssd_intra_chunk_bwd(x, cum, dt, Bc, Cc, dy, dstates):
     dBc = torch.empty_like(Bc)
     dCc = torch.empty_like(Cc)
     launch("ssd_intra_chunk_bwd", *(t.data_ptr() for t in
-                                    (x, cum, dt, Bc, Cc, dy, dstates, scratch,
-                                     dx, dcum, ddt, dBc, dCc)),
+                                    (x, cum, dt, Bc, Cc, dy, dstates,
+                                     scratch)),
+           n_scratch, *(t.data_ptr() for t in (dx, dcum, ddt, dBc, dCc)),
            B, nc, Q, nh, hp, ds)
     ssd_intra_chunk_bwd.launches += 1
     return dx, dcum, ddt, dBc, dCc

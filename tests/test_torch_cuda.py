@@ -889,19 +889,25 @@ def test_ssd_intra_chunk_kernel_matches_plain(shape):
 @pytest.mark.parametrize("shape", [(2, 256, 8, 3, 128), (1, 100, 2, 2, 32),
                                    (1, 512, 1, 8, 256), (2, 64, 4, 1, 16),
                                    (1, 1024, 2, 3, 64), (1, 200, 2, 3, 96),
-                                   (2, 130, 1, 4, 48)])
+                                   (2, 130, 1, 4, 48), (2, 100, 2, 6, 128),
+                                   (1, 330, 2, 1, 64), (2, 256, 2, 6, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_kernel_matches_plain(shape, dtype):
     """K7b at llama's head shape, Ss that are no multiple of its 32- and
     64-row tiles, head widths that fill part of the tensor-core kernels'
     column tiles (96, 48), the widest head (bf16 on the FMA kernels), MHA
-    at hd=16 and a 1024-token prompt:
-    dq, dk, dv against the plain float32 recompute; a second launch gives
-    the same bits (fixed-order sums, no atomics); autograd through
-    ``flash_attention`` on the card launches K7 then K7b once each."""
+    at hd=16, a 1024-token prompt, and the wgmma route (bf16, hd 64 / 128)
+    at G 1 / 3 / 6 with ragged S: dq, dk, dv from the output and
+    log-sum-exp of the forward that writes the log-sum-exp (its output held
+    to the plain one as K7's is, its log-sum-exp within 1e-5) against the
+    plain float32 recompute; a second launch gives the same bits
+    (fixed-order sums, no atomics); autograd through ``flash_attention`` on
+    the card launches K7 then K7b once each."""
     dev = _card()
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        bwd_route, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_lse,
+        flash_attention_plain,
     )
 
     B, S, K, G, hd = shape
@@ -917,15 +923,24 @@ def test_flash_attention_bwd_kernel_matches_plain(shape, dtype):
     torch.cuda.synchronize()
     assert (flash_attention.launches, flash_attention_bwd.launches) == (
         before[0] + 1, before[1] + 1)
-    out = out.detach()
-    got = flash_attention_bwd(q, k, v, out, do, hd ** -0.5)
+    out, lse = flash_attention_lse(q, k, v, hd ** -0.5)
+    want_out, want_lse = flash_attention_plain(q, k, v, hd ** -0.5,
+                                               return_lse=True)
+    assert out.dtype == dt and out.shape == q.shape
+    _close(out, want_out)
+    assert float((lse - want_lse).abs().max()) <= \
+        1e-5 * float(want_lse.abs().max())
+    got = flash_attention_bwd(q, k, v, out, do, hd ** -0.5, lse)
     torch.cuda.synchronize()
     want = flash_attention_bwd_plain(q, k, v, out, do, hd ** -0.5)
     for g, a, w in zip(got, auto, want):
         assert g.dtype == dt and torch.equal(g, a)
         _close(g, w)
-    again = flash_attention_bwd(q, k, v, out, do, hd ** -0.5)
+    again = flash_attention_bwd(q, k, v, out, do, hd ** -0.5, lse)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
+    if bwd_route(dt, hd) == "wgmma":
+        with pytest.raises(ValueError, match="log-sum-exp"):
+            flash_attention_bwd(q, k, v, out, do, hd ** -0.5)
 
 
 #: K8b against its plain version: 1e-4 of the largest element, since dcum
@@ -1026,6 +1041,59 @@ def test_ssd_intra_chunk_bwd_rejects_what_the_kernel_does_not_take():
         c = torch.zeros(1, 1, 2, 320, device=dev)
         b = torch.zeros(1, 1, 320, 8, device=dev)
         ssd_intra_chunk_bwd(z, c, c, b, b, z, dst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dtype", [
+    ("flash_attention_bwd", "bfloat16"),      # wgmma route: D only
+    ("flash_attention_bwd", "float32"),       # FMA route: lse and D
+    ("ssd_intra_chunk_bwd", "float32")])
+def test_backward_launchers_refuse_a_short_workspace(kernel, dtype):
+    """K7b's and K8b's C entries take their workspace's length and refuse
+    one float shorter than their own layout (cudaErrorInvalidValue, no
+    launch), so the wrappers' size formulas cannot fall behind the .cu
+    files unseen; the exact length launches."""
+    dev = _card()
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_scratch, flash_attention_lse,
+    )
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk_bwd_scratch
+
+    dt = getattr(torch, dtype)
+    if kernel == "flash_attention_bwd":
+        B, S, K, G, hd = 1, 100, 2, 3, 128
+        gen = torch.Generator(device=dev).manual_seed(5)
+        q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(dt)
+                       for s in ((B, S, K, G, hd), (B, S, K, hd),
+                                 (B, S, K, hd), (B, S, K, G, hd)))
+        out, lse = flash_attention_lse(q, k, v, hd ** -0.5)
+        n = flash_attention_bwd_scratch(B, S, K, G, hd, dt)
+        outs = [torch.empty_like(t) for t in (q, k, v)]
+        ins = (q, k, v, out, do, lse)
+        tail = (int(dt == torch.bfloat16), B, S, K, G, hd, hd ** -0.5)
+    else:
+        shape = (1, 2, 100, 3, 10, 13)
+        args, dy, dst = _k8b_inputs(dev, shape, 5)
+        n = ssd_intra_chunk_bwd_scratch(*shape)
+        outs = [torch.empty_like(t) for t in args]
+        ins = (*args, dy, dst)
+        tail = shape
+    scratch = torch.empty(n, dtype=torch.float32, device=dev)
+
+    def call(n_scratch):
+        head = [t.data_ptr() for t in ins]
+        ptrs = [t.data_ptr() for t in outs]
+        if kernel == "flash_attention_bwd":
+            return kernels.launch(kernel, *head, *ptrs, scratch.data_ptr(),
+                                  n_scratch, *tail)
+        return kernels.launch(kernel, *head, scratch.data_ptr(), n_scratch,
+                              *ptrs, *tail)
+
+    with pytest.raises(RuntimeError, match="cudaError 1$"):
+        call(n - 1)
+    call(n)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -169,9 +169,10 @@ def test_flash_attention_bwd_matches_jax_vjp(shape, dtype):
 @pytest.mark.parametrize("requires_grad", [False, True])
 def test_flash_attention_autograd_path_on_the_cpu(requires_grad):
     """A tensor that requires a gradient reaches the autograd function (its
-    backward is ``flash_attention_bwd``, the plain version on the CPU, bit
-    for bit); one that does not, or one under ``no_grad``, takes the plain
-    forward with no graph.  Neither launches anything on the CPU."""
+    backward is ``flash_attention_bwd``, the plain version on the CPU from
+    the forward's saved log-sum-exp, bit for bit); one that does not, or
+    one under ``no_grad``, takes the plain forward with no graph.  Neither
+    launches anything on the CPU."""
     (_, _, _, _), (q, k, v, do), scale = _attn_inputs((2, 64, 2, 3, 16),
                                                       "float32", 3)
     launches = (fa_ops.flash_attention.launches,
@@ -183,8 +184,10 @@ def test_flash_attention_autograd_path_on_the_cpu(requires_grad):
     if requires_grad:
         assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
         got = torch.autograd.grad(out, leaves, do)
+        _, lse = fa_ops.flash_attention_lse(q.detach(), k.detach(),
+                                            v.detach(), scale)
         want = fa_ops.flash_attention_bwd_plain(q, k, v, out.detach(), do,
-                                                scale)
+                                                scale, lse)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
         with torch.no_grad():
             assert fa_ops.flash_attention(*leaves, scale).grad_fn is None
@@ -192,6 +195,134 @@ def test_flash_attention_autograd_path_on_the_cpu(requires_grad):
         assert out.grad_fn is None
     assert (fa_ops.flash_attention.launches,
             fa_ops.flash_attention_bwd.launches) == launches
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ATTN_CASES)
+def test_saved_lse_and_the_backward_from_it_match(shape, dtype):
+    """The log-sum-exp ``_FlashAttention`` saves for its backward is
+    ``torch.logsumexp`` of the scaled causal scores (float64 of the same
+    inputs, 1e-5 of the largest), and ``flash_attention_bwd`` from it gives
+    the dq, dk, dv of ``jax.vjp(attention_ref)``: 1e-5 in float32, 3e-2 in
+    bfloat16."""
+    B, S, K, G, hd = shape
+    (jq, jk, jv, jdo), (q, k, v, do), scale = _attn_inputs(
+        shape, dtype, sum(shape) + 1)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa_ops.flash_attention(*leaves, scale)
+    lse = out.grad_fn.saved_tensors[4]
+    assert lse.dtype == torch.float32 and lse.shape == (B, K, G, S)
+    sc = torch.einsum("bqkgh,bskh->bkgqs", q.double(), k.double()) * scale
+    causal = torch.ones(S, S, dtype=torch.bool).tril()
+    want_lse = torch.logsumexp(sc.masked_fill(~causal, -torch.inf), dim=-1)
+    _close(lse.numpy(), want_lse.numpy())
+    _, vjp = jax.vjp(lambda a, b, c: attention_ref(a, b, c, scale),
+                     jq, jk, jv)
+    got = fa_ops.flash_attention_bwd(q, k, v, out.detach(), do, scale, lse)
+    tol = TOL if dtype == "float32" else BF16_TOL
+    for g, w in zip(got, vjp(jdo)):
+        assert g.dtype == q.dtype
+        _close(_np(g), np.asarray(w.astype(jnp.float32)), tol)
+
+
+def _float32_allocations(monkeypatch, fn):
+    """The shapes of the float32 tensors ``torch.empty`` makes during
+    ``fn()``."""
+    made, real = [], torch.empty
+
+    def empty(*a, **kw):
+        t = real(*a, **kw)
+        if t.dtype == torch.float32:
+            made.append(tuple(t.shape))
+        return t
+
+    monkeypatch.setattr(torch, "empty", empty)
+    try:
+        fn()
+    finally:
+        monkeypatch.setattr(torch, "empty", real)
+    return made
+
+
+def _as_if_on_the_card(monkeypatch, mod):
+    """Send ``mod``'s CPU tensors down the CUDA branch (its checks, its
+    allocations), recording the launches instead of making them."""
+    launched = []
+    monkeypatch.setattr(mod, "route", lambda t: "cuda")
+    monkeypatch.setattr(mod, "launch",
+                        lambda name, *args: launched.append(name))
+    return launched
+
+
+@pytest.mark.parametrize("dtype,hd", [("bfloat16", 64), ("bfloat16", 128),
+                                      ("bfloat16", 32), ("bfloat16", 256),
+                                      ("float32", 64)])
+def test_flash_attention_meta_branches_allocate_what_the_card_does(
+        monkeypatch, dtype, hd):
+    """K7's forward with the log-sum-exp and K7b's backward allocate, on
+    ``meta`` tensors (the dry run), the float32 tensors their CUDA branches
+    allocate: the saved (B,K,G,S) log-sum-exp; D per row on the wgmma route,
+    each row's log-sum-exp and D on the others
+    (``flash_attention_bwd_scratch``)."""
+    B, S, K, G = 2, 100, 2, 3
+    dt = getattr(torch, dtype)
+    q = torch.zeros(B, S, K, G, hd, dtype=dt)
+    k = torch.zeros(B, S, K, hd, dtype=dt)
+    lse = torch.zeros(B, K, G, S)
+    mq, mk, ml = (t.to("meta") for t in (q, k, lse))
+
+    def fwd(q, k):
+        return lambda: fa_ops.flash_attention_lse(q, k, k, 0.5)
+
+    def bwd(q, k, lse):
+        return lambda: fa_ops.flash_attention_bwd(q, k, k, q, q, 0.5, lse)
+
+    want_f = _float32_allocations(monkeypatch, fwd(mq, mk))
+    want_b = _float32_allocations(monkeypatch, bwd(mq, mk, ml))
+    launched = _as_if_on_the_card(monkeypatch, fa_ops)
+    got_f = _float32_allocations(monkeypatch, fwd(q, k))
+    got_b = _float32_allocations(monkeypatch, bwd(q, k, lse))
+    assert launched == ["flash_attention", "flash_attention_bwd"]
+    rows = B * K * G * S
+    assert got_f == want_f == [(B, K, G, S)]
+    assert got_b == want_b == [
+        (fa_ops.flash_attention_bwd_scratch(B, S, K, G, hd, dt),)]
+    assert want_b[0][0] == (rows if fa_ops.bwd_route(dt, hd) == "wgmma"
+                            else 2 * rows)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 256, 3, 16, 128),
+                                   (1, 1, 256, 8, 16, 128),
+                                   (2, 2, 100, 5, 9, 13),
+                                   (2, 3, 48, 8, 24, 40)])
+def test_ssd_bwd_meta_branch_allocates_what_the_card_does(monkeypatch,
+                                                          shape):
+    """K8b's workspace on ``meta`` tensors (the dry run) is the one its CUDA
+    branch allocates (``ssd_intra_chunk_bwd_scratch``: CB, the head groups'
+    dCB partials, the per-tile dcum / ddt partials, sd, the groups' dB
+    state partials); (1, 1, 256, 3, 16, 128) and (1, 1, 256, 8, 16, 128)
+    counted out by hand."""
+    B, nc, Q, nh, hp, ds = shape
+    args = (torch.zeros(B, nc, Q, nh, hp), torch.zeros(B, nc, nh, Q),
+            torch.zeros(B, nc, nh, Q), torch.zeros(B, nc, Q, ds),
+            torch.zeros(B, nc, Q, ds), torch.zeros(B, nc, Q, nh, hp),
+            torch.zeros(B, nc, nh, hp, ds))
+    meta = [t.to("meta") for t in args]
+    want = _float32_allocations(
+        monkeypatch, lambda: ssd_ops.ssd_intra_chunk_bwd(*meta))
+    launched = _as_if_on_the_card(monkeypatch, ssd_ops)
+    got = _float32_allocations(
+        monkeypatch, lambda: ssd_ops.ssd_intra_chunk_bwd(*args))
+    assert launched == ["ssd_intra_chunk_bwd"]
+    n = ssd_ops.ssd_intra_chunk_bwd_scratch(*shape)
+    assert got[0] == want[0] == (n,)
+    if shape == (1, 1, 256, 3, 16, 128):
+        # QP 256, T 4, 3 heads: CB + 3 dCB partials, 3 x 4 tiles + sd of 3
+        # heads, 3 state partials of 256 x 128
+        assert n == 4 * 256 * 256 + 13 * 3 * 256 + 3 * 256 * 128
+    if shape == (1, 1, 256, 8, 16, 128):
+        # 8 heads: 3 dCB groups, 6 state groups
+        assert n == 4 * 256 * 256 + 13 * 8 * 256 + 6 * 256 * 128
 
 
 def test_flash_attention_bwd_refuses_bad_shapes():

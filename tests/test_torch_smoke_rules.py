@@ -140,6 +140,24 @@ def test_device_ms_takes_the_last_record_it_may(monkeypatch):
     assert t.source == "cupti" and not queue
 
 
+def test_own_split_takes_only_a_complete_record(monkeypatch):
+    """The per-kernel split comes from an accepted record: an empty or
+    partial one is taken again, never read as zeros."""
+    queue = _fake_device_ms(monkeypatch, [
+        [], smoke.profile_events(_k3_record(10, short="sil_rows_kernel")),
+        smoke.profile_events(_k3_record(10))])
+    split = smoke.own_split_ms(lambda: None, 10, K3)
+    assert not queue
+    assert split == pytest.approx({"sil_rows_kernel": 0.002,
+                                   "sil_compact_kernel": 0.003,
+                                   "silhouette_sums_kernel": 0.070})
+
+
+def test_own_split_is_none_when_every_record_is_refused(monkeypatch):
+    _fake_device_ms(monkeypatch, [[]] * smoke.RECORD_TRIES)
+    assert smoke.own_split_ms(lambda: None, 10, K3) is None
+
+
 def _source_kernels():
     """The names of the ``__global__`` kernels in ``src/repro_torch/csrc``."""
     import re
