@@ -31,7 +31,11 @@ Phases, each reported on its own lines:
             the card against the CPU;
             K2 also over a sweep's 47 candidates in one call
             (``kmeans_assign_fused_batched``, one Lloyd step of cfd's
-            sweep); K2 / K3 / K4 also at PKA's feature width d = 12; K7
+            sweep), and K2 / K3 over the program axis (8 programs of one
+            bucket in one call, bucket 4096 and the served mix's 64, each
+            program bit-equal to its one-program call, timed against 8
+            one-program calls: the table's ``b8_*`` keys); K2 / K3 / K4
+            also at PKA's feature width d = 12; K7
             also over hd 16/64/256, G 1/3/8, S 64/512/1536, f32 and bf16;
             K7b over hd 16/64/256, G 1/3, S 64/100/512, then at llama3.2-
             3b's training shape (8, 256, 8, 3, 128), its table row, and the
@@ -75,8 +79,13 @@ Phases, each reported on its own lines:
             on the card against the CPU (1e-4);
 5. serve    a PlanService answers submit_program for cfd, phi-2 and nw with
             that encoder; the serving kernels' launch counts (zeroed just
-            before) must be > 0, a sweep may make at most iters + 1 K2
-            calls (``SweepCount``), and no request may fail;
+            before) must be > 0, a sweep dispatch may make at most
+            iters + 1 K2 calls (``SweepCount``), and no request may fail;
+            mean batch, dispatches and K2 / K3 calls a plan are logged;
+5a. sweep_batch 8 programs of one bucket (the served mix's 64, and 4096)
+            at the engine's defaults in one sweep dispatch: each program's
+            labels, K and scores bit-equal to its one-program dispatch;
+            the dispatch's peak memory and host wall;
 5b. plan_serve the plan-serving load path: ``repro_torch.launch.
             plan_serve.main`` on the card at JAX's CLI defaults (120
             requests, d 16, k_max 8, iters 10, max_batch 8, max_delay 5
@@ -87,7 +96,9 @@ Phases, each reported on its own lines:
             causes, and the first request's latency cold and after
             ``warmup``.  No request may fail, every served plan must equal
             its closed-loop plan (labels, K, representatives), and K2 and
-            K3 must have been launched;
+            K3 must have been launched; the closed loop's dispatches and
+            mean batch, the served runs' dispatches, mean batch and K2 / K3
+            calls a plan, and ``SweepCount``'s iters + 1 a dispatch;
 5c. fault  the fault protocol and the sanitizer on the card: on-device
             kmeans++ (``init="device"``) fed the same Gumbel rows on the
             card and on the CPU (equal indices) at cfd's fixture
@@ -141,7 +152,8 @@ Phases, each reported on its own lines:
             directory replays (no fit, gcl prepare under a tenth of the
             first run's).  This is the slice's main path: its counts are the
             ``launches`` of K1, K1b, K2, K3 and K5 in the kernel table (K2's
-            count batched calls, at most iters + 1 a sweep);
+            count batched calls, at most iters + 1 a sweep dispatch; the
+            sweep dispatches and their programs are logged);
 12. lm_reference the JAX fixture ``src/repro_torch/assets/reference_lm.npz``
             (smoke-width llama3.2-3b and mamba2-780m at two layers, and
             jamba-v0.1-52b at one block of 8 layers with its MoE FFNs routed
@@ -322,7 +334,19 @@ PLAN_SERVE_CLI = {"d": 16, "k_max": 8, "iters": 10}   # the CLI's defaults
 PLAN_SERVE_LOADS = (0.5, 3.0)
 #: what a K2 row's ``launches`` counts
 K2_COUNTED = ("calls of the batched K2: one per Lloyd step (and one final "
-              "assignment) for all candidates of a program")
+              "assignment) for all candidates of all programs of a sweep "
+              "dispatch")
+#: programs of a sweep dispatch for the program-axis kernel checks and the
+#: batch-independence phase: the engine's max_batch (JAX's default)
+PROGRAM_AXIS_B = 8
+#: (label, points bucket, real points of program 0, silhouette rows) of
+#: the program-axis kernel checks: the grid's largest bucket (cfd, lu)
+#: and the served mix's (``synthetic_fleet``: 20-60 points)
+PROGRAM_AXIS_SHAPES = (("bucket 4096 (cfd, lu)", 4096, 2425, 1200),
+                       ("the served mix's bucket 64", 64, 60, None))
+#: phase sweep_batch's programs in bucket 4096: program i has
+#: SWEEP_BATCH_BIG[0] + i SWEEP_BATCH_BIG[1] points
+SWEEP_BATCH_BIG = (2000, 250)
 LM_TOL = 1e-4           # card (K7, K8, f32) vs the JAX fixture, relative
 #: decode-vs-prefill: a prefill length must be a multiple of K7's 512-row
 #: block and K8's 256-row chunk (1792 is not)
@@ -710,6 +734,15 @@ def _main_path_batch():
     return packed
 
 
+def _k2_bytes(B, n, d, C, k, live):
+    """Bytes one K2 call must move: per program x and pmask, the ``live``
+    centroid rows of its candidates (the kernel reads no dead slot),
+    labels and min distances (B, C, n), sums (C, k, d) and counts written
+    once; the candidates' masks (C, k), shared by the programs, once."""
+    return (B * (n * d * 4 + n * 4 + live * d * 4 + C * n * 8
+                 + C * k * d * 4 + C * k * 4) + C * k * 4)
+
+
 def _k2_batched_check(got, x, cent, cmask, pmask):
     """K2 over candidates against the plain version on the card: labels
     must equal plain's wherever the two nearest live centroids are further
@@ -860,7 +893,7 @@ def phase_kernels(rows, dev):
         return torch.min(dist, dim=1)
 
     lib_ms, _, lib_src = device_ms(k2_library, 50)
-    bytes_ = n * d * 4 + k * d * 4 + k * 4 + n * 4 + n * 8 + k * d * 4 + k * 4
+    bytes_ = _k2_bytes(1, n, d, 1, k, k_live)
     ops = 2 * n * k_live * d + 2 * n * d + n_real * d
     b_ms, b_by = bound(bytes_, ops)
     log(f"[kernels] K2 kmeans_assign_fused n={n} d={d} k={k}: labels equal, "
@@ -905,8 +938,7 @@ def phase_kernels(rows, dev):
 
     lib_ms, _, lib_src = device_ms(k2_batched_library, 20)
     live = int(ks.sum())
-    bytes_ = (n * d * 4 + C * k * d * 4 * 2 + C * k * 4 * 2 + n * 4
-              + C * n * 8)
+    bytes_ = _k2_bytes(1, n, d, C, k, live)
     ops = 2 * n * live * d + 2 * n * d + 2 * live * d + C * n_real * d
     b_ms, b_by = bound(bytes_, ops)
     log(f"[kernels] K2 kmeans_assign_fused_batched n={n} d={d} k={k} C={C} "
@@ -958,6 +990,131 @@ def phase_kernels(rows, dev):
                  silhouette_sums,
                  dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                       bound_by=b_by, library_ms=lib_ms)))
+    for shape in PROGRAM_AXIS_SHAPES:
+        _program_axis(rows, dev, rng, *shape)
+
+
+def _program_axis(rows, dev, rng, label, n, n_real, n_sil):
+    """K2 (one Lloyd step of a sweep dispatch: C = 47 candidates) and K3
+    (one candidate) over PROGRAM_AXIS_B programs of one points bucket in
+    one call, each program its own points, live count and centroids:
+    every program held to its plain version (K2 as ``_k2_batched_check``)
+    and bit-equal to its own one-program call; device ms of the call, of
+    the same programs as B one-program calls, and of the plain version;
+    the bound.  The first shape's numbers ride on the K2 / K3 rows of the
+    kernel table as ``b8_*`` keys."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.kmeans_assign.ops import (
+        K2Workspace, kmeans_assign_fused_batched,
+        kmeans_assign_fused_batched_plain, silhouette_sums,
+        silhouette_sums_plain,
+    )
+    from repro_torch.launch.roofline import bound
+
+    B, k, d = PROGRAM_AXIS_B, 48, 256
+    C = k - 1
+    reals = [max(k + 1, n_real - b * (n_real // 24)) for b in range(B)]
+    xs, cents = [], []
+    for b in range(B):
+        centers = rng.standard_normal((k, d)).astype(np.float32) * 5
+        xs.append(centers[rng.integers(0, k, n)]
+                  + rng.standard_normal((n, d)).astype(np.float32))
+        cents.append(centers[None] + 0.1 * rng.standard_normal(
+            (C, k, d)).astype(np.float32))
+    x = torch.from_numpy(np.stack(xs)).to(dev)
+    cent = torch.from_numpy(np.stack(cents)).to(dev)
+    pmask = torch.stack([(torch.arange(n, device=dev) < r).float()
+                         for r in reals])
+    ks = torch.arange(2, k + 1, device=dev)
+    cmask = (torch.arange(k, device=dev)[None] < ks[:, None]).float()
+    ws = K2Workspace(C, n, k, d, dev, B)
+    got = [t.clone() for t in kmeans_assign_fused_batched(x, cent, cmask,
+                                                          pmask, out=ws)]
+    torch.cuda.synchronize()
+    clear = flips = 0
+    err = rel = sums_rel = 0.0
+    for b in range(B):
+        c_, f_, e_, r_, s_ = _k2_batched_check([g[b] for g in got], x[b],
+                                               cent[b], cmask, pmask[b])
+        clear, flips = clear + c_, flips + f_
+        err, rel, sums_rel = max(err, e_), max(rel, r_), max(sums_rel, s_)
+        one = kmeans_assign_fused_batched(x[b], cent[b], cmask, pmask[b])
+        require(all(torch.equal(g[b], o) for g, o in zip(got, one)),
+                f"K2 program axis {label}: program {b} differs from its "
+                f"one-program call")
+    require(rel <= KERNEL_TOL and sums_rel <= KERNEL_TOL,
+            f"K2 program axis {label}: mind {rel:.3e} of the scale, sums "
+            f"{sums_rel:.3e}")
+    ws1 = K2Workspace(C, n, k, d, dev)
+    _, ms, ms_src = device_ms(
+        lambda: kmeans_assign_fused_batched(x, cent, cmask, pmask, out=ws),
+        10, own=K2_KERNELS)
+    _, solo_ms, solo_src = device_ms(
+        lambda: [kmeans_assign_fused_batched(x[b], cent[b], cmask, pmask[b],
+                                             out=ws1) for b in range(B)],
+        10, own={name: B for name in K2_KERNELS})
+    plain_ms, _, plain_src = device_ms(
+        lambda: kmeans_assign_fused_batched_plain(x, cent, cmask, pmask), 3)
+    live = int(ks.sum())
+    bytes_ = _k2_bytes(B, n, d, C, k, live)
+    ops = sum(2 * n * live * d + 2 * n * d + 2 * live * d + C * r * d
+              for r in reals)
+    b_ms, b_by = bound(bytes_, ops)
+    log(f"[kernels] K2 program axis {label}: B={B} n={n} d={d} k={k} C={C} "
+        f"(real points {reals[0]}..{reals[-1]}): every program bit-equal to "
+        f"its one-program call; labels equal to plain on {clear} of "
+        f"{B * C * n} pairs clear of near-ties, {flips} differ in all, "
+        f"min_sq {rel:.3e} of the row's scale, sums rel err {sums_rel:.3e} "
+        f"(tol {KERNEL_TOL}); kernel device ms {ms:.4f} [{ms_src}], "
+        f"{B} one-program calls {solo_ms:.4f} [{solo_src}], plain device ms "
+        f"{plain_ms:.4f} [{plain_src}] bound_us {b_ms * 1e3:.2f} ({b_by})")
+    k2 = dict(b8_ms=ms, b8_solo_ms=solo_ms, b8_plain_ms=plain_ms,
+              b8_bound_ms=b_ms, b8_bound_by=b_by, b8_max_abs_err=err)
+
+    sil = torch.zeros(B, n, device=dev)
+    for b, r in enumerate(reals):
+        live_rows = (rng.choice(r, n_sil, replace=False) if n_sil
+                     else np.arange(r))
+        sil[b, torch.from_numpy(live_rows).to(dev)] = 1.0
+    onehot = (torch.nn.functional.one_hot(got[0][:, C - 1].long(), k).float()
+              * sil[..., None]).contiguous()
+    got3 = silhouette_sums(x, onehot)
+    torch.cuda.synchronize()
+    err3 = rel3 = 0.0
+    for b in range(B):
+        e_, r_ = rel_err(got3[b], silhouette_sums_plain(x[b], onehot[b]))
+        err3, rel3 = max(err3, e_), max(rel3, r_)
+        require(torch.equal(got3[b], silhouette_sums(x[b], onehot[b])),
+                f"K3 program axis {label}: program {b} differs from its "
+                f"one-program call")
+    require(rel3 <= KERNEL_TOL, f"K3 program axis {label}: rel err "
+            f"{rel3:.3e} > {KERNEL_TOL}")
+    _, ms3, ms3_src = device_ms(lambda: silhouette_sums(x, onehot), 10,
+                                own=K3_KERNELS)
+    _, solo3, solo3_src = device_ms(
+        lambda: [silhouette_sums(x[b], onehot[b]) for b in range(B)], 10,
+        own={name: B for name in K3_KERNELS})
+    plain3, _, plain3_src = device_ms(
+        lambda: silhouette_sums_plain(x, onehot), 3)
+    j_live = (onehot != 0).any(2).sum(1).tolist()
+    nnz = (onehot != 0).sum((1, 2)).tolist()
+    b3_ms, b3_by = bound(B * (n * d * 4 + n * k * 4 * 2),
+                         sum(2 * n * j * d + 2 * n * z
+                             for j, z in zip(j_live, nnz)))
+    log(f"[kernels] K3 program axis {label}: B={B} n={n} d={d} k={k} live "
+        f"rows {min(j_live)}..{max(j_live)}: every program bit-equal to its "
+        f"one-program call; max_abs_err {err3:.3e} rel {rel3:.3e} (tol "
+        f"{KERNEL_TOL}); kernel device ms {ms3:.4f} [{ms3_src}], {B} "
+        f"one-program calls {solo3:.4f} [{solo3_src}], plain device ms "
+        f"{plain3:.4f} [{plain3_src}] bound_us {b3_ms * 1e3:.2f} ({b3_by})")
+    if label == PROGRAM_AXIS_SHAPES[0][0]:
+        table = {r[0]: r[4] for r in rows}
+        table["kmeans_assign_fused_batched"].update(k2)
+        table["silhouette_sums"].update(
+            b8_ms=ms3, b8_solo_ms=solo3, b8_plain_ms=plain3,
+            b8_bound_ms=b3_ms, b8_bound_by=b3_by, b8_max_abs_err=err3)
 
 
 def _k4_inputs():
@@ -1109,7 +1266,7 @@ def phase_k4(rows, dev):
                               own=K2_KERNELS)
     plain_ms, _, plain_src = device_ms(
         lambda: kmeans_assign_fused_plain(*args), 50)
-    bytes_ = n * d * 4 + k * d * 4 + k * 4 + n * 4 + n * 8 + k * d * 4 + k * 4
+    bytes_ = _k2_bytes(1, n, d, 1, k, k_live)
     b_ms, b_by = bound(bytes_, 2 * n * k_live * d + 2 * n * d + n_real * d)
     log(f"[kernels] K2 kmeans_assign_fused d=12 n={n} k={k} (cfd PKA "
         f"features): labels the lowest-index argmin on {int(clear.sum())} "
@@ -1781,17 +1938,20 @@ def phase_dense(dev):
 
 class SweepCount:
     """Counts, inside its block, the sweeps (``clustering._sweep_core``
-    calls) and the K2 calls they may make: iters + 1 each (one per Lloyd
-    step for all candidates, and the final assignment)."""
+    calls: one per sweep dispatch), the programs they carry (real rows of
+    the program axis) and the K2 calls they may make: iters + 1 each (one
+    per Lloyd step for all candidates of all programs, and the final
+    assignment)."""
 
     def __enter__(self):
         from repro_torch.core import clustering
 
         self._mod, self._real = clustering, clustering._sweep_core
-        self.sweeps = self.allowed = 0
+        self.sweeps = self.programs = self.allowed = 0
 
         def counted(*a, **kw):
             self.sweeps += 1
+            self.programs += sum(1 for n in kw["n_real"] if n > 0)
             self.allowed += kw["iters"] + 1
             return self._real(*a, **kw)
 
@@ -1801,10 +1961,16 @@ class SweepCount:
     def __exit__(self, *exc):
         self._mod._sweep_core = self._real
 
-    def check(self, tag, k2_calls):
-        log(f"[{tag}] {self.sweeps} sweeps, {k2_calls} K2 calls "
-            f"({k2_calls / max(self.sweeps, 1):.1f} a sweep; at most "
-            f"{self.allowed}: iters + 1 a sweep)")
+    def check(self, tag, k2_calls, k3_calls=None):
+        k3 = ("" if k3_calls is None else
+              f", {k3_calls} K3 calls ({k3_calls / max(self.programs, 1):.2f}"
+              f" a program)")
+        log(f"[{tag}] {self.sweeps} sweep dispatches of {self.programs} "
+            f"programs ({self.programs / max(self.sweeps, 1):.2f} a "
+            f"dispatch), {k2_calls} K2 calls "
+            f"({k2_calls / max(self.sweeps, 1):.1f} a dispatch, "
+            f"{k2_calls / max(self.programs, 1):.2f} a program; at most "
+            f"{self.allowed}: iters + 1 a dispatch){k3}")
         require(self.sweeps > 0 and k2_calls <= self.allowed,
                 f"{tag}: {k2_calls} K2 calls for {self.sweeps} sweeps")
 
@@ -1839,13 +2005,85 @@ def phase_serve(rows, dev):
     launches = {r[0]: r[3].launches for r in rows}
     log(f"[serve] stats {json.dumps(stats, default=str)}")
     log(f"[serve] launches {json.dumps(launches)}")
-    sweeps.check("serve", launches["kmeans_assign_fused"])
+    log(f"[serve] mean batch {stats['mean_batch']:.2f}, engine dispatches "
+        f"{stats['engine']['dispatches']} for {stats['served']} plans; K2 "
+        f"calls a plan {launches['kmeans_assign_fused'] / 3:.2f}, K3 calls "
+        f"a plan {launches['silhouette_sums'] / 3:.2f}")
+    sweeps.check("serve", launches["kmeans_assign_fused"],
+                 launches["silhouette_sums"])
     require(stats["failed"] == 0 and stats["served"] == 3,
             f"serve: {stats['served']} served, {stats['failed']} failed")
     for name, count in launches.items():
         require(count > 0, f"serve: kernel {name} was never launched")
     profile_request(dev, "cfd")
     return launches
+
+
+def phase_sweep_batch(dev):
+    """Batch independence on the card at the engine's defaults (k_max 48,
+    iters 50, d 256): PROGRAM_AXIS_B programs of one points bucket in one
+    sweep dispatch, against each program's one-program dispatch: labels,
+    K and every score bit-equal.  Run for the served mix's bucket
+    (``synthetic_fleet`` at d 256) and for bucket 4096 (blob programs of
+    2000-4000 points, the grid's largest bucket), the latter with the
+    dispatch's peak memory (``max_memory_allocated`` over what was
+    allocated before it) and both with the host wall of the batched
+    dispatch against the B one-program dispatches and the numpy seeding
+    of its programs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.clustering import (
+        _kmeanspp_init, bucket_points, sweep_cluster_stack,
+    )
+    from repro_torch.serving import synthetic_fleet
+
+    B = PROGRAM_AXIS_B
+    rng = np.random.default_rng(3)
+    fleet = [r.embeddings for r in synthetic_fleet(40, d=256, seed=0)]
+    mix = [x for x in fleet if bucket_points(len(x)) == 64][:B]
+    big = []
+    for i in range(B):
+        k = int(rng.integers(2, 12))
+        centers = rng.standard_normal((k, 256)) * 4
+        n = SWEEP_BATCH_BIG[0] + SWEEP_BATCH_BIG[1] * i
+        big.append((centers[rng.integers(0, k, n)]
+                    + rng.standard_normal((n, 256))).astype(np.float32))
+    for label, xs in (("the served mix's bucket 64", mix),
+                      (f"bucket {bucket_points(len(big[-1]))}", big)):
+        require(len(xs) == B, f"sweep_batch {label}: {len(xs)} programs")
+        seeds = list(range(B))
+        t0 = time.perf_counter()
+        for x, s in zip(xs, seeds):                  # the dispatch's host
+            _kmeanspp_init(x, min(48, len(x) - 1), s)   # seeding
+        seed_s = time.perf_counter() - t0
+        sweep_cluster_stack(xs, seed=seeds, device=dev)        # warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = sweep_cluster_stack(xs, seed=seeds, device=dev)
+        batched_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        solo = [sweep_cluster_stack([x], seed=s, device=dev)[0]
+                for x, s in zip(xs, seeds)]
+        solo_s = time.perf_counter() - t0
+        for i, ((gl, gi), (sl, si)) in enumerate(zip(got, solo)):
+            require(np.array_equal(gl, sl) and gi["k"] == si["k"]
+                    and gi["sil"] == si["sil"]
+                    and gi.get("scores") == si.get("scores"),
+                    f"sweep_batch {label}: program {i} differs from its "
+                    f"one-program dispatch")
+        log(f"[sweep_batch] {label}: {B} programs (n "
+            f"{min(map(len, xs))}..{max(map(len, xs))}, d 256, k_max 48, "
+            f"iters 50) in one dispatch: labels, K and scores bit-equal to "
+            f"the one-program dispatches (K {[r[1]['k'] for r in got]}); "
+            f"host wall {batched_s * 1e3:.1f} ms against "
+            f"{solo_s * 1e3:.1f} ms for {B} one-program dispatches, of it "
+            f"the numpy kmeans++ seeding of the {B} programs "
+            f"{seed_s * 1e3:.1f} ms; peak memory of the dispatch "
+            f"{peak / 2 ** 20:.1f} MiB")
 
 
 def profile_request(dev, name):
@@ -1891,7 +2129,9 @@ def phase_plan_serve(dev):
     over the same fleet, measured first).  Every request must be served,
     every served plan must equal the same request's closed-loop plan
     (labels, K, representatives), and K2 and K3 must have been launched
-    (counts zeroed just before each run).  Also the first request's
+    (counts zeroed just before each run).  The K2 / K3 calls are counted
+    for the closed loop's measured ``plan_many`` and for the served runs,
+    those of the services' warm-up sweeps apart.  Also the first request's
     latency of a fresh service, cold and after ``warmup`` (the allocator's
     cache emptied before each)."""
     import tempfile
@@ -1904,13 +2144,24 @@ def phase_plan_serve(dev):
     from repro_torch.serving import PlanService, synthetic_fleet
 
     class Recording(PlanService):
-        """A PlanService that keeps every future it hands out."""
+        """A PlanService that keeps every future it hands out, and counts
+        the K2 / K3 calls its ``warmup`` sweeps make."""
         futures: list = []
+        warm = {"kmeans_assign_fused_batched": 0, "silhouette_sums": 0}
 
         def submit(self, request):
             fut = super().submit(request)
             Recording.futures.append(fut)
             return fut
+
+        def warmup(self, *a, **kw):
+            before = _counts()
+            try:
+                return super().warmup(*a, **kw)
+            finally:
+                after = _counts()
+                for name in Recording.warm:
+                    Recording.warm[name] += after[name] - before[name]
 
     for label, overrides in PLAN_SERVE_RUNS:
         argv = ["--device", dev.type]
@@ -1934,23 +2185,35 @@ def phase_plan_serve(dev):
         eng = PlanEngine(device=dev, **eng_kw)
         eng.warmup(buckets)
         eng.plan_many(fleet)
+        eng.reset_stats()
+        _zero_counts()
         t0 = time.perf_counter()
         ref = eng.plan_many(fleet)
         closed_s = time.perf_counter() - t0
+        closed = _counts()
         cap = n_req / closed_s
         loads = [f * cap for f in PLAN_SERVE_LOADS]
         log(f"[plan_serve] {label} (d={d} k_max={k_max} iters={iters}, "
             f"{n_req} requests, buckets {buckets}): closed-loop capacity "
-            f"{cap:.2f} plans/s ({closed_s:.3f} s); first request of a "
+            f"{cap:.2f} plans/s ({closed_s:.3f} s, "
+            f"{eng.stats['dispatches']} dispatches, mean batch "
+            f"{n_req / eng.stats['dispatches']:.2f}, K2 calls "
+            f"{closed['kmeans_assign_fused_batched']} K3 calls "
+            f"{closed['silhouette_sums']}: "
+            f"{closed['kmeans_assign_fused_batched'] / n_req:.2f} / "
+            f"{closed['silhouette_sums'] / n_req:.2f} a plan, counted); "
+            f"first request of a "
             f"fresh service cold {first[False] * 1e3:.1f} ms, after warmup "
             f"{first[True] * 1e3:.1f} ms; offered loads "
             f"{', '.join(f'{x:.2f}' for x in loads)} req/s")
         Recording.futures = []
+        Recording.warm = dict.fromkeys(Recording.warm, 0)
         orig = plan_serve.PlanService
         plan_serve.PlanService = Recording
         _zero_counts()
         try:
-            with tempfile.TemporaryDirectory() as tmp:
+            with tempfile.TemporaryDirectory() as tmp, \
+                    SweepCount() as sweeps:
                 path = Path(tmp) / "plan_serve.json"
                 rc = plan_serve.main(argv + [
                     "--load", ",".join(f"{x:.6g}" for x in loads),
@@ -1988,9 +2251,18 @@ def phase_plan_serve(dev):
                     f"plan other than its closed-loop plan")
         k2, k3 = counts["kmeans_assign_fused_batched"], counts[
             "silhouette_sums"]
+        w2, w3 = (Recording.warm["kmeans_assign_fused_batched"],
+                  Recording.warm["silhouette_sums"])
+        disp = sum(row["service"]["engine"]["dispatches"]
+                   for row in doc["loads"])
         log(f"[plan_serve] {label}: {len(futs)} served plans equal to their "
             f"closed-loop plans (labels, K, representatives); launches K2 "
-            f"{k2} K3 {k3}")
+            f"{k2} K3 {k3}, of them the services' warm-up sweeps K2 {w2} K3 "
+            f"{w3}; serving alone K2 {k2 - w2} K3 {k3 - w3} "
+            f"({(k2 - w2) / len(futs):.2f} / {(k3 - w3) / len(futs):.2f} a "
+            f"plan, counted), engine dispatches {disp} (mean batch "
+            f"{len(futs) / max(disp, 1):.2f})")
+        sweeps.check(f"plan_serve {label}", k2, k3)
         require(k2 > 0 and k3 > 0,
                 f"plan_serve {label}: K2 {k2} / K3 {k3} launches")
 
@@ -2605,7 +2877,8 @@ def phase_sequential(dev):
     poison = embs["cfd"]
 
     def flaky(xs, **kw):
-        if xs[0].shape == poison.shape and np.array_equal(xs[0], poison):
+        if any(x.shape == poison.shape and np.array_equal(x, poison)
+               for x in xs):
             raise RuntimeError("injected sweep failure")
         return real(xs, **kw)
 
@@ -2706,7 +2979,8 @@ def phase_grid(dev):
             log(f"[grid] wall {m}: prepare {t['prepare_s']:.3f} s plan "
                 f"{t['plan_s']:.3f} s evaluate {t['evaluate_s']:.3f} s")
         log(f"[grid] launches {json.dumps(counts)}")
-        sweeps.check("grid", counts["kmeans_assign_fused"])
+        sweeps.check("grid", counts["kmeans_assign_fused"],
+                     counts["silhouette_sums"])
         require(not doc["failures"] and not doc["batch_plan_errors"],
                 "grid: failed cells or plan_batch fallbacks")
         rows = _grid_rows(out, doc)
@@ -4289,6 +4563,9 @@ def _phases(dev, t_all, dry):
     phase_serve(rows, dev)
     log(f"[phase] serve {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    phase_sweep_batch(dev)
+    log(f"[phase] sweep_batch {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     phase_plan_serve(dev)
     log(f"[phase] plan_serve {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -4340,7 +4617,9 @@ def _phases(dev, t_all, dry):
          "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
          "bound_by": m["bound_by"], "library_ms": m["library_ms"],
          **{k: m[k] for k in ("launches_counted", "fma_bound_ms", "d64_ms",
-                              "d64_bound_ms") if k in m}}
+                              "d64_bound_ms", "b8_ms", "b8_solo_ms",
+                              "b8_plain_ms", "b8_bound_ms", "b8_bound_by",
+                              "b8_max_abs_err") if k in m}}
         for name, source, repl, _, m in rows]}
     return table
 

@@ -17,13 +17,18 @@ implementations share that rule:
   one-hot matmul centroid update, and one silhouette per candidate from
   ``silhouette_sums`` (K3);
 - the swept engine (``sweep_cluster_stack``): centroids padded to k_max
-  with masked Lloyd steps.  As JAX runs every candidate inside one
-  executable, each Lloyd step of the port is one K2 call for all the
-  candidates of a program (their centroids one (C, k_max, d) tensor) plus
-  the centroid update, and the final assignment one more; K3 runs once per
-  candidate, and the silhouette arithmetic over all candidates is plain
-  torch.  Points are padded to a power-of-two bucket with masks exactly as
-  in JAX, so padding never moves a result.
+  with masked Lloyd steps, many programs a dispatch.  As JAX's default
+  engine stacks a chunk of programs on a leading program axis and runs
+  every candidate of every program inside one vmapped executable, each
+  Lloyd step of the port is one K2 call for all the candidates of all the
+  programs of a dispatch (their centroids one (B, C, k_max, d) tensor)
+  plus the centroid update, and the final assignment one more; K3 runs
+  once per candidate for every program, and the silhouette arithmetic
+  over all programs and candidates is plain torch.  Points are padded to
+  the chunk's largest power-of-two bucket and the program axis to a
+  power of two (``bucket_batch``) with masks exactly as in JAX, so padding
+  never moves a result: a program's labels, K and scores have the same
+  bits alone and in any chunk.
 """
 
 from __future__ import annotations
@@ -44,6 +49,15 @@ def bucket_points(n: int) -> int:
     """Next power-of-two points bucket >= POINT_FLOOR (the sweep's padding
     unit; PlanEngine groups requests by this same key)."""
     b = POINT_FLOOR
+    while b < n:
+        b <<= 1
+    return b
+
+
+def bucket_batch(n: int) -> int:
+    """Power-of-two program-axis padding for a chunk of n programs (JAX's
+    rule; the padded rows have an all-zero pmask and are inert)."""
+    b = 1
     while b < n:
         b <<= 1
     return b
@@ -320,27 +334,43 @@ def select_k_and_cluster(
 # swept engine: every candidate K of a program in one pass
 # ---------------------------------------------------------------------------
 
-def _sweep_core(x, pmask, init_idx, sil_mask, *, k_max: int, iters: int,
-                n_real: int):
-    """One program, every valid candidate K (2..min(k_max, n-1)).
+def _tree_sum(t):
+    """Sum over the last axis (a power of two long) by halving it: a fixed
+    order that does not depend on the sizes of the other axes, nor on
+    trailing zeros, so a program's score has the same bits alone, in any
+    chunk, and padded into a larger points bucket."""
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        t = t[..., :h] + t[..., h:]
+    return t[..., 0]
 
-    ``x`` (n_pad, d), ``pmask``/``sil_mask`` (n_pad,) and ``init_idx``
-    (k_max,) live on one device.  Returns (labels (num_k, n_pad) int32,
-    sil (num_k,), ok (num_k,) bool) on that device, num_k = k_max - 1;
-    candidates above n-1 are not fitted and come back ``ok=False``."""
-    n_pad, d = x.shape
+
+def _sweep_core(x, pmask, init_idx, sil_mask, *, k_max: int, iters: int,
+                n_real):
+    """B programs, every candidate K (2..k_max), one dispatch.
+
+    ``x`` (B, n_pad, d), ``pmask``/``sil_mask`` (B, n_pad) and ``init_idx``
+    (B, k_max) live on one device; ``n_real`` holds each program's point
+    count (0 for a padded row).  The candidates 2..k_top of the chunk's
+    largest k_top = min(k_max, n - 1) are fitted for every program, as
+    JAX's vmapped sweep fits them all.  Returns (labels (B, num_k, n_pad)
+    int32, sil (B, num_k), ok (B, num_k) bool) on that device, num_k =
+    k_max - 1; ``ok`` is JAX's rule: K <= min(k_max, n - 1) and at least
+    two live clusters."""
+    B, n_pad, d = x.shape
     dev = x.device
     num_k = k_max - 1
-    k_top = min(k_max, n_real - 1)
-    C = max(k_top - 1, 0)                                   # fitted: 2..k_top
-    cent0 = x[init_idx.long()]                              # (k_max, d)
-    labels_all = torch.zeros(num_k, n_pad, dtype=torch.int32, device=dev)
+    k_tops = [min(k_max, n - 1) for n in n_real]
+    C = max(max(k_tops) - 1, 0)                         # fitted: 2..C + 1
+    rows = torch.arange(B, device=dev)[:, None]
+    cent0 = x[rows, init_idx.long()]                    # (B, k_max, d)
+    labels_all = torch.zeros(B, num_k, n_pad, dtype=torch.int32, device=dev)
     if C:
-        ks = torch.arange(2, k_top + 1, device=dev)
+        ks = torch.arange(2, C + 2, device=dev)
         cmask = (torch.arange(k_max, device=dev)[None, :]
-                 < ks[:, None]).to(torch.float32)           # (C, k_max)
-        cent = cent0[None].expand(C, k_max, d).contiguous()
-        ws = (K2Workspace(C, n_pad, k_max, d, dev) if dev.type == "cuda"
+                 < ks[:, None]).to(torch.float32)       # (C, k_max)
+        cent = cent0[:, None].expand(B, C, k_max, d).contiguous()
+        ws = (K2Workspace(C, n_pad, k_max, d, dev, B) if dev.type == "cuda"
               else None)
         for _ in range(iters):
             _, _, sums, cnts = kmeans_assign_fused_batched(x, cent, cmask,
@@ -350,33 +380,37 @@ def _sweep_core(x, pmask, init_idx, sil_mask, *, k_max: int, iters: int,
                                cent)
         lab, _, _, _ = kmeans_assign_fused_batched(x, cent.contiguous(),
                                                    cmask, pmask, out=ws)
-        labels_all[:C] = lab
-    onehot_all = (torch.nn.functional.one_hot(labels_all.long(), k_max)
-                  .to(torch.float32) * sil_mask[None, :, None])
-    onehot_all[C:] = 0.0                                    # not fitted
-    sums_all = torch.zeros(num_k, n_pad, k_max, dtype=torch.float32,
+        labels_all[:, :C] = lab
+    # candidate-major (num_k, B, n_pad, k_max): K3 takes one candidate of
+    # every program a call
+    onehot_all = (torch.nn.functional.one_hot(
+        labels_all.transpose(0, 1).long(), k_max).to(torch.float32)
+        * sil_mask[None, :, :, None])
+    onehot_all[C:] = 0.0                                # not fitted
+    sums_all = torch.zeros(num_k, B, n_pad, k_max, dtype=torch.float32,
                            device=dev)
     for ki in range(C):
-        sums_all[ki] = silhouette_sums(x, onehot_all[ki].contiguous())
+        sums_all[ki] = silhouette_sums(x, onehot_all[ki])
 
-    # vectorized masked silhouette over the candidates (the JAX sweep's
-    # arithmetic; empty clusters are excluded via cnt > 0)
+    # vectorized masked silhouette over the programs and candidates (the
+    # JAX sweep's arithmetic; empty clusters are excluded via cnt > 0)
     inf = torch.tensor(float("inf"), device=dev)
-    cnt = onehot_all.sum(1)                                 # (num_k, k_max)
-    own_cnt = torch.einsum("knc,kc->kn", onehot_all, cnt)
-    own_sum = torch.sum(sums_all * onehot_all, dim=2)
+    cnt = onehot_all.sum(2)                             # (num_k, B, k_max)
+    own_cnt = torch.einsum("kbnc,kbc->kbn", onehot_all, cnt)
+    own_sum = torch.sum(sums_all * onehot_all, dim=3)
     a = own_sum / torch.clamp_min(own_cnt - 1, 1)
-    mean_other = sums_all / torch.clamp_min(cnt[:, None, :], 1)
+    mean_other = sums_all / torch.clamp_min(cnt[:, :, None, :], 1)
     mean_other = torch.where(onehot_all > 0, inf, mean_other)
-    mean_other = torch.where(cnt[:, None, :] > 0, mean_other, inf)
-    b = torch.min(mean_other, dim=2).values
+    mean_other = torch.where(cnt[:, :, None, :] > 0, mean_other, inf)
+    b = torch.min(mean_other, dim=3).values
     s = (b - a) / torch.clamp_min(torch.maximum(a, b), 1e-12)
-    s = torch.where(own_cnt > 1, s, torch.zeros_like(s)) * sil_mask[None, :]
-    sil = torch.sum(s, dim=1) / torch.clamp_min(torch.sum(sil_mask), 1.0)
-    n_live = torch.sum(cnt > 0, dim=1)
-    k_valid = torch.arange(2, k_max + 1, device=dev) <= k_top
+    s = torch.where(own_cnt > 1, s, torch.zeros_like(s)) * sil_mask[None]
+    sil = _tree_sum(s) / torch.clamp_min(torch.sum(sil_mask, dim=1), 1.0)
+    n_live = torch.sum(cnt > 0, dim=2)
+    k_valid = (torch.arange(2, k_max + 1, device=dev)[:, None]
+               <= torch.tensor(k_tops, device=dev)[None, :])
     ok = k_valid & (n_live >= 2)
-    return labels_all, sil, ok
+    return labels_all, sil.T, ok.T
 
 
 def _finish_one(labels_all, sil, ok, n, ks, sil_floor, tie_tol):
@@ -408,9 +442,13 @@ def sweep_cluster_stack(
     init: str = "host",
     device=None,
 ):
-    """Plan many programs, one sweep dispatch each: every program is padded
-    to its own power-of-two points bucket and every candidate K evaluated
-    on ``device`` (the card unless ``"cpu"`` is asked for).  Tiny/trivial
+    """Plan many programs in one sweep dispatch on ``device`` (the card
+    unless ``"cpu"`` is asked for), as JAX's default engine does: the
+    embeddings are padded to the largest program's power-of-two points
+    bucket, stacked on a leading program axis padded to ``bucket_batch``
+    (the padded rows all-zero, inert, discarded), and every candidate K of
+    every program is evaluated together; labels, scores and flags come
+    back to the host once for the dispatch.  Tiny/trivial/featureless
     programs take the host fallback.  Returns a list of (labels, info)
     aligned with ``xs``; ``seed`` is an int or a per-program sequence.
     Seeds (``init``) are drawn at each program's own points bucket, so a
@@ -421,33 +459,61 @@ def sweep_cluster_stack(
     seeds = ([int(seed)] * len(xs) if np.isscalar(seed)
              else [int(s) for s in seed])
     out: list = [None] * len(xs)
-    ks = list(range(2, k_max + 1))
+    todo: list[int] = []
+    sil_idxs: dict[int, np.ndarray] = {}
     for i, x in enumerate(xs):
         done, sil_idx = _host_preamble(x, seeds[i], tiny_n, sil_cap)
         if done is not None:
             out[i] = done
-            continue
-        if x.ndim != 2 or x.shape[1] == 0:
+        elif x.ndim != 2 or x.shape[1] == 0:
             # featureless embeddings: the degenerate K=1 collapse, decided
             # on the host
             out[i] = (np.zeros(len(x), int),
                       {"k": 1, "sil": 0.0, "mode": "degenerate",
                        "engine": "sweep"})
-            continue
-        n = len(x)
-        xb, pmask = (torch.from_numpy(a).to(dev) for a in _pad_bucket(x))
-        silm = np.zeros(len(xb), np.float32)
-        silm[np.arange(n) if sil_idx is None else sil_idx] = 1.0
-        k_up = min(k_max, n - 1)
-        init_idx = torch.zeros(k_max, dtype=torch.int32, device=dev)
-        init_idx[:k_up] = (
-            _device_init(xb, pmask, seeds[i], k_up) if init == "device"
-            else torch.from_numpy(_kmeanspp_init(x, k_up, seeds[i])))
-        labels_all, sil, ok = _sweep_core(
-            xb, pmask, init_idx, torch.from_numpy(silm).to(dev), k_max=k_max,
-            iters=iters, n_real=n)
-        out[i] = _finish_one(labels_all.cpu().numpy(), sil.cpu().numpy(),
-                             ok.cpu().numpy(), n, ks, sil_floor, tie_tol)
+        else:
+            todo.append(i)
+            sil_idxs[i] = sil_idx
+    if not todo:
+        return out
+
+    n_pad = bucket_points(max(len(xs[i]) for i in todo))
+    d = xs[todo[0]].shape[1]
+    B = bucket_batch(len(todo))
+    xb = np.zeros((B, n_pad, d), np.float32)
+    pmask = np.zeros((B, n_pad), np.float32)
+    silm = np.zeros((B, n_pad), np.float32)
+    init_idx = np.zeros((B, k_max), np.int32)
+    n_real = [0] * B
+    for row, i in enumerate(todo):
+        x = xs[i]
+        n = n_real[row] = len(x)
+        xb[row, :n] = x
+        pmask[row, :n] = 1.0
+        sil_idx = sil_idxs[i]
+        silm[row, np.arange(n) if sil_idx is None else sil_idx] = 1.0
+        if init == "host":
+            k_up = min(k_max, n - 1)
+            init_idx[row, :k_up] = _kmeanspp_init(x, k_up, seeds[i])
+    xt, pt, st, it = (torch.from_numpy(a).to(dev)
+                      for a in (xb, pmask, silm, init_idx))
+    if init == "device":
+        # each program's draws at its own bucket: the leading rows of its
+        # padded row are exactly its ``_pad_bucket`` matrix and mask
+        for row, i in enumerate(todo):
+            n = n_real[row]
+            own, k_up = bucket_points(n), min(k_max, n - 1)
+            it[row, :k_up] = _device_init(xt[row, :own], pt[row, :own],
+                                          seeds[i], k_up)
+    labels_all, sil, ok = _sweep_core(xt, pt, it, st, k_max=k_max,
+                                      iters=iters, n_real=n_real)
+    labels_all = labels_all.cpu().numpy()
+    sil = sil.cpu().numpy()
+    ok = ok.cpu().numpy()
+    ks = list(range(2, k_max + 1))
+    for row, i in enumerate(todo):
+        out[i] = _finish_one(labels_all[row], sil[row], ok[row], n_real[row],
+                             ks, sil_floor, tie_tol)
     return out
 
 

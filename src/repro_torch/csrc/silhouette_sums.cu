@@ -2,13 +2,17 @@
 //
 // Replaces the Pallas TPU kernel `silhouette_sums_fwd`
 // (src/repro/kernels/kmeans_assign/kernel.py, body `_sil_sums_kernel`).
-// For points x (n, d) and a (point-masked) one-hot onehot (n, k <= 64) it
-// computes
+// For B programs, each with points x[b] (n, d) and a (point-masked)
+// one-hot onehot[b] (n, k <= 64), it computes
 //
-//   sums[i, c] = sum_j sqrt(max(|x_i|^2 - 2 x_i.x_j + |x_j|^2, 0))
-//                * onehot[j, c]
+//   sums[b, i, c] = sum_j sqrt(max(|x_bi|^2 - 2 x_bi.x_bj + |x_bj|^2, 0))
+//                   * onehot[b, j, c]
 //
-// without ever materialising the (n, n) distance matrix.
+// without ever materialising an (n, n) distance matrix.  The programs are
+// the grid's y dimension in all three launches, and each has its own
+// slice of the scratch, so a program's sums are the same bits at any B
+// and beside any other programs (B = 1 is the one-program call); one
+// call covers one candidate K for every program of a sweep dispatch.
 //
 // What bounds it on this card: float32 operations.  Only the J rows j whose
 // onehot row is not all zero (live rows) contribute, and each contributes
@@ -18,19 +22,20 @@
 // ~37 us at the 67 TFLOP/s float32 peak (the TPU kernel and the first port
 // walked all n rows j, 71 % of them multiplying by zero).
 //
-// Design, three launches with no host sync:
+// Design, three launches with no host sync, each over (block, program):
 // 1. sil_rows_kernel (32 rows a block, staged through shared memory in
 //    128-column chunks): |x_i|^2 as a sequential fmaf chain over d — the
 //    order of the tile dot products below, so a point's distance to itself
 //    or to an identical point is exactly 0 — and the number of nonzeros of
 //    each onehot row, with per-block totals;
-// 2. sil_compact_kernel: every block adds up the totals of the blocks
-//    before it and writes its live rows, in order: their indices and
-//    norms, and a CSR of the onehot over them (entry offsets; entries
-//    (cluster, value)); the last block writes the live count J;
-// 3. silhouette_sums_kernel: a block owns TI = 32 rows i for the whole
-//    sweep over the live rows j, read from the count in device memory, in
-//    tiles of TJ = 256.  Each thread owns an 8 x 4 register tile of the
+// 2. sil_compact_kernel: every block adds up the totals of its program's
+//    blocks before it and writes its live rows, in order: their indices
+//    and norms, and a CSR of the onehot over them (entry offsets; entries
+//    (cluster, value)); the program's last block writes its live count J;
+// 3. silhouette_sums_kernel: a block owns TI = 32 rows i of one program
+//    for the whole sweep over that program's live rows j, read from its
+//    count in device memory, in tiles of TJ = 256.  Each thread owns an
+//    8 x 4 register tile of the
 //    32 x 256 dot products (float32 FMAs from 16-byte shared-memory loads;
 //    not TF32, which would change the numbers).  The 32-column chunks of
 //    x_i and of the gathered x_j rows stream through a 3-stage cp.async
@@ -52,6 +57,29 @@ namespace {
 
 constexpr int MAX_K = 64;
 constexpr int RT = 32;           // rows per block of kernels 1-2 (2: a warp)
+
+// One program's slice of the scratch: iscratch holds, per program, nnz
+// (n), the block totals (2 nb), live_idx (n), row_ptr (n + 1), count (1)
+// and ent_c (n k) ints; fscratch sq (n), live_sq (n) and ent_w (n k).
+struct Scratch {
+  int *nnz, *blk, *live_idx, *row_ptr, *count, *ent_c;
+  float *sq, *live_sq, *ent_w;
+  __host__ __device__ Scratch(int* is, float* fs, int n, int k, int b) {
+    const int nb = (n + RT - 1) / RT;
+    const size_t ni = 3 * static_cast<size_t>(n) + 2 * nb + 2 +
+                      static_cast<size_t>(n) * k;
+    const size_t nf = 2 * static_cast<size_t>(n) + static_cast<size_t>(n) * k;
+    nnz = is + b * ni;
+    blk = nnz + n;
+    live_idx = blk + 2 * nb;
+    row_ptr = live_idx + n;
+    count = row_ptr + n + 1;
+    ent_c = count + 1;
+    sq = fs + b * nf;
+    live_sq = sq + n;
+    ent_w = live_sq + n;
+  }
+};
 
 // ---- 1. row norms and onehot row counts ------------------------------------
 
@@ -90,9 +118,16 @@ constexpr int AC = 128;          // its d chunk
 
 __global__ void __launch_bounds__(AT)
 sil_rows_kernel(const float* __restrict__ x, const float* __restrict__ onehot,
-                float* __restrict__ sq, int* __restrict__ nnz,
-                int* __restrict__ blk, int n, int d, int k) {
+                int* __restrict__ iscratch, float* __restrict__ fscratch,
+                int n, int d, int k) {
   __shared__ float slab[RT * (AC + 1)];
+  const int b = blockIdx.y;
+  const Scratch scr(iscratch, fscratch, n, k, b);
+  float* __restrict__ sq = scr.sq;
+  int* __restrict__ nnz = scr.nnz;
+  int* __restrict__ blk = scr.blk;
+  x += static_cast<size_t>(b) * n * d;
+  onehot += static_cast<size_t>(b) * n * k;
   const int r0 = blockIdx.x * RT, row = r0 + threadIdx.x;
   const int rows = min(RT, n - r0);
   float s = 0.f;
@@ -173,13 +208,22 @@ __device__ __forceinline__ void block_scan2(int& a, int& b, int& ta, int& tb,
 
 __global__ void __launch_bounds__(RT)
 sil_compact_kernel(const float* __restrict__ onehot,
-                   const float* __restrict__ sq, const int* __restrict__ nnz,
-                   const int* __restrict__ blk, int* __restrict__ live_idx,
-                   float* __restrict__ live_sq, int* __restrict__ row_ptr,
-                   int* __restrict__ ent_c, float* __restrict__ ent_w,
-                   int* __restrict__ count, int n, int k) {
+                   int* __restrict__ iscratch, float* __restrict__ fscratch,
+                   int n, int k) {
   __shared__ float slab[RT * KP1];
   __shared__ int red[2 * (RT / 32)];
+  const int b = blockIdx.y;
+  const Scratch scr(iscratch, fscratch, n, k, b);
+  const float* __restrict__ sq = scr.sq;
+  const int* __restrict__ nnz = scr.nnz;
+  const int* __restrict__ blk = scr.blk;
+  int* __restrict__ live_idx = scr.live_idx;
+  float* __restrict__ live_sq = scr.live_sq;
+  int* __restrict__ row_ptr = scr.row_ptr;
+  int* __restrict__ ent_c = scr.ent_c;
+  float* __restrict__ ent_w = scr.ent_w;
+  int* __restrict__ count = scr.count;
+  onehot += static_cast<size_t>(b) * n * k;
   stage_onehot(onehot, slab, blockIdx.x * RT, n, k);
   int base_rows = 0, base_ents = 0;
   for (int bb = threadIdx.x; bb < blockIdx.x; bb += RT) {
@@ -256,15 +300,21 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __global__ void __launch_bounds__(THREADS, 1)
 silhouette_sums_kernel(const float* __restrict__ x,
-                       const float* __restrict__ sq,
-                       const int* __restrict__ live_idx,
-                       const float* __restrict__ live_sq,
-                       const int* __restrict__ row_ptr,
-                       const int* __restrict__ ent_c,
-                       const float* __restrict__ ent_w,
-                       const int* __restrict__ count, float* __restrict__ out,
+                       int* __restrict__ iscratch,
+                       float* __restrict__ fscratch, float* __restrict__ out,
                        int n, int d, int k) {
   extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y;
+  const Scratch scr(iscratch, fscratch, n, k, b);
+  const float* __restrict__ sq = scr.sq;
+  const int* __restrict__ live_idx = scr.live_idx;
+  const float* __restrict__ live_sq = scr.live_sq;
+  const int* __restrict__ row_ptr = scr.row_ptr;
+  const int* __restrict__ ent_c = scr.ent_c;
+  const float* __restrict__ ent_w = scr.ent_w;
+  const int* __restrict__ count = scr.count;
+  x += static_cast<size_t>(b) * n * d;
+  out += static_cast<size_t>(b) * n * k;
   float* xs = smem;                          // STAGES x (TI + TJ) x DCP
   float* ds = xs + (STAGES - 1) * STAGE;     // TI x (TJ + 1) distances
   float* slab = xs + STAGES * STAGE;         // LANES x TI x KP partial sums
@@ -454,36 +504,27 @@ silhouette_sums_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// x: (n, d) f32 with d % 4 == 0; onehot: (n, k) f32, k <= 64; out: (n, k)
-// f32.  iscratch: 3 n + 2 ceil(n / 32) + n k + 2 ints; fscratch:
-// 2 n + n k floats.  Returns cudaGetLastError() after the three launches.
+// x: (B, n, d) f32 with d % 4 == 0; onehot: (B, n, k) f32, k <= 64; out:
+// (B, n, k) f32.  iscratch: B (3 n + 2 ceil(n / 32) + n k + 2) ints;
+// fscratch: B (2 n + n k) floats.  1 <= B <= 65535.  Returns
+// cudaGetLastError() after the three launches.
 extern "C" int silhouette_sums(const float* x, const float* onehot,
                                int* iscratch, float* fscratch, float* out,
-                               int n, int d, int k, void* stream) {
-  if (n < 0 || d < 4 || d % 4 || k < 1 || k > MAX_K)
+                               int n, int d, int k, int B, void* stream) {
+  if (n < 0 || d < 4 || d % 4 || k < 1 || k > MAX_K || B < 1 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = (n + RT - 1) / RT;
-  int* nnz = iscratch;
-  int* blk = nnz + n;
-  int* live_idx = blk + 2 * nb;
-  int* row_ptr = live_idx + n;
-  int* count = row_ptr + n + 1;
-  int* ent_c = count + 1;
-  float* sq = fscratch;
-  float* live_sq = sq + n;
-  float* ent_w = live_sq + n;
-  sil_rows_kernel<<<nb, AT, 0, s>>>(x, onehot, sq, nnz, blk, n, d, k);
-  sil_compact_kernel<<<nb, RT, 0, s>>>(onehot, sq, nnz, blk, live_idx,
-                                       live_sq, row_ptr, ent_c, ent_w, count,
-                                       n, k);
+  sil_rows_kernel<<<dim3(nb, B), AT, 0, s>>>(x, onehot, iscratch, fscratch,
+                                             n, d, k);
+  sil_compact_kernel<<<dim3(nb, B), RT, 0, s>>>(onehot, iscratch, fscratch,
+                                                n, k);
   cudaError_t err = cudaFuncSetAttribute(
       silhouette_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  silhouette_sums_kernel<<<(n + TI - 1) / TI, THREADS, SMEM, s>>>(
-      x, sq, live_idx, live_sq, row_ptr, ent_c, ent_w, count, out, n, d, k);
+  silhouette_sums_kernel<<<dim3((n + TI - 1) / TI, B), THREADS, SMEM, s>>>(
+      x, iscratch, fscratch, out, n, d, k);
   return static_cast<int>(cudaGetLastError());
 }
-

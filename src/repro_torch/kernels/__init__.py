@@ -7,8 +7,8 @@ rgcn_fused     K1: one-pass RGCN message + degree norm + scatter + basis
 rgcn_spmm      K5 / K6: the flat and the dense pre-basis aggregates
                (replace ``repro/kernels/rgcn_spmm``)
 kmeans_assign  K2: fused masked K-Means assignment + per-cluster sums,
-               over a batch of candidates;
-               K3: blocked silhouette sums; K4: the unmasked assignment of
+               over a batch of programs and candidates;
+               K3: blocked silhouette sums over a batch of programs; K4: the unmasked assignment of
                the sequential reference (replace
                ``repro/kernels/kmeans_assign``)
 flash_attention
@@ -64,8 +64,8 @@ SIGNATURES = {
     "rgcn_fused_flat": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P],
     "kmeans_assign_fused_batched": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _P],
-    "silhouette_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+                                    _I, _I, _I, _I, _I, _I, _P],
+    "silhouette_sums": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "kmeans_assign": [_P, _P, _P, _P, _I, _I, _I, _P],
     "rgcn_spmm_flat": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rgcn_spmm_dense": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

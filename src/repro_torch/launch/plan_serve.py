@@ -72,8 +72,9 @@ def main(argv=None) -> int:
             warm = (parse_buckets(args.warmup_buckets)
                     if args.warmup_buckets else buckets)
             built = svc.warmup(warm)
-            print(f"[plan-serve] warm pool: {built} buckets warmed of "
-                  f"{len(warm)} on {svc.engine.device}", flush=True)
+            print(f"[plan-serve] warm pool: {built} (bucket, batch) keys "
+                  f"warmed for {len(warm)} buckets on {svc.engine.device}",
+                  flush=True)
         for rate in loads:
             res = run_open_loop(svc, fleet, rate, seed=args.seed)
             s = res.service

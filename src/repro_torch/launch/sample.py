@@ -30,9 +30,10 @@ replays trained encoders instead of refitting.
 Each method's program axis runs in two stages: every program is prepared
 (trained/profiled) first, then ALL plans are served through the method's
 ``plan_batch`` — engine-backed methods (gcl, pka) dispatch many programs
-per call (``repro_torch.sampling.PlanEngine``: one sweep per program, K2 per
-Lloyd step, K3 per candidate) and full simulations are evaluated vectorized
-per program.  The results add ``method_wall_s``: each method's seconds in
+per call (``repro_torch.sampling.PlanEngine``: one sweep per chunk of up to
+``max_batch`` programs of a bucket, K2 per Lloyd step and K3 per candidate
+for the whole chunk) and full simulations are evaluated vectorized per
+program.  The results add ``method_wall_s``: each method's seconds in
 prepare, plan and evaluate.
 """
 

@@ -3,26 +3,41 @@ method.  Counterpart of ``repro/sampling/engine.py``.
 
 - plan requests are grouped by embedding-matrix size (power-of-two points
   bucket, exact feature dim), the sweep's own padding unit;
-- each program is one sweep dispatch on the engine's device (the JAX
-  kernel path also dispatches one program at a time);
+- each group is cut into chunks of ``max_batch x data_devices`` programs,
+  and each chunk is ONE sweep dispatch on the engine's device
+  (:func:`repro_torch.core.clustering.sweep_cluster_stack`: every
+  candidate K of every program of the chunk together), as JAX's default
+  engine dispatches them; the results carry ``serve.batch`` = the chunk's
+  size under ``record_timings``;
 - trivial/tiny programs take the same host paths as the JAX engine;
-- ``plan_many`` builds program i's plan on a worker thread while program
-  i+1 is clustered;
-- ``errors="isolate"``: a request whose sweep fails is retried through the
-  sequential reference (``select_k_and_cluster``), as the JAX engine does;
-  a request that fails there too becomes an Exception entry and counts in
-  ``stats["errors"]``, a recovered one does not;
+- ``plan_many`` builds a chunk's plans on a worker thread while the next
+  chunk is clustered;
+- ``errors="isolate"``: when a chunk's sweep fails, each of its programs
+  is retried on its own through the sequential reference
+  (``select_k_and_cluster``), as the JAX engine does; a program that fails
+  there too becomes an Exception entry and counts in ``stats["errors"]``,
+  a recovered one does not;
 - ``engine="sequential"`` serves every request through that reference
-  (the parity path);
+  (the parity path), one dispatch a request;
 - scale-out fault protocol: ``fault_hook`` runs before every sweep
   dispatch, and a :class:`~repro_torch.distributed.fault.DeviceLost` from
   it halves the program-axis shard width (``data_devices``) and retries
-  the same programs; at width 1 it propagates.
+  the same chunk; at width 1 it propagates.  A dispatch runs on the
+  engine's one device, and placing a chunk's programs across several
+  cards is not done yet.  So the width defaults to 1 on any host, where
+  JAX's defaults to ``jax.device_count()`` and gives each device its own
+  ``max_batch`` slice: a dispatch never stacks more than ``max_batch``
+  programs on the card unless asked.  An explicit ``data_devices=N``
+  takes JAX's chunk of ``max_batch x N`` programs (and its ``serve.batch``
+  stamps), all on the engine's card, as JAX's engine does on a host with
+  fewer devices than N; the dispatch's memory grows N-fold with it (the
+  silhouette arithmetic's (B, num_k, n_pad, k_max) tensors and K2's
+  partial sums scale with B).
 
 There are no compiled executables to cache: ``warmup`` builds (or loads)
 the kernel library, so the first request does not pay the ``nvcc`` build,
-and, given buckets, sweeps a seeded matrix of each bucket's shape once, so
-the first request of a bucket does not pay for the allocator's growth or
+and, given buckets, sweeps a seeded batch of each bucket's shape once, so
+the first dispatch of a bucket does not pay for the allocator's growth or
 the library handles either.
 """
 
@@ -34,10 +49,10 @@ from dataclasses import dataclass, field, replace
 from typing import Callable, Optional
 
 import numpy as np
-import torch
 
 from repro_torch.core.clustering import (
-    _check_init, bucket_points, select_k_and_cluster, sweep_cluster_stack,
+    _check_init, bucket_batch, bucket_points, select_k_and_cluster,
+    sweep_cluster_stack,
 )
 from repro_torch.distributed.fault import DeviceLost
 from repro_torch.sampling.base import plan_from_labels
@@ -57,13 +72,14 @@ class PlanEngineConfig:
     iters: int = 50
     init: str = "host"           # 'host' numpy kmeans++ | 'device' D^2 draws
     engine: str = "sweep"        # 'sweep' | 'sequential' (parity reference)
-    max_batch: int = 8           # requests per service flush
+    max_batch: int = 8           # programs per sweep dispatch PER DEVICE
     record_timings: bool = False  # stamp per-request dispatch telemetry
-    #: program-axis shard width the degradation loop starts from: 0 = every
-    #: card present (``torch.cuda.device_count()``; 1 for an engine on the
-    #: CPU).  The port sweeps one program per dispatch on the engine's one
-    #: device, so the width is bookkeeping only: placing a dispatch's
-    #: programs across several cards waits for a program axis in the sweep
+    #: program-axis shard width: one dispatch serves data_devices x
+    #: max_batch programs, and the degradation loop halves it.  0 = the
+    #: devices a dispatch is placed on: 1, the engine's own (JAX's 0 is
+    #: every device, each sweeping its own slice; placing the programs
+    #: across cards is not done yet).  An explicit width stacks the whole
+    #: chunk on the engine's device
     data_devices: int = 0
 
 
@@ -107,11 +123,10 @@ class PlanEngine:
         self.stats = self._fresh_stats()
         #: the (points-bucket, dim, batch) keys ``warmup`` has swept
         self._warm: set = set()
-        present = (torch.cuda.device_count() if self.device.type == "cuda"
-                   else 1)
-        #: program-axis shard width: starts at ``data_devices`` and only
-        #: ever halves, when a dispatch raises DeviceLost
-        self._data_shards = max(1, self.cfg.data_devices or present)
+        #: program-axis shard width: starts at ``data_devices`` (1 when 0:
+        #: a dispatch is placed on the engine's one device) and only ever
+        #: halves, when a dispatch raises DeviceLost
+        self._data_shards = max(1, self.cfg.data_devices)
         #: fault injection point, called before every sweep dispatch; raise
         #: DeviceLost from it to drive the degradation loop
         self.fault_hook: Optional[Callable[[], None]] = None
@@ -144,19 +159,21 @@ class PlanEngine:
         built or loaded now, 0 when it already was or on the CPU.
 
         ``buckets``: ``(points, dim)`` pairs or ``{"points_bucket": p,
-        "dim": d}`` dicts, points rounded up to their bucket.  The library
-        is loaded, then each bucket not yet warm on this engine is swept
-        once (this engine's k_max, iters and seed) over a seeded matrix of
-        that bucket's points and dim on the engine's device, so its first
-        request finds the library, the library handles and the allocator's
-        blocks in place (``engine="sequential"``: one call of the
-        sequential reference).  The port dispatches one program per sweep, so
-        ``batch_sizes`` defaults to ``[1]``; every batch size takes the
-        same path, and each new ``(points, dim, batch)`` key counts once.
-        With ``init="device"`` the bucket's sweep draws its seeding on the
-        device at the bucket's shape (k_up = min(k_max, points - 1)), the
-        key JAX's warm pool pre-builds its device init for.  Returns the
-        number of keys warmed now: 0 when all were warm."""
+        "dim": d}`` dicts, points rounded up to their bucket.
+        ``batch_sizes`` defaults to JAX's: every power-of-two chunk size up
+        to ``bucket_batch(max_batch)``.  The library is loaded, then for
+        each bucket with a ``(points, dim, batch)`` key not yet warm on
+        this engine one seeded batch of the largest new batch size is
+        swept (this engine's k_max, iters and seed; every program of the
+        batch a seeded matrix of the bucket's points and dim), so the
+        bucket's first dispatch finds the library, the library handles and
+        the allocator's blocks in place (``engine="sequential"``: one call
+        of the sequential reference, which serves one program at a time).
+        With ``init="device"`` each program of that batch draws its
+        seeding on the device at the bucket's shape (k_up = min(k_max,
+        points - 1)), the key JAX's warm pool pre-builds its device init
+        for.  Returns the number of keys warmed now, each counted once: 0
+        when all were warm."""
         lib = 0
         if self.device.type == "cuda":
             from repro_torch import kernels
@@ -166,6 +183,11 @@ class PlanEngine:
         if not buckets:
             self.stats["warmed_executables"] += lib
             return lib
+        if batch_sizes is None:
+            batch_sizes, b = [], 1
+            while b <= bucket_batch(max(1, self.cfg.max_batch)):
+                batch_sizes.append(b)
+                b <<= 1
         built = 0
         for bucket in buckets:
             if isinstance(bucket, dict):
@@ -173,14 +195,19 @@ class PlanEngine:
             else:
                 points, dim = bucket
             points, dim = bucket_points(int(points)), int(dim)
-            new = [b for b in (batch_sizes or [1])
-                   if (points, dim, int(b)) not in self._warm]
+            new = sorted({int(b) for b in batch_sizes
+                          if (points, dim, int(b)) not in self._warm})
             if not new:
                 continue
-            x = np.random.default_rng(self.cfg.seed).standard_normal(
-                (points, dim)).astype(np.float32)
-            self._cluster_one(x, self.cfg.seed, "raise")
-            self._warm.update((points, dim, int(b)) for b in new)
+            rng = np.random.default_rng(self.cfg.seed)
+            xs = [rng.standard_normal((points, dim)).astype(np.float32)
+                  for _ in range(new[-1] if self.cfg.engine == "sweep"
+                                 else 1)]
+            if self.cfg.engine == "sweep":
+                self._dispatch_chunk(xs, [self.cfg.seed] * len(xs))
+            else:
+                self._sequential(xs[0], self.cfg.seed)
+            self._warm.update((points, dim, b) for b in new)
             built += len(new)
         self.stats["warmed_executables"] += built
         return built
@@ -192,24 +219,28 @@ class PlanEngine:
                     tiny_n=c.tiny_n, sil_cap=c.sil_cap, iters=c.iters,
                     init=c.init, device=self.device)
 
-    def _stamp(self, results: list, key, dispatch_s: float):
+    def _stamp(self, results: list, key, chunk: int, dispatch_s: float):
+        """record_timings: dispatch telemetry on every info dict (flows into
+        plan.extra), so a server can account occupancy and service time."""
         for r in results:
             if isinstance(r, Exception):
                 continue
             r[1]["serve"] = {"points_bucket": key[0], "dim": key[1],
-                             "batch": 1, "dispatch_s": dispatch_s}
+                             "batch": chunk, "dispatch_s": dispatch_s}
 
     def cluster_many(self, embs: list, seeds: Optional[list] = None,
                      errors: str = "raise",
                      on_chunk: Optional[Callable] = None):
         """Cluster many programs' embeddings; returns aligned
-        [(labels, info)].  Requests are visited bucket by bucket, one sweep
-        dispatch per program (``engine="sequential"``: one sequential
-        reference call per program, in request order).
-        ``errors="isolate"``: a request whose sweep fails is retried
-        through the sequential reference; one that fails there too becomes
-        an Exception entry.  ``on_chunk(indices, results)`` fires after
-        every dispatch."""
+        [(labels, info)].  Requests are grouped by (points-bucket, dim) —
+        the sweep's own padding unit — and each group is cut into chunks
+        of ``max_batch x data_devices`` programs, one sweep dispatch each
+        (``engine="sequential"``: one sequential reference call per
+        program, in request order).  ``errors="isolate"``: when a chunk's
+        sweep fails, its programs are retried one by one through the
+        sequential reference, and one that fails there too becomes an
+        Exception entry.  ``on_chunk(indices, results)`` fires after every
+        dispatch."""
         if errors not in ("raise", "isolate"):
             raise ValueError(f"errors must be 'raise'|'isolate': {errors!r}")
         out: list = [None] * len(embs)
@@ -228,24 +259,28 @@ class PlanEngine:
                 self.stats["errors"] += 1
         live = [i for i in range(len(embs)) if norm[i] is not None]
         if self.cfg.engine == "sequential":
-            order = [(bucket_key(norm[i]), i) for i in live]
+            chunks = [(bucket_key(norm[i]), [i]) for i in live]
         else:
             groups: dict[tuple, list[int]] = {}
             for i in live:
                 groups.setdefault(bucket_key(norm[i]), []).append(i)
-            order = []
+            cap = max(1, self.cfg.max_batch) * max(1, self._data_shards)
+            chunks = []
             for key, idxs in sorted(groups.items()):
                 self._bump_bucket(key, len(idxs))
-                order += [(key, i) for i in idxs]
-        for key, i in order:
+                chunks += [(key, idxs[lo:lo + cap])
+                           for lo in range(0, len(idxs), cap)]
+        for key, chunk in chunks:
             t0 = time.perf_counter()
-            res = self._cluster_one(norm[i], seeds[i], errors)
+            res = self._cluster_chunk([norm[i] for i in chunk],
+                                      [seeds[i] for i in chunk], errors)
             if self.cfg.record_timings:
-                self._stamp([res], key, time.perf_counter() - t0)
-            out[i] = res
+                self._stamp(res, key, len(chunk), time.perf_counter() - t0)
+            for i, r in zip(chunk, res):
+                out[i] = r
             self.stats["dispatches"] += 1
             if on_chunk is not None:
-                on_chunk([i], [res])
+                on_chunk(chunk, res)
         self.stats["programs"] += len(embs)
         return out
 
@@ -256,10 +291,10 @@ class PlanEngine:
         return select_k_and_cluster(x, seed=seed, **self._cluster_kwargs())
 
     def _dispatch_chunk(self, xs: list, seeds: list):
-        """One sweep dispatch with the degradation loop: a DeviceLost (from
-        ``fault_hook``) halves the shard width and retries the same
-        programs, so a lost participant costs throughput, not requests; at
-        width 1 it propagates."""
+        """One sweep dispatch of a chunk with the degradation loop: a
+        DeviceLost (from ``fault_hook``) halves the shard width and retries
+        the same chunk, so a lost participant costs throughput, not
+        requests; at width 1 it propagates."""
         while True:
             try:
                 if self.fault_hook is not None:
@@ -272,35 +307,38 @@ class PlanEngine:
                 self._data_shards //= 2
                 self.stats["degraded_dispatches"] += 1
 
-    def _cluster_one(self, x, seed, errors: str):
-        """One program through the configured engine.  Under
-        ``errors="isolate"`` a failed sweep is retried through the
-        sequential reference, and a request that fails there too (or in
-        the sequential engine) comes back as its exception, counted in
-        ``stats["errors"]``."""
+    def _cluster_chunk(self, xs: list, seeds: list, errors: str) -> list:
+        """One chunk through the configured engine.  Under
+        ``errors="isolate"`` a failed sweep is retried program by program
+        through the sequential reference, and a program that fails there
+        too (or in the sequential engine) comes back as its exception,
+        counted in ``stats["errors"]``."""
         try:
             if self.cfg.engine == "sequential":
-                return self._sequential(x, seed)
-            return self._dispatch_chunk([x], [seed])[0]
+                return [self._sequential(x, s) for x, s in zip(xs, seeds)]
+            return self._dispatch_chunk(xs, seeds)
         except Exception as e:
             if errors == "raise":
                 raise
-            err = e
-        if self.cfg.engine == "sweep":
+            if self.cfg.engine == "sequential":     # one program a chunk
+                self.stats["errors"] += 1
+                return [e]
+        res = []
+        for x, s in zip(xs, seeds):
             try:
-                return self._sequential(x, seed)
+                res.append(self._sequential(x, s))
             except Exception as e:
-                err = e
-        self.stats["errors"] += 1
-        return err
+                res.append(e)
+                self.stats["errors"] += 1
+        return res
 
     # -- plans --------------------------------------------------------------
     def plan_many(self, requests: list[PlanRequest],
                   errors: str = "raise") -> list:
         """Serve many programs' SamplingPlans.  Host-side plan building
-        (``plan_from_labels``) overlaps the next program's sweep on a worker
-        thread.  With ``errors="isolate"``
-        failed requests come back as Exception entries."""
+        (``plan_from_labels``) overlaps the next chunk's sweep on a worker
+        thread.  With ``errors="isolate"`` failed requests come back as
+        Exception entries."""
         if not requests:
             return []
         plans: list = [None] * len(requests)

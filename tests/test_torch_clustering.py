@@ -25,8 +25,9 @@ import torch
 
 from repro.core.clustering import sweep_cluster_stack as jax_sweep
 from repro_torch.core.clustering import (
-    _host_preamble, _kmeanspp_init, _pad_bucket, _sweep_core, bucket_points,
-    device_gumbel, device_init_indices, device_kmeanspp, sweep_cluster_stack,
+    _host_preamble, _kmeanspp_init, _pad_bucket, _sweep_core, _tree_sum,
+    bucket_points, device_gumbel, device_init_indices, device_kmeanspp,
+    sweep_cluster_stack,
 )
 from repro_torch.kernels.kmeans_assign.ops import (
     kmeans_assign_fused_plain, silhouette_sums_plain,
@@ -307,7 +308,7 @@ def _sweep_core_per_candidate(x, pmask, init_idx, sil_mask, *, k_max, iters,
     b = torch.min(mean_other, dim=2).values
     s = (b - a) / torch.clamp_min(torch.maximum(a, b), 1e-12)
     s = torch.where(own_cnt > 1, s, torch.zeros_like(s)) * sil_mask[None, :]
-    sil = torch.sum(s, dim=1) / torch.clamp_min(torch.sum(sil_mask), 1.0)
+    sil = _tree_sum(s) / torch.clamp_min(torch.sum(sil_mask), 1.0)
     k_valid = torch.arange(2, k_max + 1) <= k_top
     return labels_all, sil, k_valid & (torch.sum(cnt > 0, dim=1) >= 2)
 
@@ -326,13 +327,15 @@ CORE_CASES = [
 @pytest.mark.parametrize("case", CORE_CASES, ids=[c[0] for c in CORE_CASES])
 def test_sweep_core_equals_per_candidate_loop(case):
     """On the CPU, the sweep with all candidates in one K2 call per Lloyd
-    step gives the bits of the per-candidate loop: labels, silhouettes
-    and ok flags exactly equal."""
+    step (one program on the program axis) gives the bits of the
+    per-candidate loop: labels, silhouettes and ok flags exactly equal."""
     _, build, k_max, sil_cap = case
     x = build()
     inputs = _sweep_inputs(x, 0, k_max, sil_cap)
-    kw = dict(k_max=k_max, iters=50, n_real=len(x))
-    got = _sweep_core(*inputs, **kw)
-    want = _sweep_core_per_candidate(*inputs, **kw)
+    got = [t[0] for t in _sweep_core(*(t[None] for t in inputs),
+                                     k_max=k_max, iters=50,
+                                     n_real=[len(x)])]
+    want = _sweep_core_per_candidate(*inputs, k_max=k_max, iters=50,
+                                     n_real=len(x))
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)

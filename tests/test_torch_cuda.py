@@ -364,6 +364,94 @@ def test_kmeans_assign_batched_dead_slots_and_duplicates():
         assert torch.equal(a, b)
 
 
+def _k2_program_inputs(dev, B, n_pad, d, C, seed=0):
+    """B programs of the sweep's prefix candidates (k = 48): program b has
+    its own points (its own live count, the rest padding with pmask 0)
+    and centroids; the candidate masks are shared, as the sweep shares
+    them."""
+    per = [_k2_batched_inputs(dev, n_pad, d, C, "prefix", seed=seed + b)
+           for b in range(B)]
+    x = torch.stack([a[0] for a in per])
+    cent = torch.stack([a[1] for a in per])
+    pmask = torch.stack([(torch.arange(n_pad, device=dev)
+                          < max(1, n_pad - 3 * b)).float()
+                         for b in range(B)])
+    return x, cent, per[0][2], pmask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("n_pad,d,C", [(64, 256, 47), (256, 12, 5),
+                                       (4096, 256, 47)])
+def test_kmeans_assign_program_axis_matches_plain(B, n_pad, d, C):
+    """K2 over B programs in one call (one launch counted) against the
+    plain version of each program, and each program's slice bit-equal to
+    its own one-program call (B = 1: the one-program call's bits)."""
+    dev = _card()
+    x, cent, cmask, pmask = _k2_program_inputs(dev, B, n_pad, d, C)
+    before = kmeans_assign_fused_batched.launches
+    got = [t.clone() for t in kmeans_assign_fused_batched(x, cent, cmask,
+                                                          pmask)]
+    torch.cuda.synchronize()
+    assert kmeans_assign_fused_batched.launches == before + 1
+    assert got[0].shape == (B, C, n_pad) and got[2].shape == (B, C, 48, d)
+    for b in range(B):
+        _check_k2_batched([g[b] for g in got], x[b], cent[b], cmask,
+                          pmask[b])
+        one = kmeans_assign_fused_batched(x[b], cent[b], cmask, pmask[b])
+        for g, o in zip(got, one):
+            assert torch.equal(g[b], o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("n,d,k,live", [(4096, 256, 48, 1200),
+                                        (64, 256, 48, 40), (301, 12, 5, 29)])
+def test_silhouette_sums_program_axis_matches_plain(B, n, d, k, live):
+    """K3 over B programs in one call against the plain version of each
+    program, and each program's slice bit-equal to its own one-program
+    call (B = 1: the one-program call's bits)."""
+    dev = _card()
+    per = [_sil_inputs(dev, n, d, k, max(0, live - 5 * b), seed=b)
+           for b in range(B)]
+    x = torch.stack([a[0] for a in per])
+    onehot = torch.stack([a[1] for a in per])
+    before = silhouette_sums.launches
+    got = silhouette_sums(x, onehot)
+    torch.cuda.synchronize()
+    assert silhouette_sums.launches == before + 1 and got.shape == (B, n, k)
+    for b in range(B):
+        _close(got[b], silhouette_sums_plain(x[b], onehot[b]))
+        assert torch.equal(got[b], silhouette_sums(x[b], onehot[b]))
+
+
+@pytest.mark.cuda
+def test_sweep_chunk_bit_equal_to_solo_dispatches():
+    """Eight programs of one bucket (n 40-63, d 256, k_max 12) in one sweep
+    dispatch on the card: each program's labels, K and scores are the bits
+    of its own one-program dispatch; and programs of another bucket padded
+    into the chunk's larger one keep theirs too."""
+    from repro_torch.core.clustering import sweep_cluster_stack
+
+    dev = _card()
+    rng = np.random.default_rng(7)
+    xs = []
+    for i in range(8):
+        k = 2 + i % 4
+        centers = rng.standard_normal((k, 256)) * 6
+        n = 40 + 3 * i
+        xs.append((centers[rng.integers(0, k, n)]
+                   + rng.standard_normal((n, 256))).astype(np.float32))
+    kw = dict(k_max=12, iters=20, device=dev)
+    for chunk in (xs, xs[:3] + [xs[0][:25]]):
+        got = sweep_cluster_stack(chunk, seed=list(range(len(chunk))), **kw)
+        for i, (x, (gl, gi)) in enumerate(zip(chunk, got)):
+            (sl, si), = sweep_cluster_stack([x], seed=i, **kw)
+            assert np.array_equal(gl, sl) and gi["k"] == si["k"]
+            assert gi["sil"] == si["sil"]
+            assert gi.get("scores") == si.get("scores")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d,k", [(1000, 200, 48), (33, 12, 3)])
 def test_silhouette_sums_kernel_matches_plain(n, d, k):
@@ -478,6 +566,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):               # workspace of another shape
         kmeans_assign_fused_batched(x, cb.contiguous(), cm, pm,
                                     out=K2Workspace(2, 20, 6, 8, dev))
+    with pytest.raises(ValueError):               # B > 1024 programs
+        kmeans_assign_fused_batched(
+            x[None].expand(1025, 20, 8).contiguous(),
+            cb[None].expand(1025, 1, 6, 8).contiguous(), cm,
+            pm[None].expand(1025, 20).contiguous())
+    with pytest.raises(ValueError):               # pmask without programs
+        kmeans_assign_fused_batched(x[None], cb[None].contiguous(), cm, pm)
 
 
 @pytest.mark.cuda

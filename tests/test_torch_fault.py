@@ -121,7 +121,8 @@ def test_plan_engine_raises_at_one_shard_floor():
 
 
 def test_plan_engine_width_defaults_to_the_devices_present():
-    """data_devices=0: every device present, one for a CPU engine."""
+    """data_devices=0: one, the engine's own device (a dispatch is placed
+    on it alone); an explicit width is kept."""
     assert PlanEngine(device="cpu").engine_stats()["data_shards"] == 1
     assert PlanEngine(data_devices=8, device="cpu").engine_stats()[
         "data_shards"] == 8

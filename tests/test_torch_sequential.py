@@ -279,18 +279,20 @@ def test_errors_isolate_aligns_poison_requests():
 
 def test_isolate_retries_a_failed_sweep_through_the_sequential_path(
         monkeypatch):
-    """A sweep that raises for one of three requests: under
-    ``errors="isolate"`` that request is served by the sequential reference
-    (its plan equals the sequential engine's) and counts no error; one that
-    fails there too keeps its exception and counts one.  Under
-    ``errors="raise"`` the sweep's exception propagates."""
+    """A sweep that raises for a chunk holding one of three requests (one
+    chunk of three, as JAX's engine chunks them): under
+    ``errors="isolate"`` each program of the chunk is served by the
+    sequential reference (its plan equals the sequential engine's) and
+    counts no error; one that fails there too keeps its exception and
+    counts one, and its siblings are served.  Under ``errors="raise"``
+    the sweep's exception propagates."""
     xs = [_blobs(s, 50, 8, 3) for s in range(3)]
     real = tengine.sweep_cluster_stack
     calls = {"sweep": 0, "seq": 0}
 
     def flaky(batch, **kw):
         calls["sweep"] += 1
-        if batch[0].shape[0] == 50 and np.array_equal(batch[0], xs[1]):
+        if any(np.array_equal(x, xs[1]) for x in batch):
             raise RuntimeError("injected sweep failure")
         return real(batch, **kw)
 
@@ -307,17 +309,21 @@ def test_isolate_retries_a_failed_sweep_through_the_sequential_path(
     with pytest.raises(RuntimeError, match="injected"):
         eng.plan_many(reqs)
     plans = eng.plan_many(reqs, errors="isolate")
-    assert calls["seq"] == 1 and eng.stats["errors"] == 0
+    assert calls["seq"] == 3 and eng.stats["errors"] == 0
     ref = PlanEngine(k_max=6, iters=10, engine="sequential",
                      device="cpu").plan_many(reqs)
-    np.testing.assert_array_equal(plans[1].labels, ref[1].labels)
-    assert plans[1].reps == ref[1].reps
-    assert "engine" not in plans[1].extra          # the sequential result
+    for got, want in zip(plans, ref):
+        np.testing.assert_array_equal(got.labels, want.labels)
+        assert got.reps == want.reps
+        assert "engine" not in got.extra           # the sequential result
 
     def broken(x, **kw):
-        raise RuntimeError("sequential failure too")
+        if np.array_equal(x, xs[1]):
+            raise RuntimeError("sequential failure too")
+        return real_seq(x, **kw)
 
     monkeypatch.setattr(tengine, "select_k_and_cluster", broken)
     out = eng.cluster_many(xs, errors="isolate")
     assert isinstance(out[1], RuntimeError) and eng.stats["errors"] == 1
     assert not isinstance(out[0], Exception)
+    assert not isinstance(out[2], Exception)

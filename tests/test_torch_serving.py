@@ -89,24 +89,30 @@ def test_warmup_forms_round_points_up_to_their_bucket(form):
     """JAX's argument forms: (points, dim) pairs, {"points_bucket", "dim"}
     dicts, and (through the service) a spec string; points are rounded
     up to their power-of-two bucket; no buckets loads the kernel library
-    only, which the CPU has none of."""
+    only, which the CPU has none of.  The default batch sizes are JAX's
+    (every power of two up to max_batch = 2): two keys a bucket."""
     buckets = {"pairs": [(40, 8), (100, 8)],
                "dicts": [{"points_bucket": 40, "dim": 8},
                          {"points_bucket": 100, "dim": 8}],
                "spec": "40x8,100x8"}[form]
     with PlanService(max_batch=2, device="cpu", **KW) as svc:
         assert svc.warmup() == 0
-        assert svc.warmup(buckets) == 2
-        assert svc.engine._warm == {(64, 8, 1), (128, 8, 1)}
+        assert svc.warmup(buckets) == 4
+        assert svc.engine._warm == {(64, 8, 1), (64, 8, 2), (128, 8, 1),
+                                    (128, 8, 2)}
         assert svc.warmup(buckets) == 0
 
 
 @pytest.mark.parametrize("engine", ["sweep", "sequential"])
 def test_warmup_with_device_init_draws_once_per_bucket(engine, monkeypatch):
-    """init="device": warming a bucket draws the device seeding once, at
-    the bucket's shape with k_up = min(k_max, points - 1), the key JAX's
-    ``warm_sweep`` pre-builds its device init for; a warm bucket draws
-    nothing more."""
+    """init="device": warming a bucket draws the device seeding once for
+    each program of its warm batch (the sweep: a batch of the largest
+    default batch size, bucket_batch(max_batch) = 8 programs, as JAX's
+    engine dispatches them; the sequential engine: one program), every
+    draw at the bucket's shape with k_up = min(k_max, points - 1), the
+    key JAX's ``warm_sweep`` pre-builds its device init for; a warm
+    bucket draws nothing more.  JAX's default batch sizes give four keys
+    a bucket."""
     from repro_torch.core import clustering
 
     calls = []
@@ -118,10 +124,11 @@ def test_warmup_with_device_init_draws_once_per_bucket(engine, monkeypatch):
 
     monkeypatch.setattr(clustering, "_device_init", counted)
     eng = PlanEngine(device="cpu", init="device", engine=engine, **KW)
-    assert eng.warmup([(40, 8), (100, 8)]) == 2
-    assert calls == [((64, 8), 64, KW["k_max"]),
-                     ((128, 8), 128, KW["k_max"])]
-    assert eng.warmup([(64, 8)]) == 0 and len(calls) == 2
+    assert eng.warmup([(40, 8), (100, 8)]) == 8
+    per = 8 if engine == "sweep" else 1
+    assert calls == ([((64, 8), 64, KW["k_max"])] * per
+                     + [((128, 8), 128, KW["k_max"])] * per)
+    assert eng.warmup([(64, 8)]) == 0 and len(calls) == 2 * per
 
 
 def test_engine_cluster_and_reset_stats():
