@@ -126,6 +126,27 @@ Phases, each reported on its own lines:
             same fit under torch.profiler for the busy share, the split of
             its device time (K1, K1b, K5 with their us a launch) and top
             ops;
+8a. data_parallel the data-parallel fit and the placed sweep on the card,
+            at the default encoder's width (``RGCNConfig()``, the default
+            optimizer; 32 steps, fault boundaries and checkpoints every 8)
+            on the phi-2 training graphs, which reach the spawned ranks
+            through a file (the library, built in phase 1, is loaded, not
+            built, by each rank): two ranks of a gloo group, both on
+            ``cuda:0``, fit within RESUME_TOL (parameters) / LOSS_TOL
+            (losses) of the one-rank fit on the card, every rank with the
+            same bits; a refit and an interrupted-then-resumed fit at width
+            2 bit-equal to it; ``fit_resilient`` going 2 -> 1 on an injected
+            DeviceLost and finishing every step with ``data_shards`` 1;
+            ``compressed_psum_mean`` within JAX's grid (amax / 127) of
+            ``psum_mean`` over the two ranks, on tensors of the encoder's
+            shapes; a one-rank NCCL group's fit bit-equal to the fit with
+            no group; K1 / K1b / K5 launches a step of each rank equal to
+            the one-rank fit's; step ms and collective bytes a step at
+            widths 1 and 2 beside the card's name and power limit (two
+            ranks sharing one card check correctness, not scaling); then
+            ``PlanEngine(data_devices=2, devices=[cuda:0, cuda:0])``:
+            labels, K and scores bit-equal to the unplaced dispatch, JAX's
+            dispatch count, K2 and K3 launched;
 9. fit+serve a fresh ``gcl`` method with no encoder behind a PlanService:
             submit_program(phi-2) fits its own encoder (prepare), then cfd,
             phi-2 and nw are served with it; K, eq. 5 and eq. 6 are printed
@@ -2730,6 +2751,337 @@ def phase_fit(dev):
     return launches
 
 
+#: the data-parallel phase's fit: the default encoder and optimizer, 32
+#: steps of 16 graphs, fault boundaries and checkpoints every 8 steps
+DP_FIT = dict(steps=32, scan_chunk=8, checkpoint_every=8, log_every=8)
+#: the steps over which a width-2 fit is held to the one-rank fit (JAX's
+#: ``test_scaleout.py`` horizon: the first 8 steps of DP_FIT's fit, whose
+#: selections, draws and boundaries they are).  Further on, the partial
+#: gradients' other summation order (8e-9 of the parameters after one
+#: step) is magnified as the card's noise is against the CPU (see
+#: GRAD_TOL): 1.9e-4 of the parameters after 32 steps; printed, not held
+DP_HELD_STEPS = 8
+#: the fit's kernels, counted a step in each rank
+DP_KERNELS = ("rgcn_fused_flat", "rgcn_fused_bwd", "rgcn_spmm_flat")
+#: seconds a spawn of ranks may take before the phase kills it and fails
+DP_DEADLINE = 300
+
+
+def _dp_fit(dev, group, graphs, steps=None, **kw):
+    """The phase's fit on ``dev`` over ``group`` (None: no group), cut to
+    ``steps``: (encoder, info, the fit's kernels' launches a step)."""
+    import torch
+
+    from repro_torch.core.rgcn import RGCNConfig
+    from repro_torch.core.train import ContrastiveTrainer, GCLTrainConfig
+
+    wrappers = {k: w for k, w in _all_wrappers().items() if k in DP_KERNELS}
+    for w in wrappers.values():
+        w.launches = 0
+    tc = GCLTrainConfig(**dict(DP_FIT, steps=steps or DP_FIT["steps"]))
+    enc, info = ContrastiveTrainer(RGCNConfig(), tc, device=dev,
+                                   group=group).fit(graphs, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    steps = max(len(info["history"]) - info["resumed_from"], 1)
+    return enc, info, {k: w.launches / steps for k, w in wrappers.items()}
+
+
+def _np_params(enc) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in enc.state_dict().items()}
+
+
+def _dp_rank(rank, world, tmp, backend, device):
+    """One rank of phase ``data_parallel`` (a spawned process on
+    ``device``); its results go to ``rank<r>-<backend>.pkl`` in ``tmp``."""
+    import os
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.rgcn import RGCNConfig
+    from repro_torch.core.train import (
+        FitInterrupted, GCLTrainConfig, fit_resilient,
+    )
+    from repro_torch.distributed import DeviceLost
+    from repro_torch.distributed.group import init_group
+    from repro_torch.optim.grad_compress import (
+        compressed_psum_mean, psum_mean,
+    )
+    from repro_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    group = init_group(backend, rank, world,
+                       os.path.join(tmp, f"store-{backend}"))
+    with open(os.path.join(tmp, "graphs.pkl"), "rb") as f:
+        graphs = pickle.load(f)
+    held, h_info, _ = _dp_fit(dev, group, graphs, steps=DP_HELD_STEPS)
+    out = {"held": dict(params=_np_params(held), val_loss=h_info["val_loss"],
+                        losses=[h["loss"] for h in h_info["history"]])}
+    enc, info, launches = _dp_fit(dev, group, graphs)
+    out["fit"] = dict(
+        params=_np_params(enc), losses=[h["loss"] for h in info["history"]],
+        val_loss=info["val_loss"], data_shards=info["data_shards"],
+        step_ms=1e3 * info["fit_s"] / len(info["history"]),
+        collective_bytes=info["collective_bytes"], launches=launches)
+    if backend == "nccl":
+        plain, p_info, _ = _dp_fit(dev, None, graphs)
+        out["no_group"] = _np_params(plain)
+        out["no_group_step_ms"] = 1e3 * p_info["fit_s"] / DP_FIT["steps"]
+    else:
+        again, a_info, _ = _dp_fit(dev, group, graphs)
+        out["refit"] = _np_params(again)
+        out["refit_step_ms"] = 1e3 * a_info["fit_s"] / DP_FIT["steps"]
+        ck = os.path.join(tmp, "ck")
+        try:
+            _dp_fit(dev, group, graphs, checkpoint_dir=ck, interrupt_after=8)
+            out["interrupted"] = False
+        except FitInterrupted:
+            out["interrupted"] = True
+        res, i_res, _ = _dp_fit(dev, group, graphs, checkpoint_dir=ck)
+        out["resume"] = dict(params=_np_params(res),
+                             resumed_from=i_res["resumed_from"],
+                             losses=[h["loss"] for h in i_res["history"]])
+        # the collectives on tensors of the encoder's shapes: rank r holds
+        # row r of each seeded (world, ...) array
+        rng = np.random.default_rng(0)
+        rows = {k: rng.standard_normal((world,) + v.shape).astype(np.float32)
+                for k, v in out["fit"]["params"].items()}
+        grads = {k: torch.from_numpy(v[rank].copy()).to(dev)
+                 for k, v in rows.items()}
+        exact = psum_mean(grads, group)
+        approx, err = compressed_psum_mean(
+            grads, {k: torch.zeros_like(v) for k, v in grads.items()}, group)
+        out["psum"] = {k: (float((approx[k] - exact[k]).abs().max()),
+                           float(np.abs(rows[k]).max() / 127.0),
+                           float(err[k].abs().max()),
+                           bool(torch.isfinite(err[k]).all()))
+                       for k in grads}
+        calls = []
+
+        def lose_once(done):
+            calls.append(done)
+            if len(calls) == 1 and rank == world - 1:
+                raise DeviceLost("injected participant loss")
+
+        r_enc, r_info = fit_resilient(
+            RGCNConfig(), GCLTrainConfig(**DP_FIT), graphs,
+            checkpoint_dir=os.path.join(tmp, "ck_res"), fault_hook=lose_once,
+            device=dev, group=group)
+        out["resilient"] = dict(
+            params=None if r_enc is None else _np_params(r_enc),
+            degradations=r_info["degradations"],
+            data_shards=r_info["data_shards"],
+            steps=len(r_info.get("history", ())),
+            resumed_from=r_info.get("resumed_from"))
+    with open(os.path.join(tmp, f"rank{rank}-{backend}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _dp_spawn(world, tmp, backend, dev):
+    """Run ``world`` ranks of ``_dp_rank`` to their end (a rank's exception
+    fails the phase; the spawn is killed after DP_DEADLINE s); returns
+    their results in rank order."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_dp_rank, args=(world, tmp, backend, str(dev)),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DP_DEADLINE
+    try:
+        while not ctx.join(timeout=1):
+            require(time.monotonic() < deadline,
+                    f"data_parallel: {backend} ranks still running after "
+                    f"{DP_DEADLINE} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    out = []
+    for r in range(world):
+        with open(Path(tmp) / f"rank{r}-{backend}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _same_params(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+
+
+def _np_gap(got: dict, want: dict) -> float:
+    import torch
+
+    return _norm_gap({k: torch.from_numpy(v) for k, v in got.items()},
+                     {k: torch.from_numpy(v) for k, v in want.items()})
+
+
+def phase_data_parallel(dev, smi_line):
+    """Phase 8a (see the module docstring)."""
+    import pickle
+
+    import numpy as np
+
+    graphs = _phi2_training_graphs()
+    steps = DP_FIT["steps"]
+    held1, h_info1, _ = _dp_fit(dev, None, graphs, steps=DP_HELD_STEPS)
+    enc1, info1, launch1 = _dp_fit(dev, None, graphs)
+    one = _np_params(enc1)
+    loss1 = [h["loss"] for h in info1["history"]]
+    step1 = 1e3 * info1["fit_s"] / steps
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        with open(Path(tmp) / "graphs.pkl", "wb") as f:
+            pickle.dump(list(graphs), f)
+        t0 = time.perf_counter()
+        gloo = _dp_spawn(2, tmp, "gloo", dev)
+        gloo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (nccl,) = _dp_spawn(1, tmp, "nccl", dev)
+        nccl_s = time.perf_counter() - t0
+    held2, fit2 = gloo[0]["held"], gloo[0]["fit"]
+    loss_h1 = [h["loss"] for h in h_info1["history"]]
+    gap = _np_gap(held2["params"], _np_params(held1))
+    loss_gap = max(abs(a - b) / abs(b)
+                   for a, b in zip(held2["losses"], loss_h1))
+    val_gap = abs(held2["val_loss"] - h_info1["val_loss"]) / abs(
+        h_info1["val_loss"])
+    log(f"[data_parallel] width 2 (gloo, both ranks on {dev}) vs width 1, "
+        f"{DP_HELD_STEPS} steps of {len(graphs)} phi-2 graphs: |params - "
+        f"one rank| / |one rank| {gap:.3e} (tol {RESUME_TOL}), max rel loss "
+        f"gap {loss_gap:.3e} and val_loss {val_gap:.3e} (tol {LOSS_TOL}), "
+        f"step-0 loss bits equal {held2['losses'][0] == loss_h1[0]}")
+    require(fit2["data_shards"] == 2, "data_parallel: data_shards is not 2")
+    require(gap <= RESUME_TOL, f"data_parallel: parameter gap {gap:.3e}")
+    require(max(loss_gap, val_gap) <= LOSS_TOL,
+            f"data_parallel: loss gap {max(loss_gap, val_gap):.3e}")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(fit2["losses"], loss1)]
+    log(f"[data_parallel] the same at {steps} steps (printed, not held; "
+        f"see DP_HELD_STEPS): parameters {_np_gap(fit2['params'], one):.3e}, "
+        f"loss gaps a step {' '.join(f'{g:.1e}' for g in gaps)}, val_loss "
+        f"{fit2['val_loss']!r} vs {info1['val_loss']!r}; the ranks' bits "
+        f"equal {_same_params(gloo[1]['fit']['params'], fit2['params'])}")
+    for o in gloo[1:]:
+        require(_same_params(o["fit"]["params"], fit2["params"])
+                and _same_params(o["held"]["params"], held2["params"]),
+                "data_parallel: the two ranks' encoders differ")
+    for r, o in enumerate(gloo):
+        require(_same_params(o["refit"], o["fit"]["params"]),
+                f"data_parallel: rank {r}'s refit at width 2 differs")
+        res = o["resume"]
+        require(o["interrupted"] and res["resumed_from"] == 8
+                and res["losses"] == o["fit"]["losses"]
+                and _same_params(res["params"], o["fit"]["params"]),
+                f"data_parallel: rank {r}'s resume at width 2 differs")
+    log("[data_parallel] width 2: refit bit-equal, interrupted at 8 and "
+        "resumed bit-equal, on both ranks")
+    worst = max(d / g for o in gloo for d, g, _, _ in o["psum"].values())
+    for o in gloo:
+        for k, (d, g, e, fin) in o["psum"].items():
+            require(d <= g + 1e-6 and e <= g + 1e-6 and fin,
+                    f"data_parallel: compressed_psum_mean {k} off by {d} "
+                    f"(grid {g})")
+    log(f"[data_parallel] compressed_psum_mean vs psum_mean over 2 ranks on "
+        f"the card, {len(gloo[0]['psum'])} leaves of the encoder's shapes: "
+        f"largest |diff| / grid (amax / 127) {worst:.4f} (tol 1)")
+    fin = gloo[0]["resilient"]
+    log(f"[data_parallel] fit_resilient 2 -> 1: degradations "
+        f"{fin['degradations']} data_shards {fin['data_shards']} resumed "
+        f"from {fin['resumed_from']} steps {fin['steps']}; rank 1 returned "
+        f"{gloo[1]['resilient']['params'] is None and 'no encoder'} "
+        f"(data_shards {gloo[1]['resilient']['data_shards']})")
+    require(fin["data_shards"] == 1 and fin["steps"] == steps
+            and fin["degradations"] == [{
+                "from_devices": 2, "to_devices": 1,
+                "error": "injected participant loss"}]
+            and gloo[1]["resilient"]["params"] is None,
+            "data_parallel: fit_resilient did not go 2 -> 1 and finish")
+    require(all(np.isfinite(v).all() for v in fin["params"].values()),
+            "data_parallel: fit_resilient's encoder is not finite")
+    require(_same_params(nccl["no_group"], nccl["fit"]["params"]),
+            "data_parallel: the one-rank NCCL fit differs from the fit "
+            "with no group")
+    log(f"[data_parallel] one-rank NCCL group: bit-equal to the fit with no "
+        f"group (spawn {nccl_s:.1f} s; gloo spawn {gloo_s:.1f} s)")
+    require(all(v > 0 for v in launch1.values()),
+            f"data_parallel: a fit kernel was never launched: {launch1}")
+    for r, o in enumerate(gloo + [nccl]):
+        require(o["fit"]["launches"] == launch1,
+                f"data_parallel: rank {r}'s launches a step "
+                f"{o['fit']['launches']} differ from one rank's {launch1}")
+    log(f"[data_parallel] K1 / K1b / K5 launches a step: one rank "
+        f"{launch1}, each width-2 rank {gloo[0]['fit']['launches']}")
+    log(f"[data_parallel] step ms (step loop / {steps} steps; the ranks' "
+        f"first 32-step fit follows their 8-step one) and collective bytes a "
+        f"step on {smi_line}: width 1 no group {step1:.3f} ms 0 B (this "
+        f"process), {nccl['no_group_step_ms']:.3f} ms (the NCCL rank's "
+        f"process, after its group fit); width 1 nccl "
+        f"{nccl['fit']['step_ms']:.3f} ms "
+        f"{nccl['fit']['collective_bytes']:.0f} B; width 2 gloo ranks "
+        f"{gloo[0]['fit']['step_ms']:.3f} / {gloo[1]['fit']['step_ms']:.3f} "
+        f"ms, refit {gloo[0]['refit_step_ms']:.3f} / "
+        f"{gloo[1]['refit_step_ms']:.3f} ms, "
+        f"{fit2['collective_bytes']:.0f} B")
+    _dp_placed_sweep(dev)
+
+
+def _dp_placed_sweep(dev):
+    """The sweep dispatch placed over [dev, dev] against the unplaced one
+    (labels, K, scores bit-equal), with JAX's dispatch count."""
+    import numpy as np
+
+    from repro_torch.sampling.engine import PlanEngine, bucket_key
+
+    rng = np.random.default_rng(7)
+    embs = [rng.standard_normal((60 + 23 * i, 256)).astype(np.float32)
+            for i in range(24)]
+    wrappers = {k: w for k, w in _all_wrappers().items()
+                if k in ("kmeans_assign_fused", "silhouette_sums")}
+    kw = dict(data_devices=2, device=dev)
+    results, walls = {}, {"placed": [], "unplaced": []}
+    # unplaced, placed, placed, unplaced: the first dispatches of a run
+    # pay for the allocator's growth
+    for name in ("unplaced", "placed", "placed", "unplaced"):
+        eng = PlanEngine(devices=[dev, dev] if name == "placed" else [dev],
+                         **kw)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        results[name] = eng.cluster_many(embs)
+        walls[name].append(time.perf_counter() - t0)
+        if name == "placed":
+            placed = (eng.stats["dispatches"],
+                      {k: w.launches for k, w in wrappers.items()},
+                      eng.engine_stats()["data_shards"])
+    cap = eng.cfg.max_batch * 2
+    groups: dict = {}
+    for x in embs:
+        groups[bucket_key(x)] = groups.get(bucket_key(x), 0) + 1
+    want = sum(-(-n // cap) for n in groups.values())
+    same = all(np.array_equal(a[0], b[0]) and a[1]["k"] == b[1]["k"]
+               and a[1].get("scores") == b[1].get("scores")
+               for a, b in zip(results["placed"], results["unplaced"]))
+    log(f"[data_parallel] placed sweep: {len(embs)} programs (d 256, k_max "
+        f"48) over [{dev}, {dev}], data_shards {placed[2]}: dispatches "
+        f"{placed[0]} (JAX's rule {want}), K2 / K3 launches {placed[1]}, "
+        f"bit-equal to the unplaced dispatch {same}; wall s unplaced, "
+        f"placed, placed, unplaced {walls['unplaced'][0]:.3f} "
+        f"{walls['placed'][0]:.3f} {walls['placed'][1]:.3f} "
+        f"{walls['unplaced'][1]:.3f}")
+    require(same, "data_parallel: the placed sweep differs from the "
+            "unplaced dispatch")
+    require(placed[0] == want, f"data_parallel: {placed[0]} dispatches, "
+            f"JAX's rule gives {want}")
+    require(all(v > 0 for v in placed[1].values()),
+            "data_parallel: K2 or K3 was not launched by the placed sweep")
+
+
 def phase_fit_serve(rows, dev):
     """The slice's main path: a ``gcl`` method with no encoder behind a
     PlanService; submit_program(phi-2) fits (prepare) and serves, then cfd
@@ -4529,7 +4881,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         proc = _start_dryrun(tmp)
         try:
-            table = _phases(dev, t_all, (proc, time.perf_counter(), tmp))
+            table = _phases(dev, t_all, (proc, time.perf_counter(), tmp),
+                            smi_line)
         finally:
             if proc.poll() is None:
                 proc.kill()
@@ -4542,7 +4895,7 @@ def main() -> int:
     return 0
 
 
-def _phases(dev, t_all, dry):
+def _phases(dev, t_all, dry, smi_line):
     """Every phase after ``device``, in order; the kernel table."""
     t0 = time.perf_counter()
     phase_build()
@@ -4576,6 +4929,9 @@ def _phases(dev, t_all, dry):
         t0 = time.perf_counter()
         phase(dev)
         log(f"[phase] {name} {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_data_parallel(dev, smi_line)
+    log(f"[phase] data_parallel {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_fit_serve([r for r in rows if r[0] not in (
         "kmeans_assign", "rgcn_spmm_dense", "flash_attention",

@@ -28,10 +28,15 @@ implementations share that rule:
   the chunk's largest power-of-two bucket and the program axis to a
   power of two (``bucket_batch``) with masks exactly as in JAX, so padding
   never moves a result: a program's labels, K and scores have the same
-  bits alone and in any chunk.
+  bits alone and in any chunk.  A dispatch may be placed across devices
+  (``data_shards``, JAX's ``_shard_args`` over a 1-D data mesh): its
+  stacked program axis is split into equal slices, each swept on its own
+  device, and the results are read back in program order.
 """
 
 from __future__ import annotations
+
+from contextlib import nullcontext as _nullctx
 
 import numpy as np
 import torch
@@ -39,6 +44,7 @@ import torch
 from repro_torch.kernels.kmeans_assign.ops import (
     K2Workspace, kmeans_assign, kmeans_assign_fused_batched, silhouette_sums,
 )
+from repro_torch.launch.mesh import make_data_mesh, visible_devices
 from repro_torch.utils.device import resolve_device
 
 #: points-axis power-of-two bucket floor for the swept engine
@@ -413,6 +419,39 @@ def _sweep_core(x, pmask, init_idx, sil_mask, *, k_max: int, iters: int,
     return labels_all, sil.T, ok.T
 
 
+def effective_shards(batch: int, data_shards: int, devices: int) -> int:
+    """Program-axis slices of a dispatch (JAX's ``_effective_shards``):
+    the largest power of two at most ``min(batch, data_shards, devices)``,
+    which divides the power-of-two batch."""
+    if data_shards <= 1 or batch <= 1:
+        return 1
+    s = 1
+    while (s << 1) <= min(batch, data_shards, devices):
+        s <<= 1
+    return s
+
+
+def _sweep_slice(dev, rows, xb, pmask, silm, init_idx, n_real, todo,
+                 seeds, *, k_max, iters, init):
+    """The sweep of the programs ``rows`` of a stacked dispatch, on
+    ``dev``; the results stay on it."""
+    xt, pt, st, it = (torch.from_numpy(a[rows]).to(dev)
+                      for a in (xb, pmask, silm, init_idx))
+    n_real = n_real[rows]
+    if init == "device":
+        # each program's draws at its own bucket: the leading rows of its
+        # padded row are exactly its ``_pad_bucket`` matrix and mask
+        for row in range(len(n_real)):
+            n = n_real[row]
+            if n:
+                i = todo[rows.start + row]
+                own, k_up = bucket_points(n), min(k_max, n - 1)
+                it[row, :k_up] = _device_init(xt[row, :own], pt[row, :own],
+                                              seeds[i], k_up)
+    return _sweep_core(xt, pt, it, st, k_max=k_max, iters=iters,
+                       n_real=n_real)
+
+
 def _finish_one(labels_all, sil, ok, n, ks, sil_floor, tie_tol):
     """Host-side selection over the swept scores (shared ``_choose_k``)."""
     scores = {int(ks[i]): float(sil[i]) for i in range(len(ks)) if ok[i]}
@@ -441,6 +480,8 @@ def sweep_cluster_stack(
     iters: int = 50,
     init: str = "host",
     device=None,
+    data_shards: int = 1,
+    devices=None,
 ):
     """Plan many programs in one sweep dispatch on ``device`` (the card
     unless ``"cpu"`` is asked for), as JAX's default engine does: the
@@ -452,7 +493,15 @@ def sweep_cluster_stack(
     programs take the host fallback.  Returns a list of (labels, info)
     aligned with ``xs``; ``seed`` is an int or a per-program sequence.
     Seeds (``init``) are drawn at each program's own points bucket, so a
-    program's result never depends on the programs beside it."""
+    program's result never depends on the programs beside it.
+
+    ``data_shards > 1`` places the dispatch across devices, as JAX's
+    ``_shard_args`` commits the program axis to a 1-D mesh: the stacked
+    program axis is cut into ``effective_shards`` equal slices, slice s
+    swept on device s of ``devices`` (a device may repeat; default:
+    ``launch/mesh.make_data_mesh``'s first cards, the CPU alone on the
+    CPU), all slices launched before any result is read.  The labels, K
+    and scores are those of the unplaced dispatch."""
     _check_init(init)
     dev = resolve_device(device)
     xs = [np.asarray(x, np.float32) for x in xs]
@@ -495,21 +544,34 @@ def sweep_cluster_stack(
         if init == "host":
             k_up = min(k_max, n - 1)
             init_idx[row, :k_up] = _kmeanspp_init(x, k_up, seeds[i])
-    xt, pt, st, it = (torch.from_numpy(a).to(dev)
-                      for a in (xb, pmask, silm, init_idx))
-    if init == "device":
-        # each program's draws at its own bucket: the leading rows of its
-        # padded row are exactly its ``_pad_bucket`` matrix and mask
-        for row, i in enumerate(todo):
-            n = n_real[row]
-            own, k_up = bucket_points(n), min(k_max, n - 1)
-            it[row, :k_up] = _device_init(xt[row, :own], pt[row, :own],
-                                          seeds[i], k_up)
-    labels_all, sil, ok = _sweep_core(xt, pt, it, st, k_max=k_max,
-                                      iters=iters, n_real=n_real)
-    labels_all = labels_all.cpu().numpy()
-    sil = sil.cpu().numpy()
-    ok = ok.cpu().numpy()
+    shards = effective_shards(B, data_shards, len(
+        visible_devices(dev.type) if devices is None else devices))
+    if shards == 1:
+        place = [dev]
+    elif devices is None:
+        place = list(make_data_mesh(shards, device_type=dev.type).devices)
+    else:
+        place = [resolve_device(d) for d in devices[:shards]]
+    per = B // shards
+    parts = []
+    for s, d in enumerate(place):
+        rows = slice(s * per, (s + 1) * per)
+        if not any(n_real[rows]):           # padding rows only: inert
+            parts.append(None)
+            continue
+        with torch.cuda.device(d) if d.type == "cuda" else _nullctx():
+            parts.append(_sweep_slice(d, rows, xb, pmask, silm, init_idx,
+                                      n_real, todo, seeds, k_max=k_max,
+                                      iters=iters, init=init))
+    num_k = k_max - 1
+    labels_all = np.zeros((B, num_k, n_pad), np.int32)
+    sil = np.zeros((B, num_k), np.float32)
+    ok = np.zeros((B, num_k), bool)
+    for s, part in enumerate(parts):
+        if part is not None:
+            rows = slice(s * per, (s + 1) * per)
+            labels_all[rows], sil[rows], ok[rows] = (t.cpu().numpy()
+                                                     for t in part)
     ks = list(range(2, k_max + 1))
     for row, i in enumerate(todo):
         out[i] = _finish_one(labels_all[row], sil[row], ok[row], n_real[row],

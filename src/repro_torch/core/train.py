@@ -22,6 +22,21 @@ The fault protocol follows JAX's scan engine: its chunk boundaries (every
 :class:`~repro_torch.distributed.fault.DeviceLost`, after checkpointing,
 and ``fit_resilient`` resumes from that checkpoint at the next width.
 
+Data parallelism (JAX: ``mesh_rules``, the fit's arrays on a data mesh) runs
+one process a rank over a :class:`~repro_torch.distributed.group.Group`
+(``ContrastiveTrainer(group=)``): each rank uploads only its range of whole
+graphs of a step's packed batch (``distributed/sharding.shard_batch``),
+slices the step's draws, made at the whole batch's shape from the same
+``(seed, step)`` generator, encodes and projects its graphs, gathers both
+views' projections from every rank and computes the one InfoNCE of the
+whole batch; its partial gradients are summed in rank order before the
+clip, the compression and AdamW, so every rank applies the same update
+and the fit does not depend on the width beyond the order of its sums.
+Rank 0 writes the checkpoints (width-independent) and every rank restores
+them; at a chunk boundary the ranks agree on a DeviceLost, so all raise at
+the same boundary or none does.  Without a group the fit is the one-card
+fit.
+
 Inference (``embed`` / ``embed_stream``) turns kernel graphs into the
 256-d kernel embeddings z_k (paper §3.4): graphs are packed into size
 buckets, uploaded to the trainer's device and encoded by
@@ -65,6 +80,9 @@ from repro_torch.core.contrastive import info_nce
 from repro_torch.core.graphs import KernelGraph, pad_batch
 from repro_torch.core.rgcn import EncodeDraws, RGCNConfig, RGCNEncoder
 from repro_torch.distributed.fault import DeviceLost, Watchdog
+from repro_torch.distributed.sharding import (
+    ShardRange, shard_batch, shard_ranges,
+)
 from repro_torch.kernels import check_endpoints
 from repro_torch.launch.mesh import widths
 from repro_torch.config import TrainConfig
@@ -177,17 +195,45 @@ def draw_step(gen: torch.Generator, batch: dict, rc: RGCNConfig, *,
             draw_view(gen, batch, rc, train=train))
 
 
+def _take(t, span: tuple, n: int):
+    """Rows [lo, hi) of ``t`` in a tensor of ``n`` rows, the rest zero (the
+    padding rows of a rank's batch); ``t`` itself when that is all of it."""
+    if t is None:
+        return None
+    lo, hi = span
+    if (lo, hi, n) == (0, t.shape[0], t.shape[0]):
+        return t
+    out = t.new_zeros((n,) + tuple(t.shape[1:]))
+    out[:hi - lo] = t[lo:hi]
+    return out
+
+
+def shard_draws(vd: ViewDraws, r: ShardRange) -> ViewDraws:
+    """A rank's rows of one view's draws, made at the whole batch's shape:
+    its graphs', nodes' and edges' rows, laid out as its own batch."""
+    node = lambda t: _take(t, r.nodes, r.P)               # noqa: E731
+    graph = lambda t: _take(t, r.graphs, r.n_graphs)      # noqa: E731
+    enc = None if vd.enc is None else EncodeDraws(
+        noise=node(vd.enc.noise), noise_gate=vd.enc.noise_gate,
+        dropout=tuple(node(k) for k in vd.enc.dropout))
+    return ViewDraws(graph(vd.combo), node(vd.node_keep),
+                     _take(vd.edge_keep, r.edges, r.Q), enc,
+                     graph(vd.proj_keep))
+
+
 # ---------------------------------------------------------------------------
 # Loss and step
 # ---------------------------------------------------------------------------
 
 def packed_loss(enc: RGCNEncoder, rc: RGCNConfig, tau: float, batch: dict,
-                draws: tuple, *, train: bool = True):
+                draws: tuple, *, train: bool = True, gather=None):
     """Packed-batch InfoNCE over two augmented views (JAX ``packed_loss``).
 
     ``train=True``: the views' strategy draws, feature noise on the graphs
     whose strategy holds it, dropout on.  ``train=False`` (validation): the
-    views' augmentations only — no feature noise, no dropout."""
+    views' augmentations only — no feature noise, no dropout.
+    ``gather`` maps each view's projected rows to the whole batch's (a
+    rank's share, see :func:`sharded_loss`)."""
     zs = []
     for vd in draws:
         view, use_noise = augment_view_packed(batch, vd.combo, vd.node_keep,
@@ -201,7 +247,28 @@ def packed_loss(enc: RGCNEncoder, rc: RGCNConfig, tau: float, batch: dict,
         else:
             z = rgcn_mod.encode_packed(enc, rc, view, edges_checked=True)
             zs.append(rgcn_mod.project(enc, rc, z))
+        if gather is not None:
+            zs[-1] = gather(zs[-1])
     return info_nce(zs[0], zs[1], tau)
+
+
+def sharded_loss(enc: RGCNEncoder, rc: RGCNConfig, tau: float,
+                 batch: Optional[dict], draws: tuple, shard: tuple, *,
+                 train: bool = True):
+    """The whole batch's InfoNCE from one rank's share: ``shard`` is
+    (group, the rank's first graph, the batch's graphs), ``batch`` and
+    ``draws`` the rank's (``None`` for a rank that holds no graph, which
+    still joins both gathers).  Every rank gets the same loss."""
+    group, lo, total = shard
+
+    def gather(p):
+        return group.gather_rows(p, lo, total)
+
+    if batch is not None:
+        return packed_loss(enc, rc, tau, batch, draws, train=train,
+                           gather=gather)
+    empty = torch.zeros(0, rc.proj_out, device=enc.embed_instr.device)
+    return info_nce(gather(empty), gather(empty), tau)
 
 
 def dense_loss(enc: RGCNEncoder, rc: RGCNConfig, tau: float, batch: dict,
@@ -227,18 +294,31 @@ def dense_loss(enc: RGCNEncoder, rc: RGCNConfig, tau: float, batch: dict,
 
 def train_step(enc: RGCNEncoder, rc: RGCNConfig, tau: float,
                opt: TrainConfig, batch: dict, draws: tuple,
-               state: TrainState):
+               state: TrainState, shard: Optional[tuple] = None):
     """One optimizer step, in place on ``enc`` (``state.params`` is
     ``dict(enc.named_parameters())``) and the state's moments: the scaled
     loss is differentiated, ``apply_gradients`` compresses (with
     ``opt.grad_compress``) and unscales.  ``batch``'s edges must have been
     validated (``check_endpoints``).  Returns (the new state, the step's
     metrics as one (len(METRIC_KEYS),) float32 tensor on the device: no
-    host sync)."""
+    host sync).  With ``shard`` (see :func:`sharded_loss`), ``batch`` and
+    ``draws`` are a rank's share and the ranks' partial gradients are
+    summed in rank order first."""
     params = state.params
-    loss, m = packed_loss(enc, rc, tau, batch, draws, train=True)
-    grads = torch.autograd.grad(loss * rc.policy.loss_scale,
-                                list(params.values()))
+    if shard is None:
+        loss, m = packed_loss(enc, rc, tau, batch, draws, train=True)
+        grads = torch.autograd.grad(loss * rc.policy.loss_scale,
+                                    list(params.values()))
+    else:
+        loss, m = sharded_loss(enc, rc, tau, batch, draws, shard)
+        leaves = list(params.values())
+        parts = (torch.autograd.grad(loss * rc.policy.loss_scale, leaves)
+                 if loss.requires_grad else
+                 [torch.zeros_like(p) for p in leaves])
+        total = shard[0].sum_in_rank_order(
+            torch.cat([g.reshape(-1) for g in parts]))
+        grads = [g.view_as(p) for g, p in zip(
+            torch.split(total, [p.numel() for p in leaves]), leaves)]
     state, om = apply_gradients(state, dict(zip(params, grads)), opt)
     with torch.no_grad():      # metrics must not keep the step's graph
         lr = torch.full((), om["lr"], dtype=torch.float32,
@@ -259,11 +339,17 @@ def _params_fingerprint(params: RGCNEncoder) -> str:
 
 
 class ContrastiveTrainer:
+    """``group``: fit data-parallel over the ranks of a
+    :class:`~repro_torch.distributed.group.Group`, this process being one
+    rank on ``device`` (see the module docstring); inference is unchanged."""
+
     def __init__(self, rc: RGCNConfig,
-                 tc: Optional[GCLTrainConfig] = None, *, device=None):
+                 tc: Optional[GCLTrainConfig] = None, *, device=None,
+                 group=None):
         self.rc = rc
         self.tc = tc or GCLTrainConfig()
         self.device = resolve_device(device)
+        self.group = group
         self._embed_cache: dict[str, np.ndarray] = {}
         self._embed_cache_fp: Optional[str] = None
         self._encoder: Optional[RGCNEncoder] = None
@@ -350,7 +436,8 @@ class ContrastiveTrainer:
         if len(val_idx):
             packed, vmeta = pack_graphs([graphs[i] for i in val_idx], **caps)
             trunc_nodes += int(vmeta.trunc_nodes.sum())
-            loss, m = self.eval_loss(enc, self._upload(packed))
+            loss, m = self.eval_loss(enc, packed if self.group else
+                                     self._upload(packed))
             info["val_loss"], info["val_acc"] = loss, m["nce_acc"]
             info["host_syncs"] += 1
         if trunc_nodes:
@@ -364,20 +451,51 @@ class ContrastiveTrainer:
     def eval_loss(self, enc: RGCNEncoder, batch: dict):
         """Validation InfoNCE in eval mode: augmentations drawn from the
         seed-derived generator, no dropout, no feature noise.  Returns
-        (loss, metrics) as floats (one host sync)."""
+        (loss, metrics) as floats (one host sync).  With a group, ``batch``
+        is the whole packed batch on the host, and each rank encodes its
+        share."""
         gen = torch.Generator(device=self.device).manual_seed(
             draw_seed(self.tc.seed, -1, EVAL_STREAM))
         with torch.no_grad():
             draws = draw_step(gen, batch, self.rc, train=False)
-            loss, m = packed_loss(enc, self.rc, self.tc.tau, batch, draws,
-                                  train=False)
+            if self.group is None:
+                loss, m = packed_loss(enc, self.rc, self.tc.tau, batch,
+                                      draws, train=False)
+            else:
+                local, draws, shard = self._shard(batch, draws)
+                loss, m = sharded_loss(enc, self.rc, self.tc.tau, local,
+                                       draws, shard, train=False)
             vals = torch.stack([loss, *m.values()]).cpu().tolist()
         return vals[0], dict(zip(m, vals[1:]))
+
+    def _shard(self, packed: dict, draws: tuple):
+        """(this rank's uploaded batch or None, its draws, the shard) of a
+        whole packed batch (host arrays) and its draws."""
+        g = self.group
+        r = shard_ranges(packed, g.rank, g.size)
+        local = (self._upload(shard_batch(packed, g.rank, g.size))
+                 if r.n_graphs else None)
+        return (local, tuple(shard_draws(d, r) for d in draws),
+                (g, r.graphs[0], packed["graph_mask"].shape[0]))
+
+    def _agree(self, lost: Optional[DeviceLost]) -> Optional[DeviceLost]:
+        """Every rank's verdict at a chunk boundary: a DeviceLost (the
+        lowest losing rank's message) on every rank when any rank lost a
+        participant, else None on every rank."""
+        g = self.group
+        flag = g.flag_max(g.size - g.rank if lost is not None else 0,
+                          self.device)
+        if not flag:
+            return None
+        src = g.size - flag
+        return DeviceLost(g.broadcast_text(
+            str(lost) if g.rank == src else "", src, self.device))
 
     def _fit_steps(self, graphs, selections, enc, caps, verbose, *,
                    checkpoint_dir, resume, interrupt_after, fault_hook=None,
                    watchdog=None) -> dict:
-        tc, rc, opt = self.tc, self.rc, self.opt
+        tc, rc, opt, group = self.tc, self.rc, self.opt, self.group
+        lead = group is None or group.rank == 0     # writes the checkpoints
         plan = plan_epoch(graphs, selections, **caps)
         steps = plan.n_steps
         chunk_len = min(tc.scan_chunk, bucket_size(max(steps, 1), 1))
@@ -390,6 +508,7 @@ class ContrastiveTrainer:
             state, start, history = self._restore_fit(mgr, state)
 
         host_syncs = saves = 0
+        run = coll_bytes = 0
         last_save = start
         pending: list[torch.Tensor] = []
         t0 = time.perf_counter()
@@ -410,22 +529,45 @@ class ContrastiveTrainer:
                       f"acc={m['nce_acc']:.3f} lr={m['lr']:.2e} "
                       f"({time.perf_counter() - t0:.1f}s)")
 
+        def save(done):
+            nonlocal last_save, saves
+            if lead:
+                self._save_fit(mgr, state, history, done)
+            last_save, saves = done, saves + 1
+
+        def settle():
+            """Rank 0's checkpoints are on disk when every rank returns."""
+            if lead:
+                mgr.wait()
+            if group is not None:
+                group.barrier(self.device)
+
         gen = torch.Generator(device=self.device)
         for seg in plan.segments:
             if seg.stop <= start:
                 continue
-            dev_seg = self._upload(seg.batches)
+            dev_seg = self._upload(seg.batches) if group is None else None
             for step in range(max(seg.start, start), seg.stop):
                 if not in_chunk:
                     in_chunk = True
                     if watchdog is not None:
                         watchdog.step_start()
                 row = step - seg.start
-                batch = {k: v[row] for k, v in dev_seg.items()}
                 gen.manual_seed(draw_seed(tc.seed, step))
-                draws = draw_step(gen, batch, rc)
-                state, metrics = train_step(enc, rc, tc.tau, opt, batch,
-                                            draws, state)
+                if group is None:
+                    batch = {k: v[row] for k, v in dev_seg.items()}
+                    draws = draw_step(gen, batch, rc)
+                    state, metrics = train_step(enc, rc, tc.tau, opt, batch,
+                                                draws, state)
+                else:
+                    host = {k: v[row] for k, v in seg.batches.items()}
+                    b0 = group.bytes
+                    batch, draws, shard = self._shard(
+                        host, draw_step(gen, host, rc))
+                    state, metrics = train_step(enc, rc, tc.tau, opt, batch,
+                                                draws, state, shard)
+                    coll_bytes += group.bytes - b0
+                run += 1
                 pending.append(metrics)
                 done = step + 1
                 if done % tc.log_every == 0 or done == steps:
@@ -436,11 +578,10 @@ class ContrastiveTrainer:
                              and done >= interrupt_after)
                 if due or (interrupt and mgr is not None):
                     flush()
-                    self._save_fit(mgr, state, history, done)
-                    last_save, saves = done, saves + 1
+                    save(done)
                 if interrupt:
                     if mgr is not None:
-                        mgr.wait()
+                        settle()
                     raise FitInterrupted(
                         f"fit interrupted at step {done} "
                         f"(interrupt_after={interrupt_after})")
@@ -465,17 +606,18 @@ class ContrastiveTrainer:
                     lost = DeviceLost(
                         f"chunk ending at step {done} exceeded the "
                         f"watchdog SLO (straggling participant)")
+                if group is not None:
+                    lost = self._agree(lost)
                 if lost is not None:
                     flush()
                     if mgr is not None:
                         if done > last_save:
-                            self._save_fit(mgr, state, history, done)
-                            last_save, saves = done, saves + 1
-                        mgr.wait()
+                            save(done)
+                        settle()
                     raise lost
         flush()
         if mgr is not None:
-            mgr.wait()
+            settle()
         return {
             "history": history,
             "bucket_keys": list(plan.bucket_keys),
@@ -486,6 +628,9 @@ class ContrastiveTrainer:
             "checkpoint_saves": saves,
             "chunk_len": chunk_len,
             "fit_s": time.perf_counter() - t0,
+            "data_shards": 1 if group is None else group.size,
+            #: bytes the step collectives carried, a step (0 on one card)
+            "collective_bytes": coll_bytes / max(run, 1),
         }
 
     # -- resume protocol -----------------------------------------------------
@@ -722,47 +867,55 @@ def fit_resilient(rc: RGCNConfig, tc: GCLTrainConfig,
                   device_counts: Optional[list] = None,
                   fault_hook: Optional[callable] = None,
                   watchdog: Optional[Watchdog] = None,
-                  verbose: bool = False, device=None):
+                  verbose: bool = False, device=None, group=None):
     """Degrade-don't-abort driver, counterpart of JAX's ``fit_resilient``.
 
     Fits at width ``device_counts[0]``; when the fit raises
     :class:`~repro_torch.distributed.fault.DeviceLost` from a chunk
     boundary (after checkpointing), the next width resumes from that
-    checkpoint instead of aborting.  ``device_counts`` defaults to halving
-    widths from the cards present (``launch/mesh.widths``: the cards, or
-    1 on the CPU) down to 1.  Returns ``(encoder, info)`` from the fit that
-    finished, with ``info["degradations"]`` recording each shrink and
-    ``info["data_shards"]`` the width that finished.  Raises DeviceLost
+    checkpoint instead of aborting.  Returns ``(encoder, info)`` from the
+    fit that finished, with ``info["degradations"]`` recording each shrink
+    and ``info["data_shards"]`` the width that finished.  Raises DeviceLost
     when every width failed, ValueError without a ``checkpoint_dir``.
 
-    The port's fit runs on one card (``device``, the card unless
-    ``"cpu"``): a width above the cards present raises ValueError, since
-    data-parallel fitting over several cards is not in the port yet
-    (ROADMAP A9b).  JAX's ``mesh_axes`` argument names the axes of the
-    mesh that width builds; one card has no mesh, so it has no
-    counterpart here.
+    A width n is the first n ranks of ``group`` (a
+    :class:`~repro_torch.distributed.group.Group`; this process is one
+    rank on ``device``), and ``device_counts`` defaults to halving widths
+    from the group's size down to 1.  Every rank of the job calls this
+    with the same arguments: the subgroup of each width is made up front
+    (``torch.distributed.new_group``, which every rank calls), and a rank
+    outside the width a shrink leaves returns ``(None, info)`` with the
+    degradations so far and, as ``data_shards``, that width.  Without a group the fit
+    is one rank, the one card: widths above 1 raise ValueError.  JAX's
+    ``mesh_axes`` names the axes of the mesh a width builds; a width here
+    is ranks, so it has no counterpart.
     """
     if not checkpoint_dir:
         raise ValueError("fit_resilient requires a checkpoint_dir — "
                          "degradation resumes from checkpoints")
     dev = resolve_device(device)
-    allowed = widths(dev.type)
-    present = len(allowed)
+    allowed = range(1, 2) if group is None else widths(dev.type, group)
+    size = len(allowed)
     if device_counts is None:
-        n, device_counts = present, []
+        n, device_counts = size, []
         while n >= 1:
             device_counts.append(n)
             n //= 2
     wide = [n for n in device_counts if n not in allowed]
     if wide:
         raise ValueError(
-            f"fit_resilient: widths {wide} are outside 1..{present} (the "
-            f"cards present on {dev.type}); data-parallel fitting over "
-            f"several cards is not in the port yet (ROADMAP A9b)")
+            f"fit_resilient: widths {wide} are outside 1..{size} (the ranks "
+            f"of the group; without one, the one card): a data-parallel "
+            f"width runs over the ranks of a group (group=, ROADMAP A9b)")
+    subgroups = ({n: group.subgroup(n) for n in sorted(set(device_counts))}
+                 if group is not None else {})
     degradations: list[dict] = []
     last: Optional[DeviceLost] = None
     for i, ndev in enumerate(device_counts):
-        trainer = ContrastiveTrainer(rc, tc, device=dev)
+        sub = subgroups.get(ndev)
+        if group is not None and sub is None:      # outside this width
+            return None, {"degradations": degradations, "data_shards": ndev}
+        trainer = ContrastiveTrainer(rc, tc, device=dev, group=sub)
         try:
             enc, info = trainer.fit(
                 graphs, verbose, checkpoint_dir=checkpoint_dir, resume=True,

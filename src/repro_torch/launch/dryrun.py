@@ -28,7 +28,7 @@ JAX's scan correction has no counterpart: XLA's cost analysis counts a
 ``lax.scan`` body once, while an eager ``meta`` run executes every layer.
 Nothing is compiled (``compile_s`` and ``code_bytes`` are null), the mesh is
 the one card (``num_devices`` 1), and the multi-pod mesh raises (ROADMAP
-A9b).
+A9c).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k
@@ -254,7 +254,7 @@ def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
     """The record of one (arch, shape) cell; ``cfg_kw`` replaces config
     fields (``num_layers`` cuts the depth)."""
     if multi_pod:
-        make_production_mesh(multi_pod=True)        # raises: ROADMAP A9b
+        make_production_mesh(multi_pod=True)        # raises: ROADMAP A9c
     cfg = get_arch(arch_id)
     if cfg_kw:
         cfg = cfg.replace(**cfg_kw)
@@ -276,7 +276,7 @@ def main(argv=None):
     ap.add_argument("--out", default="dryrun_results.json")
     args = ap.parse_args(argv)
     if args.multi_pod or args.both_meshes:
-        make_production_mesh(multi_pod=True)        # raises: ROADMAP A9b
+        make_production_mesh(multi_pod=True)        # raises: ROADMAP A9c
 
     archs = list_archs() if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]

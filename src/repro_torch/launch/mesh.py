@@ -1,14 +1,18 @@
-"""Device meshes of the port: one card (counterpart of
-``repro/launch/mesh.py``).
+"""Device meshes of the port (counterpart of ``repro/launch/mesh.py``).
 
 JAX's production mesh is 16 x 16 (data, model) TPU chips, or 2 x 16 x 16
-with a pod axis.  The port runs on one card, so its production mesh is that
-card, (1, 1) over ("data", "model"); a mesh wider than the cards present,
-or the multi-pod mesh, raises and names ROADMAP A9b (data parallelism and
-model sharding over several cards).  A ``Mesh`` describes devices and
-places nothing: the port has no sharding (``distributed/sharding.py`` is
-not ported, so JAX's ``make_rules`` and its ``MeshRules`` come with A9b).
-Functions, not module constants: importing this module touches no device.
+with a pod axis.  The port shards data, not models: its data-parallel
+width is the ranks of a ``torch.distributed`` group
+(:class:`~repro_torch.distributed.group.Group`, one process a rank), or,
+without a group, the cards present, which the plan engine places a sweep
+dispatch's programs across.  ``make_data_mesh`` and ``widths`` count the
+group's ranks when one is given and the cards present otherwise; a wider
+mesh raises.  The production mesh of an LM cell is one card, (1, 1) over
+("data", "model"): model sharding and the pod axis (JAX's ``make_rules``
+and its ``MeshRules`` parameter specs) are ROADMAP A9c, and the multi-pod
+mesh raises naming it.  A ``Mesh`` describes devices or ranks and places
+nothing.  Functions, not module constants: importing this module touches
+no device.
 """
 
 from __future__ import annotations
@@ -23,11 +27,12 @@ AXES = ("data", "model")
 class Mesh(NamedTuple):
     shape: tuple
     axes: tuple
-    devices: tuple   # torch.device, data-major
+    devices: tuple   # torch.device, data-major; () for a mesh of ranks
+    ranks: tuple = ()  # the group ranks of a mesh of ranks, in order
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        return len(self.ranks) or len(self.devices)
 
 
 def visible_devices(device_type: str = "cuda") -> list:
@@ -41,9 +46,11 @@ def visible_devices(device_type: str = "cuda") -> list:
     raise ValueError(f"repro_torch runs on cuda or cpu, not {device_type}")
 
 
-def widths(device_type: str = "cuda") -> range:
-    """The data-parallel widths a mesh over ``device_type`` may have: 1 up
-    to the devices present."""
+def widths(device_type: str = "cuda", group=None) -> range:
+    """The data-parallel widths a mesh may have: 1 up to the ranks of
+    ``group``, or without one the ``device_type`` devices present."""
+    if group is not None:
+        return range(1, group.size + 1)
     return range(1, len(visible_devices(device_type)) + 1)
 
 
@@ -55,8 +62,8 @@ def _mesh(shape: tuple, device_type: str) -> Mesh:
     if not 1 <= n <= len(present):
         raise ValueError(
             f"a {shape} mesh needs {n} devices; {len(present)} "
-            f"{device_type} present (meshes over several cards are ROADMAP "
-            f"A9b)")
+            f"{device_type} present (a data-parallel width above the cards "
+            f"runs over the ranks of a group: group=, ROADMAP A9b)")
     return Mesh(tuple(shape), AXES, tuple(present[:n]))
 
 
@@ -64,8 +71,8 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The mesh a cell runs on: the one card.  ``multi_pod`` raises."""
     if multi_pod:
         raise NotImplementedError(
-            "multi_pod: the port's production mesh is one card; a pod axis "
-            "over several cards is ROADMAP A9b")
+            "multi_pod: the port's production mesh is one card; model "
+            "sharding and a pod axis over several cards are ROADMAP A9c")
     return Mesh((1, 1), AXES, (torch.device("cuda", 0),))
 
 
@@ -76,10 +83,18 @@ def make_debug_mesh(data: int = 1, model: int = 1, *,
     return _mesh((data, model), device_type)
 
 
-def make_data_mesh(ndev: int = 0, *, device_type: str = "cuda") -> Mesh:
-    """An (ndev, 1) mesh over the FIRST ``ndev`` devices present, in order
-    (0 = all), as JAX's ``make_data_mesh`` builds every scale-out width so
-    that a degraded width is a prefix of the wider one; raises ValueError
-    above those present."""
-    n = int(ndev) or len(visible_devices(device_type))
-    return _mesh((n, 1), device_type)
+def make_data_mesh(ndev: int = 0, *, device_type: str = "cuda",
+                   group=None) -> Mesh:
+    """An (ndev, 1) mesh over the FIRST ``ndev`` ranks of ``group`` or,
+    without one, devices present, in order (0 = all), as JAX's
+    ``make_data_mesh`` builds every scale-out width so that a degraded
+    width is a prefix of the wider one; raises ValueError above those
+    present."""
+    if group is None:
+        n = int(ndev) or len(visible_devices(device_type))
+        return _mesh((n, 1), device_type)
+    n = int(ndev) or group.size
+    if not 1 <= n <= group.size:
+        raise ValueError(f"a ({n}, 1) mesh needs {n} ranks; the group has "
+                         f"{group.size} (ROADMAP A9b)")
+    return Mesh((n, 1), AXES, (), tuple(range(n)))

@@ -13,7 +13,7 @@ Per (arch x shape) cell, from the dry run's counts (``launch/dryrun.py``):
 The peaks are the H100 SXM data sheet's dense rates at its 700 W limit.
 JAX's HLO parser (``_shape_bytes``, ``collective_bytes_from_hlo``) has no
 counterpart: an eager step has no HLO, and a one-card step no collective.
-The collective bytes of a multi-card step come with ROADMAP A9b.
+The collective bytes of a multi-card step come with ROADMAP A9c.
 
 ``bound`` and ``tf32x3_bound`` are the least time of one kernel call, by
 the same peaks; ``chip_smoke.py``'s kernel table and the dry run divide by

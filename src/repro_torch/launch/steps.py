@@ -17,7 +17,7 @@ shapes and dtypes, no storage allocated (the train launcher's restore
 target and the dry run's arguments, ``launch/dryrun.py``).  The JAX
 module's sharding trees (``param_shardings``, ``train_state_shardings``,
 ``batch_shardings``, ...) place arrays on a device mesh; the port runs on
-one card and has none of them (ROADMAP A9b).
+one card and has none of them (ROADMAP A9c).
 """
 
 from __future__ import annotations

@@ -84,7 +84,7 @@ def main(argv=None, out: dict | None = None) -> int:
             f"--mesh {args.mesh}: a {mc.shape} mesh of {mc.num_devices} "
             f"devices, where {dev.type} takes widths up to "
             f"{max(widths(dev.type), default=0)}; the port trains on one "
-            f"card (data parallelism over cards is A9b)")
+            f"card (model sharding over cards is A9c)")
     cfg = smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
     if args.num_layers is not None:
         cfg = cfg.replace(num_layers=args.num_layers)

@@ -4,11 +4,18 @@ method.  Counterpart of ``repro/sampling/engine.py``.
 - plan requests are grouped by embedding-matrix size (power-of-two points
   bucket, exact feature dim), the sweep's own padding unit;
 - each group is cut into chunks of ``max_batch x data_devices`` programs,
-  and each chunk is ONE sweep dispatch on the engine's device
+  and each chunk is ONE sweep dispatch
   (:func:`repro_torch.core.clustering.sweep_cluster_stack`: every
   candidate K of every program of the chunk together), as JAX's default
   engine dispatches them; the results carry ``serve.batch`` = the chunk's
   size under ``record_timings``;
+- a dispatch is placed across devices as JAX's is across its data mesh:
+  its program axis is cut into ``effective_shards`` slices (the largest
+  power of two at most the chunk's padded size, the shard width and the
+  devices of the placement), each swept on its own device, the results
+  read back in program order.  The placement is the cards present
+  (``launch/mesh.make_data_mesh``'s first cards) or an explicit
+  ``devices=`` list, which may repeat a device;
 - trivial/tiny programs take the same host paths as the JAX engine;
 - ``plan_many`` builds a chunk's plans on a worker thread while the next
   chunk is clustered;
@@ -22,17 +29,15 @@ method.  Counterpart of ``repro/sampling/engine.py``.
 - scale-out fault protocol: ``fault_hook`` runs before every sweep
   dispatch, and a :class:`~repro_torch.distributed.fault.DeviceLost` from
   it halves the program-axis shard width (``data_devices``) and retries
-  the same chunk; at width 1 it propagates.  A dispatch runs on the
-  engine's one device, and placing a chunk's programs across several
-  cards is not done yet.  So the width defaults to 1 on any host, where
-  JAX's defaults to ``jax.device_count()`` and gives each device its own
-  ``max_batch`` slice: a dispatch never stacks more than ``max_batch``
-  programs on the card unless asked.  An explicit ``data_devices=N``
-  takes JAX's chunk of ``max_batch x N`` programs (and its ``serve.batch``
-  stamps), all on the engine's card, as JAX's engine does on a host with
-  fewer devices than N; the dispatch's memory grows N-fold with it (the
-  silhouette arithmetic's (B, num_k, n_pad, k_max) tensors and K2's
-  partial sums scale with B).
+  the same chunk; at width 1 it propagates.  The width defaults to the
+  devices of the placement (JAX: ``jax.device_count()``): every card
+  present, or the ``devices=`` list; 1 on the CPU.  An explicit
+  ``data_devices=N`` takes JAX's chunk of ``max_batch x N`` programs (and
+  its ``serve.batch`` stamps); above the devices of the placement, a
+  slice stacks more than ``max_batch`` programs on its device, as JAX's
+  engine does on a host with fewer devices than N, and its memory grows
+  with it (the silhouette arithmetic's (B, num_k, n_pad, k_max) tensors
+  and K2's partial sums scale with B).
 
 There are no compiled executables to cache: ``warmup`` builds (or loads)
 the kernel library, so the first request does not pay the ``nvcc`` build,
@@ -55,6 +60,7 @@ from repro_torch.core.clustering import (
     sweep_cluster_stack,
 )
 from repro_torch.distributed.fault import DeviceLost
+from repro_torch.launch.mesh import visible_devices
 from repro_torch.sampling.base import plan_from_labels
 from repro_torch.sim.simulate import SamplingPlan
 from repro_torch.utils.device import resolve_device
@@ -75,11 +81,9 @@ class PlanEngineConfig:
     max_batch: int = 8           # programs per sweep dispatch PER DEVICE
     record_timings: bool = False  # stamp per-request dispatch telemetry
     #: program-axis shard width: one dispatch serves data_devices x
-    #: max_batch programs, and the degradation loop halves it.  0 = the
-    #: devices a dispatch is placed on: 1, the engine's own (JAX's 0 is
-    #: every device, each sweeping its own slice; placing the programs
-    #: across cards is not done yet).  An explicit width stacks the whole
-    #: chunk on the engine's device
+    #: max_batch programs, and the degradation loop halves it.  0 = every
+    #: device of the placement (JAX: every device): the cards present or
+    #: the engine's ``devices=``; 1 on the CPU
     data_devices: int = 0
 
 
@@ -111,8 +115,12 @@ def bucket_key(x) -> tuple[int, int]:
 
 
 class PlanEngine:
+    """``device``: where a dispatch of one slice runs (the card unless
+    ``"cpu"``); ``devices``: the placement of a dispatch cut into slices
+    (default: the cards present, or the CPU)."""
+
     def __init__(self, cfg: Optional[PlanEngineConfig] = None, *,
-                 device=None, **overrides):
+                 device=None, devices=None, **overrides):
         cfg = cfg or PlanEngineConfig()
         self.cfg = replace(cfg, **overrides) if overrides else cfg
         if self.cfg.engine not in ("sweep", "sequential"):
@@ -120,13 +128,16 @@ class PlanEngine:
                              f"{self.cfg.engine!r}")
         _check_init(self.cfg.init)
         self.device = resolve_device(device)
+        self.devices = (None if devices is None
+                        else [resolve_device(d) for d in devices])
         self.stats = self._fresh_stats()
         #: the (points-bucket, dim, batch) keys ``warmup`` has swept
         self._warm: set = set()
-        #: program-axis shard width: starts at ``data_devices`` (1 when 0:
-        #: a dispatch is placed on the engine's one device) and only ever
-        #: halves, when a dispatch raises DeviceLost
-        self._data_shards = max(1, self.cfg.data_devices)
+        #: program-axis shard width: starts at ``data_devices`` (0: the
+        #: devices of the placement) and only ever halves, when a dispatch
+        #: raises DeviceLost
+        self._data_shards = max(1, self.cfg.data_devices or len(
+            self.devices or visible_devices(self.device.type)))
         #: fault injection point, called before every sweep dispatch; raise
         #: DeviceLost from it to drive the degradation loop
         self.fault_hook: Optional[Callable[[], None]] = None
@@ -299,8 +310,9 @@ class PlanEngine:
             try:
                 if self.fault_hook is not None:
                     self.fault_hook()
-                return sweep_cluster_stack(xs, seed=seeds,
-                                           **self._cluster_kwargs())
+                return sweep_cluster_stack(
+                    xs, seed=seeds, data_shards=self._data_shards,
+                    devices=self.devices, **self._cluster_kwargs())
             except DeviceLost:
                 if self._data_shards <= 1:
                     raise

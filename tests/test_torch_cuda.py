@@ -1553,3 +1553,58 @@ def test_dense_path_on_card_matches_cpu():
               for a, b in zip(out["cuda"][1], out["cpu"][1]))
     den = sum(float((b ** 2).sum()) for b in out["cpu"][1])
     assert (num / den) ** 0.5 <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# data parallelism: the placed sweep, a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_placed_sweep_on_card_is_bit_equal_to_unplaced():
+    """A dispatch placed over [cuda:0, cuda:0] (two slices, each swept
+    alone) gives the labels, K and scores of the unplaced dispatch."""
+    from repro_torch.sampling.engine import PlanEngine
+
+    dev = _card()
+    rng = np.random.default_rng(3)
+    embs = [rng.standard_normal((40 + 7 * i, 16)).astype(np.float32)
+            for i in range(12)]
+    kw = dict(k_max=8, iters=10, max_batch=4, data_devices=2, device=dev)
+    placed = PlanEngine(devices=[dev, dev], **kw)
+    got = placed.cluster_many(embs)
+    want = PlanEngine(devices=[dev], **kw).cluster_many(embs)
+    assert placed.engine_stats()["data_shards"] == 2
+    for (la, ia), (lb, ib) in zip(got, want):
+        np.testing.assert_array_equal(la, lb)
+        assert ia["k"] == ib["k"] and ia.get("scores") == ib.get("scores")
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_fit_is_the_fit_without_a_group(tmp_path):
+    """The fit over a one-rank NCCL group (gathers and the rank-order sum
+    of one rank) has the bits of the fit with no group."""
+    import torch.distributed as dist
+
+    from repro_torch.core.graphs import build_kernel_graph
+    from repro_torch.core.rgcn import RGCNConfig
+    from repro_torch.core.train import ContrastiveTrainer, GCLTrainConfig
+    from repro_torch.distributed.group import init_group
+    from repro_torch.tracing.templates import make_kernel
+
+    dev = _card()
+    graphs = [build_kernel_graph(make_kernel(
+        f"k{i}", "gemm", {"M": 128 * (i % 3 + 1), "N": 128, "K": 128}, i,
+        seed=i).trace(cap_warps=2, cap_instr=48)) for i in range(8)]
+    tc = GCLTrainConfig(steps=8, batch_size=4, scan_chunk=4, log_every=50)
+    group = init_group("nccl", 0, 1, str(tmp_path / "store"))
+    try:
+        a, ia = ContrastiveTrainer(RGCNConfig(), tc, device=dev,
+                                   group=group).fit(graphs)
+    finally:
+        dist.destroy_process_group()
+    b, ib = ContrastiveTrainer(RGCNConfig(), tc, device=dev).fit(graphs)
+    assert ia["data_shards"] == 1 and ia["collective_bytes"] > 0
+    assert [h["loss"] for h in ia["history"]] == \
+        [h["loss"] for h in ib["history"]]
+    for (k, p), q in zip(a.state_dict().items(), b.state_dict().values()):
+        assert torch.equal(p, q), k

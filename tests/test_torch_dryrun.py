@@ -220,7 +220,7 @@ def test_meshes_describe_one_card_and_raise_wider():
     prod = mesh.make_production_mesh()
     assert prod.shape == (1, 1) and prod.axes == ("data", "model")
     assert prod.size == 1 and prod.devices[0].type == "cuda"
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(NotImplementedError, match="A9c"):
         mesh.make_production_mesh(multi_pod=True)
     cpu = mesh.make_debug_mesh(1, 1, device_type="cpu")
     assert cpu.shape == (1, 1) and cpu.devices == (torch.device("cpu"),)
@@ -388,7 +388,7 @@ def test_a_meta_counter_holds_storages_not_tensors():
 def test_dryrun_cli_record_keys(tmp_path):
     """JAX's smoke cell through the CLI: exit 0, one ok record with JAX's
     keys (memory and cost hold JAX's and more), one card, nothing
-    compiled; the multi-pod flags raise, naming A9b."""
+    compiled; the multi-pod flags raise, naming A9c."""
     out = tmp_path / "dr.json"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     res = subprocess.run(
@@ -405,10 +405,10 @@ def test_dryrun_cli_record_keys(tmp_path):
     assert rec["memory"]["fits"] is True
     assert rec["roofline"]["dominant"] == "memory"
     for flag in ("--multi-pod", "--both-meshes"):
-        with pytest.raises(NotImplementedError, match="A9b"):
+        with pytest.raises(NotImplementedError, match="A9c"):
             dryrun.main(["--arch", "mamba2-780m", "--out",
                          str(tmp_path / "x.json"), flag])
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(NotImplementedError, match="A9c"):
         dryrun.lower_cell("mamba2-780m", "long_500k", multi_pod=True)
     assert dryrun.lower_cell("llama3.2-3b", "long_500k")["status"] == \
         "skipped"

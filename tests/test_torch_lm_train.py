@@ -756,7 +756,7 @@ def test_train_cli_resume_equals_the_uninterrupted_run(tmp_path, capsys):
 
 
 def test_train_cli_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(NotImplementedError, match="A9c"):
         train_mod.main(["--arch", "llama3.2-3b", "--smoke", "--device", "cpu",
                         "--mesh", "pod"])
 
