@@ -147,6 +147,24 @@ Phases, each reported on its own lines:
             ``PlanEngine(data_devices=2, devices=[cuda:0, cuda:0])``:
             labels, K and scores bit-equal to the unplaced dispatch, JAX's
             dispatch count, K2 and K3 launched;
+8b. model_parallel LM model sharding (A9c): K7 and K7b at a (2, 2)
+            rank's shape (MP_TP_SHAPE, bf16) against their plain versions,
+            timed beside them, SDPA and their bounds (the table's ``tp_*``
+            keys); llama3.2-3b at its widths, MP_LAYERS layers, JAX's CLI
+            batch, MP_STEPS steps through ``launch.train.main`` on one card,
+            then on a (2, 2) mesh of four gloo ranks sharing ``cuda:0``
+            (``main(mesh=)``; each rank holds MP_RANK_PARAMS of
+            MP_WHOLE_PARAMS parameters, attention and the dense FFN split
+            over the model axis): its losses within MP_LOSS_TOL of the
+            one-card run's and equal on every rank, each rank's state
+            bytes the specs' count, its collective bytes a step equal to
+            ``ShardPlan.collective_bytes``, K7 and K7b launched in its run
+            (counts zeroed just before ``main``) on MP_TP_SHAPE only; each
+            rank's step ms, peak and state bytes beside the card's name
+            and power limit; then MP_PARITY_STEPS float32 steps at smoke
+            width on the mesh within PARAM_TOL of each leaf of the
+            one-card steps on the card; a hung rank is killed after
+            MP_DEADLINE s;
 9. fit+serve a fresh ``gcl`` method with no encoder behind a PlanService:
             submit_program(phi-2) fits its own encoder (prepare), then cfd,
             phi-2 and nw are served with it; K, eq. 5 and eq. 6 are printed
@@ -3082,6 +3100,316 @@ def _dp_placed_sweep(dev):
             "data_parallel: K2 or K3 was not launched by the placed sweep")
 
 
+#: phase 8b: llama3.2-3b at its widths, MP_LAYERS layers, trained through
+#: ``launch.train.main`` over a (2, 2) mesh of MP_WORLD gloo ranks that
+#: share ``cuda:0``, at JAX's CLI batch (8 x 256), MP_STEPS steps
+MP_WORLD = 4
+MP_MESH = (2, 2)
+MP_ARCH, MP_LAYERS, MP_STEPS = "llama3.2-3b", 2, 4
+MP_BATCH = (8, 256)
+#: a (2, 2) rank's K7 / K7b input q: its 4 rows of the batch, 12 of the 24
+#: heads as 4 kv heads of G = 3, head dim 128
+MP_TP_SHAPE = (4, 256, 4, 3, 128)
+#: a rank's parameters at MP_ARCH, MP_LAYERS layers, on MP_MESH (JAX's
+#: specs), and the whole model's
+MP_RANK_PARAMS, MP_WHOLE_PARAMS = 148_836_864, 595_344_384
+#: the sharded bf16 run's losses against the one-card run's, relative
+#: (``tests/test_torch_lm_train.py``'s BF16_TOL: bf16 partial outputs are
+#: rounded before their sum over the model ranks)
+MP_LOSS_TOL = 3e-2
+#: the float32 smoke-width parity's steps, held at PARAM_TOL of each leaf
+MP_PARITY_STEPS = 3
+#: seconds the spawn may take before the phase kills it and fails
+MP_DEADLINE = 150
+
+
+def _mp_parity_run(dev, step, plan=None, index=0):
+    """MP_PARITY_STEPS float32 steps of MP_ARCH at smoke width from the
+    seed-0 weights on ``dev`` (sharded when ``plan`` is given); the final
+    state."""
+    import torch
+
+    from repro_torch.configs import smoke_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+
+    cfg = smoke_arch(MP_ARCH).replace(num_layers=MP_LAYERS)
+    host = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    if plan is not None:
+        host = plan.shard(host, index)
+    state = adamw_init(tree_unflatten(host, [x.to(dev) for x in
+                                             tree_leaves(host)]),
+                       _mp_parity_tcfg())
+    data = TokenStream(cfg.vocab_size, MP_BATCH[1], MP_BATCH[0], seed=0)
+    for _ in range(MP_PARITY_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.next().items()}
+        if plan is not None:
+            batch = plan.local_batch(batch, index)
+        state, _ = step(state, batch)
+    return state
+
+
+def _mp_parity_tcfg():
+    from repro_torch.config import TrainConfig
+
+    return TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=10)
+
+
+def _mp_rank(rank, world, tmp, device):
+    """One rank of phase ``model_parallel`` on ``device``: the main path
+    (``launch.train.main`` over the (2, 2) mesh, K7 / K7b counts zeroed
+    just before it and read just after, the q shapes K7 was given), then
+    the float32 smoke-width parity run; results to ``mp-rank<r>.pkl`` in
+    ``tmp``."""
+    import math
+    import os
+    import pickle
+
+    import torch
+
+    from repro_torch.configs import smoke_arch
+    from repro_torch.distributed.group import init_group
+    from repro_torch.distributed.model_parallel import unshard_tree
+    from repro_torch.interop import lm_params_to_numpy
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps, train
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    group = init_group("gloo", rank, world, os.path.join(tmp, "store-mp"))
+    mesh = mesh_mod.make_debug_mesh(*MP_MESH, group=group)
+    shapes = set()
+    inner = attn_mod.flash_attention
+
+    def recorded(q, k, v, scale):
+        shapes.add(tuple(q.shape))
+        return inner(q, k, v, scale)
+
+    attn_mod.flash_attention = recorded
+    out = {}
+    fa_ops.flash_attention.launches = 0
+    fa_ops.flash_attention_bwd.launches = 0
+    train.main(["--arch", MP_ARCH, "--num-layers", str(MP_LAYERS),
+                "--steps", str(MP_STEPS), "--batch", str(MP_BATCH[0]),
+                "--seq-len", str(MP_BATCH[1]), "--log-every", "1",
+                "--device", "cuda"], out=out, mesh=mesh)
+    launches = {"flash_attention": fa_ops.flash_attention.launches,
+                "flash_attention_bwd": fa_ops.flash_attention_bwd.launches}
+    attn_mod.flash_attention = inner
+    plan = out["plan"]
+    res = {"losses": [float(r["loss"]) for r in out["steps"]],
+           "step_ms": [r["ms"] for r in out["steps"]],
+           "peak_bytes": out["peak_bytes"] - out["base_bytes"],
+           "state_bytes": out["state_bytes"],
+           "collective_bytes": out["collective_bytes"],
+           "counted_bytes": plan.collective_bytes(*MP_BATCH),
+           "rank_params": plan.block_numel(),
+           "whole_params": sum(math.prod(lf.shape) for lf in plan.leaves),
+           "split": out["info"]["split"], "launches": launches,
+           "q_shapes": sorted(shapes)}
+    del out, plan
+    torch.cuda.empty_cache()
+    cfg = smoke_arch(MP_ARCH).replace(num_layers=MP_LAYERS)
+    step = steps.make_sharded_train_step(
+        cfg, _mp_parity_tcfg(), mesh_mod.make_rules(mesh), group)
+    state = _mp_parity_run(dev, step, step.plan, step.groups.index)
+    whole = unshard_tree(step.plan, step.groups, state.params)
+    res["parity"] = lm_params_to_numpy(whole) if rank == 0 else None
+    res["coords"] = step.groups.coords
+    with open(os.path.join(tmp, f"mp-rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def _mp_spawn(tmp, dev):
+    """Run MP_WORLD ranks of ``_mp_rank`` to their end (a rank's exception
+    fails the phase; the spawn is killed after MP_DEADLINE s); their
+    results in rank order."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_mp_rank, args=(MP_WORLD, tmp, str(dev)),
+                             nprocs=MP_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + MP_DEADLINE
+    try:
+        while not ctx.join(timeout=1):
+            require(time.monotonic() < deadline,
+                    f"model_parallel: ranks still running after "
+                    f"{MP_DEADLINE} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    out = []
+    for r in range(MP_WORLD):
+        with open(Path(tmp) / f"mp-rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _mp_kernels(rows, dev):
+    """K7 and K7b at a (2, 2) rank's shape (MP_TP_SHAPE, bf16) against
+    their plain versions, each timed beside its plain version, its
+    library call and its bound; the times go into the table's K7 / K7b
+    rows as ``tp_*`` keys."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_cost,
+        flash_attention_bwd_plain, flash_attention_cost,
+        flash_attention_plain,
+    )
+    from repro_torch.launch.roofline import PEAK_BF16_S, bound
+
+    B, S, K, G, hd = MP_TP_SHAPE
+    H, dt = K * G, torch.bfloat16
+    err, rel, q, k, v, scale = _k7_check(dev, MP_TP_SHAPE, dt, 31)
+    ms = device_ms(lambda: flash_attention(q, k, v, scale), 5,
+                   own=k7_kernels(hd, dt))
+    plain = device_ms(lambda: flash_attention_plain(q, k, v, scale), 3)
+    qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+    kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    lib = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True), 5)
+    ops, bytes_ = flash_attention_cost(B, S, K, G, hd, q.element_size())
+    b_ms, b_by = bound(bytes_, ops, PEAK_BF16_S)
+    log(f"[kernels] K7 flash_attention at a (2, 2) rank's shape "
+        f"{MP_TP_SHAPE} bf16: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+        f"{BF16_TOL:.3e}) kernel device ms {ms.own:.4f} [{ms.source}] plain "
+        f"device ms {plain.total:.4f} [{plain.source}] library device ms "
+        f"{lib.total:.4f} [{lib.source}] (scaled_dot_product_attention, "
+        f"causal, GQA) bound ms {b_ms:.4f} ({b_by})")
+    tp = {"flash_attention": dict(
+        tp_ms=ms.own, tp_plain_ms=plain.total, tp_library_ms=lib.total,
+        tp_bound_ms=b_ms, tp_max_abs_err=err)}
+    del q, k, v, qh, kh, vh
+    err, rel, (q, k, v, o, do, scale, lse) = _k7b_check(dev, MP_TP_SHAPE,
+                                                        dt, 32)
+    ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, do, scale, lse),
+                   5, own=k7b_kernels(hd, dt))
+    plain = device_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do,
+                                                        scale), 3)
+    qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+    kh, vh = (t.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    leaves = [t.requires_grad_(True) for t in (qh, kh, vh)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                           is_causal=True)
+    doh = do.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+    lib = device_ms(lambda: torch.autograd.grad(out, leaves, doh,
+                                                retain_graph=True), 5)
+    ops, bytes_ = flash_attention_bwd_cost(B, S, K, G, hd, q.element_size())
+    b_ms, b_by = bound(bytes_, ops, PEAK_BF16_S)
+    log(f"[kernels] K7b flash_attention_bwd at a (2, 2) rank's shape "
+        f"{MP_TP_SHAPE} bf16: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+        f"{BF16_TOL:.3e}), repeat bit-equal; kernel device ms {ms.own:.4f} "
+        f"[{ms.source}] plain device ms {plain.total:.4f} [{plain.source}] "
+        f"library device ms {lib.total:.4f} [{lib.source}] "
+        f"(scaled_dot_product_attention backward, K / V expanded to {H} "
+        f"heads) bound ms {b_ms:.4f} ({b_by})")
+    tp["flash_attention_bwd"] = dict(
+        tp_ms=ms.own, tp_plain_ms=plain.total, tp_library_ms=lib.total,
+        tp_bound_ms=b_ms, tp_max_abs_err=err)
+    del q, k, v, o, do, lse, out, leaves, qh, kh, vh, doh
+    torch.cuda.empty_cache()
+    for name, _, _, _, m in rows:
+        if name in tp:
+            m.update(tp[name])
+
+
+def phase_model_parallel(rows, dev, smi_line):
+    """Phase 8b (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import smoke_arch
+    from repro_torch.interop import lm_params_to_numpy
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+
+    _mp_kernels(rows, dev)
+    one = {}
+    train.main(["--arch", MP_ARCH, "--num-layers", str(MP_LAYERS),
+                "--steps", str(MP_STEPS), "--batch", str(MP_BATCH[0]),
+                "--seq-len", str(MP_BATCH[1]), "--log-every", "1",
+                "--device", "cuda"], out=one)
+    one_losses = [float(r["loss"]) for r in one["steps"]]
+    one_ms = [r["ms"] for r in one["steps"]]
+    one_peak = one["peak_bytes"] - one["base_bytes"]
+    one_state = one["state_bytes"]
+    del one
+    cfg = smoke_arch(MP_ARCH).replace(num_layers=MP_LAYERS)
+    ref = lm_params_to_numpy(_mp_parity_run(
+        dev, make_train_step(cfg, _mp_parity_tcfg())).params)
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        ranks = _mp_spawn(tmp, dev)
+        spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], one_losses)]
+    log(f"[model_parallel] {MP_ARCH} at its widths, {MP_LAYERS} layers, "
+        f"bf16, batch {MP_BATCH[0]}x{MP_BATCH[1]}, {MP_STEPS} steps through "
+        f"launch.train.main on a {MP_MESH} mesh of {MP_WORLD} gloo ranks "
+        f"sharing {dev}: losses {' '.join(f'{x:.5f}' for x in r0['losses'])}"
+        f" vs one card {' '.join(f'{x:.5f}' for x in one_losses)}, max rel "
+        f"gap {max(gaps):.3e} (tol {MP_LOSS_TOL}); split in compute: "
+        f"{len(r0['split'])} leaves ({', '.join(r0['split'])})")
+    for r, o in enumerate(ranks):
+        require(o["losses"] == r0["losses"],
+                f"model_parallel: rank {r}'s losses differ from rank 0's")
+    require(max(gaps) <= MP_LOSS_TOL,
+            f"model_parallel: loss gap {max(gaps):.3e} > {MP_LOSS_TOL}")
+    for r, o in enumerate(ranks):
+        log(f"[model_parallel] rank {r} {tuple(o['coords'])} on "
+            f"{smi_line}: step ms {' '.join(f'{x:.1f}' for x in o['step_ms'])}"
+            f"; peak {o['peak_bytes']} B; state {o['state_bytes']} B "
+            f"({o['rank_params']} of {o['whole_params']} params); "
+            f"collective bytes a step {o['collective_bytes']} (counted "
+            f"{o['counted_bytes']['total']}: "
+            + ", ".join(f"{k} {v}" for k, v in o["counted_bytes"].items()
+                        if k != "total")
+            + f"); K7 / K7b launches {o['launches']['flash_attention']} / "
+            f"{o['launches']['flash_attention_bwd']}, K7's q shapes "
+            f"{o['q_shapes']}")
+        require(o["rank_params"] == MP_RANK_PARAMS
+                and o["whole_params"] == MP_WHOLE_PARAMS,
+                f"model_parallel: rank {r} holds {o['rank_params']} of "
+                f"{o['whole_params']} params")
+        require(o["state_bytes"] == 12 * MP_RANK_PARAMS,
+                f"model_parallel: rank {r}'s state is {o['state_bytes']} B")
+        require(o["collective_bytes"] == o["counted_bytes"]["total"],
+                f"model_parallel: rank {r} carried {o['collective_bytes']} "
+                f"B a step, counted {o['counted_bytes']['total']}")
+        require(all(n > 0 for n in o["launches"].values()),
+                f"model_parallel: rank {r} launched {o['launches']}")
+        require(o["q_shapes"] == [MP_TP_SHAPE],
+                f"model_parallel: rank {r}'s K7 took {o['q_shapes']}")
+    log(f"[model_parallel] one card on {smi_line}: step ms "
+        f"{' '.join(f'{x:.1f}' for x in one_ms)}; peak {one_peak} B; state "
+        f"{one_state} B; the spawn of {MP_WORLD} ranks took {spawn_s:.1f} s")
+    par = r0["parity"]
+    worst = max((float(np.linalg.norm(par[k] - ref[k])
+                       / max(np.linalg.norm(ref[k]), 1e-30)), k)
+                for k in ref)
+    log(f"[model_parallel] float32 smoke-width parity ({MP_LAYERS} layers, "
+        f"batch {MP_BATCH[0]}x{MP_BATCH[1]}, {MP_PARITY_STEPS} steps): the "
+        f"{MP_MESH} mesh's parameters vs one card's, worst leaf "
+        f"{worst[0]:.3e} ({worst[1]}; tol {PARAM_TOL})")
+    require(set(par) == set(ref) and worst[0] <= PARAM_TOL,
+            f"model_parallel: smoke-width parity gap {worst[0]:.3e}")
+
+
 def phase_fit_serve(rows, dev):
     """The slice's main path: a ``gcl`` method with no encoder behind a
     PlanService; submit_program(phi-2) fits (prepare) and serves, then cfd
@@ -4933,6 +5261,9 @@ def _phases(dev, t_all, dry, smi_line):
     phase_data_parallel(dev, smi_line)
     log(f"[phase] data_parallel {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    phase_model_parallel(rows, dev, smi_line)
+    log(f"[phase] model_parallel {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     phase_fit_serve([r for r in rows if r[0] not in (
         "kmeans_assign", "rgcn_spmm_dense", "flash_attention",
         "flash_attention_bwd", "ssd_intra_chunk", "ssd_intra_chunk_bwd")],
@@ -4975,7 +5306,9 @@ def _phases(dev, t_all, dry, smi_line):
          **{k: m[k] for k in ("launches_counted", "fma_bound_ms", "d64_ms",
                               "d64_bound_ms", "b8_ms", "b8_solo_ms",
                               "b8_plain_ms", "b8_bound_ms", "b8_bound_by",
-                              "b8_max_abs_err") if k in m}}
+                              "b8_max_abs_err", "tp_ms", "tp_plain_ms",
+                              "tp_library_ms", "tp_bound_ms",
+                              "tp_max_abs_err") if k in m}}
         for name, source, repl, _, m in rows]}
     return table
 

@@ -16,10 +16,18 @@
 
 ``restore(like)`` rebuilds a tree shaped like ``like`` (a ``TrainState``
 whose leaves give each leaf's dtype, e.g. on the ``meta`` device) with
-every leaf in its dtype on the requested device, bit for bit; JAX's
-``shardings`` (an elastic restore onto a mesh) has no counterpart: the
-port runs on one card.  ``restore_tree`` needs no ``like``: bfloat16
-leaves come back widened to float32, exactly.
+every leaf in its dtype on the requested device, bit for bit.
+``restore_tree`` needs no ``like``: bfloat16 leaves come back widened to
+float32, exactly.
+
+A ``TrainState`` sharded over a mesh of ranks (``save(...,
+sharding=)``, a ``distributed/model_parallel.Sharding``) is saved whole:
+every rank gathers it leaf by leaf, rank 0 writes it in the one-card
+format (and waits for the write), and every rank passes a barrier after
+the save.  ``restore(..., sharding=)`` reads the whole leaves and slices
+this rank's blocks out of them, so a checkpoint moves across mesh shapes
+(and to and from one card): the port's counterpart of JAX's elastic
+restore onto other shardings.
 """
 
 from __future__ import annotations
@@ -63,10 +71,20 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, tree) -> None:
+    def save(self, step: int, tree, *, sharding=None) -> None:
         """Snapshot ``tree`` (nested dicts / lists / NamedTuples of arrays
         or tensors).  The leaves are copied to the host before this
-        returns: the caller may update them in place."""
+        returns: the caller may update them in place.  With ``sharding``
+        (every rank calls it), ``tree`` is this rank's blocks of a
+        ``TrainState``: rank 0 writes the whole state before the ranks'
+        barrier."""
+        if sharding is not None:
+            whole = sharding.gather_state(tree)
+            if whole is not None:
+                self.save(step, whole)
+                self.wait()
+            sharding.barrier()
+            return
         self.wait()
         host = list(_host_leaves(tree).items())
 
@@ -120,11 +138,17 @@ class CheckpointManager:
             flat[leaf["key"]] = arr
         return unflatten_tree(flat), step
 
-    def restore(self, like, step: Optional[int] = None, *, device=None):
+    def restore(self, like, step: Optional[int] = None, *, device=None,
+                sharding=None):
         """Rebuild ``like``'s tree (dicts, lists and NamedTuples such as
         ``TrainState``) from disk: tensor leaves in ``like``'s dtypes on
         ``device`` (default the CPU), int leaves as ints.  Returns (tree,
-        step); raises FileNotFoundError without a checkpoint."""
+        step); raises FileNotFoundError without a checkpoint.  With
+        ``sharding``, ``like`` is the whole state and the result this
+        rank's blocks of it."""
+        if sharding is not None:
+            whole, step = self.restore(like, step)
+            return sharding.slice_state(whole, device), step
         self.wait()
         if step is None:
             step = self.latest_step()

@@ -1,9 +1,9 @@
 """Copy of ``repro/config.py`` for the PyTorch port (imports rewritten to
 ``repro_torch``; the port imports nothing of ``repro``).  ``TrainConfig``
 is the one training config of the port (the LM launcher's and, as
-``GCLTrainConfig.opt``, the contrastive fit's); ``MeshConfig`` is carried
-for ``launch/train.py``'s ``--mesh``, which runs only the one-card
-``debug`` mesh.
+``GCLTrainConfig.opt``, the contrastive fit's); ``MeshConfig`` gives
+the shape of ``launch/train.py``'s ``--mesh pod|multipod`` (a mesh of a
+``torch.distributed`` group's ranks, ``launch/mesh.py``).
 
 Config system: model / shape / train / mesh configs.
 

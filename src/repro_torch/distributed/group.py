@@ -23,11 +23,19 @@ collective carried.
 contend for a TCP port; under ``torchrun`` call
 ``torch.distributed.init_process_group`` yourself and wrap the default
 group with ``Group()``.
+
+A rank of a (data, model) mesh (``launch/mesh.Mesh``, laid over a
+group's ranks data-major) works in three groups: the mesh's ranks, its
+data column (the ranks that hold its model coordinate, over every batch
+axis) and its model row (the ranks that hold its batch coordinates).
+``Group.mesh_groups(mesh)`` builds every column and row of the mesh up
+front, in one order on every rank (``dist.new_group`` is collective over
+the whole job), and returns this rank's :class:`MeshGroups`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -134,6 +142,30 @@ class Group:
         raw = bytes(self.broadcast(buf, src).cpu().tolist())
         return raw.rstrip(b"\0").decode(errors="replace")
 
+    def mesh_groups(self, mesh) -> Optional["MeshGroups"]:
+        """This rank's groups on ``mesh`` (a mesh of this group's first
+        ``mesh.size`` ranks, the model axis last).  Every rank of the job
+        must call it, in the same order; a rank outside the mesh gets
+        None.  Raises ValueError for a mesh wider than the group."""
+        n = mesh.size
+        if n > self.size:
+            raise ValueError(f"a {tuple(mesh.shape)} mesh needs {n} ranks; "
+                             f"the group has {self.size}")
+        world = self.subgroup(n)
+        ms = mesh.shape[-1]
+
+        def new(members):
+            pg = dist.new_group([dist.get_global_rank(self.pg, r)
+                                 for r in members], backend=self.backend)
+            return Group(pg) if self.rank in members else None
+
+        cols = [new([d * ms + m for d in range(n // ms)]) for m in range(ms)]
+        rows = [new([d * ms + m for m in range(ms)]) for d in range(n // ms)]
+        if world is None:
+            return None
+        me = self.rank
+        return MeshGroups(mesh, me, world, cols[me % ms], rows[me // ms])
+
     def subgroup(self, n: int) -> Optional["Group"]:
         """The group of this group's first ``n`` ranks (``self`` when n is
         the size).  Every rank of the job must call it, in the same order;
@@ -143,6 +175,36 @@ class Group:
         pg = dist.new_group([dist.get_global_rank(self.pg, r)
                              for r in range(n)], backend=self.backend)
         return Group(pg) if self.rank < n else None
+
+
+class MeshGroups(NamedTuple):
+    """A rank's place on a mesh of ranks: its index (data-major), the
+    mesh's group, its data column and its model row."""
+    mesh: object
+    index: int
+    world: Group
+    data: Group
+    model: Group
+
+    @property
+    def coords(self) -> tuple:
+        from repro_torch.distributed.sharding import mesh_coords
+
+        return mesh_coords(self.mesh, self.index)
+
+    @property
+    def groups(self) -> tuple:
+        """The distinct groups, each once."""
+        out = []
+        for g in (self.world, self.data, self.model):
+            if all(g is not o for o in out):
+                out.append(g)
+        return tuple(out)
+
+    @property
+    def bytes(self) -> int:
+        """The bytes every collective of the three groups carried."""
+        return sum(g.bytes for g in self.groups)
 
 
 class _GatherRows(torch.autograd.Function):

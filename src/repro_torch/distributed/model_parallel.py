@@ -1,0 +1,630 @@
+"""LM training over the ranks of a (data, model) mesh: what GSPMD does for
+JAX's sharded step, written out for one process a rank.
+
+Each parameter leaf (and its AdamW moments and error-feedback residual)
+is stored as the block that JAX's ``spec_for`` gives this rank
+(``distributed/sharding.py``), the batch is split over the data axes, and
+the step runs on each rank's rows:
+
+- **Gathers by spec.**  Just before the block that reads it, a leaf is
+  rebuilt from the ranks' blocks (:class:`_Gather`, an autograd function
+  built from ``all_reduce`` of a zero-filled buffer with each rank's
+  slot written, as ``Group.gather`` is: bit-exact, no float addition);
+  the block drops it when it is done (what autograd saved for the
+  backward stays).  A stacked leaf is gathered one block at a time.
+- **The tensor-parallel region** (Megatron's f and g).  Where ``spec_for``
+  put the model axis on ``heads`` and the local heads are a multiple of
+  the GQA group G, attention runs on each model rank's heads: ``wq`` /
+  ``bq`` / ``wo`` are gathered over the data axes only and keep the rank's
+  ``heads`` slice, ``wk`` / ``wv`` / ``bk`` / ``bv`` are gathered whole
+  and cut to the kv heads those q heads read, K7 / K7b run on that
+  (B_local, S, K / m, G, hd) shape, and ``wo``'s rows give a partial
+  output.  Likewise the dense FFN where the model axis is on ``ffn``
+  (``w1`` / ``w3`` columns, ``w2`` rows).  ``copy_in`` is the identity
+  forward and sums the input's gradient over the model ranks in rank
+  order; ``sum_out`` sums the partial outputs over the model ranks in rank
+  order and is the identity backward.  Every other model placement (the
+  vocab of the embedding and head, the embed dim of ``wk`` / ``wv`` and
+  the norms, SSM ``d_inner``, MoE ``ffn``) is stored sharded and gathered
+  whole before use; so is everything without the split.
+- **The gradient rule.**  Each rank differentiates its own share of the
+  loss (``lm_loss(mp=)``: the cross-entropy over the global label count,
+  the MoE expert fractions over every data rank's rows), so the whole
+  loss is the sum of the data ranks' shares.  In the backward of a
+  gather, a leaf's gradient is summed over the data ranks in rank order;
+  a leaf the model axis slices in compute keeps its own slice's sum; a
+  leaf computed whole on every model rank takes its own rank's gradient,
+  which equals the other model ranks' bit for bit (their inputs are the
+  same bits: every sum across ranks is taken in rank order); a leaf
+  gathered whole and cut to a kv slice rebuilds each data rank's whole
+  gradient from the model ranks' slices before the sum.  Then each rank
+  keeps its own block.
+
+So the step computes what the one-card step computes, up to the order of
+its sums.  Clipping reads the global norm: each rank sums the squares of
+the elements it owns (an element held by several ranks is counted by the
+one at coordinate 0 of the axes its spec leaves out), and the sums are
+added over the mesh in rank order.  AdamW and the error-feedback
+compression work on the blocks, element by element; the compression's
+per-leaf scale is the MAX of the blocks' amax over the mesh.
+
+``ShardPlan.collective_bytes`` counts, from the specs and this schedule,
+the bytes every collective of one step carries on a rank: it equals the
+groups' ``Group.bytes`` after a step, and the dry run's collective term
+reads it (``launch/roofline.collective_bytes``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.config import FFN_DENSE, FFN_MOE, MIXER_ATTN, ModelConfig
+from repro_torch.distributed.sharding import (
+    axis_part, block_shape, check_spec, mesh_coords, param_specs, region,
+    shard_leaf, spec_axes, unshard,
+)
+from repro_torch.models import transformer as tf
+from repro_torch.optim.adamw import tree_leaves
+
+#: the attention / dense-FFN leaves a model rank slices in compute, and
+#: the logical dim it slices: "split" leaves keep the rank's model block
+#: of that dim, "take" leaves are gathered whole and cut to the kv heads
+#: the rank's q heads read
+ATTN_SPLIT = {"wq": "heads", "bq": "heads", "wo": "heads"}
+ATTN_TAKE = {"wk": "kv_heads", "wv": "kv_heads", "bk": "kv_heads",
+             "bv": "kv_heads"}
+MLP_SPLIT = {"w1": "ffn", "w3": "ffn", "w2": "ffn"}
+
+
+class LeafPlan(NamedTuple):
+    """One parameter leaf: its '/'-path, whole shape, logical names and
+    spec; whether it leads with the stacked ``blocks`` dim; how a rank
+    uses it ("whole", "split" or "take") and the dim of one block's leaf
+    that "split" / "take" cut."""
+    path: tuple
+    shape: tuple
+    names: tuple
+    spec: tuple
+    stacked: bool
+    mode: str = "whole"
+    dim: Optional[int] = None
+
+    @property
+    def key(self) -> str:
+        return "/".join(self.path)
+
+    @property
+    def piece_shape(self) -> tuple:
+        """One block's (or the unstacked leaf's) whole shape."""
+        return self.shape[1:] if self.stacked else self.shape
+
+    @property
+    def piece_spec(self) -> tuple:
+        return self.spec[1:] if self.stacked else self.spec
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _set(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+class ShardPlan:
+    """Where every leaf of ``cfg``'s params lives on ``rules.mesh`` and how
+    the sharded step uses it.  Built from shapes alone (``meta``
+    tensors): the dry run plans a 256-rank mesh without a group."""
+
+    def __init__(self, cfg: ModelConfig, rules):
+        self.cfg, self.rules, self.mesh = cfg, rules, rules.mesh
+        self.model_size = rules.model_size
+        self.data_size = rules.fsdp_size
+        self.size = self.mesh.size
+        if self.data_size * self.model_size != self.size:
+            raise ValueError(f"mesh {tuple(self.mesh.shape)}: the batch axes "
+                             f"{rules.batch_axes} and the model axis do not "
+                             f"cover it")
+        axes = tf.params_axes(cfg)
+        aparams = tf.init_params(cfg, None, device="meta")
+        specs = param_specs(axes, aparams, rules)
+        self.param_dtype = next(iter(tree_leaves(aparams))).dtype
+        self.split_attention = self._split_attention(specs)
+        self.split_mlp = self._split_mlp(specs)
+        layer = cfg.layer_specs()
+        self.leaves = []
+        for path, names in _leaves(axes):
+            spec = check_spec(_get(specs, path), self.mesh)
+            shape = tuple(_get(aparams, path).shape)
+            stacked = path[0] == "blocks"
+            mode, dim = "whole", None
+            if stacked:
+                ls = layer[int(path[1][3:])]
+                name, pnames = path[-1], names[1:]
+                if (path[2] == "mixer" and ls.mixer == MIXER_ATTN
+                        and self.split_attention):
+                    cut = ATTN_SPLIT.get(name) or ATTN_TAKE.get(name)
+                    mode = "split" if name in ATTN_SPLIT else "take"
+                    dim = pnames.index(cut)
+                elif (path[2] == "ffn" and ls.ffn == FFN_DENSE
+                      and self.split_mlp):
+                    mode, dim = "split", pnames.index(MLP_SPLIT[name])
+                if mode == "split" and spec[1:][dim] != rules.model_axis:
+                    raise ValueError(f"{'/'.join(path)}: spec {spec} does not "
+                                     f"put the model axis on {names[dim + 1]}")
+            self.leaves.append(LeafPlan(path, shape, names, spec, stacked,
+                                        mode, dim))
+        self.by_key = {lf.key: lf for lf in self.leaves}
+
+    # -- which layers split ------------------------------------------------
+
+    def _first(self, specs, kind, name):
+        for i, ls in enumerate(self.cfg.layer_specs()):
+            if kind(ls):
+                part = "mixer" if name in ATTN_SPLIT else "ffn"
+                return _get(specs, ("blocks", f"pos{i}", part, name))
+        return None
+
+    def _split_attention(self, specs) -> bool:
+        spec = self._first(specs, lambda ls: ls.mixer == MIXER_ATTN, "wq")
+        m = self.model_size
+        if spec is None or m == 1 or spec[2] != self.rules.model_axis:
+            return False
+        H, K = self.cfg.num_heads, self.cfg.num_kv_heads
+        return (H // m) % (H // K) == 0
+
+    def _split_mlp(self, specs) -> bool:
+        spec = self._first(specs, lambda ls: ls.ffn == FFN_DENSE, "w1")
+        return (spec is not None and self.model_size > 1
+                and spec[2] == self.rules.model_axis)
+
+    @property
+    def split_leaves(self) -> list:
+        """The leaves the model axis splits in compute."""
+        return [lf.key for lf in self.leaves if lf.mode != "whole"]
+
+    # -- placement ------------------------------------------------------------
+
+    def coords(self, index: int) -> tuple:
+        return mesh_coords(self.mesh, index)
+
+    def batch_index(self, coords) -> int:
+        """The rank's place along the batch axes (its data column's order)."""
+        return axis_part(tuple(self.rules.batch_axes), self.mesh, coords)[1]
+
+    def shard(self, params: dict, index: int) -> dict:
+        """Mesh rank ``index``'s blocks of the whole ``params`` (contiguous
+        copies)."""
+        c = self.coords(index)
+        out = {}
+        for lf in self.leaves:
+            _set(out, lf.path, shard_leaf(_get(params, lf.path), lf.spec,
+                                          self.mesh, c).contiguous().clone())
+        return out
+
+    def local_batch(self, batch: dict, index: int) -> dict:
+        """Mesh rank ``index``'s rows of a whole batch (the batch split
+        evenly over the batch axes)."""
+        bi = self.batch_index(self.coords(index))
+        out = {}
+        for k, v in batch.items():
+            B = v.shape[0]
+            if B % self.data_size:
+                raise ValueError(f"batch {B} does not split over "
+                                 f"{self.data_size} data ranks")
+            n = B // self.data_size
+            out[k] = v[bi * n:(bi + 1) * n]
+        return out
+
+    def block_numel(self) -> int:
+        """Elements of one rank's blocks of the params."""
+        return sum(math.prod(block_shape(lf.shape, lf.spec, self.mesh))
+                   for lf in self.leaves)
+
+    def counted(self, lf: LeafPlan, coords) -> bool:
+        """Whether the rank at ``coords`` counts ``lf``'s elements in the
+        global norm: the one at coordinate 0 of every axis the spec leaves
+        out."""
+        used = {a for e in lf.spec for a in spec_axes(e)}
+        return all(c == 0 for a, c in zip(self.mesh.axes, coords)
+                   if a not in used)
+
+    def owns(self, lf: LeafPlan, b: Optional[int], coords) -> bool:
+        """Whether the rank at ``coords`` holds a piece of block ``b`` of a
+        stacked leaf (always, for a leaf whose blocks dim is not split)."""
+        if not lf.stacked or lf.spec[0] is None:
+            return True
+        parts, idx = axis_part(lf.spec[0], self.mesh, coords)
+        return idx == b // (lf.shape[0] // parts)
+
+    # -- the schedule's groups ---------------------------------------------
+
+    def _axes(self, lf: LeafPlan, gathered_spec) -> set:
+        used = {a for e in gathered_spec for a in spec_axes(e)}
+        if lf.stacked and lf.spec[0] is not None:
+            used |= set(spec_axes(lf.spec[0]))
+        return used
+
+    def gather_kind(self, lf: LeafPlan) -> Optional[str]:
+        """The group a use of ``lf`` gathers over: "world", "data",
+        "model" or None."""
+        spec = (_without(lf.piece_spec, lf.dim, self.rules.model_axis)
+                if lf.mode == "split" else lf.piece_spec)
+        used = self._axes(lf, spec)
+        has_m = self.rules.model_axis in used
+        has_d = bool(used & set(self.rules.batch_axes))
+        if has_m and has_d:
+            return "world"
+        return "model" if has_m else ("data" if has_d else None)
+
+    def members(self, kind: str, index: int) -> list:
+        """The mesh ranks of this rank's group of ``kind``, in rank order."""
+        m = self.model_size
+        if kind == "world":
+            return list(range(self.size))
+        if kind == "data":
+            return [d * m + index % m for d in range(self.data_size)]
+        return [(index // m) * m + j for j in range(m)]
+
+    def kind_size(self, kind: Optional[str]) -> int:
+        return {None: 1, "world": self.size, "data": self.data_size,
+                "model": self.model_size}[kind]
+
+    def out_shape(self, lf: LeafPlan) -> tuple:
+        """The shape a rank computes with: the piece whole, or its
+        model slice along ``lf.dim``."""
+        shape = list(lf.piece_shape)
+        if lf.mode != "whole":
+            shape[lf.dim] //= self.model_size
+        return tuple(shape)
+
+    def uses(self) -> list:
+        """(leaf, block) of every gather of one step."""
+        out = [(self.by_key[k], None) for k in self._embed_keys()]
+        for b in range(self.cfg.num_blocks):
+            out += [(lf, b) for lf in self.leaves if lf.stacked]
+        out += [(self.by_key["final_norm/scale"], None)]
+        return out
+
+    def _embed_keys(self) -> list:
+        return [lf.key for lf in self.leaves if lf.path[0] == "embed"]
+
+    # -- counts -----------------------------------------------------------------
+
+    def collective_bytes(self, batch: int, seq: int, tcfg=None) -> dict:
+        """The bytes each kind of collective carries on a rank in one train
+        step at global ``batch`` x ``seq`` tokens (``Group.bytes``:
+        each ``all_reduce``'s buffer once), and their total."""
+        cfg, ds, ms, n = self.cfg, self.data_size, self.model_size, self.size
+        pz = torch.empty((), dtype=self.param_dtype).element_size()
+        cz = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
+                         ).element_size()
+        out = {"gather": 0, "grad_sum": 0, "tensor_parallel": 0, "scalars": 0}
+        for lf, _ in self.uses():
+            kind = self.gather_kind(lf)
+            pieces = math.prod(block_shape(lf.piece_shape, lf.piece_spec,
+                                           self.mesh))
+            if lf.mode == "split":
+                pieces = math.prod(block_shape(
+                    self.out_shape(lf),
+                    _without(lf.piece_spec, lf.dim, self.rules.model_axis),
+                    self.mesh))
+            if self.kind_size(kind) > 1:
+                out["gather"] += self.kind_size(kind) * pieces * pz
+            used = math.prod(self.out_shape(lf))
+            if lf.mode == "take":
+                out["grad_sum"] += n * used * pz
+            elif ds > 1:
+                out["grad_sum"] += ds * used * pz
+        if batch % ds:
+            raise ValueError(f"batch {batch} does not split over {ds} data "
+                             f"ranks")
+        act = (batch // ds) * seq * cfg.d_model * cz
+        for ls in cfg.layer_specs():
+            tp = ((ls.mixer == MIXER_ATTN and self.split_attention)
+                  + (ls.ffn == FFN_DENSE and self.split_mlp))
+            out["tensor_parallel"] += (cfg.num_blocks * tp * 2 * ms * act
+                                       if ms > 1 else 0)
+            if ls.ffn == FFN_MOE and ds > 1:
+                G = min(cfg.moe_seq_chunk, seq)
+                chunks = seq // G if seq > G and seq % G == 0 else 1
+                out["scalars"] += (cfg.num_blocks * chunks * ds
+                                   * cfg.num_experts * 4)
+        if ds > 1:
+            out["scalars"] += ds * 4 + ds * 3 * 4   # label count, metrics
+        if n > 1:
+            out["scalars"] += n * 4                 # the global norm
+            if tcfg is not None and tcfg.grad_compress:
+                out["scalars"] += len(self.leaves) * 4   # amax a leaf
+        out["total"] = sum(out.values())
+        return out
+
+
+def _without(spec: tuple, dim: int, axis: str) -> tuple:
+    """``spec`` with ``axis`` taken off entry ``dim``."""
+    out = list(spec)
+    rest = tuple(a for a in spec_axes(spec[dim]) if a != axis)
+    out[dim] = None if not rest else (rest[0] if len(rest) == 1 else rest)
+    return tuple(out)
+
+
+def _rank_sum(parts: torch.Tensor) -> torch.Tensor:
+    total = parts[0]
+    for r in range(1, parts.shape[0]):
+        total = total + parts[r]
+    return total
+
+
+class _Gather(torch.autograd.Function):
+    """One use of a leaf: forward the gathered (or cut) tensor, backward
+    this rank's block of the gradient summed by the rule."""
+
+    @staticmethod
+    def forward(ctx, x, mp, lf, b):
+        ctx.mp, ctx.lf, ctx.b = mp, lf, b
+        return mp._forward(x, lf, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mp._backward(grad.contiguous(), ctx.lf, ctx.b), None, \
+            None, None
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp):
+        ctx.mp = mp
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mp._model_sum(grad.contiguous()), None
+
+
+class _SumOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp):
+        return mp._model_sum(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class ModelParallel:
+    """A rank's view of the sharded params for one step: the model code
+    reads its gathered leaves (``embed``, ``block``, ``final_norm``) and
+    its tensor-parallel operators."""
+
+    def __init__(self, plan: ShardPlan, groups, params: dict):
+        self.plan, self.groups, self.params = plan, groups, params
+        self.index = groups.index
+        self.coords = plan.coords(self.index)
+        self.model_size, self.data_size = plan.model_size, plan.data_size
+        self.split_attention = plan.split_attention
+        self.split_mlp = plan.split_mlp
+        self._views = {}
+
+    # -- the model's reads --------------------------------------------------
+
+    def _use(self, lf: LeafPlan, b=None) -> torch.Tensor:
+        x = _get(self.params, lf.path)
+        if lf.stacked:
+            views = self._views.get(lf.key)
+            if views is None:
+                views = self._views[lf.key] = x.unbind(0)
+            if self.plan.owns(lf, b, self.coords):
+                per = len(views)
+                x = views[b % per]
+            else:
+                x = views[0]          # a stand-in: its gradient is zero
+        return _Gather.apply(x, self, lf, b)
+
+    def embed(self) -> dict:
+        out = {}
+        for key in self.plan._embed_keys():
+            lf = self.plan.by_key[key]
+            out[lf.path[-1]] = self._use(lf)
+        return out
+
+    def final_norm(self) -> dict:
+        return {"scale": self._use(self.plan.by_key["final_norm/scale"])}
+
+    def block(self, b: int) -> dict:
+        out = {}
+        for lf in self.plan.leaves:
+            if lf.stacked:
+                _set(out, lf.path[1:], self._use(lf, b))
+        return out
+
+    # -- the tensor-parallel operators and sums -------------------------------
+
+    def copy_in(self, x):
+        return _CopyIn.apply(x, self)
+
+    def sum_out(self, x):
+        return _SumOut.apply(x, self)
+
+    def _model_sum(self, t):
+        return self.groups.model.sum_in_rank_order(t)
+
+    @torch.no_grad()
+    def data_sum(self, t):
+        """``t`` summed over the data ranks in rank order (no gradient)."""
+        if self.data_size == 1:
+            return t.detach()
+        return self.groups.data.sum_in_rank_order(t.detach().contiguous())
+
+    # -- gathers -------------------------------------------------------------
+
+    def _group(self, kind):
+        return {"world": self.groups.world, "data": self.groups.data,
+                "model": self.groups.model}[kind]
+
+    def _gather(self, x, lf, b, kind, shape, spec):
+        """The tensor of ``shape`` whose ``spec`` blocks the ranks of
+        group ``kind`` hold (this rank's is ``x``), bit-exact."""
+        plan = self.plan
+        g = self._group(kind)
+        buf = x.new_zeros((g.size,) + tuple(x.shape))
+        if plan.owns(lf, b, self.coords):
+            buf[g.rank] = x
+        g.all_reduce(buf)
+        out = x.new_empty(shape)
+        for i, mi in enumerate(plan.members(kind, self.index)):
+            c = plan.coords(mi)
+            if plan.owns(lf, b, c):
+                out[region(shape, spec, plan.mesh, c)] = buf[i]
+        return out
+
+    def _forward(self, x, lf, b):
+        plan = self.plan
+        kind = plan.gather_kind(lf)
+        if lf.mode == "split":
+            shape = plan.out_shape(lf)
+            spec = _without(lf.piece_spec, lf.dim, plan.rules.model_axis)
+        else:
+            shape, spec = lf.piece_shape, lf.piece_spec
+        out = (x.clone() if plan.kind_size(kind) == 1
+               else self._gather(x, lf, b, kind, shape, spec))
+        if lf.mode == "take":
+            n = shape[lf.dim] // self.model_size
+            m = self.coords[-1]
+            out = out.narrow(lf.dim, m * n, n).contiguous()
+        return out
+
+    def _backward(self, grad, lf, b):
+        plan = self.plan
+        if lf.mode == "take":
+            parts = self.groups.world.gather(grad)
+            ms = self.model_size
+            whole = [torch.cat([parts[d * ms + m] for m in range(ms)],
+                               dim=lf.dim) for d in range(self.data_size)]
+            total = whole[0]
+            for w in whole[1:]:
+                total = total + w
+            shape, spec = lf.piece_shape, lf.piece_spec
+        else:
+            total = (self.groups.data.sum_in_rank_order(grad)
+                     if self.data_size > 1 else grad)
+            if lf.mode == "split":
+                shape = plan.out_shape(lf)
+                spec = _without(lf.piece_spec, lf.dim, plan.rules.model_axis)
+            else:
+                shape, spec = lf.piece_shape, lf.piece_spec
+        if not plan.owns(lf, b, self.coords):
+            return torch.zeros(block_shape(shape, spec, plan.mesh),
+                               dtype=grad.dtype, device=grad.device)
+        return total[region(shape, spec, plan.mesh, self.coords)].contiguous()
+
+    # -- the optimizer's reductions ---------------------------------------------
+
+    @torch.no_grad()
+    def global_norm(self, grads: dict) -> torch.Tensor:
+        """sqrt of the sum over the mesh, in rank order, of each rank's
+        sum of squares over the elements it counts."""
+        part = None
+        for lf in self.plan.leaves:
+            if self.plan.counted(lf, self.coords):
+                s = torch.sum(torch.square(_get(grads, lf.path).float()))
+                part = s if part is None else part + s
+        if part is None:
+            part = torch.zeros((), dtype=torch.float32,
+                               device=next(iter(tree_leaves(grads))).device)
+        if self.plan.size > 1:
+            part = self.groups.world.sum_in_rank_order(part.reshape(1))[0]
+        return torch.sqrt(part)
+
+    @torch.no_grad()
+    def amax(self, a: torch.Tensor) -> torch.Tensor:
+        """The largest of the ranks' ``a`` (a 0-d float32 tensor)."""
+        if self.plan.size == 1:
+            return a
+        return self.groups.world.all_reduce(a.reshape(1).clone(), "max")[0]
+
+
+def unshard_tree(plan: ShardPlan, groups, tree: dict, *, keep: bool = True
+                 ) -> Optional[dict]:
+    """The whole leaves of a tree of this rank's blocks (params, moments
+    or residuals), gathered over the mesh leaf by leaf; every rank must
+    call it.  With ``keep`` False the leaves are dropped as they come
+    (ranks that do not save), and None is returned."""
+    out = {}
+    for lf in plan.leaves:
+        blk = _get(tree, lf.path)
+        if plan.size > 1:
+            parts = groups.world.gather(blk.contiguous())
+            whole = unshard(list(parts.unbind(0)), lf.spec, plan.mesh)
+        else:
+            whole = blk.clone()
+        if keep:
+            _set(out, lf.path, whole)
+    return out if keep else None
+
+
+class Sharding(NamedTuple):
+    """A rank's place in a sharded ``TrainState``, for checkpoints: the
+    plan, the rank's ``MeshGroups`` and a device its backend carries
+    (the barrier's)."""
+    plan: ShardPlan
+    groups: object
+    device: object
+
+    def gather_state(self, state):
+        """The whole ``TrainState`` on the host on mesh rank 0 (None on the
+        others); every rank must call it."""
+        keep = self.groups.index == 0
+
+        def whole(tree):
+            if tree is None:
+                return None
+            out = unshard_tree(self.plan, self.groups, tree, keep=keep)
+            return None if out is None else _host(out)
+
+        parts = {k: whole(getattr(state, k))
+                 for k in ("params", "mu", "nu", "compress_err")}
+        return state._replace(**parts) if keep else None
+
+    def slice_state(self, state, device=None):
+        """This rank's blocks of a whole ``TrainState`` on ``device``."""
+        def blocks(tree):
+            if tree is None:
+                return None
+            return _to(self.plan.shard(tree, self.groups.index), device)
+
+        return state._replace(**{k: blocks(getattr(state, k)) for k in
+                                 ("params", "mu", "nu", "compress_err")})
+
+    def barrier(self) -> None:
+        self.groups.world.barrier(self.device)
+
+
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+__all__ = ["LeafPlan", "ModelParallel", "ShardPlan", "Sharding",
+           "unshard_tree"]

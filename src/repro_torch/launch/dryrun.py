@@ -26,18 +26,31 @@ reads:
 
 JAX's scan correction has no counterpart: XLA's cost analysis counts a
 ``lax.scan`` body once, while an eager ``meta`` run executes every layer.
-Nothing is compiled (``compile_s`` and ``code_bytes`` are null), the mesh is
-the one card (``num_devices`` 1), and the multi-pod mesh raises (ROADMAP
-A9c).
+Nothing is compiled (``compile_s`` and ``code_bytes`` are null), and the
+default mesh is the one card (``num_devices`` 1, no collective bytes).
+
+``lower_cell(..., pod=True)`` and ``lower_cell(..., multi_pod=True)``
+record a train cell on JAX's (16, 16) / (2, 16, 16) production mesh
+(``--both-meshes`` / ``--multi-pod``) without running a step: the
+per-device parameter and optimizer bytes from the param specs
+(``memory``: ``params_per_device``, ``params_bytes_per_device``,
+``optimizer_bytes_per_device``), and the collective bytes a device
+carries in one step (``collectives``, ``launch/roofline.
+collective_bytes``: gathers, gradient sums, tensor-parallel sums and the
+step's scalars), whose NVLink time is the roofline's collective term.
+Their FLOPs and HBM bytes are not counted (``cost`` None), and prefill
+and decode cells are skipped: the port shards training only.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out out.json]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes --out mesh.json
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import time
@@ -56,8 +69,13 @@ from repro_torch.config import (
 )
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.launch import steps as steps_mod
-from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.roofline import HBM_BYTES, roofline_terms
+from repro_torch.launch.mesh import (
+    MULTIPOD_SHAPE, POD_AXES, POD_SHAPE, make_production_mesh, make_rules,
+    rank_mesh,
+)
+from repro_torch.launch.roofline import (
+    HBM_BYTES, collective_bytes, roofline_terms,
+)
 from repro_torch.models import transformer as tf
 from repro_torch.models.specs import batch_specs, decode_state_specs
 from repro_torch.optim.adamw import tree_leaves
@@ -249,20 +267,78 @@ def lower_one(cfg: ModelConfig, shape: ShapeConfig,
     return rec
 
 
+def lower_mesh(cfg: ModelConfig, shape: ShapeConfig, *,
+               multi_pod: bool = False,
+               tcfg: TrainConfig | None = None) -> dict:
+    """The record of a train cell on JAX's production mesh, from the specs
+    alone: per-device params and optimizer bytes, and the collective bytes
+    of one step.  Nothing is lowered and no card is needed."""
+    from repro_torch.distributed.model_parallel import ShardPlan
+
+    tcfg = tcfg or _train_config(cfg)
+    t0 = time.time()
+    mesh = (rank_mesh(MULTIPOD_SHAPE, POD_AXES) if multi_pod
+            else rank_mesh(POD_SHAPE))
+    rules = make_rules(mesh, multi_pod=multi_pod)
+    plan = ShardPlan(cfg, rules)
+    n = plan.block_numel()
+    pz = torch.empty((), dtype=plan.param_dtype).element_size()
+    oz = torch.empty((), dtype=getattr(torch, tcfg.opt_dtype)).element_size()
+    opt = n * (2 * oz + (4 if tcfg.grad_compress else 0))
+    coll = collective_bytes(cfg, shape, rules, tcfg)
+    counts = param_counts(cfg)
+    rec = {
+        "arch": cfg.arch_id,
+        "shape": shape.name,
+        "multi_pod": multi_pod,
+        "status": "ok",
+        "num_devices": mesh.size,
+        "lower_s": round(time.time() - t0, 1),
+        "compile_s": None,
+        "memory": {
+            "argument_bytes_per_device": n * pz + opt,
+            "output_bytes_per_device": None,
+            "temp_bytes_per_device": None,
+            "code_bytes": None,
+            "fits": None,
+            "params_per_device": n,
+            "params_bytes_per_device": n * pz,
+            "optimizer_bytes_per_device": opt,
+        },
+        "cost_scanned": {"flops": None, "bytes": None,
+                         "coll": coll["total"]},
+        "cost": {"flops_per_device": None, "bytes_per_device": None},
+        "collectives": {"per_device_bytes": coll["total"],
+                        "by_kind_bytes": {k: v for k, v in coll.items()
+                                          if k != "total"},
+                        "op_counts": {}},
+        "model_flops": model_flops(cfg, shape),
+        "params_total": counts["total"],
+        "params_active": counts["active"],
+    }
+    rec["roofline"] = roofline_terms(rec)
+    return rec
+
+
 def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
-               cfg_kw=None):
-    """The record of one (arch, shape) cell; ``cfg_kw`` replaces config
-    fields (``num_layers`` cuts the depth)."""
-    if multi_pod:
-        make_production_mesh(multi_pod=True)        # raises: ROADMAP A9c
+               pod: bool = False, cfg_kw=None):
+    """The record of one (arch, shape) cell on the one card or, with
+    ``pod`` / ``multi_pod``, on JAX's (16, 16) / (2, 16, 16) mesh of
+    ranks (train cells; the others are skipped); ``cfg_kw`` replaces
+    config fields (``num_layers`` cuts the depth)."""
     cfg = get_arch(arch_id)
     if cfg_kw:
         cfg = cfg.replace(**cfg_kw)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
+    if ok and (pod or multi_pod) and shape.kind != KIND_TRAIN:
+        ok, why = False, (f"{shape_name} on a mesh: the port shards "
+                          f"training only")
     if not ok:
         return {"arch": arch_id, "shape": shape_name,
                 "multi_pod": multi_pod, "status": "skipped", "reason": why}
+    if pod or multi_pod:
+        return lower_mesh(cfg, shape, multi_pod=multi_pod)
     return lower_one(cfg, shape)
 
 
@@ -275,8 +351,10 @@ def main(argv=None):
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default="dryrun_results.json")
     args = ap.parse_args(argv)
-    if args.multi_pod or args.both_meshes:
-        make_production_mesh(multi_pod=True)        # raises: ROADMAP A9c
+    # the one card by default; JAX's mesh flags pick its production meshes
+    meshes = ([("pod", False), ("multipod", True)] if args.both_meshes
+              else [("multipod", True)] if args.multi_pod
+              else [("card", False)])
 
     archs = list_archs() if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
@@ -288,39 +366,48 @@ def main(argv=None):
     if os.path.exists(args.out):
         with open(args.out) as f:
             results = json.load(f)
-        done = {(r["arch"], r["shape"], r["multi_pod"]) for r in results
-                if r.get("status") in ("ok", "skipped")}
+        done = {(r["arch"], r["shape"], r["multi_pod"], r.get("mesh", "card"))
+                for r in results if r.get("status") in ("ok", "skipped")}
 
-    for arch in archs:
-        for shape in shapes:
-            if (arch, shape, False) in done:
-                continue
-            print(f"[dryrun] {arch} x {shape} (one card) ...", flush=True)
-            try:
-                rec = lower_cell(arch, shape)
-            except Exception as e:  # a bug in the system — record it
-                rec = {"arch": arch, "shape": shape, "multi_pod": False,
-                       "status": "error", "error": repr(e),
-                       "trace": traceback.format_exc()[-2000:]}
-            results.append(rec)
-            status = rec["status"]
-            if status == "ok":
-                m, rl = rec["memory"], rec["roofline"]
-                print(
-                    f"  ok: {rec['lower_s']}s meta run, "
-                    f"args {_gb(m['argument_bytes_per_device'])}, "
-                    f"temp {_gb(m['temp_bytes_per_device'])}, "
-                    f"fits {m['fits']}, "
-                    f"flops/dev {rec['cost']['flops_per_device']:.3g}, "
-                    f"comp {rl['compute_s']:.3e}s mem {rl['memory_s']:.3e}s "
-                    f"-> {rl['dominant']}",
-                    flush=True,
-                )
-            else:
-                print(f"  {status}: {rec.get('reason', rec.get('error'))}",
-                      flush=True)
-            with open(args.out, "w") as f:
-                json.dump(results, f, indent=1)
+    for arch, shape, (mesh, mp) in itertools.product(archs, shapes, meshes):
+        if (arch, shape, mp, mesh) in done:
+            continue
+        print(f"[dryrun] {arch} x {shape} ({mesh}) ...", flush=True)
+        try:
+            rec = lower_cell(arch, shape, multi_pod=mp, pod=mesh == "pod")
+        except Exception as e:  # a bug in the system — record it
+            rec = {"arch": arch, "shape": shape, "multi_pod": mp,
+                   "status": "error", "error": repr(e),
+                   "trace": traceback.format_exc()[-2000:]}
+        if mesh != "card":
+            rec["mesh"] = mesh
+        results.append(rec)
+        status = rec["status"]
+        if status == "ok" and mesh != "card":
+            m = rec["memory"]
+            print(f"  ok: {rec['num_devices']} devices, params "
+                  f"{m['params_per_device']} a device, params + optimizer "
+                  f"{_gb(m['argument_bytes_per_device'])}, collectives "
+                  f"{_gb(rec['collectives']['per_device_bytes'])} a step "
+                  f"({rec['roofline']['collective_s']:.3e} s on NVLink)",
+                  flush=True)
+        elif status == "ok":
+            m, rl = rec["memory"], rec["roofline"]
+            print(
+                f"  ok: {rec['lower_s']}s meta run, "
+                f"args {_gb(m['argument_bytes_per_device'])}, "
+                f"temp {_gb(m['temp_bytes_per_device'])}, "
+                f"fits {m['fits']}, "
+                f"flops/dev {rec['cost']['flops_per_device']:.3g}, "
+                f"comp {rl['compute_s']:.3e}s mem {rl['memory_s']:.3e}s "
+                f"-> {rl['dominant']}",
+                flush=True,
+            )
+        else:
+            print(f"  {status}: {rec.get('reason', rec.get('error'))}",
+                  flush=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
     n_ok = sum(1 for r in results if r["status"] == "ok")
     n_skip = sum(1 for r in results if r["status"] == "skipped")
     n_err = sum(1 for r in results if r["status"] == "error")

@@ -14,10 +14,17 @@ step.
 ``abstract_params`` and ``train_state_specs`` are JAX's shape-only
 trees: ``meta`` tensors of the parameters' and the ``TrainState``'s
 shapes and dtypes, no storage allocated (the train launcher's restore
-target and the dry run's arguments, ``launch/dryrun.py``).  The JAX
-module's sharding trees (``param_shardings``, ``train_state_shardings``,
-``batch_shardings``, ...) place arrays on a device mesh; the port runs on
-one card and has none of them (ROADMAP A9c).
+target and the dry run's arguments, ``launch/dryrun.py``).
+
+On a (data, model) mesh of ranks, ``param_specs`` and
+``train_state_shardings`` are the JAX module's sharding trees with a spec
+(``distributed/sharding.py``) where JAX has a ``NamedSharding``: the step
+replicated, params, ``mu``, ``nu`` and ``compress_err`` under the param
+specs.  ``make_sharded_train_step(cfg, tcfg, rules, group)`` is the train
+step on this rank's blocks and rows (``distributed/model_parallel.py``);
+its ``info`` names the leaves the model axis splits in compute.  JAX's
+batch and decode-state shardings have no counterpart: the port shards
+training only.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig, TrainConfig
+from repro_torch.distributed.sharding import MeshRules
+from repro_torch.distributed.sharding import param_specs as _param_specs
 from repro_torch.models import transformer as tf
 from repro_torch.optim import TrainState, adamw_init, apply_gradients
 from repro_torch.optim.adamw import tree_leaves, tree_unflatten
@@ -45,8 +54,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     return train_step
 
 
-def _scaled_lm_loss(cfg, params, batch, scale):
-    loss, aux = tf.lm_loss(cfg, params, batch)
+def _scaled_lm_loss(cfg, params, batch, scale, mp=None):
+    loss, aux = tf.lm_loss(cfg, params, batch, mp=mp)
     return loss * scale, aux
 
 
@@ -105,3 +114,69 @@ def train_state_specs(cfg: ModelConfig, tcfg: TrainConfig) -> TrainState:
     """``adamw_init`` of ``abstract_params``: a ``TrainState`` of ``meta``
     tensors (moments in ``tcfg.opt_dtype``)."""
     return adamw_init(abstract_params(cfg), tcfg)
+
+
+def param_specs(cfg: ModelConfig, aparams: dict, rules: MeshRules) -> dict:
+    """Every param leaf's spec (JAX's ``param_shardings``)."""
+    return _param_specs(tf.params_axes(cfg), aparams, rules)
+
+
+def train_state_shardings(cfg: ModelConfig, tcfg: TrainConfig,
+                          astate: TrainState, rules: MeshRules
+                          ) -> TrainState:
+    """The specs of a ``TrainState`` (JAX's ``train_state_shardings``):
+    the step replicated (``()``), params, moments and residual under the
+    param specs."""
+    psh = param_specs(cfg, astate.params, rules)
+    err = None if astate.compress_err is None else psh
+    return TrainState(step=(), params=psh, mu=psh, nu=psh, compress_err=err)
+
+
+def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                            rules: MeshRules, group):
+    """The train step of one rank of ``rules.mesh``: ``train_step(state,
+    batch)`` with ``state`` this rank's blocks (``plan.shard``, then
+    ``adamw_init``) and ``batch`` its rows (``plan.local_batch``); the
+    metrics are the whole batch's (the data ranks' shares summed in rank
+    order).  ``group`` is the ``Group`` the mesh is laid over (its mesh
+    groups are built here: every rank of the job calls this, in the same
+    order) or a rank's ``MeshGroups``.  The step carries ``plan``,
+    ``groups`` and ``info`` ({"mesh", "split": the leaves the model axis
+    splits in compute})."""
+    from repro_torch.distributed.group import MeshGroups
+    from repro_torch.distributed.model_parallel import (
+        ModelParallel, ShardPlan,
+    )
+
+    if tcfg.microbatch and tcfg.microbatch > 1:
+        raise ValueError("microbatch: the sharded step takes the whole "
+                         "batch at once (its data axis splits it)")
+    plan = ShardPlan(cfg, rules)
+    groups = (group if isinstance(group, MeshGroups)
+              else group.mesh_groups(rules.mesh))
+    if groups is None:
+        raise ValueError(f"this rank is outside the {rules.mesh.shape} mesh")
+
+    def train_step(state: TrainState, batch: dict):
+        leaves = tree_leaves(state.params)
+        for p in leaves:
+            p.requires_grad_(True)
+        mp = ModelParallel(plan, groups, state.params)
+        loss, aux = _scaled_lm_loss(cfg, state.params, batch,
+                                    tcfg.loss_scale, mp)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        grads = tree_unflatten(state.params, list(grads))
+        shares = torch.stack([loss.detach() / tcfg.loss_scale,
+                              aux["ce"].detach(), aux["aux"].detach()])
+        total = mp.data_sum(shares)
+        new_state, opt_metrics = apply_gradients(
+            state, grads, tcfg, norm=mp.global_norm, amax=mp.amax)
+        metrics = {"ce": total[1], "aux": total[2], "loss": total[0]}
+        return new_state, dict(metrics, **opt_metrics)
+
+    train_step.plan, train_step.groups = plan, groups
+    train_step.info = {"mesh": tuple(rules.mesh.shape),
+                       "split": plan.split_leaves}
+    return train_step
+

@@ -15,6 +15,15 @@ by no config and no caller and is not carried over.  The KV cache is
 updated in place at ``cache_index`` (slice assignment into the caller's
 tensors) where JAX's ``dynamic_update_slice`` returns a copy; the returned
 cache dict holds the same tensors.
+
+``attention_axes`` is JAX's logical-axes tree.  Under a
+``distributed/model_parallel.ModelParallel`` whose rules put the model
+axis on ``heads`` (and whose local heads are a multiple of the GQA group
+G), ``attention_forward`` runs tensor-parallel: the rank's ``wq`` /
+``bq`` hold its q heads, ``wk`` / ``wv`` / ``bk`` / ``bv`` the kv heads
+those q heads read, K7 / K7b run on its (B, S, K / m, G, hd) heads, and
+``wo``'s row slice gives a partial output summed over the model ranks in
+rank order (Megatron's f and g: ``copy_in``, ``sum_out``).
 """
 
 from __future__ import annotations
@@ -28,6 +37,20 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import (
     _dense_init, apply_rope, cast, rope_angles,
 )
+
+
+def attention_axes(cfg: ModelConfig) -> dict:
+    axes = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.qkv_bias:
+        axes["bq"] = ("heads", "head_dim")
+        axes["bk"] = ("kv_heads", "head_dim")
+        axes["bv"] = ("kv_heads", "head_dim")
+    return axes
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
@@ -76,16 +99,23 @@ def _out_proj(cfg: ModelConfig, p: dict, ctx: torch.Tensor) -> torch.Tensor:
 
 
 def attention_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
-                      positions: torch.Tensor):
+                      positions: torch.Tensor, mp=None):
     """Prefill attention.  Returns (out (B,S,D), (k, v)) — the final K/V
-    (B,S,K,hd) for the prefill cache."""
+    (B,S,K,hd) for the prefill cache.  Under ``mp`` with
+    ``split_attention`` the heads are this model rank's (k, v its kv
+    heads)."""
     B, S, _ = h.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp = mp is not None and mp.split_attention
+    if tp:
+        h = mp.copy_in(h)
+        H, K = H // mp.model_size, K // mp.model_size
     q, k, v = _project_qkv(cfg, p, h, positions)
     qg = q.reshape(B, S, K, H // K, hd)
     ctx = flash_attention(qg.contiguous(), k.contiguous(), v.contiguous(),
                           1.0 / math.sqrt(hd))
-    return _out_proj(cfg, p, ctx.reshape(B, S, H, hd)), (k, v)
+    out = _out_proj(cfg, p, ctx.reshape(B, S, H, hd))
+    return (mp.sum_out(out) if tp else out), (k, v)
 
 
 def decode_attention_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,

@@ -3,8 +3,14 @@ the chunked cross-entropy (counterpart of ``repro/models/layers.py``).
 
 Parameters are plain dicts of tensors in the JAX package's tree layout
 (``{"w1": (D, F), ...}``); every function is a pure function of them.  The
-logical-axes metadata of the JAX ``init_*`` functions (sharding hints) and
-the ``constrain`` calls are left out: the port has no device mesh yet.
+logical-axes trees of the JAX ``init_*`` functions are ``mlp_axes`` and
+``embedding_axes`` (``distributed/sharding.spec_for`` places each leaf by
+them); JAX's ``constrain`` calls are left out.  Under a
+``distributed/model_parallel.ModelParallel`` whose rules put the model
+axis on ``ffn``, ``mlp_forward`` runs tensor-parallel: ``w1`` / ``w3``
+column slices and a ``w2`` row slice a rank, between copy-in and
+sum-out; ``chunked_cross_entropy`` divides by the count of labels summed
+over the data ranks.
 
 Gradients sum in a fixed order on the card: the embedding gather's
 backward is a one-hot matmul (``take_rows``), not ``index_add_``, which
@@ -113,6 +119,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def mlp_axes(cfg: ModelConfig) -> dict:
+    return {"w1": ("embed", "ffn"), "w3": ("embed", "ffn"),
+            "w2": ("ffn", "embed")}
+
+
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
     D, Fd = cfg.d_model, cfg.d_ff
     return {
@@ -124,16 +135,31 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
     }
 
 
-def mlp_forward(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
+def mlp_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                mp=None) -> torch.Tensor:
+    """SwiGLU.  Under ``mp`` with ``split_mlp``, ``p`` holds this model
+    rank's ``ffn`` slices and the partial outputs are summed over the
+    model ranks in rank order."""
+    tp = mp is not None and mp.split_mlp
+    if tp:
+        h = mp.copy_in(h)
     dt = cfg.compute_dtype
     a = h @ cast(p["w1"], dt)
     g = h @ cast(p["w3"], dt)
-    return (F.silu(a) * g) @ cast(p["w2"], dt)
+    out = (F.silu(a) * g) @ cast(p["w2"], dt)
+    return mp.sum_out(out) if tp else out
 
 
 # ---------------------------------------------------------------------------
 # Embedding
 # ---------------------------------------------------------------------------
+
+
+def embedding_axes(cfg: ModelConfig) -> dict:
+    axes = {"tokens": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 def init_embedding(gen: torch.Generator, cfg: ModelConfig, *,
@@ -192,12 +218,15 @@ def lm_head_weight(cfg: ModelConfig, embed_params: dict) -> torch.Tensor:
 
 
 def chunked_cross_entropy(cfg: ModelConfig, h: torch.Tensor,
-                          w_head: torch.Tensor, labels: torch.Tensor
-                          ) -> torch.Tensor:
+                          w_head: torch.Tensor, labels: torch.Tensor,
+                          mp=None) -> torch.Tensor:
     """Mean CE over labels >= 0; logits materialized ``loss_chunk`` tokens
     at a time along seq (bounds the (B, chunk, V) forward transient for
     257k vocabs), float32, the chunks summed in order, then the remainder.
-    h (B,S,D), w_head (D,V), labels (B,S) integer."""
+    h (B,S,D), w_head (D,V), labels (B,S) integer.  Under ``mp`` the rows
+    are this data rank's: the count of labels is summed over the data
+    ranks in rank order, so the ranks' losses add up to the whole batch's
+    mean."""
     B, S, D = h.shape
     C = min(cfg.loss_chunk, S)
     n_chunks = S // C
@@ -215,4 +244,6 @@ def chunked_cross_entropy(cfg: ModelConfig, h: torch.Tensor,
         valid = (y >= 0).float()
         tot = tot + torch.sum((lse - gold) * valid)
         cnt = cnt + torch.sum(valid)
+    if mp is not None:
+        cnt = mp.data_sum(cnt)
     return tot / torch.clamp(cnt, min=1.0)

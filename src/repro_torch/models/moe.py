@@ -7,8 +7,14 @@ expert's position per slot by a cumsum over the slots in s-major, j-minor
 order, a capacity-C gather into per-expert buffers, the three SwiGLU
 products as ``bmm`` over the experts, and the gate-weighted combine.  JAX
 computes all of it in jnp, outside any Pallas kernel, so the port does it
-in torch ops.  The logical-axes metadata (``moe_axes``) and the
-``constrain`` calls are sharding hints and are not ported.
+in torch ops.  ``moe_axes`` is JAX's logical-axes tree; JAX's
+``constrain`` calls are sharding hints and are not ported.  Under a model
+mesh the expert weights are gathered whole before use (the ``ffn`` axis
+is stored sharded, not split in compute), and the load-balance term's
+expert fractions ``ce``, a mean over every row of the batch, count the
+rows of every data rank: the ranks' counts are summed in rank order
+before the product, so the ranks' aux losses add up to the whole
+batch's.
 
 Three points where the port is written to give JAX's numbers:
 
@@ -44,6 +50,15 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.layers import _dense_init, cast
 
 
+def moe_axes(cfg: ModelConfig) -> dict:
+    return {
+        "router": ("embed", "experts"),
+        "w1": ("experts", "embed", "ffn"),
+        "w3": ("experts", "embed", "ffn"),
+        "w2": ("experts", "ffn", "embed"),
+    }
+
+
 def init_moe(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:
     D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     return {
@@ -65,11 +80,13 @@ def capacity(cfg: ModelConfig, group_tokens: int) -> int:
     return math.ceil(c / 4) * 4 if c > 4 else c
 
 
-def moe_forward(cfg: ModelConfig, p: dict, h: torch.Tensor):
+def moe_forward(cfg: ModelConfig, p: dict, h: torch.Tensor, mp=None):
     """h (B,S,D) -> (out (B,S,D), aux loss, a float32 scalar).  A sequence
     longer than ``cfg.moe_seq_chunk`` and a multiple of it is routed one
     chunk at a time (the dispatch buffers scale with the chunk), the aux
-    losses summed in chunk order and divided by their number."""
+    losses summed in chunk order and divided by their number.  Under
+    ``mp`` the rows are this data rank's and the aux loss is its share
+    of the whole batch's."""
     B, S, D = h.shape
     G = min(cfg.moe_seq_chunk, S)
     if S > G and S % G == 0:
@@ -77,11 +94,11 @@ def moe_forward(cfg: ModelConfig, p: dict, h: torch.Tensor):
         outs = []
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for i in range(nch):
-            out_c, a = _moe_group(cfg, p, h[:, i * G:(i + 1) * G])
+            out_c, a = _moe_group(cfg, p, h[:, i * G:(i + 1) * G], mp)
             outs.append(out_c)
             aux = aux + a
         return torch.cat(outs, dim=1), aux / nch
-    return _moe_group(cfg, p, h)
+    return _moe_group(cfg, p, h, mp)
 
 
 class _Dispatch(torch.autograd.Function):
@@ -138,10 +155,11 @@ class _Combine(torch.autograd.Function):
         return dye, dw, None, None
 
 
-def _route(cfg: ModelConfig, p: dict, h: torch.Tensor):
+def _route(cfg: ModelConfig, p: dict, h: torch.Tensor, mp=None):
     """(top_g (B,S,k) normalised, top_e (B,S,k), aux): float32 gates,
     experts in descending gate order, the lower index first among equal
-    gates (``lax.top_k``'s order), and the Switch load-balance loss."""
+    gates (``lax.top_k``'s order), and the Switch load-balance loss (under
+    ``mp``, this data rank's share of it)."""
     E, k = cfg.num_experts, cfg.top_k
     logits = h.float() @ p["router"].float()
     gates = torch.softmax(logits, dim=-1)
@@ -150,17 +168,23 @@ def _route(cfg: ModelConfig, p: dict, h: torch.Tensor):
     top_g = top_g / torch.clamp(top_g.sum(-1, keepdim=True), min=1e-9)
     S = h.shape[1]
     me = gates.mean(dim=1)                                        # (B,E)
-    ce = (F.one_hot(top_e[..., 0], E).float().sum(dim=1) / S).mean(dim=0)
-    aux = E * torch.mean(torch.sum(me * ce[None], dim=-1))
+    frac = F.one_hot(top_e[..., 0], E).float().sum(dim=1) / S     # (B,E)
+    if mp is None:
+        ce = frac.mean(dim=0)
+        aux = E * torch.mean(torch.sum(me * ce[None], dim=-1))
+    else:                       # every data rank's rows, in rank order
+        rows = h.shape[0] * mp.data_size
+        ce = mp.data_sum(frac.sum(dim=0)) / rows
+        aux = E * (torch.sum(torch.sum(me * ce[None], dim=-1)) / rows)
     return top_g, top_e, aux
 
 
-def _moe_group(cfg: ModelConfig, p: dict, h: torch.Tensor):
+def _moe_group(cfg: ModelConfig, p: dict, h: torch.Tensor, mp=None):
     B, S, D = h.shape
     E, k = cfg.num_experts, cfg.top_k
     C = capacity(cfg, S)
     dt = cfg.compute_dtype
-    top_g, top_e, aux = _route(cfg, p, h)
+    top_g, top_e, aux = _route(cfg, p, h, mp)
 
     # --- group-local dispatch: slots in s-major, j-minor order ------------
     flat_e = top_e.reshape(B, S * k)

@@ -10,6 +10,8 @@ lives beside K8 in ``kernels/ssd_scan/ops.py``.
 Layout: d_inner is heads-major, x.reshape(B,S,nh,hp).  The decode caches
 are updated in place (``copy_`` into the caller's tensors) where JAX
 returns new arrays; the returned dict holds the same tensors.
+``ssm_axes`` is JAX's logical-axes tree; under a model mesh every SSM
+leaf is gathered whole before use (``d_inner`` is not split in compute).
 """
 
 from __future__ import annotations
@@ -22,6 +24,24 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.layers import _dense_init, cast, rmsnorm_gated
+
+
+def ssm_axes(cfg: ModelConfig) -> dict:
+    return {
+        "in_z": ("embed", "d_inner"),
+        "in_x": ("embed", "d_inner"),
+        "in_B": ("embed", "ssm_state"),
+        "in_C": ("embed", "ssm_state"),
+        "in_dt": ("embed", "ssm_heads"),
+        "conv_x": ("conv", "d_inner"),
+        "conv_B": ("conv", "ssm_state"),
+        "conv_C": ("conv", "ssm_state"),
+        "A_log": ("ssm_heads",),
+        "D_skip": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm": ("d_inner",),
+        "out": ("d_inner", "embed"),
+    }
 
 
 def init_ssm(gen: torch.Generator, cfg: ModelConfig, *, device=None) -> dict:

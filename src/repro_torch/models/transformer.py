@@ -24,6 +24,15 @@ aux losses over the layers.  On the card, attention layers train through
 K7 / K7b and SSM layers through K8 / K8b.  Decode caches are updated in
 place; ``decode_step`` returns the same cache tensors and a host int index
 (the decode loop never syncs with the card to advance it).
+
+``params_axes`` is JAX's logical dim-name tree of the params (the leaves
+of ``init_params``'s tree, stacked leaves led by ``blocks``);
+``distributed/sharding.param_specs`` places each leaf by it.  ``forward``
+and ``lm_loss`` take an optional ``mp``
+(``distributed/model_parallel.ModelParallel``): the params are then this
+rank's shards, each leaf is rebuilt (or its compute slice gathered) just
+before the block that reads it, and the attention, the dense FFN, the MoE
+load-balance term and the cross-entropy run as that module says.
 """
 
 from __future__ import annotations
@@ -38,8 +47,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.frontends import apply_frontend
 from repro_torch.models.layers import (
-    cast, chunked_cross_entropy, dtype_of, embed_tokens, init_embedding,
-    init_mlp, init_rmsnorm, lm_head_weight, mlp_forward, rmsnorm,
+    cast, chunked_cross_entropy, dtype_of, embed_tokens, embedding_axes,
+    init_embedding, init_mlp, init_rmsnorm, lm_head_weight, mlp_axes,
+    mlp_forward, rmsnorm,
 )
 
 #: leaves JAX casts to the compute dtype on use (the matmul weights)
@@ -75,6 +85,34 @@ def _tree_put(dst, src, b: int) -> None:
             _tree_put(dst[k], src[k], b)
     else:
         dst[b].copy_(src)
+
+
+# ---------------------------------------------------------------------------
+# Logical axes
+# ---------------------------------------------------------------------------
+
+
+def _block_axes(cfg: ModelConfig) -> dict:
+    axes = {}
+    for i, spec in enumerate(cfg.layer_specs()):
+        pa = {"norm1": {"scale": ("embed",)}}
+        pa["mixer"] = (attn_mod.attention_axes(cfg)
+                       if spec.mixer == MIXER_ATTN else ssm_mod.ssm_axes(cfg))
+        if spec.ffn != FFN_NONE:
+            pa["norm2"] = {"scale": ("embed",)}
+            pa["ffn"] = (moe_mod.moe_axes(cfg) if spec.ffn == FFN_MOE
+                         else mlp_axes(cfg))
+        axes[f"pos{i}"] = pa
+    return axes
+
+
+def params_axes(cfg: ModelConfig) -> dict:
+    """Logical dim names of every leaf of ``init_params``'s tree."""
+    return {
+        "embed": embedding_axes(cfg),
+        "blocks": _tree_map(lambda t: ("blocks",) + t, _block_axes(cfg)),
+        "final_norm": {"scale": ("embed",)},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +202,7 @@ def _block(blocks: dict, b: int) -> dict:
 
 
 def _block_forward(cfg: ModelConfig, bp: dict, h: torch.Tensor, positions,
-                   mode: str, caches: Optional[dict], cache_index):
+                   mode: str, caches: Optional[dict], cache_index, mp=None):
     """One period block (cfg.block_size layers).  Returns (h, new_caches,
     aux): the block's MoE aux losses summed in layer order (None without
     MoE layers)."""
@@ -179,7 +217,7 @@ def _block_forward(cfg: ModelConfig, bp: dict, h: torch.Tensor, positions,
                     cfg, pp["mixer"], r, caches[f"pos{i}"], cache_index)
             else:
                 out, (k, v) = attn_mod.attention_forward(cfg, pp["mixer"], r,
-                                                         positions)
+                                                         positions, mp)
                 nc = {"k": k, "v": v} if mode == "prefill" else None
         elif mode == "decode":
             out, nc = ssm_mod.ssm_decode_forward(cfg, pp["mixer"], r,
@@ -191,10 +229,10 @@ def _block_forward(cfg: ModelConfig, bp: dict, h: torch.Tensor, positions,
         if spec.ffn != FFN_NONE:
             r = rmsnorm(pp["norm2"], h, cfg.norm_eps)
             if spec.ffn == FFN_MOE:
-                out, a = moe_mod.moe_forward(cfg, pp["ffn"], r)
+                out, a = moe_mod.moe_forward(cfg, pp["ffn"], r, mp)
                 aux = a if aux is None else aux + a
             else:
-                out = mlp_forward(cfg, pp["ffn"], r)
+                out = mlp_forward(cfg, pp["ffn"], r, mp)
             h = h + out
         if mode in ("prefill", "decode"):
             new_caches[f"pos{i}"] = nc if nc is not None else {}
@@ -202,15 +240,18 @@ def _block_forward(cfg: ModelConfig, bp: dict, h: torch.Tensor, positions,
 
 
 def _stack_forward(cfg: ModelConfig, blocks: dict, h, positions, mode: str,
-                   caches: Optional[dict] = None, cache_index=None):
+                   caches: Optional[dict] = None, cache_index=None, mp=None):
     """Blocks over depth.  Returns (h, new caches stacked over blocks, the
-    MoE aux losses summed over blocks in order; None without MoE)."""
+    MoE aux losses summed over blocks in order; None without MoE).  Under
+    ``mp`` each block's leaves are gathered just before it runs."""
     per_block, aux = [], None
-    views = _tree_map(lambda x: x.unbind(0), blocks)
+    views = None if mp else _tree_map(lambda x: x.unbind(0), blocks)
     for b in range(cfg.num_blocks):
         cache = None if caches is None else _block(caches, b)
-        h, nc, a = _block_forward(cfg, _tree_map(lambda x: x[b], views), h,
-                                  positions, mode, cache, cache_index)
+        bp = mp.block(b) if mp else _tree_map(lambda x: x[b], views)
+        h, nc, a = _block_forward(cfg, bp, h, positions, mode, cache,
+                                  cache_index, mp)
+        del bp
         per_block.append(nc)
         if a is not None:
             aux = a if aux is None else aux + a
@@ -233,23 +274,35 @@ def _embed(cfg, params, tokens, frontend):
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            frontend=None):
+            frontend=None, mp=None):
     """Full forward to the final hidden states.  Returns (h, aux_loss): the
-    MoE layers' load-balance losses summed over depth (0 without MoE)."""
-    h, positions = _embed(cfg, params, tokens, frontend)
-    h, _, aux = _stack_forward(cfg, params["blocks"], h, positions, "train")
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    MoE layers' load-balance losses summed over depth (0 without MoE).
+    Under ``mp``, ``params`` are this rank's shards."""
+    return _forward(cfg, params, tokens, frontend, mp)[:2]
+
+
+def _forward(cfg, params, tokens, frontend, mp):
+    """(h, aux, the embedding subtree as the step reads it)."""
+    embed = mp.embed() if mp else params["embed"]
+    h, positions = _embed(cfg, {"embed": embed}, tokens, frontend)
+    h, _, aux = _stack_forward(cfg, params["blocks"], h, positions, "train",
+                               mp=mp)
+    h = rmsnorm(mp.final_norm() if mp else params["final_norm"], h,
+                cfg.norm_eps)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return h, aux
+    return h, aux, embed
 
 
-def lm_loss(cfg: ModelConfig, params: dict, batch: dict):
+def lm_loss(cfg: ModelConfig, params: dict, batch: dict, mp=None):
     """batch: {'tokens' (B,S_text), 'labels' (B,S_total), ['frontend']}.
-    Returns (CE + 0.01 aux, {"ce", "aux"})."""
-    h, aux = forward(cfg, params, batch["tokens"], batch.get("frontend"))
-    w_head = lm_head_weight(cfg, params["embed"])
-    loss = chunked_cross_entropy(cfg, h, w_head, batch["labels"])
+    Returns (CE + 0.01 aux, {"ce", "aux"}).  Under ``mp`` the batch is this
+    data rank's rows and each value its share: the data ranks' values add
+    up to the whole batch's."""
+    h, aux, embed = _forward(cfg, params, batch["tokens"],
+                             batch.get("frontend"), mp)
+    w_head = lm_head_weight(cfg, embed)
+    loss = chunked_cross_entropy(cfg, h, w_head, batch["labels"], mp)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 

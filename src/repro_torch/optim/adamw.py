@@ -13,6 +13,12 @@
   ``optim/grad_compress.py``), whose residual rides in
   ``TrainState.compress_err``.
 
+On a model mesh (``distributed/model_parallel.py``) the trees hold each
+rank's blocks: the update is element by element, so it runs on them as
+they are, and the sharded step passes ``norm=`` (the global norm summed
+over the mesh) and ``amax=`` (a leaf's largest magnitude over the mesh,
+the compression's scale).
+
 Trees are nested dicts of tensors (a flat ``dict(module.named_parameters())``
 is one); leaves are visited in insertion order.  ``TrainState.step`` is a
 host int, so the schedule is computed on the host and the update makes no
@@ -91,15 +97,17 @@ def _slices(n: int):
 
 
 @torch.no_grad()
-def adamw_update(grads, state: TrainState, tcfg: TrainConfig):
+def adamw_update(grads, state: TrainState, tcfg: TrainConfig,
+                 norm=global_norm):
     """One AdamW step, in place on ``state``'s params and moments.  Returns
-    ``(state with step + 1, {"lr": float, "grad_norm": 0-d tensor})``."""
+    ``(state with step + 1, {"lr": float, "grad_norm": 0-d tensor})``;
+    ``norm`` maps the gradient tree to its norm (the clipping's)."""
     step = state.step + 1
     lr = SCHEDULES[tcfg.schedule](
         step, base_lr=tcfg.learning_rate, total_steps=tcfg.total_steps,
         warmup_steps=tcfg.warmup_steps)
     inv_scale = 1.0 / tcfg.loss_scale
-    gnorm = global_norm(grads) * inv_scale
+    gnorm = norm(grads) * inv_scale
     clip = torch.clamp(tcfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     scale = inv_scale * clip
     b1, b2, eps, wd = tcfg.beta1, tcfg.beta2, tcfg.eps, tcfg.weight_decay
@@ -121,12 +129,16 @@ def adamw_update(grads, state: TrainState, tcfg: TrainConfig):
     return state._replace(step=step), {"lr": lr, "grad_norm": gnorm}
 
 
-def apply_gradients(state: TrainState, grads, tcfg: TrainConfig):
+def apply_gradients(state: TrainState, grads, tcfg: TrainConfig, *,
+                    norm=global_norm, amax=None):
     """Compress the gradients first when ``grad_compress`` is on (the new
-    residual replaces ``state.compress_err``), then ``adamw_update``."""
+    residual replaces ``state.compress_err``), then ``adamw_update``.
+    ``norm`` and ``amax`` are the sharded step's reductions over its
+    mesh (``adamw_update``, ``compress_decompress``)."""
     if tcfg.grad_compress and state.compress_err is not None:
         from repro_torch.optim.grad_compress import compress_decompress
 
-        grads, new_err = compress_decompress(grads, state.compress_err)
+        grads, new_err = compress_decompress(grads, state.compress_err,
+                                             amax=amax)
         state = state._replace(compress_err=new_err)
-    return adamw_update(grads, state, tcfg)
+    return adamw_update(grads, state, tcfg, norm=norm)

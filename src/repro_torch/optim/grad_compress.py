@@ -24,22 +24,26 @@ import torch
 from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 
 
-def _quantize(x32: torch.Tensor):
+def _quantize(x32: torch.Tensor, reduce=None):
     amax = torch.max(torch.abs(x32))
+    if reduce is not None:
+        amax = reduce(amax)
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
 @torch.no_grad()
-def compress_decompress(grads, err):
+def compress_decompress(grads, err, amax=None):
     """Quantize (grad + carried error) to int8; return the dequantized
     gradients (in each gradient's dtype) and the new error residual
-    (float32), in the trees' structure."""
+    (float32), in the trees' structure.  ``amax``, when given, maps a
+    block's largest magnitude to its leaf's (the MAX over a model mesh),
+    so each element takes the code it takes on one card."""
     new_g, new_e = [], []
     for g, e in zip(tree_leaves(grads), tree_leaves(err)):
         g32 = g.float() + e
-        q, scale = _quantize(g32)
+        q, scale = _quantize(g32, amax)
         deq = q.float() * scale
         new_g.append(deq.to(g.dtype))
         new_e.append(g32 - deq)

@@ -139,8 +139,10 @@ def test_abstract_params_and_train_state_specs_match_a_real_init(arch):
 
 def test_roofline_terms_agree_with_jax_up_to_the_peaks():
     """A JAX record (no flops_by_dtype): the same keys; the compute term
-    times the bf16 peak and the memory term times the bandwidth equal
-    JAX's after its own peaks; the useful-FLOP ratio equal."""
+    times the bf16 peak, the memory term times the bandwidth and the
+    collective term times the link rate equal JAX's after its own peaks
+    (NVLink 4's 450 GB/s a direction for JAX's ICI link); the useful-FLOP
+    ratio equal."""
     from repro.launch import roofline as j_roofline
 
     rec = {
@@ -158,7 +160,9 @@ def test_roofline_terms_agree_with_jax_up_to_the_peaks():
     assert got["useful_flop_ratio"] == pytest.approx(
         want["useful_flop_ratio"])
     assert got["hlo_flops_total"] == want["hlo_flops_total"]
-    assert got["collective_s"] == 0.0
+    assert got["collective_s"] * roofline.NVLINK_BYTES_S == pytest.approx(
+        want["collective_s"] * j_roofline.LINK_BW)
+    assert got["collective_s"] == pytest.approx(2.5e9 / 450e9)
 
 
 def test_roofline_terms_math():
@@ -220,7 +224,8 @@ def test_meshes_describe_one_card_and_raise_wider():
     prod = mesh.make_production_mesh()
     assert prod.shape == (1, 1) and prod.axes == ("data", "model")
     assert prod.size == 1 and prod.devices[0].type == "cuda"
-    with pytest.raises(NotImplementedError, match="A9c"):
+    # the multi-pod mesh lies over the ranks of a 512-rank group
+    with pytest.raises(ValueError, match="512 ranks"):
         mesh.make_production_mesh(multi_pod=True)
     cpu = mesh.make_debug_mesh(1, 1, device_type="cpu")
     assert cpu.shape == (1, 1) and cpu.devices == (torch.device("cpu"),)
@@ -388,7 +393,8 @@ def test_a_meta_counter_holds_storages_not_tensors():
 def test_dryrun_cli_record_keys(tmp_path):
     """JAX's smoke cell through the CLI: exit 0, one ok record with JAX's
     keys (memory and cost hold JAX's and more), one card, nothing
-    compiled; the multi-pod flags raise, naming A9c."""
+    compiled; the multi-pod flags record the cell on JAX's meshes (a
+    decode cell: skipped, the port shards training only)."""
     out = tmp_path / "dr.json"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     res = subprocess.run(
@@ -404,11 +410,14 @@ def test_dryrun_cli_record_keys(tmp_path):
     assert rec["num_devices"] == 1 and rec["compile_s"] is None
     assert rec["memory"]["fits"] is True
     assert rec["roofline"]["dominant"] == "memory"
-    for flag in ("--multi-pod", "--both-meshes"):
-        with pytest.raises(NotImplementedError, match="A9c"):
-            dryrun.main(["--arch", "mamba2-780m", "--out",
-                         str(tmp_path / "x.json"), flag])
-    with pytest.raises(NotImplementedError, match="A9c"):
-        dryrun.lower_cell("mamba2-780m", "long_500k", multi_pod=True)
+    for flag, n in (("--multi-pod", 1), ("--both-meshes", 2)):
+        path = tmp_path / f"x{n}.json"
+        assert dryrun.main(["--arch", "mamba2-780m", "--shape", "long_500k",
+                            "--out", str(path), flag]) == 0
+        recs = json.loads(path.read_text())
+        assert len(recs) == n and all(r["status"] == "skipped"
+                                      for r in recs)
+    rec = dryrun.lower_cell("mamba2-780m", "long_500k", multi_pod=True)
+    assert rec["status"] == "skipped" and "training only" in rec["reason"]
     assert dryrun.lower_cell("llama3.2-3b", "long_500k")["status"] == \
         "skipped"

@@ -225,8 +225,11 @@ def test_pinned_entries_are_hot(repo_graph):
         ("src/repro_torch/models/moe.py", "_Dispatch"),
         ("src/repro_torch/models/moe.py", "_Combine"),
         ("src/repro_torch/distributed/group.py", "_GatherRows"),
+        ("src/repro_torch/distributed/model_parallel.py", "_Gather"),
+        ("src/repro_torch/distributed/model_parallel.py", "_CopyIn"),
+        ("src/repro_torch/distributed/model_parallel.py", "_SumOut"),
     }
-    assert sum(f.autograd for f in funcs.values()) == 18
+    assert sum(f.autograd for f in funcs.values()) == 24
     # the fit's step loop: its callees run every step
     (loop,) = DISPATCH_LOOPS
     assert funcs[loop].dispatch_loop and not funcs[loop].hot

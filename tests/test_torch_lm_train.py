@@ -756,7 +756,10 @@ def test_train_cli_resume_equals_the_uninterrupted_run(tmp_path, capsys):
 
 
 def test_train_cli_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A9c"):
+    """``--mesh pod`` needs a torch.distributed group of 256 ranks; this
+    process has none (``tests/test_torch_model_parallel.py`` trains a
+    mesh)."""
+    with pytest.raises(ValueError, match="256 ranks"):
         train_mod.main(["--arch", "llama3.2-3b", "--smoke", "--device", "cpu",
                         "--mesh", "pod"])
 
