@@ -34,7 +34,8 @@ Phases, each reported on its own lines:
             sweep), and K2 / K3 over the program axis (8 programs of one
             bucket in one call, bucket 4096 and the served mix's 64, each
             program bit-equal to its one-program call, timed against 8
-            one-program calls: the table's ``b8_*`` keys); K2 / K3 / K4
+            one-program calls and one library call over the 8 programs:
+            the table's ``b8_*`` keys); K2 / K3 / K4
             also at PKA's feature width d = 12; K7
             also over hd 16/64/256, G 1/3/8, S 64/512/1536, f32 and bf16;
             K7b over hd 16/64/256, G 1/3, S 64/100/512, then at llama3.2-
@@ -154,17 +155,42 @@ Phases, each reported on its own lines:
             batch, MP_STEPS steps through ``launch.train.main`` on one card,
             then on a (2, 2) mesh of four gloo ranks sharing ``cuda:0``
             (``main(mesh=)``; each rank holds MP_RANK_PARAMS of
-            MP_WHOLE_PARAMS parameters, attention and the dense FFN split
-            over the model axis): its losses within MP_LOSS_TOL of the
-            one-card run's and equal on every rank, each rank's state
-            bytes the specs' count, its collective bytes a step equal to
-            ``ShardPlan.collective_bytes``, K7 and K7b launched in its run
-            (counts zeroed just before ``main``) on MP_TP_SHAPE only; each
+            MP_WHOLE_PARAMS parameters, the vocabulary, attention and the
+            dense FFN split over the model axis): its losses within
+            MP_LOSS_TOL of the one-card run's and equal on every rank,
+            each rank's state bytes the specs' count, its collective bytes
+            a step equal to ``ShardPlan.collective_bytes`` and below
+            MP_WHOLE_TABLE_BYTES, K7 and K7b launched in its run (counts
+            zeroed just before ``main``) on MP_TP_SHAPE only; each
             rank's step ms, peak and state bytes beside the card's name
             and power limit; then MP_PARITY_STEPS float32 steps at smoke
             width on the mesh within PARAM_TOL of each leaf of the
             one-card steps on the card; a hung rank is killed after
             MP_DEADLINE s;
+8c. model_split the SSM split over the model axis (A9d): K8 and K8b at
+            a (2, 2) rank's shape (MP_SSM_SHAPE, f32) against their plain
+            versions, timed beside them and their bounds (the table's K8 /
+            K8b ``tp_*`` keys); mamba2-780m at its widths, MP_SSM_LAYERS
+            layers, MP_SSM_STEPS steps at JAX's CLI batch through
+            ``launch.train.main`` on one card, then on the (2, 2) mesh of
+            four gloo ranks sharing ``cuda:0`` (the vocabulary and the
+            SSM's heads split): losses within MP_LOSS_TOL of the one card's
+            and equal on every rank, collective bytes a step equal to
+            ``ShardPlan.collective_bytes``, K8 and K8b launched in the
+            ranks' run (counts zeroed just before) on the rank's shape
+            only; each rank's step ms, peak and state bytes;
+8d. model_split the MoE experts' ``ffn`` and the untied head's vocabulary
+            split (A9d): K7 and K7b at a (1, 4) rank's q (MP_MOE_TP_SHAPE,
+            bf16) against their plain versions, timed beside them, SDPA
+            and their bounds (the table's ``tp14_*`` keys); dbrx-132b at
+            its widths, MP_MOE_LAYERS layer, bf16 moments, MP_MOE_STEPS
+            steps through ``steps.make_sharded_train_step`` on a (1, 4)
+            mesh of four gloo ranks sharing ``cuda:0`` (the ranks draw the
+            whole tree in turn and keep their blocks), against the same
+            steps on one card in a process of its own before the ranks
+            start: the checks of 8c with K7 / K7b on MP_MOE_TP_SHAPE only,
+            and the four ranks' peaks; each of 8c / 8d kills its ranks
+            after MP_SPLIT_DEADLINE s;
 9. fit+serve a fresh ``gcl`` method with no encoder behind a PlanService:
             submit_program(phi-2) fits its own encoder (prepare), then cfd,
             phi-2 and nw are served with it; K, eq. 5 and eq. 6 are printed
@@ -1094,8 +1120,18 @@ def _program_axis(rows, dev, rng, label, n, n_real, n_sil):
         lambda: [kmeans_assign_fused_batched(x[b], cent[b], cmask, pmask[b],
                                              out=ws1) for b in range(B)],
         10, own={name: B for name in K2_KERNELS})
+    # one call a record: a record of three held ~26000 device events, and
+    # CUPTI dropped some of them (the plain version waits for the device,
+    # so no spin-primed span can stand in)
     plain_ms, _, plain_src = device_ms(
-        lambda: kmeans_assign_fused_batched_plain(x, cent, cmask, pmask), 3)
+        lambda: kmeans_assign_fused_batched_plain(x, cent, cmask, pmask), 1)
+
+    def k2_library():            # every program and candidate in one call
+        dist = torch.cdist(x[:, None], cent) ** 2        # (B, C, n, k)
+        dist = torch.where(cmask[None, :, None, :] > 0, dist, float("inf"))
+        return torch.min(dist, dim=3)
+
+    lib_ms, _, lib_src = device_ms(k2_library, 10)
     live = int(ks.sum())
     bytes_ = _k2_bytes(B, n, d, C, k, live)
     ops = sum(2 * n * live * d + 2 * n * d + 2 * live * d + C * r * d
@@ -1108,9 +1144,12 @@ def _program_axis(rows, dev, rng, label, n, n_real, n_sil):
         f"min_sq {rel:.3e} of the row's scale, sums rel err {sums_rel:.3e} "
         f"(tol {KERNEL_TOL}); kernel device ms {ms:.4f} [{ms_src}], "
         f"{B} one-program calls {solo_ms:.4f} [{solo_src}], plain device ms "
-        f"{plain_ms:.4f} [{plain_src}] bound_us {b_ms * 1e3:.2f} ({b_by})")
+        f"{plain_ms:.4f} [{plain_src}] library device ms {lib_ms:.4f} "
+        f"[{lib_src}] (cdist^2 + mask + min over the {B} programs and {C} "
+        f"candidates) bound_us {b_ms * 1e3:.2f} ({b_by})")
     k2 = dict(b8_ms=ms, b8_solo_ms=solo_ms, b8_plain_ms=plain_ms,
-              b8_bound_ms=b_ms, b8_bound_by=b_by, b8_max_abs_err=err)
+              b8_library_ms=lib_ms, b8_bound_ms=b_ms, b8_bound_by=b_by,
+              b8_max_abs_err=err)
 
     sil = torch.zeros(B, n, device=dev)
     for b, r in enumerate(reals):
@@ -1137,6 +1176,7 @@ def _program_axis(rows, dev, rng, label, n, n_real, n_sil):
         own={name: B for name in K3_KERNELS})
     plain3, _, plain3_src = device_ms(
         lambda: silhouette_sums_plain(x, onehot), 3)
+    lib3, _, lib3_src = device_ms(lambda: torch.cdist(x, x) @ onehot, 10)
     j_live = (onehot != 0).any(2).sum(1).tolist()
     nnz = (onehot != 0).sum((1, 2)).tolist()
     b3_ms, b3_by = bound(B * (n * d * 4 + n * k * 4 * 2),
@@ -1147,13 +1187,16 @@ def _program_axis(rows, dev, rng, label, n, n_real, n_sil):
         f"one-program call; max_abs_err {err3:.3e} rel {rel3:.3e} (tol "
         f"{KERNEL_TOL}); kernel device ms {ms3:.4f} [{ms3_src}], {B} "
         f"one-program calls {solo3:.4f} [{solo3_src}], plain device ms "
-        f"{plain3:.4f} [{plain3_src}] bound_us {b3_ms * 1e3:.2f} ({b3_by})")
+        f"{plain3:.4f} [{plain3_src}] library device ms {lib3:.4f} "
+        f"[{lib3_src}] (cdist @ onehot over the {B} programs) bound_us "
+        f"{b3_ms * 1e3:.2f} ({b3_by})")
     if label == PROGRAM_AXIS_SHAPES[0][0]:
         table = {r[0]: r[4] for r in rows}
         table["kmeans_assign_fused_batched"].update(k2)
         table["silhouette_sums"].update(
             b8_ms=ms3, b8_solo_ms=solo3, b8_plain_ms=plain3,
-            b8_bound_ms=b3_ms, b8_bound_by=b3_by, b8_max_abs_err=err3)
+            b8_library_ms=lib3, b8_bound_ms=b3_ms, b8_bound_by=b3_by,
+            b8_max_abs_err=err3)
 
 
 def _k4_inputs():
@@ -3121,6 +3164,10 @@ MP_LOSS_TOL = 3e-2
 MP_PARITY_STEPS = 3
 #: seconds the spawn may take before the phase kills it and fails
 MP_DEADLINE = 150
+#: the bytes a rank carried a step at MP_ARCH on MP_MESH while the tied
+#: table was gathered whole on every rank (its vocabulary not split): the
+#: split step's count must stay below it
+MP_WHOLE_TABLE_BYTES = 6_162_714_672
 
 
 def _mp_parity_run(dev, step, plan=None, index=0):
@@ -3227,40 +3274,42 @@ def _mp_rank(rank, world, tmp, device):
     torch.distributed.destroy_process_group()
 
 
-def _mp_spawn(tmp, dev):
-    """Run MP_WORLD ranks of ``_mp_rank`` to their end (a rank's exception
-    fails the phase; the spawn is killed after MP_DEADLINE s); their
-    results in rank order."""
+def _mp_spawn(tmp, dev, fn=None, args=(), world=MP_WORLD,
+              deadline=MP_DEADLINE, label="model_parallel", prefix="mp"):
+    """Run ``world`` ranks of ``fn`` (``_mp_rank`` by default; called as
+    ``fn(rank, world, tmp, str(dev), *args)``) to their end (a rank's
+    exception fails the phase; the spawn is killed after ``deadline``
+    s); their results, ``<prefix>-rank<r>.pkl`` in ``tmp``, in rank
+    order."""
     import pickle
 
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(_mp_rank, args=(MP_WORLD, tmp, str(dev)),
-                             nprocs=MP_WORLD, join=False,
-                             start_method="spawn")
-    deadline = time.monotonic() + MP_DEADLINE
+    ctx = mp.start_processes(fn or _mp_rank, args=(world, tmp, str(dev),
+                                                   *args),
+                             nprocs=world, join=False, start_method="spawn")
+    t_end = time.monotonic() + deadline
     try:
         while not ctx.join(timeout=1):
-            require(time.monotonic() < deadline,
-                    f"model_parallel: ranks still running after "
-                    f"{MP_DEADLINE} s")
+            require(time.monotonic() < t_end,
+                    f"{label}: ranks still running after {deadline} s")
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
                 proc.kill()
             proc.join()
     out = []
-    for r in range(MP_WORLD):
-        with open(Path(tmp) / f"mp-rank{r}.pkl", "rb") as f:
+    for r in range(world):
+        with open(Path(tmp) / f"{prefix}-rank{r}.pkl", "rb") as f:
             out.append(pickle.load(f))
     return out
 
 
-def _mp_kernels(rows, dev):
-    """K7 and K7b at a (2, 2) rank's shape (MP_TP_SHAPE, bf16) against
-    their plain versions, each timed beside its plain version, its
-    library call and its bound; the times go into the table's K7 / K7b
-    rows as ``tp_*`` keys."""
+def _mp_kernels(rows, dev, shape=None, where="(2, 2)", key="tp"):
+    """K7 and K7b at a mesh rank's shape (``shape``, MP_TP_SHAPE by
+    default, bf16) against their plain versions, each timed beside its
+    plain version, its library call and its bound; the times go into the
+    table's K7 / K7b rows as ``<key>_*`` keys."""
     import torch
 
     from repro_torch.kernels.flash_attention.ops import (
@@ -3270,9 +3319,10 @@ def _mp_kernels(rows, dev):
     )
     from repro_torch.launch.roofline import PEAK_BF16_S, bound
 
-    B, S, K, G, hd = MP_TP_SHAPE
+    shape = MP_TP_SHAPE if shape is None else shape
+    B, S, K, G, hd = shape
     H, dt = K * G, torch.bfloat16
-    err, rel, q, k, v, scale = _k7_check(dev, MP_TP_SHAPE, dt, 31)
+    err, rel, q, k, v, scale = _k7_check(dev, shape, dt, 31)
     ms = device_ms(lambda: flash_attention(q, k, v, scale), 5,
                    own=k7_kernels(hd, dt))
     plain = device_ms(lambda: flash_attention_plain(q, k, v, scale), 3)
@@ -3282,18 +3332,16 @@ def _mp_kernels(rows, dev):
         qh, kh, vh, is_causal=True, enable_gqa=True), 5)
     ops, bytes_ = flash_attention_cost(B, S, K, G, hd, q.element_size())
     b_ms, b_by = bound(bytes_, ops, PEAK_BF16_S)
-    log(f"[kernels] K7 flash_attention at a (2, 2) rank's shape "
-        f"{MP_TP_SHAPE} bf16: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+    log(f"[kernels] K7 flash_attention at a {where} rank's shape "
+        f"{shape} bf16: max_abs_err {err:.3e} rel {rel:.3e} (tol "
         f"{BF16_TOL:.3e}) kernel device ms {ms.own:.4f} [{ms.source}] plain "
         f"device ms {plain.total:.4f} [{plain.source}] library device ms "
         f"{lib.total:.4f} [{lib.source}] (scaled_dot_product_attention, "
         f"causal, GQA) bound ms {b_ms:.4f} ({b_by})")
-    tp = {"flash_attention": dict(
-        tp_ms=ms.own, tp_plain_ms=plain.total, tp_library_ms=lib.total,
-        tp_bound_ms=b_ms, tp_max_abs_err=err)}
+    tp = {"flash_attention": _keyed(key, ms.own, plain.total, lib.total,
+                                    b_ms, err)}
     del q, k, v, qh, kh, vh
-    err, rel, (q, k, v, o, do, scale, lse) = _k7b_check(dev, MP_TP_SHAPE,
-                                                        dt, 32)
+    err, rel, (q, k, v, o, do, scale, lse) = _k7b_check(dev, shape, dt, 32)
     ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, do, scale, lse),
                    5, own=k7b_kernels(hd, dt))
     plain = device_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do,
@@ -3309,21 +3357,32 @@ def _mp_kernels(rows, dev):
                                                 retain_graph=True), 5)
     ops, bytes_ = flash_attention_bwd_cost(B, S, K, G, hd, q.element_size())
     b_ms, b_by = bound(bytes_, ops, PEAK_BF16_S)
-    log(f"[kernels] K7b flash_attention_bwd at a (2, 2) rank's shape "
-        f"{MP_TP_SHAPE} bf16: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+    log(f"[kernels] K7b flash_attention_bwd at a {where} rank's shape "
+        f"{shape} bf16: max_abs_err {err:.3e} rel {rel:.3e} (tol "
         f"{BF16_TOL:.3e}), repeat bit-equal; kernel device ms {ms.own:.4f} "
         f"[{ms.source}] plain device ms {plain.total:.4f} [{plain.source}] "
         f"library device ms {lib.total:.4f} [{lib.source}] "
         f"(scaled_dot_product_attention backward, K / V expanded to {H} "
         f"heads) bound ms {b_ms:.4f} ({b_by})")
-    tp["flash_attention_bwd"] = dict(
-        tp_ms=ms.own, tp_plain_ms=plain.total, tp_library_ms=lib.total,
-        tp_bound_ms=b_ms, tp_max_abs_err=err)
+    tp["flash_attention_bwd"] = _keyed(key, ms.own, plain.total, lib.total,
+                                       b_ms, err)
     del q, k, v, o, do, lse, out, leaves, qh, kh, vh, doh
     torch.cuda.empty_cache()
+    _update_rows(rows, tp)
+
+
+def _keyed(key, ms, plain_ms, library_ms, bound_ms, err):
+    """A kernel's times at a mesh rank's shape as the table's
+    ``<key>_*`` keys."""
+    return {f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+            f"{key}_library_ms": library_ms, f"{key}_bound_ms": bound_ms,
+            f"{key}_max_abs_err": err}
+
+
+def _update_rows(rows, extra):
     for name, _, _, _, m in rows:
-        if name in tp:
-            m.update(tp[name])
+        if name in extra:
+            m.update(extra[name])
 
 
 def phase_model_parallel(rows, dev, smi_line):
@@ -3391,6 +3450,9 @@ def phase_model_parallel(rows, dev, smi_line):
         require(o["collective_bytes"] == o["counted_bytes"]["total"],
                 f"model_parallel: rank {r} carried {o['collective_bytes']} "
                 f"B a step, counted {o['counted_bytes']['total']}")
+        require(o["collective_bytes"] < MP_WHOLE_TABLE_BYTES,
+                f"model_parallel: rank {r} carried {o['collective_bytes']} "
+                f"B a step, the whole table's {MP_WHOLE_TABLE_BYTES}")
         require(all(n > 0 for n in o["launches"].values()),
                 f"model_parallel: rank {r} launched {o['launches']}")
         require(o["q_shapes"] == [MP_TP_SHAPE],
@@ -3408,6 +3470,341 @@ def phase_model_parallel(rows, dev, smi_line):
         f"{worst[0]:.3e} ({worst[1]}; tol {PARAM_TOL})")
     require(set(par) == set(ref) and worst[0] <= PARAM_TOL,
             f"model_parallel: smoke-width parity gap {worst[0]:.3e}")
+
+
+#: phase 8c: mamba2-780m at its widths, MP_SSM_LAYERS layers, trained
+#: through ``launch.train.main`` over MP_MESH at MP_BATCH, MP_SSM_STEPS
+#: steps; the SSM split over the model axis on a rank's heads
+MP_SSM_ARCH, MP_SSM_LAYERS, MP_SSM_STEPS = "mamba2-780m", 2, 3
+#: a (2, 2) rank's K8 / K8b shape (B, nc, Q, nh, hp, ds): its 4 rows, one
+#: 256-token chunk, 24 of the 48 heads
+MP_SSM_SHAPE = (4, 1, 256, 24, 64, 128)
+#: phase 8d: dbrx-132b at its widths, MP_MOE_LAYERS layer(s), on a (1, 4)
+#: mesh (every spec's model dim divides by 4, and each element of state
+#: is held once), MP_MOE_STEPS steps at MP_BATCH with MOE_TRAIN's
+#: optimizer (bf16 moments) through ``steps.make_sharded_train_step``
+MP_MOE_ARCH, MP_MOE_LAYERS, MP_MOE_STEPS = "dbrx-132b", 1, 3
+MP_MOE_MESH = (1, 4)
+#: a (1, 4) rank's K7 / K7b q: the whole batch, 12 of the 48 heads as 2
+#: kv heads of G = 6
+MP_MOE_TP_SHAPE = (8, 256, 2, 6, 128)
+#: seconds each of phases 8c / 8d may take to spawn and run its ranks
+MP_SPLIT_DEADLINE = 150
+#: the kernel table's keys of the mesh ranks' shapes: ``tp`` a (2, 2)
+#: rank's (K7 / K7b phase 8b's, K8 / K8b 8c's), ``tp14`` a (1, 4) rank's
+#: (K7 / K7b, 8d's)
+TP_KEYS = tuple(f"{k}_{v}" for k in ("tp", "tp14") for v in (
+    "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"))
+
+
+def _mp_moe_tcfg():
+    from repro_torch.config import TrainConfig
+
+    return TrainConfig(learning_rate=3e-4, warmup_steps=20,
+                       total_steps=MP_MOE_STEPS, opt_dtype="bfloat16")
+
+
+def _mp_moe_run(dev, step=None, plan=None, groups=None):
+    """MP_MOE_STEPS steps of MP_MOE_ARCH at MP_MOE_LAYERS layer(s) from
+    the seed-0 weights drawn on ``dev`` as the train launcher draws them
+    (one card with ``step`` None; else this rank's blocks: the ranks draw
+    the whole tree in turn, each keeping its blocks, so one whole tree is
+    on the card at a time).  Returns losses, step ms, the peak of the
+    steps, collective bytes a step and the state's bytes."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+
+    cfg = get_arch(MP_MOE_ARCH).replace(num_layers=MP_MOE_LAYERS)
+    tcfg = _mp_moe_tcfg()
+    index = 0 if groups is None else groups.index
+    params = None
+    base = torch.cuda.memory_allocated(dev)
+    for r in range(1 if groups is None else groups.world.size):
+        if r == index:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params = tf.init_params(cfg, gen, device=dev)
+            if plan is not None:
+                params = plan.shard(params, index)
+            torch.cuda.empty_cache()
+        if groups is not None:
+            groups.world.barrier(dev)
+    state = adamw_init(params, tcfg)
+    del params
+    step = step or make_train_step(cfg, tcfg)
+    data = TokenStream(cfg.vocab_size, MP_BATCH[1], MP_BATCH[0], seed=0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"losses": [], "step_ms": [], "bytes": [],
+           "state_bytes": train.state_bytes(state)}
+    for _ in range(MP_MOE_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.next().items()}
+        if plan is not None:
+            batch = plan.local_batch(batch, index)
+        carried = 0 if groups is None else groups.bytes
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["bytes"].append(0 if groups is None else groups.bytes - carried)
+        out["losses"].append(float(m["loss"]))
+    # as train.main's: the state and the steps, above what was held
+    # before the draw
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mp_moe_reference(rank, world, tmp, device):
+    """Phase 8d's one-card reference, alone in its process: MP_MOE_ARCH's
+    steps on one card (``_mp_moe_run``); results to ``moe1-rank0.pkl``."""
+    import os
+    import pickle
+
+    from repro_torch.utils.device import resolve_device
+
+    res = _mp_moe_run(resolve_device(device))
+    with open(os.path.join(tmp, "moe1-rank0.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def _mp_split_rank(rank, world, tmp, device, which):
+    """One rank of phase 8c (``which`` "ssm": ``launch.train.main`` of
+    MP_SSM_ARCH over MP_MESH) or 8d ("moe": ``_mp_moe_run`` of MP_MOE_ARCH
+    over MP_MOE_MESH through ``steps.make_sharded_train_step``).  The
+    hand kernels' counts are zeroed just before the run and read just
+    after, with the shapes the path gave K8 (8c) or K7 (8d); results to
+    ``<which>-rank<r>.pkl`` in ``tmp``."""
+    import math
+    import os
+    import pickle
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.group import init_group
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps, train
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    group = init_group("gloo", rank, world,
+                       os.path.join(tmp, f"store-{which}"))
+    mod, name = ((ssm_mod, "ssd_scan") if which == "ssm"
+                 else (attn_mod, "flash_attention"))
+    inner, shapes = getattr(mod, name), set()
+
+    def recorded(x, *a):
+        shapes.add(tuple(x.shape))
+        return inner(x, *a)
+
+    setattr(mod, name, recorded)
+    if which == "ssm":
+        mesh = mesh_mod.make_debug_mesh(*MP_MESH, group=group)
+        out = {}
+        _zero_counts()
+        train.main(["--arch", MP_SSM_ARCH, "--num-layers",
+                    str(MP_SSM_LAYERS), "--steps", str(MP_SSM_STEPS),
+                    "--batch", str(MP_BATCH[0]), "--seq-len",
+                    str(MP_BATCH[1]), "--log-every", "1", "--device",
+                    "cuda"], out=out, mesh=mesh)
+        counts = _counts()
+        plan = out["plan"]
+        res = {"losses": [float(r["loss"]) for r in out["steps"]],
+               "step_ms": [r["ms"] for r in out["steps"]],
+               "peak_bytes": out["peak_bytes"] - out["base_bytes"],
+               "state_bytes": out["state_bytes"],
+               "bytes": [out["collective_bytes"]],
+               "info": out["info"]}
+    else:
+        mesh = mesh_mod.make_debug_mesh(*MP_MOE_MESH, group=group)
+        cfg = get_arch(MP_MOE_ARCH).replace(num_layers=MP_MOE_LAYERS)
+        step = steps.make_sharded_train_step(
+            cfg, _mp_moe_tcfg(), mesh_mod.make_rules(mesh), group)
+        plan = step.plan
+        _zero_counts()
+        res = _mp_moe_run(dev, step, plan, step.groups)
+        counts = _counts()
+        res["info"] = step.info
+    setattr(mod, name, inner)
+    res.update(
+        counted_bytes=plan.collective_bytes(*MP_BATCH),
+        rank_params=plan.block_numel(),
+        whole_params=sum(math.prod(lf.shape) for lf in plan.leaves),
+        coords=plan.coords(rank), shapes=sorted(shapes),
+        launches={k: counts[k] for k in (
+            ("ssd_intra_chunk", "ssd_intra_chunk_bwd") if which == "ssm"
+            else ("flash_attention", "flash_attention_bwd"))})
+    with open(os.path.join(tmp, f"{which}-rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def _mp_split_report(label, arch, ranks, one, smi_line, kernel_shape,
+                     spawn_s):
+    """Print and check a split phase's ranks against the one-card run:
+    losses within MP_LOSS_TOL and equal on every rank, collective bytes a
+    step equal to the counted, every hand kernel of the path launched and
+    given ``kernel_shape`` only."""
+    r0 = ranks[0]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], one["losses"])]
+    log(f"[{label}] {arch}: losses "
+        f"{' '.join(f'{x:.5f}' for x in r0['losses'])} vs one card "
+        f"{' '.join(f'{x:.5f}' for x in one['losses'])}, max rel gap "
+        f"{max(gaps):.3e} (tol {MP_LOSS_TOL}); split in compute: "
+        f"{len(r0['info']['split'])} leaves ({', '.join(r0['info']['split'])})"
+        f"; the spawn took {spawn_s:.1f} s")
+    require(len(r0["losses"]) == len(one["losses"]) and all(
+        math.isfinite(x) for x in r0["losses"]), f"{label}: losses "
+        f"{r0['losses']}")
+    require(max(gaps) <= MP_LOSS_TOL,
+            f"{label}: loss gap {max(gaps):.3e} > {MP_LOSS_TOL}")
+    for r, o in enumerate(ranks):
+        require(o["losses"] == r0["losses"],
+                f"{label}: rank {r}'s losses differ from rank 0's")
+        counted = o["counted_bytes"]
+        log(f"[{label}] rank {r} {tuple(o['coords'])} on {smi_line}: step "
+            f"ms {' '.join(f'{x:.1f}' for x in o['step_ms'])}; peak "
+            f"{o['peak_bytes']} B; state {o['state_bytes']} B "
+            f"({o['rank_params']} of {o['whole_params']} params); "
+            f"collective bytes a step {o['bytes'][-1]} (counted "
+            f"{counted['total']}: " + ", ".join(
+                f"{k} {v}" for k, v in counted.items() if k != "total")
+            + f"); launches {o['launches']}, kernel shapes {o['shapes']}")
+        require(all(b == counted["total"] for b in o["bytes"]),
+                f"{label}: rank {r} carried {o['bytes']} B a step, counted "
+                f"{counted['total']}")
+        require(all(n > 0 for n in o["launches"].values()),
+                f"{label}: rank {r} launched {o['launches']}")
+        require(o["shapes"] == [kernel_shape],
+                f"{label}: rank {r}'s kernel took {o['shapes']}")
+    log(f"[{label}] one card on {smi_line}: step ms "
+        f"{' '.join(f'{x:.1f}' for x in one['step_ms'])}; peak "
+        f"{one['peak_bytes']} B; state {one['state_bytes']} B")
+
+
+def _mp_ssm_kernels(rows, dev):
+    """K8 and K8b at a (2, 2) rank's shape (MP_SSM_SHAPE, f32) against
+    their plain versions, with a random dy and nonzero dstates for K8b,
+    each timed beside its plain version and its bound (no library call
+    computes either); the table's K8 / K8b rows get ``tp_*`` keys."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import (
+        ssd_intra_chunk, ssd_intra_chunk_bwd, ssd_intra_chunk_bwd_cost,
+        ssd_intra_chunk_bwd_plain, ssd_intra_chunk_cost,
+        ssd_intra_chunk_plain,
+    )
+    from repro_torch.launch.roofline import tf32x3_bound
+
+    B, nc, Q, nh, hp, ds = MP_SSM_SHAPE
+    args = _k8_inputs(dev, B, nc, Q, nh, hp, ds, 41)
+    g = torch.Generator(device=dev).manual_seed(42)
+    dy = torch.randn((B, nc, Q, nh, hp), generator=g, device=dev)
+    dst = torch.randn((B, nc, nh, hp, ds), generator=g, device=dev)
+    tp = {}
+    for name, fn, plain_fn, cost, tol, own, extra in (
+            ("ssd_intra_chunk", ssd_intra_chunk, ssd_intra_chunk_plain,
+             ssd_intra_chunk_cost, KERNEL_TOL, K8_KERNELS, ()),
+            ("ssd_intra_chunk_bwd", ssd_intra_chunk_bwd,
+             ssd_intra_chunk_bwd_plain, ssd_intra_chunk_bwd_cost, K8B_TOL,
+             K8B_KERNELS, (dy, dst))):
+        got = fn(*args, *extra)
+        torch.cuda.synchronize()
+        want = plain_fn(*args, *extra)
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+        require(rel <= tol, f"{name} at a (2, 2) rank's shape: rel err "
+                f"{rel:.3e} > {tol}")
+        again = fn(*args, *extra)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"{name} at a (2, 2) rank's shape: two calls differ")
+        del got, want, again
+        ms = device_ms(lambda: fn(*args, *extra), 5, own=own)
+        plain = device_ms(lambda: plain_fn(*args, *extra), 3)
+        ops, bytes_ = cost(B, nc, Q, nh, hp, ds)
+        b_ms, b_by = tf32x3_bound(bytes_, ops)
+        log(f"[kernels] {'K8' if not extra else 'K8b'} {name} at a (2, 2) "
+            f"rank's shape (B, nc, Q, nh, hp, ds) = {MP_SSM_SHAPE} f32: "
+            f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol}), repeat "
+            f"bit-equal; kernel device ms {ms.own:.4f} [{ms.source}] plain "
+            f"device ms {plain.total:.4f} [{plain.source}] library none; "
+            f"3xTF32 design bound ms {b_ms:.4f} ({b_by}; {ops:.3e} ops, "
+            f"{bytes_ / 1e6:.1f} MB)")
+        tp[name] = _keyed("tp", ms.own, plain.total, None, b_ms, err)
+    del args, dy, dst
+    torch.cuda.empty_cache()
+    _update_rows(rows, tp)
+
+
+def phase_model_split(rows, dev, smi_line):
+    """Phases 8c and 8d (see the module docstring)."""
+    import torch
+
+    from repro_torch.launch import train
+
+    # ---- 8c: the SSM on a rank's heads
+    t0 = time.perf_counter()
+    _mp_ssm_kernels(rows, dev)
+    one = {}
+    train.main(["--arch", MP_SSM_ARCH, "--num-layers", str(MP_SSM_LAYERS),
+                "--steps", str(MP_SSM_STEPS), "--batch", str(MP_BATCH[0]),
+                "--seq-len", str(MP_BATCH[1]), "--log-every", "1",
+                "--device", "cuda"], out=one)
+    one = {"losses": [float(r["loss"]) for r in one["steps"]],
+           "step_ms": [r["ms"] for r in one["steps"]],
+           "peak_bytes": one["peak_bytes"] - one["base_bytes"],
+           "state_bytes": one["state_bytes"]}
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    B, nc, Q, nh, hp, _ = MP_SSM_SHAPE
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t1 = time.perf_counter()
+        ranks = _mp_spawn(tmp, dev, _mp_split_rank, ("ssm",),
+                          deadline=MP_SPLIT_DEADLINE, label="model_split "
+                          "8c", prefix="ssm")
+        spawn_s = time.perf_counter() - t1
+    _mp_split_report("model_split 8c", f"{MP_SSM_ARCH} at its widths, "
+                     f"{MP_SSM_LAYERS} layers, batch {MP_BATCH[0]}x"
+                     f"{MP_BATCH[1]}, {MP_SSM_STEPS} steps through "
+                     f"launch.train.main on a {MP_MESH} mesh of {MP_WORLD} "
+                     f"gloo ranks sharing {dev}", ranks, one, smi_line,
+                     (B, nc * Q, nh, hp), spawn_s)
+    log(f"[phase] model_split 8c {time.perf_counter() - t0:.2f} s")
+
+    # ---- 8d: the MoE experts' ffn and the untied head over (1, 4)
+    t0 = time.perf_counter()
+    _mp_kernels(rows, dev, MP_MOE_TP_SHAPE, "(1, 4)", "tp14")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        one = _mp_spawn(tmp, dev, _mp_moe_reference, world=1,
+                        deadline=MP_SPLIT_DEADLINE,
+                        label="model_split 8d one card", prefix="moe1")[0]
+        t1 = time.perf_counter()
+        ranks = _mp_spawn(tmp, dev, _mp_split_rank, ("moe",),
+                          deadline=MP_SPLIT_DEADLINE,
+                          label="model_split 8d", prefix="moe")
+        spawn_s = time.perf_counter() - t1
+    _mp_split_report("model_split 8d", f"{MP_MOE_ARCH} at its widths, "
+                     f"{MP_MOE_LAYERS} layer, bf16 moments, batch "
+                     f"{MP_BATCH[0]}x{MP_BATCH[1]}, {MP_MOE_STEPS} steps "
+                     f"through steps.make_sharded_train_step on a "
+                     f"{MP_MOE_MESH} mesh of {MP_WORLD} gloo ranks sharing "
+                     f"{dev}", ranks, one, smi_line, MP_MOE_TP_SHAPE,
+                     spawn_s)
+    log(f"[model_split 8d] the four ranks' peaks: "
+        + ", ".join(f"{o['peak_bytes']}" for o in ranks) + " B, sum "
+        f"{sum(o['peak_bytes'] for o in ranks)} B; the one card's "
+        f"{one['peak_bytes']} B")
+    log(f"[phase] model_split 8d {time.perf_counter() - t0:.2f} s")
 
 
 def phase_fit_serve(rows, dev):
@@ -5263,6 +5660,7 @@ def _phases(dev, t_all, dry, smi_line):
     t0 = time.perf_counter()
     phase_model_parallel(rows, dev, smi_line)
     log(f"[phase] model_parallel {time.perf_counter() - t0:.2f} s")
+    phase_model_split(rows, dev, smi_line)
     t0 = time.perf_counter()
     phase_fit_serve([r for r in rows if r[0] not in (
         "kmeans_assign", "rgcn_spmm_dense", "flash_attention",
@@ -5305,10 +5703,9 @@ def _phases(dev, t_all, dry, smi_line):
          "bound_by": m["bound_by"], "library_ms": m["library_ms"],
          **{k: m[k] for k in ("launches_counted", "fma_bound_ms", "d64_ms",
                               "d64_bound_ms", "b8_ms", "b8_solo_ms",
-                              "b8_plain_ms", "b8_bound_ms", "b8_bound_by",
-                              "b8_max_abs_err", "tp_ms", "tp_plain_ms",
-                              "tp_library_ms", "tp_bound_ms",
-                              "tp_max_abs_err") if k in m}}
+                              "b8_plain_ms", "b8_library_ms",
+                              "b8_bound_ms", "b8_bound_by",
+                              "b8_max_abs_err") + TP_KEYS if k in m}}
         for name, source, repl, _, m in rows]}
     return table
 

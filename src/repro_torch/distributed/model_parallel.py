@@ -20,13 +20,33 @@ the step runs on each rank's rows:
   and cut to the kv heads those q heads read, K7 / K7b run on that
   (B_local, S, K / m, G, hd) shape, and ``wo``'s rows give a partial
   output.  Likewise the dense FFN where the model axis is on ``ffn``
-  (``w1`` / ``w3`` columns, ``w2`` rows).  ``copy_in`` is the identity
-  forward and sums the input's gradient over the model ranks in rank
-  order; ``sum_out`` sums the partial outputs over the model ranks in rank
-  order and is the identity backward.  Every other model placement (the
-  vocab of the embedding and head, the embed dim of ``wk`` / ``wv`` and
-  the norms, SSM ``d_inner``, MoE ``ffn``) is stored sharded and gathered
-  whole before use; so is everything without the split.
+  (``w1`` / ``w3`` columns, ``w2`` rows), the MoE experts where it is on
+  their ``ffn`` (routing and dispatch whole on every model rank, the
+  three ``bmm`` on the rank's ``ffn`` slice, the combined output a
+  partial; the gates enter through ``copy_in``), and the SSM mixer where
+  it is on ``d_inner`` and ``ssm_heads`` divides by m (``in_z`` /
+  ``in_x`` / ``conv_x`` / ``norm`` / ``out`` on the rank's ``d_inner``,
+  ``in_dt`` / ``A_log`` / ``D_skip`` / ``dt_bias`` on its heads, K8 / K8b
+  on (B_local, S, nh / m, hp); ``B`` and ``C``, shared by every head, are
+  computed whole and enter through ``copy_in``; the gated norm's sum of
+  squares is summed over the model ranks both ways, ``all_sum``).
+  ``copy_in`` is the identity forward and sums the input's gradient over
+  the model ranks in rank order; ``sum_out`` sums the partial outputs
+  over the model ranks in rank order and is the identity backward.
+- **The vocabulary** (JAX keeps the logits split over ``vocab``).  A model
+  rank holds the columns of its vocabulary range, ceil(V / m) wide (the
+  last ranks fewer where m does not divide V, as GSPMD pads them):
+  "split" where the spec puts the model axis on ``vocab`` (the table is
+  gathered over the data axes only), "take" where it cannot (an uneven
+  vocabulary: the table is gathered whole and cut).  The embedding looks
+  up the rows of its range (zero elsewhere) and sums them over the model
+  ranks; the loss takes the max of the logits over the model ranks
+  (``model_max``), the sum of exps and the gold logit summed in rank
+  order, and differentiates each rank's own columns.  Every other model
+  placement (the embed dim of ``wk`` / ``wv`` and the norms, the SSM's
+  ``B`` / ``C`` and the router, or a layer whose split does not hold)
+  is stored sharded and gathered whole before use; so is everything
+  without the split.
 - **The gradient rule.**  Each rank differentiates its own share of the
   loss (``lm_loss(mp=)``: the cross-entropy over the global label count,
   the MoE expert fractions over every data rank's rows), so the whole
@@ -67,6 +87,7 @@ from repro_torch.distributed.sharding import (
     shard_leaf, spec_axes, unshard,
 )
 from repro_torch.models import transformer as tf
+from repro_torch.models.frontends import text_len
 from repro_torch.optim.adamw import tree_leaves
 
 #: the attention / dense-FFN leaves a model rank slices in compute, and
@@ -77,6 +98,15 @@ ATTN_SPLIT = {"wq": "heads", "bq": "heads", "wo": "heads"}
 ATTN_TAKE = {"wk": "kv_heads", "wv": "kv_heads", "bk": "kv_heads",
              "bv": "kv_heads"}
 MLP_SPLIT = {"w1": "ffn", "w3": "ffn", "w2": "ffn"}
+#: the MoE experts' products, on their ``ffn`` dim (the router stays whole)
+MOE_SPLIT = {"w1": "ffn", "w3": "ffn", "w2": "ffn"}
+#: the SSM leaves of a rank's heads (in_B / in_C / conv_B / conv_C whole)
+SSM_SPLIT = {"in_z": "d_inner", "in_x": "d_inner", "conv_x": "d_inner",
+             "norm": "d_inner", "out": "d_inner", "in_dt": "ssm_heads",
+             "A_log": "ssm_heads", "D_skip": "ssm_heads",
+             "dt_bias": "ssm_heads"}
+#: the embedding table and the untied head, on ``vocab``
+VOCAB_SPLIT = {"tokens": "vocab", "lm_head": "vocab"}
 
 
 class LeafPlan(NamedTuple):
@@ -144,54 +174,84 @@ class ShardPlan:
         aparams = tf.init_params(cfg, None, device="meta")
         specs = param_specs(axes, aparams, rules)
         self.param_dtype = next(iter(tree_leaves(aparams))).dtype
-        self.split_attention = self._split_attention(specs)
-        self.split_mlp = self._split_mlp(specs)
+        m, H = self.model_size, cfg.num_heads
+        self.split_attention = self._model_on(
+            specs, axes, lambda ls: ls.mixer == MIXER_ATTN, "mixer", "wq",
+            "heads") and (H // m) % (H // cfg.num_kv_heads) == 0
+        self.split_mlp = self._model_on(
+            specs, axes, lambda ls: ls.ffn == FFN_DENSE, "ffn", "w1", "ffn")
+        self.split_moe = self._model_on(
+            specs, axes, lambda ls: ls.ffn == FFN_MOE, "ffn", "w1", "ffn")
+        self.split_ssm = self._model_on(
+            specs, axes, lambda ls: ls.mixer != MIXER_ATTN, "mixer", "in_x",
+            "d_inner") and cfg.ssm_heads % m == 0
+        self.split_vocab = self._vocab_mode(specs)
         layer = cfg.layer_specs()
         self.leaves = []
         for path, names in _leaves(axes):
             spec = check_spec(_get(specs, path), self.mesh)
             shape = tuple(_get(aparams, path).shape)
             stacked = path[0] == "blocks"
-            mode, dim = "whole", None
+            pnames, pspec = (names[1:], spec[1:]) if stacked else (names, spec)
+            mode, cut = "whole", None
             if stacked:
                 ls = layer[int(path[1][3:])]
-                name, pnames = path[-1], names[1:]
-                if (path[2] == "mixer" and ls.mixer == MIXER_ATTN
-                        and self.split_attention):
-                    cut = ATTN_SPLIT.get(name) or ATTN_TAKE.get(name)
-                    mode = "split" if name in ATTN_SPLIT else "take"
-                    dim = pnames.index(cut)
-                elif (path[2] == "ffn" and ls.ffn == FFN_DENSE
-                      and self.split_mlp):
-                    mode, dim = "split", pnames.index(MLP_SPLIT[name])
-                if mode == "split" and spec[1:][dim] != rules.model_axis:
-                    raise ValueError(f"{'/'.join(path)}: spec {spec} does not "
-                                     f"put the model axis on {names[dim + 1]}")
+                name = path[-1]
+                if path[2] == "mixer" and ls.mixer == MIXER_ATTN:
+                    if self.split_attention:
+                        cut = ATTN_SPLIT.get(name) or ATTN_TAKE.get(name)
+                        mode = "split" if name in ATTN_SPLIT else "take"
+                elif path[2] == "mixer":
+                    if self.split_ssm and name in SSM_SPLIT:
+                        mode, cut = "split", SSM_SPLIT[name]
+                elif path[2] == "ffn" and ls.ffn == FFN_DENSE:
+                    if self.split_mlp:
+                        mode, cut = "split", MLP_SPLIT[name]
+                elif path[2] == "ffn" and ls.ffn == FFN_MOE:
+                    if self.split_moe and name in MOE_SPLIT:
+                        mode, cut = "split", MOE_SPLIT[name]
+            elif path[0] == "embed" and self.split_vocab:
+                mode, cut = self.split_vocab, VOCAB_SPLIT[path[1]]
+            dim = None if cut is None else pnames.index(cut)
+            if mode == "split" and pspec[dim] != rules.model_axis:
+                raise ValueError(f"{'/'.join(path)}: spec {spec} does not "
+                                 f"put the model axis on {cut}")
             self.leaves.append(LeafPlan(path, shape, names, spec, stacked,
                                         mode, dim))
         self.by_key = {lf.key: lf for lf in self.leaves}
 
     # -- which layers split ------------------------------------------------
 
-    def _first(self, specs, kind, name):
+    def _model_on(self, specs, axes, kind, part, name, logical) -> bool:
+        """Whether the model axis (of more than one rank) is on dim
+        ``logical`` of leaf ``part/name`` of the first layer of ``kind``."""
         for i, ls in enumerate(self.cfg.layer_specs()):
             if kind(ls):
-                part = "mixer" if name in ATTN_SPLIT else "ffn"
-                return _get(specs, ("blocks", f"pos{i}", part, name))
-        return None
+                path = ("blocks", f"pos{i}", part, name)
+                spec = _get(specs, path)
+                return (self.model_size > 1 and spec[_get(axes, path).index(
+                    logical)] == self.rules.model_axis)
+        return False
 
-    def _split_attention(self, specs) -> bool:
-        spec = self._first(specs, lambda ls: ls.mixer == MIXER_ATTN, "wq")
-        m = self.model_size
-        if spec is None or m == 1 or spec[2] != self.rules.model_axis:
-            return False
-        H, K = self.cfg.num_heads, self.cfg.num_kv_heads
-        return (H // m) % (H // K) == 0
+    def _vocab_mode(self, specs) -> Optional[str]:
+        """How the model ranks use the vocabulary: "split" where the spec
+        puts the model axis on it, "take" where m does not divide it (the
+        ranks' ranges ceil(V / m) wide, each rank at least one word), else
+        None."""
+        m, V = self.model_size, self.cfg.vocab_size
+        if m == 1:
+            return None
+        if specs["embed"]["tokens"][0] == self.rules.model_axis:
+            return "split"
+        return "take" if (m - 1) * -(-V // m) < V else None
 
-    def _split_mlp(self, specs) -> bool:
-        spec = self._first(specs, lambda ls: ls.ffn == FFN_DENSE, "w1")
-        return (spec is not None and self.model_size > 1
-                and spec[2] == self.rules.model_axis)
+    def cut(self, lf: LeafPlan, coords) -> tuple:
+        """[lo, hi) of ``lf.dim`` that the rank at ``coords`` computes
+        with: its model block (ceil(n / m) wide, the last ranks fewer
+        where m does not divide n)."""
+        n, w = lf.piece_shape[lf.dim], self.out_shape(lf)[lf.dim]
+        lo = min(coords[-1] * w, n)
+        return lo, min(lo + w, n)
 
     @property
     def split_leaves(self) -> list:
@@ -287,10 +347,11 @@ class ShardPlan:
 
     def out_shape(self, lf: LeafPlan) -> tuple:
         """The shape a rank computes with: the piece whole, or its
-        model slice along ``lf.dim``."""
+        model slice along ``lf.dim`` (ceil(n / m) wide: a "take" of an
+        uneven vocabulary is padded to it in the gradient's gather)."""
         shape = list(lf.piece_shape)
         if lf.mode != "whole":
-            shape[lf.dim] //= self.model_size
+            shape[lf.dim] = -(-shape[lf.dim] // self.model_size)
         return tuple(shape)
 
     def uses(self) -> list:
@@ -334,17 +395,33 @@ class ShardPlan:
         if batch % ds:
             raise ValueError(f"batch {batch} does not split over {ds} data "
                              f"ranks")
-        act = (batch // ds) * seq * cfg.d_model * cz
+        rows = (batch // ds) * seq            # a rank's tokens
+        act = rows * cfg.d_model * cz
+        tp = 0
         for ls in cfg.layer_specs():
-            tp = ((ls.mixer == MIXER_ATTN and self.split_attention)
-                  + (ls.ffn == FFN_DENSE and self.split_mlp))
-            out["tensor_parallel"] += (cfg.num_blocks * tp * 2 * ms * act
-                                       if ms > 1 else 0)
+            if ls.mixer == MIXER_ATTN and self.split_attention:
+                tp += 2 * ms * act                  # copy_in, sum_out
+            elif ls.mixer != MIXER_ATTN and self.split_ssm:
+                # copy_in of h and of (B, C); sum_out; the gated norm's
+                # float32 sum of squares, forward and backward
+                tp += (2 * ms * act + ms * rows * 2 * cfg.ssm_state * cz
+                       + 2 * ms * rows * 4)
+            if ls.ffn == FFN_DENSE and self.split_mlp:
+                tp += 2 * ms * act
+            elif ls.ffn == FFN_MOE and self.split_moe:
+                tp += 2 * ms * act + ms * rows * cfg.top_k * cz  # + gates
             if ls.ffn == FFN_MOE and ds > 1:
                 G = min(cfg.moe_seq_chunk, seq)
                 chunks = seq // G if seq > G and seq % G == 0 else 1
                 out["scalars"] += (cfg.num_blocks * chunks * ds
                                    * cfg.num_experts * 4)
+        out["tensor_parallel"] = cfg.num_blocks * tp
+        if self.split_vocab:
+            text = (batch // ds) * text_len(cfg, seq) * cfg.d_model * cz
+            # the embedding's sum_out, the head's copy_in, and the loss's
+            # float32 max and (sum of exps, gold) over a rank's tokens
+            out["tensor_parallel"] += (ms * text + ms * act
+                                       + (1 + 2 * ms) * rows * 4)
         if ds > 1:
             out["scalars"] += ds * 4 + ds * 3 * 4   # label count, metrics
         if n > 1:
@@ -418,6 +495,12 @@ class ModelParallel:
         self.model_size, self.data_size = plan.model_size, plan.data_size
         self.split_attention = plan.split_attention
         self.split_mlp = plan.split_mlp
+        self.split_moe = plan.split_moe
+        self.split_ssm = plan.split_ssm
+        self.split_vocab = plan.split_vocab is not None
+        #: [lo, hi) of the vocabulary this rank computes
+        self.vocab_range = (plan.cut(plan.by_key["embed/tokens"], self.coords)
+                            if self.split_vocab else None)
         self._views = {}
 
     # -- the model's reads --------------------------------------------------
@@ -459,6 +542,19 @@ class ModelParallel:
 
     def sum_out(self, x):
         return _SumOut.apply(x, self)
+
+    def all_sum(self, x):
+        """``x`` summed over the model ranks in rank order, and so its
+        gradient (``copy_in`` then ``sum_out``): a sum whose consumer is
+        itself split (the gated norm's sum of squares)."""
+        return self.sum_out(self.copy_in(x))
+
+    @torch.no_grad()
+    def model_max(self, t):
+        """The elementwise max of ``t`` over the model ranks (no
+        gradient: the loss's shift)."""
+        return self.groups.model.all_reduce(t.detach().contiguous().clone(),
+                                            "max")
 
     def _model_sum(self, t):
         return self.groups.model.sum_in_rank_order(t)
@@ -503,18 +599,23 @@ class ModelParallel:
         out = (x.clone() if plan.kind_size(kind) == 1
                else self._gather(x, lf, b, kind, shape, spec))
         if lf.mode == "take":
-            n = shape[lf.dim] // self.model_size
-            m = self.coords[-1]
-            out = out.narrow(lf.dim, m * n, n).contiguous()
+            lo, hi = plan.cut(lf, self.coords)
+            out = out.narrow(lf.dim, lo, hi - lo).contiguous()
         return out
 
     def _backward(self, grad, lf, b):
         plan = self.plan
         if lf.mode == "take":
+            w = plan.out_shape(lf)[lf.dim]
+            if grad.shape[lf.dim] < w:        # a short cut, padded
+                pad = list(grad.shape)
+                pad[lf.dim] = w - grad.shape[lf.dim]
+                grad = torch.cat([grad, grad.new_zeros(pad)], dim=lf.dim)
             parts = self.groups.world.gather(grad)
-            ms = self.model_size
+            ms, n = self.model_size, lf.piece_shape[lf.dim]
             whole = [torch.cat([parts[d * ms + m] for m in range(ms)],
-                               dim=lf.dim) for d in range(self.data_size)]
+                               dim=lf.dim).narrow(lf.dim, 0, n)
+                     for d in range(self.data_size)]
             total = whole[0]
             for w in whole[1:]:
                 total = total + w

@@ -22,7 +22,8 @@ On a (data, model) mesh of ranks, ``param_specs`` and
 replicated, params, ``mu``, ``nu`` and ``compress_err`` under the param
 specs.  ``make_sharded_train_step(cfg, tcfg, rules, group)`` is the train
 step on this rank's blocks and rows (``distributed/model_parallel.py``);
-its ``info`` names the leaves the model axis splits in compute.  JAX's
+its ``info`` names the leaves the model axis splits in compute and
+each leaf's mode.  JAX's
 batch and decode-state shardings have no counterpart: the port shards
 training only.
 """
@@ -142,7 +143,8 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     groups are built here: every rank of the job calls this, in the same
     order) or a rank's ``MeshGroups``.  The step carries ``plan``,
     ``groups`` and ``info`` ({"mesh", "split": the leaves the model axis
-    splits in compute})."""
+    splits in compute, "modes": each leaf's use, "whole", "split" or
+    "take"})."""
     from repro_torch.distributed.group import MeshGroups
     from repro_torch.distributed.model_parallel import (
         ModelParallel, ShardPlan,
@@ -177,6 +179,7 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     train_step.plan, train_step.groups = plan, groups
     train_step.info = {"mesh": tuple(rules.mesh.shape),
-                       "split": plan.split_leaves}
+                       "split": plan.split_leaves,
+                       "modes": {lf.key: lf.mode for lf in plan.leaves}}
     return train_step
 

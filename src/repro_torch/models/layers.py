@@ -10,7 +10,11 @@ them); JAX's ``constrain`` calls are left out.  Under a
 axis on ``ffn``, ``mlp_forward`` runs tensor-parallel: ``w1`` / ``w3``
 column slices and a ``w2`` row slice a rank, between copy-in and
 sum-out; ``chunked_cross_entropy`` divides by the count of labels summed
-over the data ranks.
+over the data ranks.  Where the model axis splits the vocabulary (JAX's
+``constrain`` of the logits on ``vocab``), ``embed_tokens``, the head and
+the loss run on each model rank's vocabulary range
+(``vocab_parallel_lse``); under the SSM split ``rmsnorm_gated`` takes its
+mean of squares over every model rank's ``d_inner`` columns.
 
 Gradients sum in a fixed order on the card: the embedding gather's
 backward is a one-hot matmul (``take_rows``), not ``index_add_``, which
@@ -69,10 +73,17 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def rmsnorm_gated(scale: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
-                  eps: float) -> torch.Tensor:
-    """Mamba-2 gated norm: RMSNorm(x * silu(z)) * scale."""
+                  eps: float, mp=None) -> torch.Tensor:
+    """Mamba-2 gated norm: RMSNorm(x * silu(z)) * scale.  Under ``mp``
+    (the SSM split) ``x`` / ``z`` / ``scale`` are this model rank's
+    ``d_inner`` columns: the mean of squares is over the whole width, the
+    ranks' sums of squares summed in rank order (``all_sum``)."""
     x32 = x.float() * F.silu(z.float())
-    var = x32.square().mean(-1, keepdim=True)
+    if mp is None:
+        var = x32.square().mean(-1, keepdim=True)
+    else:
+        var = mp.all_sum(x32.square().sum(-1, keepdim=True)) / (
+            x32.shape[-1] * mp.model_size)
     y = x32 * torch.rsqrt(var + eps)
     return (y * scale).to(x.dtype)
 
@@ -196,17 +207,28 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, idx)
 
 
-def embed_tokens(cfg: ModelConfig, p: dict, tokens: torch.Tensor
-                 ) -> torch.Tensor:
+def embed_tokens(cfg: ModelConfig, p: dict, tokens: torch.Tensor,
+                 mp=None) -> torch.Tensor:
     """tokens (B,S) integer -> (B,S,D) in the compute dtype (a gather on
-    the device: no host sync)."""
+    the device: no host sync).  Under ``mp`` with ``split_vocab`` the table
+    holds this model rank's vocabulary range: the rows of the words in it
+    (zero for the others), summed over the model ranks in rank order."""
     table = cast(p["tokens"], cfg.compute_dtype)
-    flat = take_rows(table, tokens.reshape(-1).long())
+    idx = tokens.reshape(-1).long()
+    if mp is None or not mp.split_vocab:
+        flat = take_rows(table, idx)
+    else:
+        local = idx - mp.vocab_range[0]
+        mine = (local >= 0) & (local < table.shape[0])
+        flat = take_rows(table, torch.where(mine, local, 0))
+        flat = mp.sum_out(torch.where(mine[:, None], flat, 0.0))
     return flat.reshape(*tokens.shape, table.shape[1])
 
 
 def lm_head_weight(cfg: ModelConfig, embed_params: dict) -> torch.Tensor:
-    """(D, V) in the compute dtype (the tied table's transpose is a view)."""
+    """(D, V) in the compute dtype (the tied table's transpose is a view);
+    under a vocabulary split, the rank's (D, V / m) columns, as its
+    ``embed`` holds them."""
     if cfg.tie_embeddings:
         return cast(embed_params["tokens"], cfg.compute_dtype).t()
     return cast(embed_params["lm_head"], cfg.compute_dtype)
@@ -226,10 +248,14 @@ def chunked_cross_entropy(cfg: ModelConfig, h: torch.Tensor,
     h (B,S,D), w_head (D,V), labels (B,S) integer.  Under ``mp`` the rows
     are this data rank's: the count of labels is summed over the data
     ranks in rank order, so the ranks' losses add up to the whole batch's
-    mean."""
+    mean.  With ``split_vocab``, ``w_head`` is the rank's vocabulary
+    columns (``vocab_parallel_lse``) and ``h`` enters through ``copy_in``."""
     B, S, D = h.shape
     C = min(cfg.loss_chunk, S)
     n_chunks = S // C
+    vp = mp is not None and mp.split_vocab
+    if vp:
+        h = mp.copy_in(h)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     bounds = [(c * C, (c + 1) * C) for c in range(n_chunks)]
@@ -238,12 +264,34 @@ def chunked_cross_entropy(cfg: ModelConfig, h: torch.Tensor,
     for a, b in bounds:
         y = labels[:, a:b].long()
         logits = (h[:, a:b] @ w_head).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        # one index a row: the gather's backward writes, never sums
-        gold = logits.gather(-1, y.clamp(min=0)[..., None])[..., 0]
+        if vp:
+            lse, gold = vocab_parallel_lse(logits, y, mp)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            # one index a row: the gather's backward writes, never sums
+            gold = logits.gather(-1, y.clamp(min=0)[..., None])[..., 0]
         valid = (y >= 0).float()
         tot = tot + torch.sum((lse - gold) * valid)
         cnt = cnt + torch.sum(valid)
     if mp is not None:
         cnt = mp.data_sum(cnt)
     return tot / torch.clamp(cnt, min=1.0)
+
+
+def vocab_parallel_lse(logits: torch.Tensor, y: torch.Tensor, mp):
+    """(log-sum-exp, gold logit), each (B, C), of logits split over the
+    model ranks by vocabulary: ``logits`` (B, C, V_r) float32 are this
+    rank's columns ``mp.vocab_range``, ``y`` the whole labels.  The shift
+    is the max over the model ranks; the sums of exps and the gold logit
+    (the owning rank's, zero elsewhere) are summed over the model ranks in
+    rank order (``sum_out``: each rank differentiates its own columns,
+    its softmax less its one-hot)."""
+    lo, hi = mp.vocab_range
+    shift = mp.model_max(logits.detach().amax(-1))
+    local = y - lo
+    mine = (local >= 0) & (local < hi - lo)
+    gold = logits.gather(-1, torch.where(mine, local, 0)[..., None])[..., 0]
+    parts = torch.stack([torch.exp(logits - shift[..., None]).sum(-1),
+                         torch.where(mine, gold, 0.0)])
+    sumexp, gold = mp.sum_out(parts)
+    return shift + torch.log(sumexp), gold

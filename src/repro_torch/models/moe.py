@@ -7,14 +7,17 @@ expert's position per slot by a cumsum over the slots in s-major, j-minor
 order, a capacity-C gather into per-expert buffers, the three SwiGLU
 products as ``bmm`` over the experts, and the gate-weighted combine.  JAX
 computes all of it in jnp, outside any Pallas kernel, so the port does it
-in torch ops.  ``moe_axes`` is JAX's logical-axes tree; JAX's
-``constrain`` calls are sharding hints and are not ported.  Under a model
-mesh the expert weights are gathered whole before use (the ``ffn`` axis
-is stored sharded, not split in compute), and the load-balance term's
-expert fractions ``ce``, a mean over every row of the batch, count the
-rows of every data rank: the ranks' counts are summed in rank order
-before the product, so the ranks' aux losses add up to the whole
-batch's.
+in torch ops.  ``moe_axes`` is JAX's logical-axes tree.  Under a
+``distributed/model_parallel.ModelParallel`` with ``split_moe`` (JAX's
+``constrain`` of the expert hidden on ``ffn``) the three products run on
+the model rank's ``ffn`` slice of ``w1`` / ``w3`` / ``w2``: routing,
+dispatch and the C-1 rule run whole and alike on every model rank (the
+router is whole), the dispatched rows and the gates enter through
+``copy_in``, and the combined (B, S, D) output is a partial summed over
+the model ranks in rank order.  On a mesh the load-balance term's expert
+fractions ``ce``, a mean over every row of the batch, count the rows of
+every data rank: the ranks' counts are summed in rank order before the
+product, so the ranks' aux losses add up to the whole batch's.
 
 Three points where the port is written to give JAX's numbers:
 
@@ -211,7 +214,9 @@ def _moe_group(cfg: ModelConfig, p: dict, h: torch.Tensor, mp=None):
     src[last] = torch.where(over, B * S, src[last])               # JAX's C-1
 
     cell = cell.reshape(B * S, k)
-    xe = _Dispatch.apply(h.reshape(B * S, D), src, cell)
+    tp = mp is not None and mp.split_moe
+    xe = _Dispatch.apply((mp.copy_in(h) if tp else h).reshape(B * S, D),
+                         src, cell)
     w1, w3, w2 = cast(p["w1"], dt), cast(p["w3"], dt), cast(p["w2"], dt)
     xe = xe.reshape(E, B * C, D)
     a = torch.bmm(xe, w1)
@@ -220,5 +225,8 @@ def _moe_group(cfg: ModelConfig, p: dict, h: torch.Tensor, mp=None):
 
     # --- combine: gather each slot's expert row, weight, add over j -------
     w = torch.where(keep, top_g.reshape(B, S * k), 0.0).to(ye.dtype)
-    out = _Combine.apply(ye, w.reshape(B * S, k), cell, slot)
-    return out.reshape(B, S, D).to(h.dtype), aux
+    w = w.reshape(B * S, k)
+    if tp:      # a rank's dw covers its ffn slice: summed in rank order
+        w = mp.copy_in(w)
+    out = _Combine.apply(ye, w, cell, slot).reshape(B, S, D).to(h.dtype)
+    return (mp.sum_out(out) if tp else out), aux

@@ -10,8 +10,16 @@ lives beside K8 in ``kernels/ssd_scan/ops.py``.
 Layout: d_inner is heads-major, x.reshape(B,S,nh,hp).  The decode caches
 are updated in place (``copy_`` into the caller's tensors) where JAX
 returns new arrays; the returned dict holds the same tensors.
-``ssm_axes`` is JAX's logical-axes tree; under a model mesh every SSM
-leaf is gathered whole before use (``d_inner`` is not split in compute).
+``ssm_axes`` is JAX's logical-axes tree.  Under a
+``distributed/model_parallel.ModelParallel`` with ``split_ssm`` (JAX's
+``constrain`` of ``z`` / ``x`` on ``d_inner``), ``ssm_forward`` runs on
+the model rank's heads: ``in_z`` / ``in_x`` / ``in_dt`` give its
+``d_inner`` / ``ssm_heads`` columns, ``conv_x`` / ``A_log`` / ``D_skip``
+/ ``dt_bias`` / ``norm`` are its slices, K8 / K8b run on (B, S, nh / m,
+hp), ``B`` and ``C`` are computed whole and enter through ``copy_in`` (so
+``in_B`` / ``in_C`` keep the same gradient bits on every model rank), the
+gated norm's mean is over every rank's columns, and ``out``'s rows give a
+partial output summed over the model ranks in rank order.
 """
 
 from __future__ import annotations
@@ -85,32 +93,49 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.silu(out)
 
 
-def _projections(cfg: ModelConfig, p: dict, h: torch.Tensor):
+def _projections(cfg: ModelConfig, p: dict, h: torch.Tensor,
+                 h_heads: torch.Tensor | None = None):
+    """z, x, B, C, dt of ``h``; z, x and dt from ``h_heads`` where given
+    (the model rank's copy-in)."""
     dt_ = cfg.compute_dtype
-    return tuple(h @ cast(p[name], dt_)
-                 for name in ("in_z", "in_x", "in_B", "in_C", "in_dt"))
+    hh = h if h_heads is None else h_heads
+    z, x, dt = (hh @ cast(p[n], dt_) for n in ("in_z", "in_x", "in_dt"))
+    Bc, Cc = (h @ cast(p[n], dt_) for n in ("in_B", "in_C"))
+    return z, x, Bc, Cc, dt
 
 
 def ssm_forward(cfg: ModelConfig, p: dict, h: torch.Tensor, *,
-                return_cache: bool = False):
+                return_cache: bool = False, mp=None):
     """Prefill.  h (B,S,D) -> out (B,S,D) and, with ``return_cache``, the
     decode cache: the final SSM state (compute dtype) and the last cw-1 raw
-    (pre-conv, pre-SiLU) projections of x, B and C."""
+    (pre-conv, pre-SiLU) projections of x, B and C.  Under ``mp`` with
+    ``split_ssm``, ``p`` holds this model rank's heads (the cache, its
+    heads')."""
     B, S, _ = h.shape
     nh, hp, cw = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_conv
     dt_ = cfg.compute_dtype
-    z, x, Bc, Cc, dt_raw = _projections(cfg, p, h)
+    tp = mp is not None and mp.split_ssm
+    if tp:
+        nh //= mp.model_size
+    z, x, Bc, Cc, dt_raw = _projections(cfg, p, h,
+                                        mp.copy_in(h) if tp else None)
     x = _causal_conv(x, cast(p["conv_x"], dt_))
     Bc = _causal_conv(Bc, cast(p["conv_B"], dt_))
     Cc = _causal_conv(Cc, cast(p["conv_C"], dt_))
+    if tp:      # K8b's dB / dC cover the rank's heads: summed in rank order
+        ds = Bc.shape[-1]
+        Bc, Cc = mp.copy_in(torch.cat([Bc, Cc], dim=-1)).split(ds, dim=-1)
 
     dt = _softplus(dt_raw.float() + p["dt_bias"][None, None])
     A = -torch.exp(p["A_log"])
     xh = x.reshape(B, S, nh, hp)
     y, final = ssd_scan(xh, dt, A, Bc, Cc, cfg.ssm_chunk)
     y = y + xh * p["D_skip"][None, None, :, None].to(y.dtype)
-    y = rmsnorm_gated(p["norm"], y.reshape(B, S, nh * hp), z, cfg.norm_eps)
+    y = rmsnorm_gated(p["norm"], y.reshape(B, S, nh * hp), z, cfg.norm_eps,
+                      mp if tp else None)
     out = y @ cast(p["out"], dt_)
+    if tp:
+        out = mp.sum_out(out)
     if not return_cache:
         return out, None
     conv_tail = {name: _tail_raw(cfg, p, h, f"in_{name}", cw)

@@ -31,8 +31,9 @@ of ``init_params``'s tree, stacked leaves led by ``blocks``);
 and ``lm_loss`` take an optional ``mp``
 (``distributed/model_parallel.ModelParallel``): the params are then this
 rank's shards, each leaf is rebuilt (or its compute slice gathered) just
-before the block that reads it, and the attention, the dense FFN, the MoE
-load-balance term and the cross-entropy run as that module says.
+before the block that reads it, and the embedding, the attention, the SSM
+mixer, the dense and MoE FFNs, the MoE load-balance term, the head and
+the cross-entropy run as that module says.
 """
 
 from __future__ import annotations
@@ -224,7 +225,8 @@ def _block_forward(cfg: ModelConfig, bp: dict, h: torch.Tensor, positions,
                                                  caches[f"pos{i}"])
         else:
             out, nc = ssm_mod.ssm_forward(cfg, pp["mixer"], r,
-                                          return_cache=(mode == "prefill"))
+                                          return_cache=(mode == "prefill"),
+                                          mp=mp)
         h = h + out
         if spec.ffn != FFN_NONE:
             r = rmsnorm(pp["norm2"], h, cfg.norm_eps)
@@ -265,8 +267,8 @@ def _stack_forward(cfg: ModelConfig, blocks: dict, h, positions, mode: str,
 # ---------------------------------------------------------------------------
 
 
-def _embed(cfg, params, tokens, frontend):
-    h = embed_tokens(cfg, params["embed"], tokens)
+def _embed(cfg, params, tokens, frontend, mp=None):
+    h = embed_tokens(cfg, params["embed"], tokens, mp)
     h = apply_frontend(cfg, h, frontend)
     positions = torch.arange(h.shape[1], dtype=torch.int32,
                              device=h.device)[None, :]
@@ -284,7 +286,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def _forward(cfg, params, tokens, frontend, mp):
     """(h, aux, the embedding subtree as the step reads it)."""
     embed = mp.embed() if mp else params["embed"]
-    h, positions = _embed(cfg, {"embed": embed}, tokens, frontend)
+    h, positions = _embed(cfg, {"embed": embed}, tokens, frontend, mp)
     h, _, aux = _stack_forward(cfg, params["blocks"], h, positions, "train",
                                mp=mp)
     h = rmsnorm(mp.final_norm() if mp else params["final_norm"], h,

@@ -14,17 +14,20 @@ devices.  The rank-side checks run in one spawn of four gloo ranks (one
 intra-op thread a rank, results through files), started with the module
 beside a subprocess that runs JAX's one-device steps, while this process
 checks the specs: llama3.2-3b (two
-layers: attention and the dense FFN split over the model axis, the norms'
-blocks dim over the data axis), mamba2-780m (SSM, gathered only) and
-jamba-v0.1-52b at one block (attention, SSM and MoE) at smoke width,
-float32, three steps on a (2, 2) mesh from seeded weights carried into
-the port by ``lm_params_from_jax`` and into JAX as its params tree.
+layers: the vocabulary, attention and the dense FFN split over the model
+axis, the norms' blocks dim over the data axis), mamba2-780m (the
+vocabulary and the SSM's heads split), jamba-v0.1-52b at one block
+(attention, SSM, the MoE experts' ``ffn``, the untied head) and
+granite-3-2b at an uneven vocabulary (the table gathered whole and cut to
+a rank's range) at smoke width, float32, three steps on a (2, 2) mesh
+from seeded weights carried into the port by ``lm_params_from_jax`` and
+into JAX as its params tree.
 
 Tolerances: losses and grad norms 1e-5 relative; a leaf 1e-5 of its norm
 against the port's one-card step (the same math, its sums in another
-order), except jamba's parameters after three steps (see
-``JAMBA_PARAM_TOL``); the clipped gradient (the first step's ``mu``) 1e-4
-of its norm for every arch; JAX's one-device step at
+order), except jamba's and granite's parameters after three steps (see
+``JAMBA_PARAM_TOL``, ``GRANITE_PARAM_TOL``); the clipped gradient (the
+first step's ``mu``) 1e-4 of its norm for every arch; JAX's one-device step at
 ``test_torch_lm_train``'s TOL for the losses and its 1e-4 of a leaf's
 norm for the parameters.  Nothing here imports JAX at module level: the
 spawned ranks import this module.
@@ -64,8 +67,11 @@ from repro_torch.optim import adamw_init
 
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
 WORLD = 4
-#: the arch runs of the spawn: (arch, layers or None for the smoke depth)
-ARCHS = {"llama3.2-3b": 2, "mamba2-780m": None, "jamba-v0.1-52b": None}
+#: the arch runs of the spawn: arch -> what its smoke config replaces
+#: (granite at an uneven vocabulary, 509 words: the model ranks take
+#: ceil(509 / 2) = 255 and 254 of them, as GSPMD pads its 49155)
+ARCHS = {"llama3.2-3b": {"num_layers": 2}, "mamba2-780m": {},
+         "jamba-v0.1-52b": {}, "granite-3-2b": {"vocab_size": 509}}
 STEPS = 3
 RESUME_STEPS = 2          # llama's steps after the elastic restore
 TOL = 1e-5
@@ -83,6 +89,12 @@ GRAD_TOL = 1e-4
 #: these three steps, so the sharded step is held as far as the two
 #: references agree with each other; its losses are held at TOL
 JAMBA_PARAM_TOL = 1e-2
+#: granite's (the uneven vocabulary) parameters after three steps against
+#: the one card, of each leaf's norm: its step-0 gradients agree to 5e-7,
+#: but Adam takes w2 to 1.1e-5 after three steps, with the vocabulary
+#: split (1.12e-5) as without it (1.04e-5, the table gathered whole):
+#: the sharded sums' order, not the split
+GRANITE_PARAM_TOL = 2e-5
 TC = dict(learning_rate=3e-3, warmup_steps=1, total_steps=10)
 #: the faked JAX sizes of tests/test_sharding_rules.py, and the port's
 #: real rank meshes of the same sizes
@@ -95,9 +107,7 @@ RANKS_DEADLINE = 240
 
 
 def _cfg(arch):
-    cfg = smoke_arch(arch)
-    layers = ARCHS[arch]
-    return cfg if layers is None else cfg.replace(num_layers=layers)
+    return smoke_arch(arch).replace(**ARCHS[arch])
 
 
 def _rules(name):
@@ -329,10 +339,8 @@ tmp, (archs, steps, tc) = sys.argv[1], json.loads(sys.argv[2])
 with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
     inputs = pickle.load(f)
 out = {}
-for arch, layers in archs.items():
-    cfg = smoke_arch(arch)
-    if layers is not None:
-        cfg = cfg.replace(num_layers=layers)
+for arch, over in archs.items():
+    cfg = smoke_arch(arch).replace(**over)
     d = inputs[arch]
     state = adamw_init(jax.tree_util.tree_map(
         jnp.asarray, unflatten_tree(d["flat"])), TrainConfig(**tc))
@@ -776,7 +784,8 @@ def test_sharded_step_matches_the_one_card_step(ranks, references, arch):
         assert got["lr"] == want["lr"]
     gaps = _norm_gap(rec["mu1"], ref["port_mu1"])
     assert max(gaps.values()) <= GRAD_TOL, gaps
-    tol = JAMBA_PARAM_TOL if arch == "jamba-v0.1-52b" else TOL
+    tol = {"jamba-v0.1-52b": JAMBA_PARAM_TOL,
+           "granite-3-2b": GRANITE_PARAM_TOL}.get(arch, TOL)
     gaps = _norm_gap(rec["params"], ref["port_params"])
     assert max(gaps.values()) <= tol, gaps
     for o in ranks[1:]:
@@ -828,16 +837,28 @@ def test_collective_bytes_equal_group_bytes(ranks, arch):
 
 
 def test_split_leaves_in_the_step_info(ranks):
+    from repro_torch.distributed.model_parallel import SSM_SPLIT
+
     llama = ranks[0]["llama3.2-3b"]["info"]
     assert llama["mesh"] == (2, 2)
-    assert set(llama["split"]) == {
+    assert set(llama["split"]) == {"embed/tokens"} | {
         f"blocks/pos0/{p}" for p in ("mixer/wq", "mixer/wk", "mixer/wv",
                                      "mixer/wo", "ffn/w1", "ffn/w3",
                                      "ffn/w2")}
-    assert ranks[0]["mamba2-780m"]["info"]["split"] == []
-    jamba = set(ranks[0]["jamba-v0.1-52b"]["info"]["split"])
-    assert "blocks/pos4/mixer/wq" in jamba
-    assert not any("pos1/ffn" in k for k in jamba)      # MoE: gathered
+    ssm = {f"blocks/pos0/mixer/{n}" for n in SSM_SPLIT}
+    mamba = ranks[0]["mamba2-780m"]["info"]
+    assert set(mamba["split"]) == {"embed/tokens"} | ssm
+    assert all(mamba["modes"][f"blocks/pos0/mixer/{n}"] == "whole"
+               for n in ("in_B", "in_C", "conv_B", "conv_C"))
+    jamba = ranks[0]["jamba-v0.1-52b"]["info"]
+    split = set(jamba["split"])
+    assert {"blocks/pos4/mixer/wq", "embed/tokens", "embed/lm_head"} <= split
+    assert {f"blocks/pos1/ffn/{w}" for w in ("w1", "w3", "w2")} <= split
+    assert {f"blocks/pos{i}/mixer/{n}" for i in (0, 1) for n in SSM_SPLIT
+            } <= split
+    assert jamba["modes"]["blocks/pos1/ffn/router"] == "whole"
+    granite = ranks[0]["granite-3-2b"]["info"]["modes"]
+    assert granite["embed/tokens"] == "take"
 
 
 def test_checkpoint_restores_across_mesh_shapes(ranks):
@@ -857,12 +878,13 @@ def test_checkpoint_restores_across_mesh_shapes(ranks):
 
 def test_other_mesh_shapes_carry_their_counted_bytes(ranks, references):
     """The (1, 4) mesh (attention whole on every model rank: one head a
-    rank is no multiple of G; the FFN split four ways) matches the one-card
+    rank is no multiple of G; the vocabulary and the FFN split four ways)
+    matches the one-card
     step's losses at 1e-5; it and the (2, 1) mesh of the elastic restore
     (no model split) carry the bytes ``collective_bytes`` counts."""
     for o in ranks:
         rec = o["mesh_1x4"]
-        assert rec["info"]["split"] == [
+        assert rec["info"]["split"] == ["embed/tokens"] + [
             f"blocks/pos0/ffn/{w}" for w in ("w1", "w3", "w2")]
         assert rec["bytes"] == [rec["predicted"]["total"]] * 2
         assert rec["predicted"]["tensor_parallel"] > 0
