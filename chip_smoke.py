@@ -191,6 +191,31 @@ Phases, each reported on its own lines:
             start: the checks of 8c with K7 / K7b on MP_MOE_TP_SHAPE only,
             and the four ranks' peaks; each of 8c / 8d kills its ranks
             after MP_SPLIT_DEADLINE s;
+8e. model_serve sharded LM serving (A9f): K7 at a (2, 2) serving rank's
+            q (SERVE_K7_SHAPE, bf16) and K8 at its (SERVE_K8_SHAPE, f32)
+            against their plain versions, timed beside them and their
+            bounds (the table's ``serve_*`` keys, with a rank's launches
+            and the shape); then each SERVE_MP_RUNS arch (llama3.2-3b and
+            mamba2-780m at their widths, 2 layers), in bf16 and again in
+            float32 (SERVE_MP_DTYPES), served on one card
+            (``tf.prefill`` and ``tf.decode_step``, greedy:
+            SERVE_MP_BATCH prompts of SERVE_MP_PROMPT tokens,
+            SERVE_MP_TOKENS tokens) and through
+            ``steps.make_sharded_prefill_step`` / ``make_sharded_decode_
+            step`` on MP_MESH, four gloo ranks sharing ``cuda:0``, fed the
+            one card's tokens: every step's unsharded logits within the
+            dtype's SERVE_MP_TOL of the one card's largest logit, the
+            ranks' own greedy picks (``step.argmax``) equal to the one
+            card's: every pick in float32, in bf16 wherever its top two
+            logits differ by more than twice the step's error (printed:
+            how many are held), each rank's
+            collective bytes a step equal to ``collective_bytes(kind=)``,
+            its params and decode-state blocks the plan's (its k cache
+            ceil(max_seq / 2) positions of its 2 rows), K7 / K8 launched
+            once a layer in its run (counts zeroed just before) on the
+            rank's shape only; prefill and decode ms (gloo through the
+            host) and peaks beside the one card's; the ranks are killed
+            after SERVE_MP_DEADLINE s;
 9. fit+serve a fresh ``gcl`` method with no encoder behind a PlanService:
             submit_program(phi-2) fits its own encoder (prepare), then cfd,
             phi-2 and nw are served with it; K, eq. 5 and eq. 6 are printed
@@ -297,6 +322,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import re
@@ -3305,11 +3331,11 @@ def _mp_spawn(tmp, dev, fn=None, args=(), world=MP_WORLD,
     return out
 
 
-def _mp_kernels(rows, dev, shape=None, where="(2, 2)", key="tp"):
-    """K7 and K7b at a mesh rank's shape (``shape``, MP_TP_SHAPE by
-    default, bf16) against their plain versions, each timed beside its
-    plain version, its library call and its bound; the times go into the
-    table's K7 / K7b rows as ``<key>_*`` keys."""
+def _mp_kernels(rows, dev, shape=None, where="(2, 2)", key="tp", bwd=True):
+    """K7 and (with ``bwd``) K7b at a mesh rank's shape (``shape``,
+    MP_TP_SHAPE by default, bf16) against their plain versions, each timed
+    beside its plain version, its library call and its bound; the times
+    go into the table's K7 / K7b rows as ``<key>_*`` keys."""
     import torch
 
     from repro_torch.kernels.flash_attention.ops import (
@@ -3341,6 +3367,10 @@ def _mp_kernels(rows, dev, shape=None, where="(2, 2)", key="tp"):
     tp = {"flash_attention": _keyed(key, ms.own, plain.total, lib.total,
                                     b_ms, err)}
     del q, k, v, qh, kh, vh
+    if not bwd:
+        torch.cuda.empty_cache()
+        _update_rows(rows, tp)
+        return
     err, rel, (q, k, v, o, do, scale, lse) = _k7b_check(dev, shape, dt, 32)
     ms = device_ms(lambda: flash_attention_bwd(q, k, v, o, do, scale, lse),
                    5, own=k7b_kernels(hd, dt))
@@ -3493,8 +3523,9 @@ MP_SPLIT_DEADLINE = 150
 #: the kernel table's keys of the mesh ranks' shapes: ``tp`` a (2, 2)
 #: rank's (K7 / K7b phase 8b's, K8 / K8b 8c's), ``tp14`` a (1, 4) rank's
 #: (K7 / K7b, 8d's)
-TP_KEYS = tuple(f"{k}_{v}" for k in ("tp", "tp14") for v in (
-    "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err"))
+TP_KEYS = tuple(f"{k}_{v}" for k in ("tp", "tp14", "serve") for v in (
+    "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")) + (
+    "serve_launches", "serve_shape")
 
 
 def _mp_moe_tcfg():
@@ -3691,11 +3722,12 @@ def _mp_split_report(label, arch, ranks, one, smi_line, kernel_shape,
         f"{one['peak_bytes']} B; state {one['state_bytes']} B")
 
 
-def _mp_ssm_kernels(rows, dev):
-    """K8 and K8b at a (2, 2) rank's shape (MP_SSM_SHAPE, f32) against
-    their plain versions, with a random dy and nonzero dstates for K8b,
-    each timed beside its plain version and its bound (no library call
-    computes either); the table's K8 / K8b rows get ``tp_*`` keys."""
+def _mp_ssm_kernels(rows, dev, shape=None, key="tp", bwd=True):
+    """K8 and (with ``bwd``) K8b at a (2, 2) rank's shape (``shape``,
+    MP_SSM_SHAPE by default, f32) against their plain versions, with a
+    random dy and nonzero dstates for K8b, each timed beside its plain
+    version and its bound (no library call computes either); the table's
+    K8 / K8b rows get ``<key>_*`` keys."""
     import torch
 
     from repro_torch.kernels.ssd_scan.ops import (
@@ -3705,7 +3737,8 @@ def _mp_ssm_kernels(rows, dev):
     )
     from repro_torch.launch.roofline import tf32x3_bound
 
-    B, nc, Q, nh, hp, ds = MP_SSM_SHAPE
+    shape = MP_SSM_SHAPE if shape is None else shape
+    B, nc, Q, nh, hp, ds = shape
     args = _k8_inputs(dev, B, nc, Q, nh, hp, ds, 41)
     g = torch.Generator(device=dev).manual_seed(42)
     dy = torch.randn((B, nc, Q, nh, hp), generator=g, device=dev)
@@ -3716,7 +3749,7 @@ def _mp_ssm_kernels(rows, dev):
              ssd_intra_chunk_cost, KERNEL_TOL, K8_KERNELS, ()),
             ("ssd_intra_chunk_bwd", ssd_intra_chunk_bwd,
              ssd_intra_chunk_bwd_plain, ssd_intra_chunk_bwd_cost, K8B_TOL,
-             K8B_KERNELS, (dy, dst))):
+             K8B_KERNELS, (dy, dst)))[:2 if bwd else 1]:
         got = fn(*args, *extra)
         torch.cuda.synchronize()
         want = plain_fn(*args, *extra)
@@ -3733,13 +3766,14 @@ def _mp_ssm_kernels(rows, dev):
         ops, bytes_ = cost(B, nc, Q, nh, hp, ds)
         b_ms, b_by = tf32x3_bound(bytes_, ops)
         log(f"[kernels] {'K8' if not extra else 'K8b'} {name} at a (2, 2) "
-            f"rank's shape (B, nc, Q, nh, hp, ds) = {MP_SSM_SHAPE} f32: "
+            f"{'serving ' if key == 'serve' else ''}rank's shape (B, nc, Q, "
+            f"nh, hp, ds) = {shape} f32: "
             f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol}), repeat "
             f"bit-equal; kernel device ms {ms.own:.4f} [{ms.source}] plain "
             f"device ms {plain.total:.4f} [{plain.source}] library none; "
             f"3xTF32 design bound ms {b_ms:.4f} ({b_by}; {ops:.3e} ops, "
             f"{bytes_ / 1e6:.1f} MB)")
-        tp[name] = _keyed("tp", ms.own, plain.total, None, b_ms, err)
+        tp[name] = _keyed(key, ms.own, plain.total, None, b_ms, err)
     del args, dy, dst
     torch.cuda.empty_cache()
     _update_rows(rows, tp)
@@ -3805,6 +3839,336 @@ def phase_model_split(rows, dev, smi_line):
         f"{sum(o['peak_bytes'] for o in ranks)} B; the one card's "
         f"{one['peak_bytes']} B")
     log(f"[phase] model_split 8d {time.perf_counter() - t0:.2f} s")
+
+
+#: phase 8e: sharded LM serving (A9f): each (arch, layers) at full width
+#: served on MP_MESH through ``steps.make_sharded_prefill_step`` /
+#: ``make_sharded_decode_step``, a batch of SERVE_MP_BATCH prompts of
+#: SERVE_MP_PROMPT tokens (a multiple of the SSD chunk), SERVE_MP_TOKENS
+#: greedy tokens, once in each SERVE_MP_DTYPES compute dtype (bfloat16:
+#: K7's bf16 route, the launches the kernel table lists; float32: the
+#: split softmax's merge, the cache splice and the vocabulary argmax held
+#: tight, every greedy token equal)
+SERVE_MP_RUNS = (("llama3.2-3b", 2), ("mamba2-780m", 2))
+SERVE_MP_DTYPES = ("bfloat16", "float32")
+SERVE_MP_BATCH, SERVE_MP_PROMPT, SERVE_MP_TOKENS = 4, 256, 8
+#: a (2, 2) serving rank's K7 q (its 2 rows, 12 of the 24 heads as 4 kv
+#: heads of G = 3, head dim 128) and K8 (B, nc, Q, nh, hp, ds): 24 of
+#: mamba's 48 heads
+SERVE_K7_SHAPE = (2, 256, 4, 3, 128)
+SERVE_K8_SHAPE = (2, 1, 256, 24, 64, 128)
+#: the ranks' unsharded logits against the one card's, of the largest
+#: logit, by compute dtype.  bfloat16: two bf16 roundings of the same
+#: logits (the ranks round their partial outputs before the sum over the
+#: model ranks); at mamba2-780m's prefill step the one card's own bf16
+#: logits are 4.6e-2 from its float32 ones and the ranks' 4.5e-2 from the
+#: one card's, llama3.2-3b's 1.1e-2 (NVIDIA H100 80GB HBM3, 700.00 W).
+#: float32: the ranks 1.1e-5 (mamba's prefill step) and 3.0e-6 (llama)
+#: from the one card on the same card, a tenth of the limit or less
+SERVE_MP_TOL = {"bfloat16": 0.1, "float32": 1e-4}
+#: seconds the ranks may take before the phase kills them
+SERVE_MP_DEADLINE = 240
+
+
+def _serve_prompts(cfg):
+    import numpy as np
+
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_MP_BATCH, SERVE_MP_PROMPT)).astype(np.int32)
+
+
+def _serve_one(dev, dtype):
+    """Each SERVE_MP_RUNS arch on the one card in compute ``dtype``: the
+    seed-0 compute params, ``tf.prefill`` and SERVE_MP_TOKENS - 1
+    ``tf.decode_step``s, greedy; its logits a step, tokens (B, T), ms,
+    peak above the params, and the params' and decode state's bytes."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import _splice_prefill
+    from repro_torch.models import transformer as tf
+
+    out = {}
+    B, P, T = SERVE_MP_BATCH, SERVE_MP_PROMPT, SERVE_MP_TOKENS
+    for arch, layers in SERVE_MP_RUNS:
+        cfg = get_arch(arch).replace(num_layers=layers, compute_dtype=dtype)
+        params = tf.init_compute_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        toks = torch.from_numpy(_serve_prompts(cfg)).to(dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        logits, caches, idx = tf.prefill(cfg, params, toks)
+        state = _splice_prefill(cfg, tf.init_decode_state(
+            cfg, B, P + T, idx, device=dev), caches, idx)
+        del caches
+        tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        ms = [(time.perf_counter() - t0) * 1e3]
+        steps, greedy = [logits.cpu().numpy()], [tok]
+        for _ in range(T - 1):
+            t0 = time.perf_counter()
+            logits, state = tf.decode_step(cfg, params, state, tok[:, None])
+            tok = torch.argmax(logits, -1)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append(logits.cpu().numpy())
+            greedy.append(tok)
+        out[arch] = {
+            "logits": steps, "tokens": torch.stack(greedy, 1).cpu().numpy(),
+            "ms": ms, "peak": torch.cuda.max_memory_allocated(dev) - base,
+            "param_bytes": sum(x.numel() * x.element_size()
+                               for x in _tree_tensors(params)),
+            "state_bytes": sum(x.numel() * x.element_size()
+                               for x in _tree_tensors(state["caches"]))}
+        del params, state, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tree_tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_tensors(v)
+    else:
+        yield tree
+
+
+def _serve_rank(rank, world, tmp, device):
+    """One rank of phase 8e: each SERVE_MP_RUNS arch's sharded prefill
+    and decode steps on MP_MESH in each SERVE_MP_DTYPES dtype,
+    teacher-forced with the one card's greedy tokens (``serve-one.pkl``
+    in ``tmp``) and taking its own (``step.argmax``) beside them; the
+    hand kernels' counts zeroed just before the prefill and read after
+    the last step, with the shapes K7 and K8 were given; results by
+    (dtype, arch) to ``serve-rank<r>.pkl``."""
+    import os
+    import pickle
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.group import init_group
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    group = init_group("gloo", rank, world, os.path.join(tmp, "store-serve"))
+    mesh = mesh_mod.make_debug_mesh(*MP_MESH, group=group)
+    rules = mesh_mod.make_rules(mesh)
+    groups = group.mesh_groups(mesh)
+    with open(os.path.join(tmp, "serve-one.pkl"), "rb") as f:
+        forced = pickle.load(f)
+    shapes = set()
+    fa, ssd = attn_mod.flash_attention, ssm_mod.ssd_scan
+
+    def rec_fa(q, *a):
+        shapes.add(("K7", tuple(q.shape)))
+        return fa(q, *a)
+
+    def rec_ssd(x, *a):
+        shapes.add(("K8", tuple(x.shape)))
+        return ssd(x, *a)
+
+    attn_mod.flash_attention, ssm_mod.ssd_scan = rec_fa, rec_ssd
+    B, P, T = SERVE_MP_BATCH, SERVE_MP_PROMPT, SERVE_MP_TOKENS
+    res = {}
+    for dtype, (arch, layers) in itertools.product(SERVE_MP_DTYPES,
+                                                   SERVE_MP_RUNS):
+        cfg = get_arch(arch).replace(num_layers=layers, compute_dtype=dtype)
+        pf = steps.make_sharded_prefill_step(cfg, rules, groups)
+        dc = steps.make_sharded_decode_step(cfg, rules, groups)
+        plan, idx = pf.plan, groups.index
+        whole = tf.init_compute_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        params = plan.shard(whole, idx)
+        del whole
+        torch.cuda.empty_cache()
+        batch = plan.serve_batch(
+            {"tokens": torch.from_numpy(_serve_prompts(cfg)).to(dev)}, idx)
+        fed = plan.serve_batch({"tokens": torch.from_numpy(
+            forced[dtype, arch]).to(dev)}, idx)["tokens"]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = plan.decode_state(B, P + T, device=dev, rank=idx)
+        shapes.clear()
+        _zero_counts()
+        b0, t0 = groups.bytes, time.perf_counter()
+        logits, state = pf(params, batch, state)
+        greedy = [pf.argmax(logits)]
+        torch.cuda.synchronize()
+        ms, carried = [(time.perf_counter() - t0) * 1e3], [groups.bytes - b0]
+        out = [logits.cpu().numpy()]
+        for t in range(T - 1):
+            b0, t0 = groups.bytes, time.perf_counter()
+            logits, state = dc(params, state,
+                               {"tokens": fed[:, t:t + 1].contiguous()})
+            greedy.append(dc.argmax(logits))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            carried.append(groups.bytes - b0)
+            out.append(logits.cpu().numpy())
+        counts = _counts()
+        k = next((c["k"] for c in state["caches"].values() if "k" in c),
+                 None)
+        res[dtype, arch] = {
+            "logits": out, "tokens": torch.stack(greedy, 1).cpu().numpy(),
+            "ms": ms, "bytes": carried,
+            "counted": (plan.collective_bytes(B, P, kind="prefill"),
+                        plan.collective_bytes(B, P + T, kind="decode")),
+            "peak": torch.cuda.max_memory_allocated(dev) - base
+            + plan.serve_param_bytes(),
+            "param_bytes": plan.serve_param_bytes(),
+            "held_bytes": sum(x.numel() * x.element_size()
+                              for x in _tree_tensors(params)),
+            "state_bytes": plan.state_bytes(B, P + T, rank=idx),
+            "held_state": sum(x.numel() * x.element_size()
+                              for x in _tree_tensors(state["caches"])),
+            "cache_shape": None if k is None else tuple(k.shape),
+            "span": tuple(state["span"]), "coords": groups.coords,
+            "launches": {n: counts[n] for n in ("flash_attention",
+                                                 "ssd_intra_chunk")},
+            "shapes": sorted(shapes), "split": pf.info["split"]}
+        del params, state, logits
+        torch.cuda.empty_cache()
+    attn_mod.flash_attention, ssm_mod.ssd_scan = fa, ssd
+    with open(os.path.join(tmp, f"serve-rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_model_serve(rows, dev, smi_line):
+    """Phase 8e (see the module docstring)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.model_parallel import ShardPlan
+    from repro_torch.distributed.sharding import ceil_unshard, spec_for
+    from repro_torch.launch import mesh as mesh_mod
+
+    _mp_kernels(rows, dev, SERVE_K7_SHAPE, "(2, 2) serving", "serve",
+                bwd=False)
+    _mp_ssm_kernels(rows, dev, SERVE_K8_SHAPE, "serve", bwd=False)
+    one = {(dt, a): o for dt in SERVE_MP_DTYPES
+           for a, o in _serve_one(dev, dt).items()}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        with open(Path(tmp) / "serve-one.pkl", "wb") as f:
+            pickle.dump({k: o["tokens"] for k, o in one.items()}, f)
+        t0 = time.perf_counter()
+        ranks = _mp_spawn(tmp, dev, _serve_rank, deadline=SERVE_MP_DEADLINE,
+                          label="model_serve 8e", prefix="serve")
+        spawn_s = time.perf_counter() - t0
+    B, P, T = SERVE_MP_BATCH, SERVE_MP_PROMPT, SERVE_MP_TOKENS
+    mesh = mesh_mod.rank_mesh(MP_MESH)
+    rules = mesh_mod.make_rules(mesh)
+    extra = {}
+    for dtype, (arch, layers) in itertools.product(SERVE_MP_DTYPES,
+                                                   SERVE_MP_RUNS):
+        cfg = get_arch(arch).replace(num_layers=layers, compute_dtype=dtype)
+        ref, runs = one[dtype, arch], [r[dtype, arch] for r in ranks]
+        tol = SERVE_MP_TOL[dtype]
+        spec = spec_for(("batch", "vocab"), (B, cfg.vocab_size), rules=rules,
+                        is_param=False)
+        gaps, held, unclear = [], 0, 0
+        for t in range(T):
+            got = ceil_unshard([torch.from_numpy(o["logits"][t])
+                                for o in runs], (B, cfg.vocab_size), spec,
+                               mesh).numpy()
+            want = ref["logits"][t]
+            err = float(np.abs(got - want).max())
+            gaps.append(err / float(np.abs(want).max()))
+            top2 = np.sort(want, axis=-1)[:, -2:]
+            # bf16: a pick within twice the step's error of a tie may
+            # flip; float32: every pick is held
+            clear = ((top2[:, 1] - top2[:, 0]) > 2 * err
+                     if dtype == "bfloat16" else np.ones(B, bool))
+            unclear += int((~clear).sum())
+            # a clear pick cannot flip: every logit moved by at most err
+            mine = np.concatenate([runs[d * MP_MESH[1]]["tokens"][:, t]
+                                   for d in range(MP_MESH[0])])
+            require(np.array_equal(mine[clear], ref["tokens"][clear, t]),
+                    f"model_serve 8e: {arch} step {t}: greedy tokens "
+                    f"{mine} vs one card {ref['tokens'][:, t]}")
+            held += int(clear.sum())
+        log(f"[model_serve 8e] {arch} at its widths, {layers} layers, "
+            f"{dtype}, "
+            f"batch {B} x {P}-token prompts, {T} greedy tokens (the one "
+            f"card's fed back) through steps.make_sharded_prefill_step / "
+            f"make_sharded_decode_step on a {MP_MESH} mesh of {MP_WORLD} "
+            f"gloo ranks sharing {dev}: logits vs one card max rel gap "
+            f"{max(gaps):.3e} (tol {tol}; by step "
+            f"{' '.join(f'{g:.2e}' for g in gaps)}); greedy tokens equal "
+            f"at {held} of {held + unclear} picks ("
+            + (f"{unclear} within twice the step's logit error of a tie, "
+               f"not held" if dtype == "bfloat16" else "every pick held")
+            + f"); split in "
+            f"compute: {', '.join(runs[0]['split'])}; the spawn took "
+            f"{spawn_s:.1f} s")
+        require(max(gaps) <= tol,
+                f"model_serve 8e: {arch} {dtype} logit gap "
+                f"{max(gaps):.3e} > {tol}")
+        plan = ShardPlan(cfg, rules)
+        for r, o in enumerate(runs):
+            pre, dec = (c["total"] for c in o["counted"])
+            log(f"[model_serve 8e] {arch} {dtype} rank {r} "
+                f"{tuple(o['coords'])} on "
+                f"{smi_line}: prefill ms {o['ms'][0]:.1f}, decode ms a step "
+                f"{' '.join(f'{x:.1f}' for x in o['ms'][1:])} (gloo through "
+                f"the host, not card performance); params {o['held_bytes']}"
+                f" B (plan {o['param_bytes']}), decode state "
+                f"{o['held_state']} B (plan {o['state_bytes']}; k cache "
+                f"block {o['cache_shape']}, positions {o['span']}), peak "
+                f"{o['peak']} B; collective bytes a step "
+                f"{' '.join(str(b) for b in o['bytes'])} (counted prefill "
+                f"{pre}, decode {dec}: " + ", ".join(
+                    f"{k} {v}" for k, v in o["counted"][1].items()
+                    if k != "total")
+                + f"); launches {o['launches']}, kernel shapes "
+                f"{o['shapes']}")
+            require(o["bytes"] == [pre] + [dec] * (T - 1),
+                    f"model_serve 8e: {arch} rank {r} carried {o['bytes']}"
+                    f", counted {pre} / {dec}")
+            require(o["held_bytes"] == o["param_bytes"]
+                    and o["held_state"] == o["state_bytes"],
+                    f"model_serve 8e: {arch} rank {r} holds "
+                    f"{o['held_bytes']} / {o['held_state']} B")
+            if o["cache_shape"] is not None:
+                w = -(-(P + T) // MP_MESH[1])
+                require(o["cache_shape"][1:3] == (B // MP_MESH[0], w),
+                        f"model_serve 8e: {arch} rank {r}'s cache block "
+                        f"{o['cache_shape']}")
+            name = ("flash_attention" if cfg.num_heads else
+                    "ssd_intra_chunk")
+            want = ([("K7", SERVE_K7_SHAPE)] if cfg.num_heads else
+                    [("K8", SERVE_K8_SHAPE[:1] + (P,)
+                      + SERVE_K8_SHAPE[3:5])])
+            require(o["launches"][name] == layers and o["shapes"] == want,
+                    f"model_serve 8e: {arch} rank {r} launched "
+                    f"{o['launches']} on {o['shapes']}")
+            extra.setdefault(name, {"serve_launches": o["launches"][name],
+                                    "serve_shape": list(
+                                        SERVE_K7_SHAPE if cfg.num_heads
+                                        else SERVE_K8_SHAPE)})
+        log(f"[model_serve 8e] {arch} {dtype} one card on {smi_line}: "
+            f"prefill ms "
+            f"{ref['ms'][0]:.1f}, decode ms a step "
+            f"{' '.join(f'{x:.1f}' for x in ref['ms'][1:])}; params "
+            f"{ref['param_bytes']} B, decode state {ref['state_bytes']} B, "
+            f"peak {ref['peak'] + ref['param_bytes']} B; a rank holds "
+            f"{runs[0]['param_bytes'] / ref['param_bytes']:.3f} of the "
+            f"params and {runs[0]['state_bytes'] / ref['state_bytes']:.3f} "
+            f"of the decode state")
+    _update_rows(rows, extra)
 
 
 def phase_fit_serve(rows, dev):
@@ -5661,6 +6025,9 @@ def _phases(dev, t_all, dry, smi_line):
     phase_model_parallel(rows, dev, smi_line)
     log(f"[phase] model_parallel {time.perf_counter() - t0:.2f} s")
     phase_model_split(rows, dev, smi_line)
+    t0 = time.perf_counter()
+    phase_model_serve(rows, dev, smi_line)
+    log(f"[phase] model_serve 8e {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_fit_serve([r for r in rows if r[0] not in (
         "kmeans_assign", "rgcn_spmm_dense", "flash_attention",

@@ -50,6 +50,8 @@ HOT_ENTRIES = {
     "repro_torch.models.transformer:prefill",
     "repro_torch.models.transformer:decode_step",
     "repro_torch.launch.steps:make_train_step.train_step",
+    "repro_torch.launch.steps:make_sharded_prefill_step.prefill_step",
+    "repro_torch.launch.steps:make_sharded_decode_step.decode_step",
 }
 
 #: fids of functions whose loops are dispatch loops: each statement inside

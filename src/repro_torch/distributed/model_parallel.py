@@ -72,10 +72,29 @@ per-leaf scale is the MAX of the blocks' amax over the mesh.
 the bytes every collective of one step carries on a rank: it equals the
 groups' ``Group.bytes`` after a step, and the dry run's collective term
 reads it (``launch/roofline.collective_bytes``).
+
+**Serving** (``ModelParallel(serving=True)``, the steps of
+``launch/steps.make_sharded_prefill_step`` / ``make_sharded_decode_step``)
+runs the same placements forward only, under JAX's activation specs:
+a batch field's rows by its spec (``serve_batch``: the data axes where
+they divide the batch, else every rank the whole batch), the decode
+state by JAX's ``decode_state_shardings`` (``state_specs``), each leaf a
+rank's ceil-wise block (``decode_state`` allocates only it): an
+attention cache's positions [lo, hi) over the model ranks (its
+``SeqSpan``), an SSM cache's heads and ``d_inner`` columns.  The
+attention's ``wk`` / ``wv`` stay whole: prefill projects the prompt rows
+of the rank's span through them for its cache block (``splice``), and a
+decode step's softmax over a cache split by position merges the ranks'
+partial max, sum and P·V (``models/attention.py``).  An SSM cache whose
+split does not hold is gathered whole before use (``state_whole``) and
+the rank keeps its block (``state_keep``).  The logits stay split over
+``vocab`` (``vocab_slice``); ``argmax`` is the greedy token of the
+split logits.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -83,11 +102,14 @@ import torch
 
 from repro_torch.config import FFN_DENSE, FFN_MOE, MIXER_ATTN, ModelConfig
 from repro_torch.distributed.sharding import (
-    axis_part, block_shape, check_spec, mesh_coords, param_specs, region,
-    shard_leaf, spec_axes, unshard,
+    axis_part, block_shape, ceil_block_shape, ceil_region, ceil_unshard,
+    check_spec, mesh_coords, param_specs, region, shard_leaf, spec_axes,
+    spec_for, unshard,
 )
 from repro_torch.models import transformer as tf
 from repro_torch.models.frontends import text_len
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.specs import BATCH_AXES
 from repro_torch.optim.adamw import tree_leaves
 
 #: the attention / dense-FFN leaves a model rank slices in compute, and
@@ -134,6 +156,15 @@ class LeafPlan(NamedTuple):
     @property
     def piece_spec(self) -> tuple:
         return self.spec[1:] if self.stacked else self.spec
+
+
+class SeqSpan(NamedTuple):
+    """A serving rank's positions [lo, hi) of every attention layer's KV
+    cache, and whether the model axis splits the positions (JAX's
+    ``cache_seq``; else every model rank holds them all)."""
+    lo: int
+    hi: int
+    split: bool
 
 
 def _leaves(tree, prefix=()):
@@ -187,6 +218,10 @@ class ShardPlan:
             "d_inner") and cfg.ssm_heads % m == 0
         self.split_vocab = self._vocab_mode(specs)
         layer = cfg.layer_specs()
+        #: the first attention layer's mixer (the heads' cuts are alike)
+        self.attn_prefix = next(
+            (f"blocks/pos{i}/mixer" for i, ls in enumerate(layer)
+             if ls.mixer == MIXER_ATTN), None)
         self.leaves = []
         for path, names in _leaves(axes):
             spec = check_spec(_get(specs, path), self.mesh)
@@ -291,6 +326,127 @@ class ShardPlan:
             out[k] = v[bi * n:(bi + 1) * n]
         return out
 
+    # -- serving: the batch and the decode state by JAX's specs -------------
+
+    def _batch_spec(self, names: tuple, shape: tuple) -> tuple:
+        """The activation spec of a batch field (JAX's ``batch_shardings``
+        entry): the data axes on ``batch`` where they divide it, else the
+        rows replicated (``long_500k``'s batch of 1)."""
+        spec = check_spec(spec_for(names, shape, rules=self.rules,
+                                   is_param=False), self.mesh)
+        if any(self.rules.model_axis in spec_axes(e) for e in spec):
+            raise ValueError(f"batch spec {spec}: the serving steps do not "
+                             f"split a batch field over the model axis "
+                             f"(seq_shard)")
+        return spec
+
+    def serve_batch(self, batch: dict, index: int) -> dict:
+        """Mesh rank ``index``'s rows of a whole serving batch, by each
+        field's spec (``local_batch`` splits evenly or raises; this
+        replicates a batch the data axes do not divide)."""
+        c = self.coords(index)
+        out = {}
+        for k, v in batch.items():
+            spec = self._batch_spec(BATCH_AXES[k], tuple(v.shape))
+            out[k] = v[ceil_region(tuple(v.shape), spec, self.mesh, c)]
+        return out
+
+    def _state_leaves(self, batch: int, max_seq: int):
+        """(path, whole shape, spec) of every cache leaf; the model axis
+        may sit on an attention cache's positions only."""
+        specs = state_specs(self.cfg, self.rules, batch, max_seq)["caches"]
+        shapes = tf.init_decode_state(self.cfg, batch, max_seq,
+                                      device="meta")["caches"]
+        out = []
+        for path, spec in _leaves(specs):
+            on = [i for i, e in enumerate(spec)
+                  if self.rules.model_axis in spec_axes(e)]
+            if path[-1] in ("k", "v") and on not in ([], [2]):
+                raise ValueError(f"{'/'.join(path)}: spec {spec} puts the "
+                                 f"model axis off the cache positions")
+            out.append((path, tuple(_get(shapes, path).shape), spec))
+        return out
+
+    def _span(self, leaves, c) -> SeqSpan:
+        for path, shape, spec in leaves:
+            if path[-1] == "k":
+                r = ceil_region(shape, spec, self.mesh, c)[2]
+                return SeqSpan(r.start, r.stop, self.model_size > 1 and
+                               self.rules.model_axis in spec_axes(spec[2]))
+        return SeqSpan(0, 0, False)
+
+    def decode_state(self, batch: int, max_seq: int, index: int = 0,
+                     device=None, *, rank: int = 0) -> dict:
+        """Mesh rank ``rank``'s blocks of a zero decode state of global
+        ``batch`` x ``max_seq`` (compute dtype; only its blocks are
+        allocated: ceil(max_seq / m) positions of its rows of an
+        attention cache), the host int ``index`` and the rank's
+        ``SeqSpan`` (``"span"``)."""
+        c = self.coords(rank)
+        dt = dtype_of(self.cfg.compute_dtype)
+        leaves = self._state_leaves(batch, max_seq)
+        caches = {}
+        for path, shape, spec in leaves:
+            _set(caches, path, torch.zeros(
+                ceil_block_shape(shape, spec, self.mesh, c), dtype=dt,
+                device=device))
+        return {"caches": caches, "index": int(index),
+                "span": self._span(leaves, c)}
+
+    def unshard_state(self, states: list, batch: int, max_seq: int) -> dict:
+        """The whole decode caches from every mesh rank's blocks
+        (``states[i]`` rank i's)."""
+        out = {}
+        for path, shape, spec in self._state_leaves(batch, max_seq):
+            _set(out, path, ceil_unshard(
+                [_get(st["caches"], path) for st in states], shape, spec,
+                self.mesh))
+        return out
+
+    def state_bytes(self, batch: int, max_seq: int, rank: int = 0) -> int:
+        """Bytes of mesh rank ``rank``'s decode-state blocks (rank 0's are
+        the largest)."""
+        cz = dtype_of(self.cfg.compute_dtype).itemsize
+        c = self.coords(rank)
+        return sum(math.prod(ceil_block_shape(shape, spec, self.mesh, c))
+                   for _, shape, spec in self._state_leaves(batch, max_seq)
+                   ) * cz
+
+    def serve_param_bytes(self) -> int:
+        """Bytes of a rank's blocks of the compute params (``compute_params``
+        : the matmul weights in the compute dtype, the rest in
+        ``param_dtype``), what a serving rank holds."""
+        return sum(math.prod(block_shape(lf.shape, lf.spec, self.mesh))
+                   * self._serve_size(lf) for lf in self.leaves)
+
+    def _serve_size(self, lf: LeafPlan) -> int:
+        dt = (self.cfg.compute_dtype if lf.path[-1] in tf.COMPUTE_LEAVES
+              else self.cfg.param_dtype)
+        return dtype_of(dt).itemsize
+
+    def logits_range(self, coords) -> tuple:
+        """[lo, hi) of the vocabulary of the rank's logits (JAX's
+        ``constrain(logits, "batch", "vocab")``: ceil(V / m) a model
+        rank where V >= m, else all of it)."""
+        V = self.cfg.vocab_size
+        spec = spec_for(("vocab",), (V,), rules=self.rules, is_param=False)
+        r = ceil_region((V,), spec, self.mesh, coords)[0]
+        return r.start, r.stop
+
+    @functools.cached_property
+    def ssm_state_dims(self) -> dict:
+        """{leaf: the dim of one block's SSM cache leaf that the model
+        axis splits, or None} (``ssm``, ``conv/x``, ``conv/B``,
+        ``conv/C``; alike for every SSM layer and batch)."""
+        out = {}
+        for path, shape, spec in self._state_leaves(self.data_size, 1):
+            if path[-1] not in ("k", "v"):
+                key = "/".join(path[1:])
+                on = [i - 1 for i, e in enumerate(spec)
+                      if self.rules.model_axis in spec_axes(e)]
+                out[key] = (on[0], shape[on[0] + 1]) if on else None
+        return out
+
     def block_numel(self) -> int:
         """Elements of one rank's blocks of the params."""
         return sum(math.prod(block_shape(lf.shape, lf.spec, self.mesh))
@@ -367,10 +523,16 @@ class ShardPlan:
 
     # -- counts -----------------------------------------------------------------
 
-    def collective_bytes(self, batch: int, seq: int, tcfg=None) -> dict:
-        """The bytes each kind of collective carries on a rank in one train
-        step at global ``batch`` x ``seq`` tokens (``Group.bytes``:
-        each ``all_reduce``'s buffer once), and their total."""
+    def collective_bytes(self, batch: int, seq: int, tcfg=None, *,
+                         kind: str = "train") -> dict:
+        """The bytes each kind of collective carries on a rank in one step
+        at global ``batch`` x ``seq`` tokens (``Group.bytes``: each
+        ``all_reduce``'s buffer once), and their total.  ``kind`` "train"
+        (the default), or "prefill" (a ``seq``-token prompt) and "decode"
+        (one token against ``seq`` cache positions) with the greedy
+        token's ``argmax``, on the compute params (``serve_param_bytes``)."""
+        if kind != "train":
+            return self._serve_bytes(batch, seq, kind)
         cfg, ds, ms, n = self.cfg, self.data_size, self.model_size, self.size
         pz = torch.empty((), dtype=self.param_dtype).element_size()
         cz = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
@@ -431,6 +593,84 @@ class ShardPlan:
         out["total"] = sum(out.values())
         return out
 
+    def _serve_bytes(self, batch: int, seq: int, kind: str) -> dict:
+        """``collective_bytes`` of a serving step: the leaves gathered by
+        spec; the partial sums (``sum_out``; ``copy_in`` carries nothing
+        forward); in decode the q gather, the split softmax's max and
+        sums, and the SSM cache gathered whole where its split does not
+        hold; the greedy token's gather."""
+        if kind not in ("prefill", "decode"):
+            raise ValueError(f"kind must be train, prefill or decode, not "
+                             f"{kind!r}")
+        cfg, ds, ms = self.cfg, self.data_size, self.model_size
+        cz = dtype_of(cfg.compute_dtype).itemsize
+        out = {"gather": 0, "tensor_parallel": 0, "attention": 0,
+               "state": 0, "argmax": 0}
+        for lf, _ in self.uses():
+            k = self.gather_kind(lf)
+            if self.kind_size(k) == 1:
+                continue
+            spec = (_without(lf.piece_spec, lf.dim, self.rules.model_axis)
+                    if lf.mode == "split" else lf.piece_spec)
+            shape = self.out_shape(lf) if lf.mode == "split" else \
+                lf.piece_shape
+            out["gather"] += (self.kind_size(k) * self._serve_size(lf)
+                              * math.prod(block_shape(shape, spec,
+                                                      self.mesh)))
+        rows_b = batch // ds if batch % ds == 0 else batch   # the spec's
+        prefill = kind == "prefill"
+        rows = rows_b * (seq if prefill else 1)
+        act = rows * cfg.d_model * cz
+        H, hd = cfg.num_heads, cfg.head_dim
+        tp = att = 0
+        cache_split = ms > 1 and seq >= ms
+        for ls in cfg.layer_specs():
+            if ls.mixer == MIXER_ATTN:
+                if self.split_attention:
+                    tp += ms * act                                # sum_out
+                    if not prefill:
+                        tp += rows_b * H * hd * cz                # q gather
+                if not prefill and cache_split:
+                    # the max of m, and (acc, l) summed in rank order
+                    att += rows_b * H * 4 + ms * rows_b * H * (hd + 1) * 4
+            elif self.split_ssm:
+                tp += ms * act + ms * rows * 4     # sum_out, the norm's sum
+            if (ls.ffn == FFN_DENSE and self.split_mlp) or (
+                    ls.ffn == FFN_MOE and self.split_moe):
+                tp += ms * act
+        nb = cfg.num_blocks
+        out["tensor_parallel"] = nb * tp
+        out["attention"] = nb * att
+        if not prefill and ms > 1 and not self.split_ssm:
+            # an SSM cache split by its spec, gathered whole a layer: the
+            # blocks padded to rank 0's
+            zero = (0,) * len(self.mesh.shape)
+            for path, shape, spec in self._state_leaves(batch, seq):
+                if path[-1] not in ("k", "v") and any(
+                        self.rules.model_axis in spec_axes(e) for e in spec):
+                    out["state"] += nb * ms * cz * math.prod(
+                        ceil_block_shape(shape, spec, self.mesh, zero)[1:])
+        if self.split_vocab:               # the embedding's sum_out
+            toks = rows_b * (text_len(cfg, seq) if prefill else 1)
+            out["tensor_parallel"] += ms * toks * cfg.d_model * cz
+        lo, hi = self.logits_range((0,) * len(self.mesh.shape))
+        if hi - lo < cfg.vocab_size:
+            out["argmax"] = ms * 2 * rows_b * 8
+        out["total"] = sum(out.values())
+        return out
+
+
+
+def state_specs(cfg: ModelConfig, rules, batch: int, max_seq: int) -> dict:
+    """The spec of every decode-state leaf at global ``batch`` x
+    ``max_seq`` (JAX's ``decode_state_shardings``): ``{"caches": ...,
+    "index": ()}``."""
+    axes = tf.decode_state_axes(cfg)
+    shapes = tf.init_decode_state(cfg, batch, max_seq, device="meta")
+    return {"caches": param_specs(axes["caches"], shapes["caches"], rules,
+                                  is_param=False),
+            "index": ()}
+
 
 def _without(spec: tuple, dim: int, axis: str) -> tuple:
     """``spec`` with ``axis`` taken off entry ``dim``."""
@@ -470,13 +710,13 @@ class _CopyIn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.mp._model_sum(grad.contiguous()), None
+        return ctx.mp.model_sum(grad.contiguous()), None
 
 
 class _SumOut(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mp):
-        return mp._model_sum(x.contiguous())
+        return mp.model_sum(x.contiguous())
 
     @staticmethod
     def backward(ctx, grad):
@@ -488,7 +728,8 @@ class ModelParallel:
     reads its gathered leaves (``embed``, ``block``, ``final_norm``) and
     its tensor-parallel operators."""
 
-    def __init__(self, plan: ShardPlan, groups, params: dict):
+    def __init__(self, plan: ShardPlan, groups, params: dict, *,
+                 serving: bool = False, span: Optional[SeqSpan] = None):
         self.plan, self.groups, self.params = plan, groups, params
         self.index = groups.index
         self.coords = plan.coords(self.index)
@@ -501,6 +742,15 @@ class ModelParallel:
         #: [lo, hi) of the vocabulary this rank computes
         self.vocab_range = (plan.cut(plan.by_key["embed/tokens"], self.coords)
                             if self.split_vocab else None)
+        #: a serving step's view: forward only, the attention's wk / wv /
+        #: bk / bv whole (the cache needs every kv head), no aux loss, and
+        #: the rank's span of cache positions
+        self.serving, self.span = serving, span
+        if self.split_attention:
+            wq, wk = (plan.by_key[f"{plan.attn_prefix}/{n}"]
+                      for n in ("wq", "wk"))
+            self.head_range = plan.cut(wq, self.coords)
+            self.kv_heads = plan.cut(wk, self.coords)
         self._views = {}
 
     # -- the model's reads --------------------------------------------------
@@ -556,7 +806,8 @@ class ModelParallel:
         return self.groups.model.all_reduce(t.detach().contiguous().clone(),
                                             "max")
 
-    def _model_sum(self, t):
+    def model_sum(self, t):
+        """``t`` summed over the model ranks in rank order."""
         return self.groups.model.sum_in_rank_order(t)
 
     @torch.no_grad()
@@ -565,6 +816,104 @@ class ModelParallel:
         if self.data_size == 1:
             return t.detach()
         return self.groups.data.sum_in_rank_order(t.detach().contiguous())
+
+    # -- serving ------------------------------------------------------------
+
+    @torch.no_grad()
+    def gather_heads(self, q: torch.Tensor) -> torch.Tensor:
+        """(B, H, hd): every model rank's (B, H / m, hd) heads in rank
+        order (``Group.gather``)."""
+        parts = self.groups.model.gather(q.contiguous())
+        return parts.permute(1, 0, *range(2, parts.dim())).reshape(
+            q.shape[0], -1, *q.shape[2:])
+
+    def vocab_slice(self, logits: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of the logits (``plan.logits_range``): as
+        computed under a vocabulary split, else cut from the whole."""
+        if self.split_vocab:
+            return logits
+        lo, hi = self.plan.logits_range(self.coords)
+        return logits if hi - lo == logits.shape[-1] else logits[:, lo:hi]
+
+    @torch.no_grad()
+    def argmax(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy token (B,) int64 of logits split over the model ranks
+        by vocabulary (``logits`` this rank's ``vocab_slice``): the max
+        over the ranks, the lowest global index among the ranks that hold
+        it, taken in rank order; equal to ``torch.argmax`` of the whole
+        logits (the first maximum)."""
+        lo, hi = self.plan.logits_range(self.coords)
+        if hi - lo == self.plan.cfg.vocab_size:
+            return torch.argmax(logits, dim=-1)
+        B = logits.shape[0]
+        if hi > lo:
+            idx = torch.argmax(logits, dim=-1)
+            val = logits.gather(-1, idx[:, None])[:, 0].double()
+            idx = (idx + lo).double()
+        else:
+            val = logits.new_full((B,), float("-inf"), dtype=torch.float64)
+            idx = torch.zeros_like(val)
+        parts = self.groups.model.gather(torch.stack([val, idx]))  # (m,2,B)
+        hit = parts[:, 0] == parts[:, 0].amax(0)
+        first = torch.argmax(hit.to(torch.int8), dim=0)       # first rank
+        return parts[first, 1, torch.arange(B, device=logits.device)].long()
+
+    def _model_dims(self, cache: dict):
+        dims = self.plan.ssm_state_dims
+        for path, x in _leaves(cache):
+            yield path, x, dims["/".join(path)]
+
+    @torch.no_grad()
+    def state_whole(self, cache: dict) -> dict:
+        """One block's SSM cache gathered whole over the model ranks (the
+        blocks ceil(n / m) wide, padded for the gather)."""
+        m, out = self.model_size, {}
+        for path, x, dim in self._model_dims(cache):
+            if dim is None:
+                _set(out, path, x.clone())
+                continue
+            d, n = dim
+            w = -(-n // m)
+            pad = list(x.shape)
+            pad[d] = w - x.shape[d]
+            xp = torch.cat([x, x.new_zeros(pad)], dim=d) if pad[d] else x
+            parts = self.groups.model.gather(xp.contiguous())
+            _set(out, path, torch.cat(list(parts.unbind(0)), dim=d)
+                 .narrow(d, 0, n).contiguous())
+        return out
+
+    @torch.no_grad()
+    def state_keep(self, cache: dict, whole: dict) -> None:
+        """Write this rank's blocks of a whole SSM cache into ``cache``."""
+        m, c = self.model_size, self.coords[-1]
+        for path, x, dim in self._model_dims(cache):
+            y = _get(whole, path)
+            if dim is not None:
+                d, n = dim
+                lo = min(c * -(-n // m), n)
+                y = y.narrow(d, lo, x.shape[d])
+            x.copy_(y)
+
+    @torch.no_grad()
+    def splice(self, caches: dict, pieces: dict) -> None:
+        """Write prefill's caches (stacked over blocks; ``prefill``'s
+        pieces under this ``mp``) into the rank's decode-state blocks:
+        an attention cache's first positions of its span, an SSM cache
+        as it is (the rank's heads) or cut to its block (computed
+        whole)."""
+        dims = self.plan.ssm_state_dims
+        m, c = self.model_size, self.coords[-1]
+        for path, dst in _leaves(caches):
+            src = _get(pieces, path)
+            if path[-1] in ("k", "v"):
+                dst[:, :, :src.shape[2]] = src.to(dst.dtype)
+                continue
+            dim = dims["/".join(path[1:])]
+            if src.shape != dst.shape:
+                d, n = dim
+                d += 1                                   # the blocks dim
+                src = src.narrow(d, min(c * -(-n // m), n), dst.shape[d])
+            dst.copy_(src)
 
     # -- gathers -------------------------------------------------------------
 
@@ -598,7 +947,10 @@ class ModelParallel:
             shape, spec = lf.piece_shape, lf.piece_spec
         out = (x.clone() if plan.kind_size(kind) == 1
                else self._gather(x, lf, b, kind, shape, spec))
-        if lf.mode == "take":
+        # serving keeps the attention's kv leaves whole: the cache needs
+        # every kv head
+        if lf.mode == "take" and not (self.serving
+                                      and lf.path[-1] in ATTN_TAKE):
             lo, hi = plan.cut(lf, self.coords)
             out = out.narrow(lf.dim, lo, hi - lo).contiguous()
         return out

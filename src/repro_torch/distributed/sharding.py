@@ -34,8 +34,11 @@ ValueError naming the axis, and every placement (``shard_leaf``,
 at mesh coordinates ``coords`` holds (each dim split evenly over the
 product of its axes' sizes, the first axis of a tuple the major one, as
 ``NamedSharding`` splits), and ``unshard`` rebuilds the leaf from every
-rank's block.  JAX's ``constrain`` and the activation hints stay out: the
-port's tensor-parallel region is written out in
+rank's block.  An activation spec (``is_param=False``: a serving batch or
+decode state) may split a dim unevenly, as GSPMD pads it: ``ceil_region``
+gives a rank ceil(n / p) of it, the last ranks fewer or none, and
+``ceil_unshard`` rebuilds it.  JAX's ``constrain`` and the activation
+hints stay out: the port's tensor-parallel region is written out in
 ``distributed/model_parallel.py``.
 """
 
@@ -357,6 +360,39 @@ def shard_leaf(x, spec: tuple, mesh, coords):
     return x[region(tuple(x.shape), spec, mesh, coords)]
 
 
+def ceil_region(shape: Sequence[int], spec: tuple, mesh, coords) -> tuple:
+    """The slices of an activation of ``shape`` that the rank at ``coords``
+    holds under ``spec`` (``spec_for(..., is_param=False)``): a dim of n
+    split p ways is ceil(n / p) wide a part, the last parts shorter or
+    empty (GSPMD pads an uneven dim)."""
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {spec} does not fit shape {tuple(shape)}")
+    check_spec(spec, mesh)
+    out = []
+    for n, entry in zip(shape, spec):
+        parts, idx = axis_part(entry, mesh, coords)
+        w = -(-n // parts)
+        lo = min(idx * w, n)
+        out.append(slice(lo, min(lo + w, n)))
+    return tuple(out)
+
+
+def ceil_block_shape(shape: Sequence[int], spec: tuple, mesh,
+                     coords) -> tuple:
+    """The shape of the rank at ``coords``'s ``ceil_region``."""
+    return tuple(s.stop - s.start
+                 for s in ceil_region(shape, spec, mesh, coords))
+
+
+def ceil_unshard(blocks: Sequence, shape: Sequence[int], spec: tuple, mesh):
+    """The whole activation of ``shape`` from every rank's ``ceil_region``
+    block (``blocks[i]`` mesh rank i's)."""
+    whole = blocks[0].new_empty(tuple(shape))
+    for i, blk in enumerate(blocks):
+        whole[ceil_region(shape, spec, mesh, mesh_coords(mesh, i))] = blk
+    return whole
+
+
 def unshard(blocks: Sequence, spec: tuple, mesh):
     """The whole leaf (a tensor) from every rank's block (``blocks[i]`` the
     block of mesh rank i): the inverse of ``shard_leaf``."""
@@ -374,15 +410,19 @@ def _is_axes_leaf(t) -> bool:
 
 
 def param_specs(param_axes: dict, abstract_params: dict,
-                rules: MeshRules) -> dict:
+                rules: MeshRules, *, is_param: bool = True) -> dict:
     """The spec of every leaf (the tree counterpart of JAX's
-    ``param_shardings``): ``param_axes`` names each leaf's dims,
-    ``abstract_params`` (same structure) gives its shape."""
+    ``param_shardings``; with ``is_param`` False, of its activation
+    trees, ``batch_shardings`` / ``decode_state_shardings``):
+    ``param_axes`` names each leaf's dims, ``abstract_params`` (same
+    structure) gives its shape.  An activation spec passes ``check_spec``
+    first."""
     if _is_axes_leaf(param_axes):
-        return spec_for(param_axes, tuple(abstract_params.shape),
-                        rules=rules, is_param=True)
+        spec = spec_for(param_axes, tuple(abstract_params.shape),
+                        rules=rules, is_param=is_param)
+        return spec if is_param else check_spec(spec, rules.mesh)
     if set(param_axes) != set(abstract_params):
         raise KeyError(f"axes tree {sorted(param_axes)} and params tree "
                        f"{sorted(abstract_params)} differ")
-    return {k: param_specs(v, abstract_params[k], rules)
+    return {k: param_specs(v, abstract_params[k], rules, is_param=is_param)
             for k, v in param_axes.items()}

@@ -30,16 +30,20 @@ Nothing is compiled (``compile_s`` and ``code_bytes`` are null), and the
 default mesh is the one card (``num_devices`` 1, no collective bytes).
 
 ``lower_cell(..., pod=True)`` and ``lower_cell(..., multi_pod=True)``
-record a train cell on JAX's (16, 16) / (2, 16, 16) production mesh
+record a cell on JAX's (16, 16) / (2, 16, 16) production mesh
 (``--both-meshes`` / ``--multi-pod``) without running a step: the
-per-device parameter and optimizer bytes from the param specs
-(``memory``: ``params_per_device``, ``params_bytes_per_device``,
-``optimizer_bytes_per_device``), and the collective bytes a device
+per-device parameter bytes from the param specs (``memory``:
+``params_per_device``, ``params_bytes_per_device``; a train cell's f32
+params and ``optimizer_bytes_per_device``, a prefill or decode cell's
+compute params, no optimizer, and its batch rows and decode-state
+blocks by JAX's batch and decode-state specs, ``batch_bytes_per_device``
+/ ``decode_state_bytes_per_device``, all in
+``argument_bytes_per_device``), and the collective bytes a device
 carries in one step (``collectives``, ``launch/roofline.
 collective_bytes``: gathers, gradient sums, tensor-parallel sums and the
-step's scalars), whose NVLink time is the roofline's collective term.
-Their FLOPs and HBM bytes are not counted (``cost`` None), and prefill
-and decode cells are skipped: the port shards training only.
+step's scalars; serving's split softmax, SSM state gathers and greedy
+token), whose NVLink time is the roofline's collective term.  Their
+FLOPs and HBM bytes are not counted (``cost`` None).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k
@@ -64,7 +68,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.config import (
-    KIND_PREFILL, KIND_TRAIN, SHAPES, ModelConfig, ShapeConfig, TrainConfig,
+    KIND_DECODE, KIND_PREFILL, KIND_TRAIN, SHAPES, ModelConfig, ShapeConfig,
+    TrainConfig,
     model_flops, param_counts, shape_applicable,
 )
 from repro_torch.configs import get_arch, list_archs
@@ -270,9 +275,10 @@ def lower_one(cfg: ModelConfig, shape: ShapeConfig,
 def lower_mesh(cfg: ModelConfig, shape: ShapeConfig, *,
                multi_pod: bool = False,
                tcfg: TrainConfig | None = None) -> dict:
-    """The record of a train cell on JAX's production mesh, from the specs
-    alone: per-device params and optimizer bytes, and the collective bytes
-    of one step.  Nothing is lowered and no card is needed."""
+    """The record of a cell on JAX's production mesh, from the specs
+    alone: per-device params and optimizer bytes (train) or params, batch
+    rows and decode state (prefill, decode), and the collective bytes of
+    one step.  Nothing is lowered and no card is needed."""
     from repro_torch.distributed.model_parallel import ShardPlan
 
     tcfg = tcfg or _train_config(cfg)
@@ -282,11 +288,23 @@ def lower_mesh(cfg: ModelConfig, shape: ShapeConfig, *,
     rules = make_rules(mesh, multi_pod=multi_pod)
     plan = ShardPlan(cfg, rules)
     n = plan.block_numel()
-    pz = torch.empty((), dtype=plan.param_dtype).element_size()
-    oz = torch.empty((), dtype=getattr(torch, tcfg.opt_dtype)).element_size()
-    opt = n * (2 * oz + (4 if tcfg.grad_compress else 0))
     coll = collective_bytes(cfg, shape, rules, tcfg)
     counts = param_counts(cfg)
+    if shape.kind == KIND_TRAIN:
+        pz = torch.empty((), dtype=plan.param_dtype).element_size()
+        oz = torch.empty((), dtype=getattr(torch, tcfg.opt_dtype)
+                         ).element_size()
+        params = n * pz
+        opt = n * (2 * oz + (4 if tcfg.grad_compress else 0))
+        serve = {}
+    else:
+        params, opt = plan.serve_param_bytes(), 0
+        rows = plan.serve_batch(batch_specs(cfg, shape), 0)
+        serve = {"batch_bytes_per_device": sum(
+                     t.numel() * t.element_size() for t in rows.values()),
+                 "decode_state_bytes_per_device": (
+                     plan.state_bytes(shape.global_batch, shape.seq_len)
+                     if shape.kind == KIND_DECODE else 0)}
     rec = {
         "arch": cfg.arch_id,
         "shape": shape.name,
@@ -296,14 +314,15 @@ def lower_mesh(cfg: ModelConfig, shape: ShapeConfig, *,
         "lower_s": round(time.time() - t0, 1),
         "compile_s": None,
         "memory": {
-            "argument_bytes_per_device": n * pz + opt,
+            "argument_bytes_per_device": params + opt + sum(serve.values()),
             "output_bytes_per_device": None,
             "temp_bytes_per_device": None,
             "code_bytes": None,
             "fits": None,
             "params_per_device": n,
-            "params_bytes_per_device": n * pz,
+            "params_bytes_per_device": params,
             "optimizer_bytes_per_device": opt,
+            **serve,
         },
         "cost_scanned": {"flops": None, "bytes": None,
                          "coll": coll["total"]},
@@ -324,16 +343,13 @@ def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
                pod: bool = False, cfg_kw=None):
     """The record of one (arch, shape) cell on the one card or, with
     ``pod`` / ``multi_pod``, on JAX's (16, 16) / (2, 16, 16) mesh of
-    ranks (train cells; the others are skipped); ``cfg_kw`` replaces
-    config fields (``num_layers`` cuts the depth)."""
+    ranks; ``cfg_kw`` replaces config fields (``num_layers`` cuts the
+    depth)."""
     cfg = get_arch(arch_id)
     if cfg_kw:
         cfg = cfg.replace(**cfg_kw)
     shape = SHAPES[shape_name]
     ok, why = shape_applicable(cfg, shape)
-    if ok and (pod or multi_pod) and shape.kind != KIND_TRAIN:
-        ok, why = False, (f"{shape_name} on a mesh: the port shards "
-                          f"training only")
     if not ok:
         return {"arch": arch_id, "shape": shape_name,
                 "multi_pod": multi_pod, "status": "skipped", "reason": why}

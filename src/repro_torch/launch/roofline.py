@@ -18,7 +18,8 @@ counterpart: an eager step has no HLO.  ``collective_bytes(cfg, shape,
 rules)`` counts instead, from the param specs and the sharded step's
 schedule (``distributed/model_parallel.ShardPlan.collective_bytes``), the
 bytes each gather, gradient sum and tensor-parallel sum carries on a
-device in one train step; a one-card step carries none.  A record whose
+device in one train, prefill or decode step; a one-card step carries
+none.  A record whose
 ``cost`` was not counted (the dry run's mesh records, which lower
 nothing) has no compute or memory term.
 
@@ -59,13 +60,13 @@ def tf32x3_bound(bytes_, ops):
 
 
 def collective_bytes(cfg, shape, rules, tcfg=None) -> dict:
-    """The bytes each kind of collective carries on a device in one train
-    step of ``cfg`` at ``shape`` (global batch x seq) over
-    ``rules.mesh``, and their ``total``."""
+    """The bytes each kind of collective carries on a device in one step
+    of ``cfg`` at ``shape`` (global batch x seq; its kind: train, prefill
+    or decode) over ``rules.mesh``, and their ``total``."""
     from repro_torch.distributed.model_parallel import ShardPlan
 
     return ShardPlan(cfg, rules).collective_bytes(
-        shape.global_batch, shape.seq_len, tcfg)
+        shape.global_batch, shape.seq_len, tcfg, kind=shape.kind)
 
 
 def roofline_terms(rec: dict) -> dict:

@@ -23,19 +23,24 @@ replicated, params, ``mu``, ``nu`` and ``compress_err`` under the param
 specs.  ``make_sharded_train_step(cfg, tcfg, rules, group)`` is the train
 step on this rank's blocks and rows (``distributed/model_parallel.py``);
 its ``info`` names the leaves the model axis splits in compute and
-each leaf's mode.  JAX's
-batch and decode-state shardings have no counterpart: the port shards
-training only.
+each leaf's mode.  ``batch_specs_tree`` and ``decode_state_specs_tree``
+are JAX's ``batch_shardings`` / ``decode_state_shardings`` as specs
+(activation rules: a dim GSPMD would pad is split ceil-wise,
+``distributed/sharding.ceil_region``); ``make_sharded_prefill_step`` and
+``make_sharded_decode_step`` are JAX's prefill and decode steps on this
+rank's params, batch rows and decode-state blocks under them, returning
+its vocabulary slice of the logits as JAX's step leaves them split.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.config import ModelConfig, TrainConfig
+from repro_torch.config import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.distributed.sharding import MeshRules
 from repro_torch.distributed.sharding import param_specs as _param_specs
 from repro_torch.models import transformer as tf
+from repro_torch.models.specs import batch_axes_tree, batch_specs
 from repro_torch.optim import TrainState, adamw_init, apply_gradients
 from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 
@@ -133,6 +138,92 @@ def train_state_shardings(cfg: ModelConfig, tcfg: TrainConfig,
     return TrainState(step=(), params=psh, mu=psh, nu=psh, compress_err=err)
 
 
+def batch_specs_tree(cfg: ModelConfig, shape: ShapeConfig,
+                     rules: MeshRules) -> dict:
+    """Every batch field's spec (JAX's ``batch_shardings``): the data axes
+    on ``batch`` where they divide it, else replicated."""
+    return _param_specs(batch_axes_tree(cfg, shape), batch_specs(cfg, shape),
+                        rules, is_param=False)
+
+
+def decode_state_specs_tree(cfg: ModelConfig, shape: ShapeConfig,
+                            rules: MeshRules) -> dict:
+    """Every decode-state leaf's spec at ``shape`` (JAX's
+    ``decode_state_shardings``; the index replicated, ``()``)."""
+    from repro_torch.distributed.model_parallel import state_specs
+
+    return state_specs(cfg, rules, shape.global_batch, shape.seq_len)
+
+
+def _mesh_plan(cfg: ModelConfig, rules: MeshRules, group):
+    """(ShardPlan, this rank's MeshGroups); ``group`` a ``Group`` (every
+    rank of the job calls this, in the same order) or ``MeshGroups``."""
+    from repro_torch.distributed.group import MeshGroups
+    from repro_torch.distributed.model_parallel import ShardPlan
+
+    plan = ShardPlan(cfg, rules)
+    groups = (group if isinstance(group, MeshGroups)
+              else group.mesh_groups(rules.mesh))
+    if groups is None:
+        raise ValueError(f"this rank is outside the {rules.mesh.shape} mesh")
+    return plan, groups
+
+
+def _serve_step(step, plan, groups):
+    """Hang a serving step's plan, groups, greedy token and info on it."""
+    from repro_torch.distributed.model_parallel import ModelParallel
+
+    step.plan, step.groups = plan, groups
+    step.argmax = ModelParallel(plan, groups, {}, serving=True).argmax
+    step.info = {"mesh": tuple(plan.mesh.shape), "split": plan.split_leaves,
+                 "modes": {lf.key: lf.mode for lf in plan.leaves}}
+    return step
+
+
+def make_sharded_prefill_step(cfg: ModelConfig, rules: MeshRules, group):
+    """JAX's prefill step on one rank of ``rules.mesh``:
+    ``prefill_step(params, batch, state)`` with ``params`` this rank's
+    blocks of the compute params (``plan.shard``), ``batch`` its rows
+    (``plan.serve_batch``) and ``state`` its decode-state blocks
+    (``plan.decode_state(global batch, max_seq, rank=)``), into which the
+    prompt's caches are spliced in place; returns (this rank's
+    vocabulary slice of the last position's logits, float32, the state
+    at index S).  ``step.argmax(logits)`` is the greedy token; the step
+    carries ``plan``, ``groups`` and ``info`` as the train step does."""
+    from repro_torch.distributed.model_parallel import ModelParallel
+
+    plan, groups = _mesh_plan(cfg, rules, group)
+
+    @torch.no_grad()
+    def prefill_step(params: dict, batch: dict, state: dict):
+        mp = ModelParallel(plan, groups, params, serving=True,
+                           span=state["span"])
+        logits, caches, idx = tf.prefill(cfg, params, batch["tokens"],
+                                         batch.get("frontend"), mp)
+        mp.splice(state["caches"], caches)
+        return logits, dict(state, index=idx)
+
+    return _serve_step(prefill_step, plan, groups)
+
+
+def make_sharded_decode_step(cfg: ModelConfig, rules: MeshRules, group):
+    """JAX's decode step on one rank of ``rules.mesh``:
+    ``decode_step(params, state, batch)`` (``batch["tokens"]`` the rank's
+    (B, 1) rows) -> (its vocabulary slice of the logits, the state one
+    position on; the caches written in place, the index a host int)."""
+    from repro_torch.distributed.model_parallel import ModelParallel
+
+    plan, groups = _mesh_plan(cfg, rules, group)
+
+    @torch.no_grad()
+    def decode_step(params: dict, state: dict, batch: dict):
+        mp = ModelParallel(plan, groups, params, serving=True,
+                           span=state["span"])
+        return tf.decode_step(cfg, params, state, batch["tokens"], mp)
+
+    return _serve_step(decode_step, plan, groups)
+
+
 def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                             rules: MeshRules, group):
     """The train step of one rank of ``rules.mesh``: ``train_step(state,
@@ -145,19 +236,12 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     ``groups`` and ``info`` ({"mesh", "split": the leaves the model axis
     splits in compute, "modes": each leaf's use, "whole", "split" or
     "take"})."""
-    from repro_torch.distributed.group import MeshGroups
-    from repro_torch.distributed.model_parallel import (
-        ModelParallel, ShardPlan,
-    )
+    from repro_torch.distributed.model_parallel import ModelParallel
 
     if tcfg.microbatch and tcfg.microbatch > 1:
         raise ValueError("microbatch: the sharded step takes the whole "
                          "batch at once (its data axis splits it)")
-    plan = ShardPlan(cfg, rules)
-    groups = (group if isinstance(group, MeshGroups)
-              else group.mesh_groups(rules.mesh))
-    if groups is None:
-        raise ValueError(f"this rank is outside the {rules.mesh.shape} mesh")
+    plan, groups = _mesh_plan(cfg, rules, group)
 
     def train_step(state: TrainState, batch: dict):
         leaves = tree_leaves(state.params)

@@ -162,7 +162,8 @@ def _route(cfg: ModelConfig, p: dict, h: torch.Tensor, mp=None):
     """(top_g (B,S,k) normalised, top_e (B,S,k), aux): float32 gates,
     experts in descending gate order, the lower index first among equal
     gates (``lax.top_k``'s order), and the Switch load-balance loss (under
-    ``mp``, this data rank's share of it)."""
+    a training ``mp``, this data rank's share of it; a serving one drops
+    the loss, and takes no sum over the data ranks for it)."""
     E, k = cfg.num_experts, cfg.top_k
     logits = h.float() @ p["router"].float()
     gates = torch.softmax(logits, dim=-1)
@@ -172,7 +173,7 @@ def _route(cfg: ModelConfig, p: dict, h: torch.Tensor, mp=None):
     S = h.shape[1]
     me = gates.mean(dim=1)                                        # (B,E)
     frac = F.one_hot(top_e[..., 0], E).float().sum(dim=1) / S     # (B,E)
-    if mp is None:
+    if mp is None or mp.serving:    # serving drops the aux loss
         ce = frac.mean(dim=0)
         aux = E * torch.mean(torch.sum(me * ce[None], dim=-1))
     else:                       # every data rank's rows, in rank order

@@ -42,15 +42,15 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     return out
 
 
+#: the logical axes of every field a batch may hold
+BATCH_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+              "frontend": ("batch", "seq", "embed")}
+
+
 def batch_axes_tree(cfg: ModelConfig, shape: ShapeConfig) -> dict:
-    """Logical axes for batch_specs (JAX's in_shardings; the port has no
-    mesh to place them on, ``launch/mesh.py``)."""
-    out = {"tokens": ("batch", "seq")}
-    if shape.kind == KIND_TRAIN:
-        out["labels"] = ("batch", "seq")
-    if "frontend" in batch_specs(cfg, shape):
-        out["frontend"] = ("batch", "seq", "embed")
-    return out
+    """Logical axes for batch_specs (JAX's in_shardings;
+    ``launch/steps.batch_specs_tree`` places them on a mesh of ranks)."""
+    return {k: BATCH_AXES[k] for k in batch_specs(cfg, shape)}
 
 
 def decode_state_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:

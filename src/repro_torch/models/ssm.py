@@ -19,7 +19,9 @@ the model rank's heads: ``in_z`` / ``in_x`` / ``in_dt`` give its
 hp), ``B`` and ``C`` are computed whole and enter through ``copy_in`` (so
 ``in_B`` / ``in_C`` keep the same gradient bits on every model rank), the
 gated norm's mean is over every rank's columns, and ``out``'s rows give a
-partial output summed over the model ranks in rank order.
+partial output summed over the model ranks in rank order; prefill's cache
+is then the rank's heads' state and ``d_inner`` tail, and
+``ssm_decode_forward`` under a serving ``mp`` runs on them.
 """
 
 from __future__ import annotations
@@ -162,12 +164,27 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype, *,
 
 
 def ssm_decode_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
-                       cache: dict):
+                       cache: dict, mp=None):
     """One-token decode.  h (B,1,D); cache {'ssm' (B,nh,hp,ds), 'conv'
-    {'x', 'B', 'C'} (B,cw-1,C)}, updated in place."""
+    {'x', 'B', 'C'} (B,cw-1,C)}, updated in place.  Under a serving ``mp``
+    with ``split_ssm`` the params and the cache hold this model rank's
+    heads (``ssm``) and ``d_inner`` columns (``conv`` ``x``), ``B`` / ``C``
+    whole; the gated norm's mean is over every rank's columns and the
+    partial outputs are summed over the model ranks in rank order.
+    Without the split, a cache the model axis places is gathered whole
+    over the model ranks first, and the rank keeps its block of the new
+    one."""
+    if mp is not None and not mp.split_ssm and mp.model_size > 1:
+        whole = mp.state_whole(cache)
+        out, whole = ssm_decode_forward(cfg, p, h, whole)
+        mp.state_keep(cache, whole)
+        return out, cache
     B = h.shape[0]
     nh, hp = cfg.ssm_heads, cfg.ssm_headdim
     dt_ = cfg.compute_dtype
+    tp = mp is not None and mp.split_ssm
+    if tp:
+        nh //= mp.model_size
     z, x_raw, B_raw, C_raw, dt_raw = _projections(cfg, p, h)
 
     def conv_step(raw_new, tail, w):
@@ -190,6 +207,7 @@ def ssm_decode_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
     y = torch.einsum("bn,bhpn->bhp", Cc[:, 0].float(), state)
     y = y + xh * p["D_skip"][None, :, None]
     y = y.reshape(B, nh * hp)[:, None, :].to(h.dtype)
-    y = rmsnorm_gated(p["norm"], y, z, cfg.norm_eps)
+    y = rmsnorm_gated(p["norm"], y, z, cfg.norm_eps, mp if tp else None)
     cache["ssm"].copy_(state)
-    return y @ cast(p["out"], dt_), cache
+    out = y @ cast(p["out"], dt_)
+    return (mp.sum_out(out) if tp else out), cache

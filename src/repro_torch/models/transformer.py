@@ -33,7 +33,10 @@ and ``lm_loss`` take an optional ``mp``
 rank's shards, each leaf is rebuilt (or its compute slice gathered) just
 before the block that reads it, and the embedding, the attention, the SSM
 mixer, the dense and MoE FFNs, the MoE load-balance term, the head and
-the cross-entropy run as that module says.
+the cross-entropy run as that module says.  ``prefill`` and
+``decode_step`` take a serving ``mp`` likewise (the rank's params, rows
+and decode-state blocks; its vocabulary slice of the logits), and
+``decode_state_axes`` is JAX's logical-axes tree of the decode state.
 """
 
 from __future__ import annotations
@@ -215,14 +218,14 @@ def _block_forward(cfg: ModelConfig, bp: dict, h: torch.Tensor, positions,
         if spec.mixer == MIXER_ATTN:
             if mode == "decode":
                 out, nc = attn_mod.decode_attention_forward(
-                    cfg, pp["mixer"], r, caches[f"pos{i}"], cache_index)
+                    cfg, pp["mixer"], r, caches[f"pos{i}"], cache_index, mp)
             else:
                 out, (k, v) = attn_mod.attention_forward(cfg, pp["mixer"], r,
                                                          positions, mp)
                 nc = {"k": k, "v": v} if mode == "prefill" else None
         elif mode == "decode":
             out, nc = ssm_mod.ssm_decode_forward(cfg, pp["mixer"], r,
-                                                 caches[f"pos{i}"])
+                                                 caches[f"pos{i}"], mp)
         else:
             out, nc = ssm_mod.ssm_forward(cfg, pp["mixer"], r,
                                           return_cache=(mode == "prefill"),
@@ -309,15 +312,20 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: dict, mp=None):
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            frontend=None):
+            frontend=None, mp=None):
     """Prefill: returns (last-position logits (B,V) float32, caches stacked
-    over blocks, next_index S)."""
-    h, positions = _embed(cfg, params, tokens, frontend)
+    over blocks, next_index S).  Under ``mp`` (a serving
+    ``ModelParallel``) ``params`` and ``tokens`` are this rank's: the
+    logits are its vocabulary slice and the caches its pieces
+    (``ShardPlan.splice`` writes them into its decode-state blocks)."""
+    embed = mp.embed() if mp else params["embed"]
+    h, positions = _embed(cfg, {"embed": embed}, tokens, frontend, mp)
     h, caches, _ = _stack_forward(cfg, params["blocks"], h, positions,
-                               "prefill")
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = (h[:, -1] @ lm_head_weight(cfg, params["embed"])).float()
-    return logits, caches, h.shape[1]
+                                  "prefill", mp=mp)
+    h = rmsnorm(mp.final_norm() if mp else params["final_norm"], h,
+                cfg.norm_eps)
+    logits = (h[:, -1] @ lm_head_weight(cfg, embed)).float()
+    return (mp.vocab_slice(logits) if mp else logits), caches, h.shape[1]
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
@@ -339,14 +347,43 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     return {"caches": caches, "index": int(prefilled)}
 
 
+def decode_state_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of the decode state (JAX's, key for key; mirrors
+    ``init_decode_state``): the attention caches' positions are
+    ``cache_seq``, which the model axis takes where no other dim of a
+    cache leaf can (``ACT_MODEL_PREF`` has no ``kv_heads``)."""
+    per_pos = {}
+    for i, spec in enumerate(cfg.layer_specs()):
+        if spec.mixer == MIXER_ATTN:
+            kv = ("blocks", "batch", "cache_seq", "kv_heads", "head_dim")
+            per_pos[f"pos{i}"] = {"k": kv, "v": kv}
+        else:
+            per_pos[f"pos{i}"] = {
+                "ssm": ("blocks", "batch", "ssm_heads", None, "ssm_state"),
+                "conv": {
+                    "x": ("blocks", "batch", None, "d_inner"),
+                    "B": ("blocks", "batch", None, "ssm_state"),
+                    "C": ("blocks", "batch", None, "ssm_state"),
+                },
+            }
+    return {"caches": per_pos, "index": ()}
+
+
 def decode_step(cfg: ModelConfig, params: dict, state: dict,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, mp=None):
     """One decode step.  tokens (B,1) -> (logits (B,V) float32, new state);
-    the caches are written in place."""
-    h = embed_tokens(cfg, params["embed"], tokens)
+    the caches are written in place.  Under ``mp`` (a serving
+    ``ModelParallel``) the params, tokens and state are this rank's
+    blocks and the logits its vocabulary slice."""
+    embed = mp.embed() if mp else params["embed"]
+    h = embed_tokens(cfg, embed, tokens, mp)
     idx = state["index"]
     h, caches, _ = _stack_forward(cfg, params["blocks"], h, None, "decode",
-                               caches=state["caches"], cache_index=idx)
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = (h[:, 0] @ lm_head_weight(cfg, params["embed"])).float()
-    return logits, {"caches": caches, "index": idx + 1}
+                                  caches=state["caches"], cache_index=idx,
+                                  mp=mp)
+    h = rmsnorm(mp.final_norm() if mp else params["final_norm"], h,
+                cfg.norm_eps)
+    logits = (h[:, 0] @ lm_head_weight(cfg, embed)).float()
+    if mp:
+        logits = mp.vocab_slice(logits)
+    return logits, dict(state, caches=caches, index=idx + 1)

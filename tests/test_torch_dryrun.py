@@ -393,8 +393,8 @@ def test_a_meta_counter_holds_storages_not_tensors():
 def test_dryrun_cli_record_keys(tmp_path):
     """JAX's smoke cell through the CLI: exit 0, one ok record with JAX's
     keys (memory and cost hold JAX's and more), one card, nothing
-    compiled; the multi-pod flags record the cell on JAX's meshes (a
-    decode cell: skipped, the port shards training only)."""
+    compiled; the multi-pod flags record the decode cell on JAX's meshes
+    (its decode state by JAX's specs among the arguments)."""
     out = tmp_path / "dr.json"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     res = subprocess.run(
@@ -415,9 +415,48 @@ def test_dryrun_cli_record_keys(tmp_path):
         assert dryrun.main(["--arch", "mamba2-780m", "--shape", "long_500k",
                             "--out", str(path), flag]) == 0
         recs = json.loads(path.read_text())
-        assert len(recs) == n and all(r["status"] == "skipped"
-                                      for r in recs)
+        assert len(recs) == n and all(r["status"] == "ok" for r in recs)
+        assert {r["num_devices"] for r in recs} == (
+            {512} if n == 1 else {256, 512})
     rec = dryrun.lower_cell("mamba2-780m", "long_500k", multi_pod=True)
-    assert rec["status"] == "skipped" and "training only" in rec["reason"]
+    assert rec["status"] == "ok" and "reason" not in rec
+    mem = rec["memory"]
+    assert mem["decode_state_bytes_per_device"] > 0
+    assert mem["optimizer_bytes_per_device"] == 0
+    assert mem["argument_bytes_per_device"] == (
+        mem["params_bytes_per_device"] + mem["batch_bytes_per_device"]
+        + mem["decode_state_bytes_per_device"])
     assert dryrun.lower_cell("llama3.2-3b", "long_500k")["status"] == \
         "skipped"
+    assert dryrun.lower_cell("llama3.2-3b", "long_500k", pod=True)[
+        "status"] == "skipped"
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_serving_mesh_records(multi_pod):
+    """llama3.2-3b's serving cells on JAX's (16, 16) and (2, 16, 16)
+    meshes: decode_32k holds nb x 8 x 2048 x 8 x 128 x 2 B of each of k
+    and v a device on (16, 16) (its 128 rows over 16 data ranks, the
+    32768 positions over 16 model ranks), half the rows on (2, 16, 16);
+    prefill_32k holds no decode state; both carry the plan's collective
+    bytes, and no record says training only."""
+    cfg = get_arch("llama3.2-3b")
+    rows = 4 if multi_pod else 8
+    rec = dryrun.lower_cell("llama3.2-3b", "decode_32k", multi_pod=multi_pod,
+                            pod=not multi_pod)
+    assert rec["status"] == "ok"
+    mem = rec["memory"]
+    assert mem["decode_state_bytes_per_device"] == \
+        2 * cfg.num_blocks * rows * 2048 * 8 * 128 * 2
+    assert mem["batch_bytes_per_device"] == rows * 4
+    coll = rec["collectives"]
+    assert coll["per_device_bytes"] == sum(coll["by_kind_bytes"].values())
+    assert coll["by_kind_bytes"]["attention"] > 0
+    pre = dryrun.lower_cell("llama3.2-3b", "prefill_32k",
+                            multi_pod=multi_pod, pod=not multi_pod)
+    assert pre["status"] == "ok"
+    assert pre["memory"]["decode_state_bytes_per_device"] == 0
+    assert pre["memory"]["params_bytes_per_device"] == \
+        mem["params_bytes_per_device"]
+    assert pre["collectives"]["by_kind_bytes"]["attention"] == 0
+    assert "training only" not in json.dumps([rec, pre])

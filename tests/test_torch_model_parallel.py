@@ -729,7 +729,8 @@ def test_dry_run_pod_records(arch, want):
     the params and bf16 moments' bytes, nonzero collective bytes and
     their NVLink term; the (2, 16, 16) record holds half the params or a
     little more (leaves that 32 does not divide stay whole over the pod
-    and data axes); a prefill cell on a mesh is skipped."""
+    and data axes); a prefill cell on a mesh holds the compute params and
+    no optimizer."""
     rec = dryrun.lower_cell(arch, "train_4k", pod=True)
     assert rec["status"] == "ok" and rec["num_devices"] == 256
     mem = rec["memory"]
@@ -744,8 +745,11 @@ def test_dry_run_pod_records(arch, want):
     multi = dryrun.lower_cell(arch, "train_4k", multi_pod=True)
     assert multi["num_devices"] == 512 and multi["multi_pod"] is True
     assert want / 2 <= multi["memory"]["params_per_device"] < want
-    assert dryrun.lower_cell(arch, "prefill_32k", pod=True)[
-        "status"] == "skipped"
+    pre = dryrun.lower_cell(arch, "prefill_32k", pod=True)
+    assert pre["status"] == "ok"
+    assert pre["memory"]["params_per_device"] == want
+    assert pre["memory"]["optimizer_bytes_per_device"] == 0
+    assert want * 2 <= pre["memory"]["params_bytes_per_device"] < want * 4
 
 
 def test_train_state_shardings_follow_the_param_specs():
