@@ -127,6 +127,17 @@ Phases, each reported on its own lines:
             same fit under torch.profiler for the busy share, the split of
             its device time (K1, K1b, K5 with their us a launch) and top
             ops;
+8s. staging the one-ahead staging (``GCLTrainConfig.prefetch``) and bf16
+            messages (``RGCNConfig.message_dtype``): the default phi-2 fit
+            with prefetch off, on, on, off (parameters, history and
+            val_loss bit-equal; steps/s, stage / wait seconds and overlap,
+            warm after phase 8), ``embed`` and ``embed_stream`` of all of
+            phi-2 from a cold cache in the same turns (embeddings
+            bit-equal, wall seconds), phi-2's first micro-batch encoded
+            with bf16 against float32 messages (gap > 0 and at most 5e-3
+            of the largest |z|, K1 launched), and a 32-step fit with bf16
+            messages (finite losses whose last quarter's mean is below the
+            first's; K1 / K1b / K5 launched);
 8a. data_parallel the data-parallel fit and the placed sweep on the card,
             at the default encoder's width (``RGCNConfig()``, the default
             optimizer; 32 steps, fault boundaries and checkpoints every 8)
@@ -2838,6 +2849,123 @@ def phase_fit(dev):
     return launches
 
 
+#: the staging phase's modes in turn (prefetch off, on, on, off), its
+#: bf16-message fit's steps, and the bf16 messages' limit against float32
+#: messages on the card (largest gap over the largest |z|)
+STAGING_TURNS = (False, True, True, False)
+STAGING_BF16_STEPS = 32
+MSG_TOL = 5e-3
+
+
+def _staging_fit(dev, graphs, rc=None, **tc):
+    """(encoder, info, wall s) of a fit on ``dev``, the card synchronized."""
+    import torch
+
+    from repro_torch.core.rgcn import RGCNConfig
+    from repro_torch.core.train import ContrastiveTrainer, GCLTrainConfig
+
+    t0 = time.perf_counter()
+    enc, info = ContrastiveTrainer(rc or RGCNConfig(), GCLTrainConfig(**tc),
+                                   device=dev).fit(graphs)
+    torch.cuda.synchronize(dev)
+    return enc, info, time.perf_counter() - t0
+
+
+def _staging_line(info) -> str:
+    return (f"stage_s {info['prefetch_stage_s']:.4f} wait_s "
+            f"{info['prefetch_wait_s']:.4f} overlap "
+            f"{info['prefetch_overlap']:.4f}")
+
+
+def phase_staging(dev, smi_line):
+    """Phase 8s (see the module docstring)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.rgcn import RGCNConfig, encode_packed
+    from repro_torch.core.train import ContrastiveTrainer, GCLTrainConfig
+
+    graphs = _phi2_training_graphs()
+    fits = []
+    for on in STAGING_TURNS:
+        enc, info, wall = _staging_fit(dev, graphs, prefetch=on)
+        fits.append((on, enc, info))
+        steps = len(info["history"])
+        log(f"[staging] fit prefetch={on}: {steps} steps, steps/s "
+            f"{steps / info['fit_s']:.2f} (step loop {info['fit_s']:.3f} s, "
+            f"whole fit {wall:.3f} s), {_staging_line(info)} on {smi_line}")
+    _, e0, i0 = fits[0]
+    p0 = dict(e0.named_parameters())
+    for on, e, info in fits[1:]:
+        _, equal = _param_gap(dict(e.named_parameters()), p0)
+        require(equal and info["history"] == i0["history"]
+                and info["val_loss"] == i0["val_loss"],
+                f"staging: the fit with prefetch={on} differs from the fit "
+                f"with prefetch=False")
+    log("[staging] fit: parameters, history and val_loss bit-equal in all "
+        "four turns")
+
+    program = _program_graphs("phi-2")
+    enc = e0
+    for kind in ("embed", "embed_stream"):
+        outs = []
+        for on in STAGING_TURNS:
+            tr = ContrastiveTrainer(RGCNConfig(), GCLTrainConfig(prefetch=on),
+                                    device=dev)       # a cold cache each turn
+            t0 = time.perf_counter()
+            z = (tr.embed(enc, program) if kind == "embed"
+                 else tr.embed_stream(enc, iter(program)))
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            outs.append(z)
+            st = tr.embed_stats
+            log(f"[staging] {kind} prefetch={on}: {len(program)} graphs, "
+                f"{st['encoded']} encoded in {st['microbatches']} "
+                f"micro-batches, wall {wall:.4f} s, {_staging_line(st)}")
+        require(all(np.array_equal(z, outs[0]) for z in outs[1:]),
+                f"staging: {kind} differs between prefetch on and off")
+        log(f"[staging] {kind}: embeddings bit-equal in all four turns")
+
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in _main_path_batch().items()}
+    _zero_counts()
+    with torch.inference_mode():
+        z16 = encode_packed(enc, RGCNConfig(message_dtype="bfloat16"), batch)
+        z32 = encode_packed(enc, RGCNConfig(), batch)
+    k1 = _counts()["rgcn_fused_flat"]
+    gap = float((z16 - z32).abs().max()) / float(z32.abs().max())
+    log(f"[staging] bf16 messages, phi-2's first micro-batch (P="
+        f"{batch['node_mask'].shape[0]}): max |z_bf16 - z_f32| / max |z_f32| "
+        f"{gap:.3e} (limit {MSG_TOL}, > 0), K1 launches {k1}")
+    require(0 < gap <= MSG_TOL, f"staging: bf16 message gap {gap:.3e}")
+    require(k1 == 6, f"staging: K1 launched {k1} times, not 3 a call")
+
+    _zero_counts()
+    _, info, wall = _staging_fit(
+        dev, graphs, RGCNConfig(message_dtype="bfloat16"),
+        steps=STAGING_BF16_STEPS, log_every=8)
+    counts = {k: v for k, v in _counts().items()
+              if k in ("rgcn_fused_flat", "rgcn_fused_bwd", "rgcn_spmm_flat")}
+    losses = [h["loss"] for h in info["history"]]
+    q = len(losses) // 4
+    f32 = [h["loss"] for h in i0["history"][:len(losses)]]
+    log(f"[staging] bf16-message fit, {len(losses)} steps: losses every 4 "
+        f"steps {' '.join(f'{x:.4f}' for x in losses[::4])}, the f32 fit's "
+        f"at the same steps {' '.join(f'{x:.4f}' for x in f32[::4])}; "
+        f"mean of the first / last {q} steps bf16 {np.mean(losses[:q]):.4f}"
+        f" / {np.mean(losses[-q:]):.4f}, f32 {np.mean(f32[:q]):.4f} / "
+        f"{np.mean(f32[-q:]):.4f}; steps/s "
+        f"{len(losses) / info['fit_s']:.2f}, launches {json.dumps(counts)}")
+    require(all(math.isfinite(x) for x in losses),
+            "staging: a bf16-message loss is not finite")
+    require(np.mean(losses[-q:]) < np.mean(losses[:q]),
+            "staging: the bf16-message fit's losses did not fall")
+    require(all(v > 0 for v in counts.values()),
+            f"staging: a fit kernel was never launched: {counts}")
+
+
 #: the data-parallel phase's fit: the default encoder and optimizer, 32
 #: steps of 16 graphs, fault boundaries and checkpoints every 8 steps
 DP_FIT = dict(steps=32, scan_chunk=8, checkpoint_every=8, log_every=8)
@@ -2911,7 +3039,8 @@ def _dp_rank(rank, world, tmp, backend, device):
         params=_np_params(enc), losses=[h["loss"] for h in info["history"]],
         val_loss=info["val_loss"], data_shards=info["data_shards"],
         step_ms=1e3 * info["fit_s"] / len(info["history"]),
-        collective_bytes=info["collective_bytes"], launches=launches)
+        collective_bytes=info["collective_bytes"], launches=launches,
+        prefetch=info["prefetch"], overlap=info["prefetch_overlap"])
     if backend == "nccl":
         plain, p_info, _ = _dp_fit(dev, None, graphs)
         out["no_group"] = _np_params(plain)
@@ -3045,6 +3174,11 @@ def phase_data_parallel(dev, smi_line):
         f"gap {loss_gap:.3e} and val_loss {val_gap:.3e} (tol {LOSS_TOL}), "
         f"step-0 loss bits equal {held2['losses'][0] == loss_h1[0]}")
     require(fit2["data_shards"] == 2, "data_parallel: data_shards is not 2")
+    require(all(o["fit"]["prefetch"] for o in gloo + [nccl]),
+            "data_parallel: a rank's fit ran without prefetch")
+    overlaps = " / ".join(f"{o['fit']['overlap']:.4f}" for o in gloo)
+    log(f"[data_parallel] every rank staged one chunk ahead (prefetch=True),"
+        f" overlap {overlaps} (gloo), {nccl['fit']['overlap']:.4f} (nccl)")
     require(gap <= RESUME_TOL, f"data_parallel: parameter gap {gap:.3e}")
     require(max(loss_gap, val_gap) <= LOSS_TOL,
             f"data_parallel: loss gap {max(loss_gap, val_gap):.3e}")
@@ -6018,6 +6152,9 @@ def _phases(dev, t_all, dry, smi_line):
         t0 = time.perf_counter()
         phase(dev)
         log(f"[phase] {name} {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_staging(dev, smi_line)
+    log(f"[phase] staging {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_data_parallel(dev, smi_line)
     log(f"[phase] data_parallel {time.perf_counter() - t0:.2f} s")

@@ -29,9 +29,12 @@ rather than scatter-adds with float atomics.  ``unfused_ref=True`` is the
 JAX package's pre-fusion packed path: the normalizer recomputed per layer,
 K5 + a matmul in place of K1, and the four-sum readout.  The ablation
 switches ``use_vstats`` and ``relations_used`` act on both paths as in
-JAX; JAX's ``use_pallas`` and ``message_dtype`` have no counterpart (the
-port always runs the kernels' precision profile: gather in the compute
-dtype, float32 after it).
+JAX.  ``message_dtype`` is JAX's: the messages (K1, K5, K6) gather ``h``
+in the narrower of it and the policy's compute dtype, while ``h @ w0``
+and the epilogue keep ``h``; the kernels' precision profile holds (the
+gather in that dtype, the weights and sums float32), where JAX's XLA path
+also rounds the products and sums to it.  JAX's ``use_pallas`` has no
+counterpart: the port always runs the kernels.
 """
 
 from __future__ import annotations
@@ -68,6 +71,9 @@ class RGCNConfig:
     proj_out: int = 64
     dropout: float = 0.1
     feat_noise_sigma: float = 0.01
+    #: 'bfloat16' gathers the messages in bf16 (halving the gathers'
+    #: traffic); they run in the narrower of this and the policy's dtype
+    message_dtype: str = "float32"
     #: activations (and K1's gathered messages) run in the policy's compute
     #: dtype; LayerNorm statistics and the readout stay float32
     policy: Policy = field(default_factory=Policy)
@@ -223,6 +229,22 @@ def _layer_epilogue(lp: RGCNLayer, rc: RGCNConfig, agg, h, node_mask, *,
     return out if last else rc.policy.cast_compute(out)
 
 
+def _message_dtype(rc: RGCNConfig) -> torch.dtype:
+    """The messages' dtype: the narrower of ``message_dtype`` and the
+    policy's compute dtype (float32 with float32 messages: no cast)."""
+    mdt = getattr(torch, rc.message_dtype, None)
+    if not isinstance(mdt, torch.dtype):
+        raise ValueError(f"unknown message_dtype {rc.message_dtype!r}")
+    comp = rc.policy.compute
+    return comp if comp.itemsize < mdt.itemsize else mdt
+
+
+def _messages(rc: RGCNConfig, h: torch.Tensor) -> torch.Tensor:
+    """``h`` as the message kernels gather it (its gradient flows back
+    through the cast)."""
+    return h.to(_message_dtype(rc)).contiguous()
+
+
 # lint: allow[R4] degree counts: sums of 0/1 mask values, exact in any order
 def edge_norm_packed(dst, etype, emask, num_nodes: int,
                      num_relations: int) -> torch.Tensor:
@@ -256,11 +278,11 @@ def _rgcn_layer_packed(lp: RGCNLayer, rc: RGCNConfig, h, batch, emask,
         norm = edge_norm_packed(dst, batch["edge_type"], emask, P,
                                 rc.num_relations)
         w = coef * (emask * norm)[:, None]
-        agg = rgcn_message_agg_flat(h.contiguous(), lp.basis, src, dst,
+        agg = rgcn_message_agg_flat(_messages(rc, h), lp.basis, src, dst,
                                     w.contiguous(), P, checked=False)
     else:
-        agg = rgcn_fused_agg_flat(h.contiguous(), lp.basis, src, dst, coef,
-                                  wnorm, P, edges=edges, checked=False)
+        agg = rgcn_fused_agg_flat(_messages(rc, h), lp.basis, src, dst,
+                                  coef, wnorm, P, edges=edges, checked=False)
     return _layer_epilogue(lp, rc, agg, h, batch["node_mask"], last=last,
                            keep=keep, train=train)
 
@@ -352,7 +374,7 @@ def _rgcn_layer(lp: RGCNLayer, rc: RGCNConfig, h, batch, wnorm,
                 train: bool = False) -> torch.Tensor:
     coef = onehot_etype @ lp.comb                       # (B,E,nb) = comb[etype]
     w = (coef * wnorm[..., None]).contiguous()
-    agg = rgcn_message_agg(h.contiguous(), lp.basis, batch["edge_src"],
+    agg = rgcn_message_agg(_messages(rc, h), lp.basis, batch["edge_src"],
                            batch["edge_dst"], w, h.shape[1], csr=csr,
                            checked=False)
     return _layer_epilogue(lp, rc, agg, h, batch["node_mask"], last=last,

@@ -41,8 +41,15 @@ Inference (``embed`` / ``embed_stream``) turns kernel graphs into the
 256-d kernel embeddings z_k (paper §3.4): graphs are packed into size
 buckets, uploaded to the trainer's device and encoded by
 ``core/rgcn.encode_packed``; identical graphs (same content hash) are
-encoded once.  Host-side staging runs inline (the JAX package's one-ahead
-prefetch thread is not ported).
+encoded once.
+
+Host staging is JAX's one-ahead pipeline (:class:`_OneAhead`,
+``GCLTrainConfig.prefetch`` / ``prefetch_depth``): while the card runs the
+fit's chunk i (``scan_chunk`` steps) or embed micro-batch i, one worker
+thread packs and uploads i + 1 (``utils/device.HostStager``: pinned
+memory, a copy stream, an event the compute stream waits on).  Items are
+staged in order and the step's draws and collectives stay on the calling
+thread, so trajectories and embeddings are bit-equal to inline staging.
 
 The dense path is the pre-packing baseline the JAX package keeps for
 parity tests and its batching benchmark: ``prepad`` / ``embed_dense`` pad
@@ -59,6 +66,8 @@ import dataclasses
 import hashlib
 import time
 import warnings
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -88,20 +97,112 @@ from repro_torch.launch.mesh import widths
 from repro_torch.config import TrainConfig
 from repro_torch.optim.adamw import TrainState, adamw_init, apply_gradients
 from repro_torch.sampling.store import flatten_tree, unflatten_tree
-from repro_torch.utils.device import resolve_device
+from repro_torch.utils.device import HostStager, resolve_device, take
 
 #: fixed metric layout of a training step (one (6,) device tensor per step;
 #: checkpoints store one column per key)
 METRIC_KEYS = ("loss", "nce_acc", "pos_sim", "neg_sim", "lr", "grad_norm")
-#: the validation draws' generator is seeded from (seed, -1, EVAL_STREAM):
-#: deterministic and disjoint from the per-step (seed, step) streams
-EVAL_STREAM = 123
 
 
 class FitInterrupted(RuntimeError):
     """Raised by ``fit(interrupt_after=k)`` right after the checkpoint at
     step k — the hook the tests use to simulate a killed training job
     without killing the process."""
+
+
+class _OneAhead:
+    """One-worker host->device staging pipeline (JAX ``_OneAhead``).
+
+    Wraps an iterable of work items and a ``stage`` callable (host pack +
+    upload); iterating yields ``(item, staged)`` pairs, item i + 1 being
+    staged on one worker thread (``stage-prefetch``) while the caller
+    consumes item i.  ``depth=k`` keeps up to k staged items ahead of the
+    consumer; the one worker stages strictly in submission order, so the
+    staged tensors and their order equal inline staging's.  The worker
+    also advances the item iterator.  ``enabled=False`` stages inline (and
+    then ``wait_s == stage_s``).  ``stage_s`` is the worker's seconds
+    staging, ``wait_s`` the consumer's seconds waiting for a stage;
+    ``overlap_fraction = max(0, 1 - wait_s / stage_s)``.
+
+    A stage (or the item iterator) that raises re-raises in the consumer
+    at that item; nothing is skipped or retried.  Use it as a context
+    manager: leaving the ``with`` block (an exception in the consumer, a
+    ``break``) calls :meth:`close`, which cancels the queued stages, waits
+    for the one in flight and drops it, so no worker outlives the loop.
+    """
+
+    def __init__(self, stage, items, *, enabled: bool = True, depth: int = 1):
+        self._stage = stage
+        self._items = items
+        self.enabled = bool(enabled)
+        self.depth = max(1, int(depth))
+        self.stage_s = 0.0
+        self.wait_s = 0.0
+        self._pool: Optional[ThreadPoolExecutor] = None
+
+    def _timed_stage(self, item):
+        t = time.perf_counter()
+        try:
+            return self._stage(item)
+        finally:
+            self.stage_s += time.perf_counter() - t
+
+    @property
+    def overlap_fraction(self) -> float:
+        if self.stage_s <= 0.0:
+            return 0.0
+        return max(0.0, 1.0 - self.wait_s / self.stage_s)
+
+    def __enter__(self) -> "_OneAhead":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        """Cancel the stages not yet started, wait for the one running and
+        drop every staged item; the worker thread has ended on return."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
+
+    def __iter__(self):
+        it = iter(self._items)
+        if not self.enabled:
+            for item in it:   # inline staging: all staging time is wait time
+                staged = self._timed_stage(item)
+                self.wait_s = self.stage_s
+                yield item, staged
+            return
+
+        def task():
+            try:
+                item = next(it)
+            except StopIteration:
+                return None
+            return item, self._timed_stage(item)
+
+        self._pool = pool = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="stage-prefetch")
+        try:
+            q = deque(pool.submit(task) for _ in range(self.depth))
+            while True:
+                t = time.perf_counter()
+                res = q.popleft().result()
+                self.wait_s += time.perf_counter() - t
+                if res is None:
+                    return
+                q.append(pool.submit(task))     # refill the window
+                yield res
+        finally:
+            self.close()
+
+
+def _prefetch_stats(pipe: _OneAhead) -> dict:
+    """JAX's four staging keys of a fit's info and of ``embed_stats``."""
+    return {"prefetch": pipe.enabled, "prefetch_stage_s": pipe.stage_s,
+            "prefetch_wait_s": pipe.wait_s,
+            "prefetch_overlap": pipe.overlap_fraction}
 
 
 @dataclass(frozen=True)
@@ -118,6 +219,16 @@ class GCLTrainConfig:
     scan_chunk: int = 32
     #: snapshot (params, moments, history, cursor) every N steps (0 = off)
     checkpoint_every: int = 0
+    #: the validation draws' generator is seeded from (seed, -1,
+    #: eval_fold): deterministic and disjoint from the per-step (seed,
+    #: step) streams (JAX: ``fold_in(PRNGKey(seed), eval_fold)``)
+    eval_fold: int = 123
+    #: one-ahead staging (:class:`_OneAhead`): a worker thread packs and
+    #: uploads the fit's chunk i + 1 / embed micro-batch i + 1 while the
+    #: card runs i; bit-equal to ``prefetch=False``
+    prefetch: bool = True
+    #: staged items kept ahead of the consumer (one worker, order kept)
+    prefetch_depth: int = 1
     opt: TrainConfig = field(
         default_factory=lambda: TrainConfig(
             learning_rate=7e-4, weight_decay=0.01, warmup_steps=20,
@@ -155,7 +266,7 @@ class ViewDraws:
 
 def draw_seed(seed: int, *stream: int) -> int:
     """A 63-bit generator seed from (seed, stream...) — (seed, step) for
-    training steps, (seed, -1, EVAL_STREAM) for validation."""
+    training steps, (seed, -1, eval_fold) for validation."""
     ss = np.random.SeedSequence([int(seed) & 0xFFFFFFFF]
                                 + [int(x) & 0xFFFFFFFF for x in stream])
     lo, hi = (int(x) for x in ss.generate_state(2, np.uint32))
@@ -350,6 +461,7 @@ class ContrastiveTrainer:
         self.tc = tc or GCLTrainConfig()
         self.device = resolve_device(device)
         self.group = group
+        self._stager = HostStager(self.device)
         self._embed_cache: dict[str, np.ndarray] = {}
         self._embed_cache_fp: Optional[str] = None
         self._encoder: Optional[RGCNEncoder] = None
@@ -392,13 +504,19 @@ class ContrastiveTrainer:
         ]) if tc.steps else np.zeros((0, bs), np.int64)
         return train_idx, val_idx, selections
 
-    def _upload(self, packed: dict) -> dict:
-        """Host arrays -> device tensors, edges validated on the host first
-        (no per-kernel range check, no host sync on the device side)."""
+    def _stage(self, packed: dict):
+        """Host arrays -> a :class:`~repro_torch.utils.device.Staged` batch
+        on the trainer's device (callable from the staging thread), edges
+        validated on the host first (no per-kernel range check, no host
+        sync on the device side)."""
         check_endpoints(packed["edge_src"], packed["edge_dst"],
                         packed["node_mask"].shape[-1], "staged batch")
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in packed.items()}
+        return self._stager.put(packed)
+
+    def _upload(self, packed: dict) -> dict:
+        """Host arrays -> device tensors, staged inline (``_stage`` then
+        ``take`` on this thread)."""
+        return take(self._stage(packed))
 
     def fit(self, graphs: list[KernelGraph], verbose=False, *,
             checkpoint_dir: Optional[str] = None, resume: bool = True,
@@ -455,28 +573,37 @@ class ContrastiveTrainer:
         is the whole packed batch on the host, and each rank encodes its
         share."""
         gen = torch.Generator(device=self.device).manual_seed(
-            draw_seed(self.tc.seed, -1, EVAL_STREAM))
+            draw_seed(self.tc.seed, -1, self.tc.eval_fold))
         with torch.no_grad():
             draws = draw_step(gen, batch, self.rc, train=False)
             if self.group is None:
                 loss, m = packed_loss(enc, self.rc, self.tc.tau, batch,
                                       draws, train=False)
             else:
-                local, draws, shard = self._shard(batch, draws)
+                local, draws, shard = self._shard(self._stage_shard(batch),
+                                                  draws)
                 loss, m = sharded_loss(enc, self.rc, self.tc.tau, local,
                                        draws, shard, train=False)
             vals = torch.stack([loss, *m.values()]).cpu().tolist()
         return vals[0], dict(zip(m, vals[1:]))
 
-    def _shard(self, packed: dict, draws: tuple):
-        """(this rank's uploaded batch or None, its draws, the shard) of a
-        whole packed batch (host arrays) and its draws."""
+    def _stage_shard(self, packed: dict):
+        """(the whole batch's host arrays, this rank's ShardRange, its
+        staged share or None) of a packed batch: the host side of a rank's
+        step, callable from the staging thread."""
         g = self.group
         r = shard_ranges(packed, g.rank, g.size)
-        local = (self._upload(shard_batch(packed, g.rank, g.size))
+        local = (self._stage(shard_batch(packed, g.rank, g.size))
                  if r.n_graphs else None)
-        return (local, tuple(shard_draws(d, r) for d in draws),
-                (g, r.graphs[0], packed["graph_mask"].shape[0]))
+        return packed, r, local
+
+    def _shard(self, staged, draws: tuple):
+        """(this rank's batch on the device or None, its draws, the shard)
+        from ``_stage_shard``'s triple and the whole batch's draws."""
+        packed, r, local = staged
+        return (None if local is None else take(local),
+                tuple(shard_draws(d, r) for d in draws),
+                (self.group, r.graphs[0], packed["graph_mask"].shape[0]))
 
     def _agree(self, lost: Optional[DeviceLost]) -> Optional[DeviceLost]:
         """Every rank's verdict at a chunk boundary: a DeviceLost (the
@@ -500,7 +627,6 @@ class ContrastiveTrainer:
         steps = plan.n_steps
         chunk_len = min(tc.scan_chunk, bucket_size(max(steps, 1), 1))
         wd_fired0 = watchdog.fired if watchdog is not None else 0
-        in_chunk = False
         state = adamw_init(dict(enc.named_parameters()), opt)
         mgr = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
         start, history = 0, []
@@ -542,54 +668,75 @@ class ContrastiveTrainer:
             if group is not None:
                 group.barrier(self.device)
 
+        def chunk_descs():
+            """(segment, lo, hi) of each chunk still to run: ``chunk_len``
+            steps inside each same-bucket segment, counted from its start
+            (JAX's scan chunks); chunks that end at or before the resume
+            cursor are skipped."""
+            for seg in plan.segments:
+                for lo in range(seg.start, seg.stop, chunk_len):
+                    hi = min(lo + chunk_len, seg.stop)
+                    if hi > start:
+                        yield seg, lo, hi
+
+        def stage_chunk(desc):
+            """Host side of one chunk, on the staging thread: the segment's
+            rows of the chunk's steps from the cursor on (a resume cursor
+            may fall inside a chunk), staged as one (steps, ...) batch, or
+            with a group this rank's share of each step's batch."""
+            seg, lo, hi = desc
+            r0, r1 = max(lo, start) - seg.start, hi - seg.start
+            rows = {k: v[r0:r1] for k, v in seg.batches.items()}
+            if group is None:
+                return self._stage(rows)
+            return [self._stage_shard({k: v[j] for k, v in rows.items()})
+                    for j in range(r1 - r0)]
+
         gen = torch.Generator(device=self.device)
-        for seg in plan.segments:
-            if seg.stop <= start:
-                continue
-            dev_seg = self._upload(seg.batches) if group is None else None
-            for step in range(max(seg.start, start), seg.stop):
-                if not in_chunk:
-                    in_chunk = True
-                    if watchdog is not None:
-                        watchdog.step_start()
-                row = step - seg.start
-                gen.manual_seed(draw_seed(tc.seed, step))
-                if group is None:
-                    batch = {k: v[row] for k, v in dev_seg.items()}
-                    draws = draw_step(gen, batch, rc)
-                    state, metrics = train_step(enc, rc, tc.tau, opt, batch,
-                                                draws, state)
-                else:
-                    host = {k: v[row] for k, v in seg.batches.items()}
-                    b0 = group.bytes
-                    batch, draws, shard = self._shard(
-                        host, draw_step(gen, host, rc))
-                    state, metrics = train_step(enc, rc, tc.tau, opt, batch,
-                                                draws, state, shard)
-                    coll_bytes += group.bytes - b0
-                run += 1
-                pending.append(metrics)
-                done = step + 1
-                if done % tc.log_every == 0 or done == steps:
-                    flush()
-                due = (mgr is not None and tc.checkpoint_every > 0
-                       and done - last_save >= tc.checkpoint_every)
-                interrupt = (interrupt_after is not None
-                             and done >= interrupt_after)
-                if due or (interrupt and mgr is not None):
-                    flush()
-                    save(done)
-                if interrupt:
-                    if mgr is not None:
-                        settle()
-                    raise FitInterrupted(
-                        f"fit interrupted at step {done} "
-                        f"(interrupt_after={interrupt_after})")
-                if (done - seg.start) % chunk_len and done != seg.stop:
-                    continue
+        pipe = _OneAhead(stage_chunk, chunk_descs(), enabled=tc.prefetch,
+                         depth=tc.prefetch_depth)
+        with pipe:
+            for (_, lo, hi), staged in pipe:
+                if watchdog is not None:
+                    watchdog.step_start()
+                first = max(lo, start)
+                chunk = take(staged) if group is None else None
+                for step in range(first, hi):
+                    gen.manual_seed(draw_seed(tc.seed, step))
+                    if group is None:
+                        batch = {k: v[step - first] for k, v in chunk.items()}
+                        draws = draw_step(gen, batch, rc)
+                        state, metrics = train_step(enc, rc, tc.tau, opt,
+                                                    batch, draws, state)
+                    else:
+                        mine = staged[step - first]
+                        b0 = group.bytes
+                        batch, draws, shard = self._shard(
+                            mine, draw_step(gen, mine[0], rc))
+                        state, metrics = train_step(enc, rc, tc.tau, opt,
+                                                    batch, draws, state,
+                                                    shard)
+                        coll_bytes += group.bytes - b0
+                    run += 1
+                    pending.append(metrics)
+                    done = step + 1
+                    if done % tc.log_every == 0 or done == steps:
+                        flush()
+                    due = (mgr is not None and tc.checkpoint_every > 0
+                           and done - last_save >= tc.checkpoint_every)
+                    interrupt = (interrupt_after is not None
+                                 and done >= interrupt_after)
+                    if due or (interrupt and mgr is not None):
+                        flush()
+                        save(done)
+                    if interrupt:
+                        if mgr is not None:
+                            settle()
+                        raise FitInterrupted(
+                            f"fit interrupted at step {done} "
+                            f"(interrupt_after={interrupt_after})")
                 # chunk boundary: a lost or straggling participant surfaces
                 # here, never mid-chunk, after the boundary is checkpointed
-                in_chunk = False
                 lost = None
                 if watchdog is not None:
                     if self.device.type == "cuda":
@@ -628,6 +775,7 @@ class ContrastiveTrainer:
             "checkpoint_saves": saves,
             "chunk_len": chunk_len,
             "fit_s": time.perf_counter() - t0,
+            **_prefetch_stats(pipe),
             "data_shards": 1 if group is None else group.size,
             #: bytes the step collectives carried, a step (0 on one card)
             "collective_bytes": coll_bytes / max(run, 1),
@@ -697,15 +845,16 @@ class ContrastiveTrainer:
         return self._encoder
 
     def _stage_bin(self, bin_graphs, n_cap, e_cap):
-        """Pack + upload one micro-batch.  Per-graph caps truncate a single
-        graph larger than the budget (with accounting) instead of letting
-        it blow the bucket.  Returns (device batch, PackMeta, bucket key)."""
+        """Pack + stage one micro-batch (on the staging thread).  Per-graph
+        caps truncate a single graph larger than the budget (with
+        accounting) instead of letting it blow the bucket.  Returns (the
+        staged batch, PackMeta, bucket key)."""
         packed, meta = pack_graphs(
             bin_graphs,
             pad_graphs_to=bucket_size(len(bin_graphs), 8),
             max_nodes_per_graph=n_cap, max_edges_per_graph=e_cap,
         )
-        return self._upload(packed), meta, bucket_key(packed)
+        return self._stage(packed), meta, bucket_key(packed)
 
     @staticmethod
     def prepad(graphs: list[KernelGraph], pad_to=None):
@@ -735,9 +884,11 @@ class ContrastiveTrainer:
             outs.append(z.float().cpu().numpy())
         return np.concatenate(outs, axis=0)
 
-    def _encode(self, enc: RGCNEncoder, batch: dict) -> np.ndarray:
+    def _encode(self, enc: RGCNEncoder, staged) -> np.ndarray:
+        """One staged micro-batch's embeddings, read back to the host (the
+        staging thread packs the next micro-batch meanwhile)."""
         with torch.inference_mode():
-            z = rgcn_mod.encode_packed(enc, self.rc, batch,
+            z = rgcn_mod.encode_packed(enc, self.rc, take(staged),
                                        edges_checked=True)
         return z.float().cpu().numpy()
 
@@ -786,16 +937,22 @@ class ContrastiveTrainer:
             [graphs[i] for i in todo],
             max_nodes=n_cap, max_edges=e_cap, max_graphs=batch_size,
         )
-        for bin_idx in bins:
+
+        def stage(bin_idx):
             sel = [todo[j] for j in bin_idx]
-            batch, meta, bkey = self._stage_bin(
-                [graphs[i] for i in sel], n_cap, e_cap)
-            z = self._encode(enc, batch)
-            trunc_nodes += int(meta.trunc_nodes.sum())
-            trunc_edges += int(meta.trunc_edges.sum())
-            bucket_keys.add(bkey)
-            for k, i in enumerate(sel):
-                self._embed_cache[hashes[i]] = z[k]
+            return sel, self._stage_bin([graphs[i] for i in sel], n_cap,
+                                        e_cap)
+
+        pipe = _OneAhead(stage, bins, enabled=self.tc.prefetch,
+                         depth=self.tc.prefetch_depth)
+        with pipe:
+            for _, (sel, (staged, meta, bkey)) in pipe:
+                z = self._encode(enc, staged)
+                trunc_nodes += int(meta.trunc_nodes.sum())
+                trunc_edges += int(meta.trunc_edges.sum())
+                bucket_keys.add(bkey)
+                for k, i in enumerate(sel):
+                    self._embed_cache[hashes[i]] = z[k]
 
         return self._embed_finish("embed", hashes, {
             "cache_hits": n - len(todo),
@@ -804,6 +961,7 @@ class ContrastiveTrainer:
             "bucket_keys": sorted(bucket_keys),
             "trunc_nodes": trunc_nodes,
             "trunc_edges": trunc_edges,
+            **_prefetch_stats(pipe),
         })
 
     def embed_stream(self, params: RGCNEncoder, graphs, batch_size=64,
@@ -837,18 +995,26 @@ class ContrastiveTrainer:
         bucket_keys = set()
         trunc_nodes = trunc_edges = 0
         stream_stats: dict = {}
-        for bin_items in stream_bins(
+
+        def stage(bin_items):
+            return self._stage_bin([g for _, g in bin_items], n_cap, e_cap)
+
+        # JAX's default depth 1: at most two micro-batches staged at once
+        pipe = _OneAhead(
+            stage,
+            stream_bins(
                 pending(), lambda hg: (hg[1].n_nodes, hg[1].n_edges),
                 max_nodes=n_cap, max_edges=e_cap, max_graphs=batch_size,
-                stats=stream_stats):
-            batch, meta, bkey = self._stage_bin(
-                [g for _, g in bin_items], n_cap, e_cap)
-            z = self._encode(enc, batch)
-            trunc_nodes += int(meta.trunc_nodes.sum())
-            trunc_edges += int(meta.trunc_edges.sum())
-            bucket_keys.add(bkey)
-            for k, (h, _) in enumerate(bin_items):
-                self._embed_cache[h] = z[k]
+                stats=stream_stats),
+            enabled=self.tc.prefetch)
+        with pipe:
+            for bin_items, (staged, meta, bkey) in pipe:
+                z = self._encode(enc, staged)
+                trunc_nodes += int(meta.trunc_nodes.sum())
+                trunc_edges += int(meta.trunc_edges.sum())
+                bucket_keys.add(bkey)
+                for k, (h, _) in enumerate(bin_items):
+                    self._embed_cache[h] = z[k]
 
         return self._embed_finish("embed_stream", order, {
             "cache_hits": cache_hits,
@@ -858,6 +1024,7 @@ class ContrastiveTrainer:
             "trunc_nodes": trunc_nodes,
             "trunc_edges": trunc_edges,
             "streaming": True,
+            **_prefetch_stats(pipe),
             **stream_stats,
         })
 

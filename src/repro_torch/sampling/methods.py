@@ -62,16 +62,14 @@ def _artifacts(method: SamplingMethod, program: Program, payload: dict,
 
 
 #: fields of the JAX package's ``GCLSamplerConfig`` that the port's config
-#: leaves out or does not honour, at the one value the port computes: the
-#: XLA-or-Pallas switch and f32 messages (the kernels' precision profile),
-#: f32 params, the scan engine with its eval stream and staging, and an
+#: leaves out, at the one value the port computes: the XLA-or-Pallas switch
+#: (the port always runs its kernels), f32 params, the scan engine, and an
 #: optimizer without micro-batches (neither package's fit reads
 #: ``TrainConfig.microbatch``)
 _JAX_ONLY = {
-    "rgcn": {"use_pallas": False, "message_dtype": "float32"},
+    "rgcn": {"use_pallas": False},
     "rgcn.policy": {"param_dtype": "float32"},
-    "train": {"engine": "scan", "eval_fold": 123, "prefetch": True,
-              "prefetch_depth": 1},
+    "train": {"engine": "scan"},
     "train.opt": {"microbatch": 0},
 }
 

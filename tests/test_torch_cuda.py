@@ -1608,3 +1608,43 @@ def test_one_rank_nccl_fit_is_the_fit_without_a_group(tmp_path):
         [h["loss"] for h in ib["history"]]
     for (k, p), q in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(p, q), k
+
+
+@pytest.mark.cuda
+def test_staging_thread_uploads_through_pinned_memory_and_a_copy_stream():
+    """``HostStager.put`` on a worker thread: pinned sources, copies on the
+    device's copy stream behind an event; after ``take`` the compute
+    stream reads the staged bits while the next batches are staged into
+    memory the allocator does not hand back early: each of 16 batches'
+    sums equals the sum of a plain upload of its host arrays."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.utils.device import HostStager, take
+
+    from repro_torch.utils.device import resolve_device
+
+    _card()
+    dev = resolve_device("cuda")
+    stager = HostStager(dev)
+    rng = np.random.default_rng(0)
+    host = [{"x": rng.standard_normal((1 << 16,)).astype(np.float32),
+             "i": rng.integers(0, 1 << 20, (4096,), dtype=np.int32)}
+            for _ in range(16)]
+    sums = []
+    with ThreadPoolExecutor(1, thread_name_prefix="stage-prefetch") as pool:
+        futs = [pool.submit(stager.put, h) for h in host[:2]]
+        for n in range(len(host)):
+            staged = futs.pop(0).result()
+            assert staged.event is not None
+            with stager._lock:            # the worker appends meanwhile
+                held = [src for _, src in stager._inflight]
+            assert held and all(p.is_pinned() for src in held
+                                for p in src.values())
+            t = take(staged)
+            if n + 2 < len(host):
+                futs.append(pool.submit(stager.put, host[n + 2]))
+            sums.append(((t["x"] * 2.0).sum(), t["i"].long().sum()))
+    for (sx, si), h in zip(sums, host):
+        want = (torch.from_numpy(h["x"]).to(dev) * 2.0).sum()
+        assert torch.equal(sx, want)       # the same reduction on the card
+        assert int(si) == int(h["i"].astype(np.int64).sum())

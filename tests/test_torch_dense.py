@@ -18,7 +18,9 @@ Tolerances, relative to the largest magnitude of each compared array: K6
 autodiff systems); f32 embeddings 1e-5; bf16-policy embeddings 3e-2 (the
 existing bf16 tolerance: activations rounded to bf16 after every layer); the
 loss 1e-5 and its gradients 1e-4; dense against packed 1e-4 (JAX's own
-dense-against-packed tolerance).  Masks are compared exactly.
+dense-against-packed tolerance); bf16 messages against JAX's XLA path 5e-3
+(JAX also rounds the products and sums to bf16, the port only the
+gather).  Masks are compared exactly.
 """
 
 import dataclasses
@@ -277,6 +279,26 @@ def test_encode_matches_jax(dims, policy, use_pallas):
     _scale_close(got.numpy(), want, 1e-5 if policy == "f32" else 3e-2)
 
 
+@pytest.mark.parametrize("dims", [DIMS, FULL], ids=["narrow", "full"])
+def test_encode_bf16_messages_match_jax_xla_path(dims):
+    """``message_dtype="bfloat16"`` through K6 against JAX's dense XLA
+    path: within 5e-3 of the largest |z| (JAX also rounds the products and
+    sums to bf16, the port only the gather), and not the port's
+    float32-message embeddings."""
+    jrc = JRGCNConfig(dims=dims, message_dtype="bfloat16")
+    rc = RGCNConfig(dims=dims, message_dtype="bfloat16")
+    jp = jax_init_rgcn(jax.random.PRNGKey(3), jrc)
+    batch, mw = pad_batch(GRAPHS[:3])
+    want = np.asarray(jax.jit(lambda p, b: jax_encode(p, jrc, b, mw))(
+        jp, _jb(batch)))
+    enc = _encoder(jp, rc)
+    with torch.inference_mode():
+        got = encode(enc, rc, _tb(batch), mw).numpy()
+        f32 = encode(enc, RGCNConfig(dims=dims), _tb(batch), mw).numpy()
+    assert np.abs(got - want).max() <= 5e-3 * np.abs(want).max()
+    assert np.abs(got - f32).max() > 0
+
+
 def test_encode_invariant_to_padding(jparams):
     """A larger pad (more node and edge slots, a warp slot more) leaves the
     embeddings as they are, within 1e-5; JAX's test_padding_invariance
@@ -344,6 +366,30 @@ def test_optimizer_options_config_hash_matches_jax(opt):
     jax_m = JGCLMethod(JSamplerConfig(train=JGCLTrainConfig(
         opt=dc.replace(JGCLTrainConfig().opt, **opt))))
     assert config_hash(port.config()) == jax_config_hash(jax_m.config())
+
+
+@pytest.mark.parametrize("field,value", [
+    ("message_dtype", "bfloat16"), ("prefetch", False),
+    ("prefetch_depth", 2), ("eval_fold", 7)])
+def test_staging_and_message_options_config_hash_matches_jax(field, value):
+    """The four options the port now honours hash to JAX's key at their
+    non-default values, and the default config still does."""
+    from repro_torch.core.train import GCLTrainConfig
+    from repro_torch.sampling.methods import _JAX_ONLY
+
+    if field == "message_dtype":
+        port = GCLSamplerConfig(rgcn=RGCNConfig(message_dtype=value))
+        jax_c = JSamplerConfig(rgcn=JRGCNConfig(message_dtype=value))
+    else:
+        port = GCLSamplerConfig(train=GCLTrainConfig(**{field: value}))
+        jax_c = JSamplerConfig(train=JGCLTrainConfig(**{field: value}))
+    got = config_hash(GCLMethod(port, device="cpu").config())
+    assert got == jax_config_hash(JGCLMethod(jax_c).config())
+    assert got != config_hash(GCLMethod(device="cpu").config())
+    assert config_hash(GCLMethod(device="cpu").config()) == \
+        jax_config_hash(JGCLMethod().config())
+    assert {k for f in _JAX_ONLY.values() for k in f} == {
+        "use_pallas", "param_dtype", "engine", "microbatch"}
 
 
 # ---------------------------------------------------------------------------

@@ -80,6 +80,7 @@ def repo_graph():
 @pytest.mark.parametrize("rule,bad,good,module", [
     ("R1", "r1_hot_bad.py", "r1_hot_good.py", TRAIN),
     ("R1", "r1_loop_bad.py", "r1_loop_good.py", TRAIN),
+    ("R1", "r1_prefetch_bad.py", "r1_prefetch_good.py", TRAIN),
     ("R1", "r1_autograd_bad.py", "r1_autograd_good.py", None),
     ("R2", "r2_bad.py", "r2_good.py", None),
     ("R3", "r3_bad.py", "r3_good.py", None),

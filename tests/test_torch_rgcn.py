@@ -9,7 +9,10 @@ sides encode the same numpy ``pack_graphs`` batch.  Tolerances:
   activations are rounded to bf16 (2^-8 relative) after every layer, and a
   different float32 summation order can move a rounding by one bf16 ulp.
   JAX runs its fused-kernel path here (``use_pallas=True``, interpret mode),
-  whose precision profile (bf16 gather, f32 after it) is the port's.
+  whose precision profile (bf16 gather, f32 after it) is the port's;
+- bf16 messages (``message_dtype``) against JAX's XLA path, which rounds
+  the products and sums to bf16 too: z within 5e-3 of the largest |z|,
+  each gradient leaf within 1.5x of JAX's own f32-vs-bf16-message gap.
 """
 
 import jax
@@ -89,6 +92,81 @@ def test_encode_packed_matches_jax(width, policy):
         with torch.inference_mode():
             tz = project(enc, rc, got)
         _scale_close(tz.numpy(), pz, 1e-5)
+
+
+#: bf16 messages against JAX's XLA path (which also rounds the products
+#: and sums to bf16, where the port's kernels keep float32 after the
+#: gather): the embeddings' largest gap, relative to the largest |z|
+MSG_TOL = 5e-3
+#: the gradients' largest gap to JAX's bf16-message gradients, leaf by
+#: leaf, as a multiple of JAX's own gap between its f32 and bf16 messages
+MSG_GRAD_RATIO = 1.5
+
+
+def _max_gap(got, want) -> float:
+    return float(np.abs(np.asarray(got, np.float64)
+                        - np.asarray(want, np.float64)).max())
+
+
+@pytest.mark.parametrize("width", sorted(DIMS))
+def test_bf16_messages_match_jax_xla_path(width):
+    """``message_dtype="bfloat16"`` through K1 (the main path) and K5
+    (``unfused_ref``), each against JAX's XLA path (``use_pallas=False``):
+    within 5e-3 of the largest |z|, and not the port's float32-message
+    embeddings."""
+    dims = DIMS[width]
+    jrc = JRGCNConfig(dims=dims, message_dtype="bfloat16")
+    rc = RGCNConfig(dims=dims, message_dtype="bfloat16")
+    jparams = jax_init_rgcn(jax.random.PRNGKey(3), jrc)
+    enc = params_from_jax(flatten_tree(jparams), rc)
+    packed = _batch(seed=1)
+    want = np.asarray(jax.jit(lambda p, b: jax_encode_packed(p, jrc, b))(
+        jparams, {k: jnp.asarray(v) for k, v in packed.items()}))
+    tb = {k: torch.from_numpy(v) for k, v in packed.items()}
+    scale = float(np.abs(want).max())
+    for unfused in (False, True):
+        with torch.inference_mode():
+            got = encode_packed(enc, rc, tb, unfused_ref=unfused)
+            f32 = encode_packed(enc, RGCNConfig(dims=dims), tb,
+                                unfused_ref=unfused)
+        assert got.dtype == torch.float32 and not got[5:].any()
+        assert _max_gap(got.numpy(), want) <= MSG_TOL * scale, unfused
+        assert _max_gap(got.numpy(), f32.numpy()) > 0, unfused
+
+
+def test_bf16_message_grads_within_jax_own_gap():
+    """The gradients of ``packed_loss`` on JAX's draws with bf16 messages:
+    each leaf within 1.5x of JAX's own gap between its float32 and bf16
+    messages on that leaf (the port's kernels round only the gather)."""
+    import dataclasses
+
+    from repro.core.train import packed_loss as jax_packed_loss
+    from repro_torch.core.train import packed_loss
+    from test_torch_train import TAU, _jax_draws, _leaf_grads
+    from test_torch_train import _packed as train_packed
+
+    jrc32 = JRGCNConfig(dims=DIMS["narrow"])
+    jrc16 = dataclasses.replace(jrc32, message_dtype="bfloat16")
+    rc16 = RGCNConfig(dims=DIMS["narrow"], message_dtype="bfloat16")
+    jparams = jax_init_rgcn(jax.random.PRNGKey(5), jrc32)
+    packed = train_packed([0, 3, 5, 7, 8, 10])
+    jb = {k: jnp.asarray(v) for k, v in packed.items()}
+    rng = jax.random.PRNGKey(21)
+
+    # both of JAX's gradients in one executable: one compile
+    g32, g16 = (flatten_tree(g) for g in jax.jit(lambda p: tuple(
+        jax.grad(lambda q, jrc=jrc: jax_packed_loss(
+            q, jrc, TAU, jb, rng, train=True)[0])(p)
+        for jrc in (jrc32, jrc16)))(jparams))
+    enc = params_from_jax(flatten_tree(jparams), rc16)
+    loss, _ = packed_loss(enc, rc16, TAU,
+                          {k: torch.from_numpy(v) for k, v in packed.items()},
+                          _jax_draws(rng, packed, jrc16), train=True)
+    got = _leaf_grads(enc, loss)
+    assert set(got) == set(g16)
+    for k in g16:
+        own = _max_gap(g32[k], g16[k])
+        assert _max_gap(got[k], g16[k]) <= MSG_GRAD_RATIO * own, k
 
 
 def test_encode_without_hoisted_edge_norm_matches():

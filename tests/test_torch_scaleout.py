@@ -144,6 +144,9 @@ def _rank_main(rank: int, world: int, tmp: str, recorded_path: str):
 
     again, _ = fit()
     out["refit"] = _params(again)
+    inline, i_inline = fit(dataclasses.replace(TC, prefetch=False))
+    out["inline"] = dict(params=_params(inline), losses=_losses(i_inline),
+                         prefetch=(info["prefetch"], i_inline["prefetch"]))
 
     tc_ck = dataclasses.replace(TC, checkpoint_every=4)
     ck = os.path.join(tmp, "ck")
@@ -373,6 +376,18 @@ def test_refit_at_a_fixed_width_is_bit_exact(ranks):
     world, out = ranks
     for o in out:
         assert _same(o["refit"], o["fit"]["params"])
+
+
+def test_prefetch_at_a_fixed_width_is_bit_exact(ranks):
+    """The ranks' fit with one-ahead staging (the default: each rank's
+    share staged a chunk ahead on a worker thread) equals the same fit
+    staged inline, bit for bit."""
+    world, out = ranks
+    for o in out:
+        assert o["inline"]["prefetch"] == (True, False)
+        assert _same(o["inline"]["params"], o["fit"]["params"])
+        np.testing.assert_array_equal(o["inline"]["losses"],
+                                      o["fit"]["losses"])
 
 
 def test_resume_at_a_fixed_width_is_bit_exact(ranks):
