@@ -176,7 +176,13 @@ Phases, each reported on its own lines:
             rank's step ms, peak and state bytes beside the card's name
             and power limit; then MP_PARITY_STEPS float32 steps at smoke
             width on the mesh within PARAM_TOL of each leaf of the
-            one-card steps on the card; a hung rank is killed after
+            one-card steps on the card; then MP_MB_STEPS steps of
+            ``--microbatch MP_MICROBATCH`` on the mesh (JAX's gradient
+            accumulation: each data rank its rows of each micro-batch)
+            against the same on one card at MP_LOSS_TOL, equal on every
+            rank, the bytes the plan counts; every step under JAX's
+            default remat (each block's gathers and forward sums run
+            again in the backward, counted); a hung rank is killed after
             MP_DEADLINE s;
 8c. model_split the SSM split over the model axis (A9d): K8 and K8b at
             a (2, 2) rank's shape (MP_SSM_SHAPE, f32) against their plain
@@ -225,8 +231,13 @@ Phases, each reported on its own lines:
             ceil(max_seq / 2) positions of its 2 rows), K7 / K8 launched
             once a layer in its run (counts zeroed just before) on the
             rank's shape only; prefill and decode ms (gloo through the
-            host) and peaks beside the one card's; the ranks are killed
-            after SERVE_MP_DEADLINE s;
+            host) and peaks beside the one card's; then llama in bf16
+            with ``decode_split`` DECODE_SPLIT_CHUNKS over a cache of
+            SERVE_MP_PROMPT + 2 SERVE_MP_TOKENS positions on the mesh
+            (JAX's split softmax, each rank's chunks merged over the
+            model ranks), its logits within the bf16 SERVE_MP_TOL of the
+            one card's unsplit ones and its bytes the counted; the ranks
+            are killed after SERVE_MP_DEADLINE s;
 9. fit+serve a fresh ``gcl`` method with no encoder behind a PlanService:
             submit_program(phi-2) fits its own encoder (prepare), then cfd,
             phi-2 and nw are served with it; K, eq. 5 and eq. 6 are printed
@@ -284,27 +295,41 @@ Phases, each reported on its own lines:
             depth and in f32 at 4 layers, with 8 decode steps profiled for
             the step's device / host split, and one bf16 mamba prefill
             (4 x 2048) profiled for its top device ops and K8's share;
+            then llama3.2-3b's decode with JAX's split softmax
+            (``decode_split`` DECODE_SPLIT_CHUNKS, 32 teacher-forced
+            steps after a 2048-token prefill) against the unsplit decode
+            from the same caches within DECODE_TOL, tok/s of each;
 14. lm_train ``repro_torch.launch.train.main`` at full width and depth
             and JAX's CLI defaults (batch 8 x 256 tokens, lr 3e-4, 20
             warmup steps) for llama3.2-3b (28 layers, 30 steps) and
             mamba2-780m (48 layers, 20 steps): step ms (median after the
             first), steps/s, tokens/s, peak memory, the loss of the first
-            and last steps (finite and falling), K7 and K7b (llama) or K8
-            and K8b (mamba) once per layer a step and the other pair never
-            (these counts are K7b's and K8b's ``launches``); 2 more steps of
+            and last steps (finite and falling), under JAX's default remat
+            (every block recomputed in the backward): K7 (llama) or K8
+            (mamba) twice per layer a step, K7b or K8b once, and the other
+            pair never (these counts are K7b's and K8b's ``launches``); 2
+            more steps of
             each under torch.profiler (busy share, the device time split
             into K7, K7b, K8, K8b, matmuls, copies and the rest); then
             dbrx-132b at full width and 1 layer, 10 steps of
             ``launch/steps.make_train_step`` with bf16 moments (step ms,
-            peak memory, finite losses, K7 and K7b once a step); the dry
-            run of each of these three steps beside its median step and
-            peak, held as phase 13's; then 8
+            peak memory, finite losses, K7 twice and K7b once a step); the
+            dry run of each of these three steps beside its median step
+            and peak, held as phase 13's; then the remat turns: llama and
+            mamba REMAT_STEPS steps under remat off, "full" and "dots"
+            from the same seed (step ms, peak, launches a step, the dry
+            run's peak held as phase 13's, the largest loss and leaf-sum
+            difference between the policies); llama at 8 x LONG_SEQ,
+            full depth, LONG_STEPS steps under remat (its peak held to the
+            dry run's; the dry run of the same step without remat printed
+            beside the card's memory); then 8
             llama steps at full width and 2 layers against 4 steps, a
             checkpoint and ``--resume auto`` (losses, params and moments
             bit-equal); then one step of llama and mamba at smoke width, 2
             layers, and of jamba at one block of 8 layers, f32, on the card
             and on the CPU (loss 1e-5, every gradient leaf 1e-3 and every
-            parameter leaf after the update 1e-4 of its norm);
+            parameter leaf after the update 1e-4 of its norm); the
+            phase within LM_TRAIN_DEADLINE s;
 15. dryrun ``python -m repro_torch.launch.dryrun --all``, started on the
             host (no card) beside phase 2 and read here: one line per (arch
             x shape) cell (fits, argument and temp GiB, FLOPs, the compute
@@ -467,6 +492,14 @@ DECODE_SPLIT = 1536
 DECODE_TOL = {"llama3.2-3b": 0.06, "mamba2-780m": 0.6}
 DECODE_TOL_F32 = 1e-4
 DECODE_F32_LAYERS = 4
+#: JAX's flash-decoding split softmax (``decode_split``, as
+#: ``benchmarks/perf_iterations.py`` sets it): llama3.2-3b at full width
+#: and depth, bf16, a prefill of LM_PROMPT tokens into a cache of
+#: LM_PROMPT + LM_TOKENS positions (2080 = 16 x 130), then LM_TOKENS
+#: teacher-forced decode steps with and without the split, each step's
+#: logits within the bf16 decode tolerance (DECODE_TOL) of the unsplit
+#: step's largest logit; tok/s of each
+DECODE_SPLIT_CHUNKS = 16
 LM_PROFILE_STEPS = 8    # decode steps under torch.profiler
 #: K7b (``csrc/flash_attention_bwd.cu``): the llama3.2-3b training shape
 #: (JAX's CLI defaults, --batch 8 --seq-len 256) and the serving path's
@@ -528,6 +561,26 @@ PARITY_ARCHS = (("llama3.2-3b", True), ("mamba2-780m", True),
 #: f32 params and grads, bf16 moments and compute copy, ~13 bytes a
 #: parameter; with float32 moments it would be ~17
 MOE_TRAIN = ("dbrx-132b", 1, 10)       # (arch, layers, steps)
+#: phase 14's remat turns: each REMAT_ARCHS arch at full width and depth,
+#: REMAT_STEPS steps of ``launch.train.main`` at JAX's CLI defaults from
+#: the same seed and batches under each REMAT_POLICIES entry (JAX's CLI
+#: has no remat flag: the launcher's ``get_arch`` is narrowed for the
+#: call): step ms, peak, launches a step, the dry run's predicted peak
+#: (held as phase 13's); the largest difference of the losses and of the
+#: parameters' leaf sums between the policies is printed (the recompute
+#: re-runs the same kernels on the same inputs)
+REMAT_ARCHS = ("llama3.2-3b", "mamba2-780m")
+REMAT_POLICIES = (("off", {"remat": False}),
+                  ("full", {"remat": True, "remat_policy": "full"}),
+                  ("dots", {"remat": True, "remat_policy": "dots"}))
+REMAT_STEPS = 4
+#: llama3.2-3b trained at 8 x LONG_SEQ tokens, full width and depth, under
+#: JAX's default remat, LONG_STEPS steps: the dry run predicts its peak
+#: within PEAK_TOL (held) and, without remat, more than the card holds
+#: (printed)
+LONG_SEQ, LONG_STEPS = 2048, 3
+#: seconds phase 14 may take
+LM_TRAIN_DEADLINE = 600
 #: torch.profiler records ``device_ms`` takes of one call before it falls
 #: back to the spin-primed span: CUPTI now and then drops part of a record
 RECORD_TRIES = 3
@@ -3322,8 +3375,12 @@ MP_RANK_PARAMS, MP_WHOLE_PARAMS = 148_836_864, 595_344_384
 MP_LOSS_TOL = 3e-2
 #: the float32 smoke-width parity's steps, held at PARAM_TOL of each leaf
 MP_PARITY_STEPS = 3
+#: JAX's gradient accumulation on the mesh: MP_MB_STEPS steps of
+#: ``--microbatch MP_MICROBATCH`` after the main path, against the same on
+#: one card at MP_LOSS_TOL
+MP_MICROBATCH, MP_MB_STEPS = 2, 2
 #: seconds the spawn may take before the phase kills it and fails
-MP_DEADLINE = 150
+MP_DEADLINE = 300
 #: the bytes a rank carried a step at MP_ARCH on MP_MESH while the tied
 #: table was gathered whole on every rank (its vocabulary not split): the
 #: split step's count must stay below it
@@ -3366,6 +3423,14 @@ def _mp_parity_tcfg():
     return TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=10)
 
 
+def _mp_argv(steps, microbatch=0):
+    """``launch.train.main``'s argv for phase 8b's llama runs."""
+    return ["--arch", MP_ARCH, "--num-layers", str(MP_LAYERS), "--steps",
+            str(steps), "--batch", str(MP_BATCH[0]), "--seq-len",
+            str(MP_BATCH[1]), "--log-every", "1", "--microbatch",
+            str(microbatch), "--device", "cuda"]
+
+
 def _mp_rank(rank, world, tmp, device):
     """One rank of phase ``model_parallel`` on ``device``: the main path
     (``launch.train.main`` over the (2, 2) mesh, K7 / K7b counts zeroed
@@ -3378,6 +3443,7 @@ def _mp_rank(rank, world, tmp, device):
 
     import torch
 
+    from repro_torch.config import TrainConfig
     from repro_torch.configs import smoke_arch
     from repro_torch.distributed.group import init_group
     from repro_torch.distributed.model_parallel import unshard_tree
@@ -3402,10 +3468,7 @@ def _mp_rank(rank, world, tmp, device):
     out = {}
     fa_ops.flash_attention.launches = 0
     fa_ops.flash_attention_bwd.launches = 0
-    train.main(["--arch", MP_ARCH, "--num-layers", str(MP_LAYERS),
-                "--steps", str(MP_STEPS), "--batch", str(MP_BATCH[0]),
-                "--seq-len", str(MP_BATCH[1]), "--log-every", "1",
-                "--device", "cuda"], out=out, mesh=mesh)
+    train.main(_mp_argv(MP_STEPS), out=out, mesh=mesh)
     launches = {"flash_attention": fa_ops.flash_attention.launches,
                 "flash_attention_bwd": fa_ops.flash_attention_bwd.launches}
     attn_mod.flash_attention = inner
@@ -3429,6 +3492,15 @@ def _mp_rank(rank, world, tmp, device):
     whole = unshard_tree(step.plan, step.groups, state.params)
     res["parity"] = lm_params_to_numpy(whole) if rank == 0 else None
     res["coords"] = step.groups.coords
+    del state, whole
+    torch.cuda.empty_cache()
+    mb = {}
+    train.main(_mp_argv(MP_MB_STEPS, MP_MICROBATCH), out=mb, mesh=mesh)
+    res["mb"] = {"losses": [float(r["loss"]) for r in mb["steps"]],
+                 "step_ms": [r["ms"] for r in mb["steps"]],
+                 "collective_bytes": mb["collective_bytes"],
+                 "counted": mb["plan"].collective_bytes(
+                     *MP_BATCH, TrainConfig(microbatch=MP_MICROBATCH))}
     with open(os.path.join(tmp, f"mp-rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     torch.distributed.destroy_process_group()
@@ -3560,11 +3632,11 @@ def phase_model_parallel(rows, dev, smi_line):
     from repro_torch.launch.steps import make_train_step
 
     _mp_kernels(rows, dev)
-    one = {}
-    train.main(["--arch", MP_ARCH, "--num-layers", str(MP_LAYERS),
-                "--steps", str(MP_STEPS), "--batch", str(MP_BATCH[0]),
-                "--seq-len", str(MP_BATCH[1]), "--log-every", "1",
-                "--device", "cuda"], out=one)
+    one, one_mb = {}, {}
+    train.main(_mp_argv(MP_MB_STEPS, MP_MICROBATCH), out=one_mb)
+    one_mb = {"losses": [float(r["loss"]) for r in one_mb["steps"]],
+              "step_ms": [r["ms"] for r in one_mb["steps"]]}
+    train.main(_mp_argv(MP_STEPS), out=one)
     one_losses = [float(r["loss"]) for r in one["steps"]]
     one_ms = [r["ms"] for r in one["steps"]]
     one_peak = one["peak_bytes"] - one["base_bytes"]
@@ -3634,6 +3706,29 @@ def phase_model_parallel(rows, dev, smi_line):
         f"{worst[0]:.3e} ({worst[1]}; tol {PARAM_TOL})")
     require(set(par) == set(ref) and worst[0] <= PARAM_TOL,
             f"model_parallel: smoke-width parity gap {worst[0]:.3e}")
+    mb = r0["mb"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(mb["losses"],
+                                               one_mb["losses"])]
+    log(f"[model_parallel] --microbatch {MP_MICROBATCH}, {MP_MB_STEPS} "
+        f"steps on {MP_MESH}: losses "
+        f"{' '.join(f'{x:.5f}' for x in mb['losses'])} vs one card "
+        f"{' '.join(f'{x:.5f}' for x in one_mb['losses'])}, max rel gap "
+        f"{max(gaps):.3e} (tol {MP_LOSS_TOL}); rank 0 step ms "
+        f"{' '.join(f'{x:.1f}' for x in mb['step_ms'])} (one card "
+        f"{' '.join(f'{x:.1f}' for x in one_mb['step_ms'])}); collective "
+        f"bytes a step {mb['collective_bytes']} (counted "
+        f"{mb['counted']['total']}: " + ", ".join(
+            f"{k} {v}" for k, v in mb["counted"].items() if k != "total")
+        + ")")
+    require(len(mb["losses"]) == MP_MB_STEPS and max(gaps) <= MP_LOSS_TOL,
+            f"model_parallel: --microbatch loss gap {max(gaps):.3e}")
+    for r, o in enumerate(ranks):
+        require(o["mb"]["losses"] == mb["losses"],
+                f"model_parallel: --microbatch rank {r}'s losses differ")
+        require(o["mb"]["collective_bytes"] == o["mb"]["counted"]["total"],
+                f"model_parallel: --microbatch rank {r} carried "
+                f"{o['mb']['collective_bytes']} B, counted "
+                f"{o['mb']['counted']['total']}")
 
 
 #: phase 8c: mamba2-780m at its widths, MP_SSM_LAYERS layers, trained
@@ -4112,9 +4207,18 @@ def _serve_rank(rank, world, tmp, device):
     attn_mod.flash_attention, ssm_mod.ssd_scan = rec_fa, rec_ssd
     B, P, T = SERVE_MP_BATCH, SERVE_MP_PROMPT, SERVE_MP_TOKENS
     res = {}
-    for dtype, (arch, layers) in itertools.product(SERVE_MP_DTYPES,
-                                                   SERVE_MP_RUNS):
-        cfg = get_arch(arch).replace(num_layers=layers, compute_dtype=dtype)
+    runs = [((dtype, arch), get_arch(arch).replace(
+        num_layers=layers, compute_dtype=dtype), P + T)
+        for dtype, (arch, layers) in itertools.product(SERVE_MP_DTYPES,
+                                                       SERVE_MP_RUNS)]
+    # JAX's split softmax: the first arch in bf16 over a cache of P + 2 T
+    # positions (a multiple of DECODE_SPLIT_CHUNKS)
+    arch, layers = SERVE_MP_RUNS[0]
+    runs.append((("split", arch), get_arch(arch).replace(
+        num_layers=layers, compute_dtype="bfloat16",
+        decode_split=DECODE_SPLIT_CHUNKS), P + 2 * T))
+    for key, cfg, max_seq in runs:
+        dtype, arch = cfg.compute_dtype, key[1]
         pf = steps.make_sharded_prefill_step(cfg, rules, groups)
         dc = steps.make_sharded_decode_step(cfg, rules, groups)
         plan, idx = pf.plan, groups.index
@@ -4130,7 +4234,7 @@ def _serve_rank(rank, world, tmp, device):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        state = plan.decode_state(B, P + T, device=dev, rank=idx)
+        state = plan.decode_state(B, max_seq, device=dev, rank=idx)
         shapes.clear()
         _zero_counts()
         b0, t0 = groups.bytes, time.perf_counter()
@@ -4151,17 +4255,17 @@ def _serve_rank(rank, world, tmp, device):
         counts = _counts()
         k = next((c["k"] for c in state["caches"].values() if "k" in c),
                  None)
-        res[dtype, arch] = {
+        res[key] = {
             "logits": out, "tokens": torch.stack(greedy, 1).cpu().numpy(),
             "ms": ms, "bytes": carried,
             "counted": (plan.collective_bytes(B, P, kind="prefill"),
-                        plan.collective_bytes(B, P + T, kind="decode")),
+                        plan.collective_bytes(B, max_seq, kind="decode")),
             "peak": torch.cuda.max_memory_allocated(dev) - base
             + plan.serve_param_bytes(),
             "param_bytes": plan.serve_param_bytes(),
             "held_bytes": sum(x.numel() * x.element_size()
                               for x in _tree_tensors(params)),
-            "state_bytes": plan.state_bytes(B, P + T, rank=idx),
+            "state_bytes": plan.state_bytes(B, max_seq, rank=idx),
             "held_state": sum(x.numel() * x.element_size()
                               for x in _tree_tensors(state["caches"])),
             "cache_shape": None if k is None else tuple(k.shape),
@@ -4302,6 +4406,36 @@ def phase_model_serve(rows, dev, smi_line):
             f"{runs[0]['param_bytes'] / ref['param_bytes']:.3f} of the "
             f"params and {runs[0]['state_bytes'] / ref['state_bytes']:.3f} "
             f"of the decode state")
+    # JAX's split softmax on the mesh against the one card's unsplit bf16
+    # logits, fed the same tokens
+    arch, layers = SERVE_MP_RUNS[0]
+    cfg = get_arch(arch).replace(num_layers=layers,
+                                 compute_dtype="bfloat16")
+    ref, runs = one["bfloat16", arch], [r["split", arch] for r in ranks]
+    spec = spec_for(("batch", "vocab"), (B, cfg.vocab_size), rules=rules,
+                    is_param=False)
+    gaps = []
+    for t in range(T):
+        got = ceil_unshard([torch.from_numpy(o["logits"][t]) for o in runs],
+                           (B, cfg.vocab_size), spec, mesh).numpy()
+        want = ref["logits"][t]
+        gaps.append(float(np.abs(got - want).max() / np.abs(want).max()))
+    tol = SERVE_MP_TOL["bfloat16"]
+    log(f"[model_serve 8e] {arch} bf16 with decode_split "
+        f"{DECODE_SPLIT_CHUNKS} over a cache of {P + 2 * T} positions on "
+        f"{MP_MESH}: logits vs the one card's unsplit max rel gap "
+        f"{max(gaps):.3e} (tol {tol}; by step "
+        f"{' '.join(f'{g:.2e}' for g in gaps)}); rank 0 decode ms a step "
+        f"{' '.join(f'{x:.1f}' for x in runs[0]['ms'][1:])}, collective "
+        f"bytes a decode step {runs[0]['bytes'][1]} (counted "
+        f"{runs[0]['counted'][1]['total']})")
+    require(max(gaps) <= tol, f"model_serve 8e: {arch} decode_split logit "
+            f"gap {max(gaps):.3e} > {tol}")
+    for r, o in enumerate(runs):
+        pre, dec = (c["total"] for c in o["counted"])
+        require(o["bytes"] == [pre] + [dec] * (T - 1),
+                f"model_serve 8e: {arch} decode_split rank {r} carried "
+                f"{o['bytes']}, counted {pre} / {dec}")
     _update_rows(rows, extra)
 
 
@@ -5526,6 +5660,57 @@ def _serve(arch, layers=None, hold=True):
     return launched
 
 
+def _decode_split(dev):
+    """DECODE_SPLIT_CHUNKS: llama3.2-3b's decode with and without JAX's
+    split softmax from the same prefilled caches (see the constant)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import _splice_prefill
+    from repro_torch.models import transformer as tf
+
+    arch = LM_ARCHS[0]
+    cfg = get_arch(arch)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = tf.init_compute_params(cfg, gen, device=dev)
+    B, P, T = LM_BATCH, LM_PROMPT, LM_TOKENS
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, P + T)).astype(np.int32)).to(dev)
+    _, caches, idx = tf.prefill(cfg, params, toks[:, :P])
+    run = {}
+    for name, split in (("unsplit", 0), ("split", DECODE_SPLIT_CHUNKS)):
+        c = cfg.replace(decode_split=split)
+        state = _splice_prefill(c, tf.init_decode_state(
+            c, B, P + T, idx, device=dev), caches, idx)
+        logits = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(P, P + T):
+            lg, state = tf.decode_step(c, params, state, toks[:, t:t + 1])
+            logits.append(lg)
+        torch.cuda.synchronize()
+        run[name] = (torch.stack(logits).float().cpu(),
+                     B * T / (time.perf_counter() - t0))
+        del state
+    got, want = run["split"][0], run["unsplit"][0]
+    gaps = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    tol = DECODE_TOL[arch]
+    log(f"[lm_serve] {arch} ({cfg.num_layers} layers) {cfg.compute_dtype} "
+        f"decode with "
+        f"decode_split {DECODE_SPLIT_CHUNKS} ({(P + T) // DECODE_SPLIT_CHUNKS}"
+        f" positions a chunk) vs without, {T} teacher-forced steps after a "
+        f"{P}-token prefill, batch {B}: logits max rel gap {max(gaps):.3e} "
+        f"(tol {tol}; first / last step {gaps[0]:.3e} / {gaps[-1]:.3e}); "
+        f"{run['split'][1]:.1f} tok/s split, {run['unsplit'][1]:.1f} "
+        f"unsplit (first step included)")
+    require(max(gaps) <= tol, f"{arch} decode_split: logit gap "
+            f"{max(gaps):.3e} > {tol}")
+    del params, caches
+    torch.cuda.empty_cache()
+
+
 def phase_lm_serve(dev):
     """This slice's main path: ``repro_torch.launch.serve.main`` for
     llama3.2-3b and mamba2-780m at full width and depth, for the MoE
@@ -5548,6 +5733,7 @@ def phase_lm_serve(dev):
         _decode_vs_prefill(dev, arch, "float32", DECODE_TOL_F32,
                            num_layers=DECODE_F32_LAYERS)
         torch.cuda.empty_cache()
+    _decode_split(dev)
     return counts
 
 
@@ -5724,8 +5910,9 @@ def _train_resume(dev):
 
 def _train_run(dev, arch, steps, pair):
     """``repro_torch.launch.train.main`` for ``arch`` at full width,
-    ``steps`` steps: the forward and backward wrappers of ``pair`` once per
-    layer a step, the other LM wrappers never; the dry run of its step
+    ``steps`` steps: the backward wrapper of ``pair`` once per layer a
+    step, its forward wrapper once and again in the recompute of JAX's
+    default remat, the other LM wrappers never; the dry run of its step
     beside the median step and the run's peak (``_dry_prediction``); then
     TRAIN_PROFILE_STEPS profiled steps.  Returns the run's launch
     counts."""
@@ -5756,11 +5943,15 @@ def _train_run(dev, arch, steps, pair):
     med = statistics.median(ms[1:])
     lm = [name for _, _, names in LM_TRAIN_RUNS for name in names]
     per_step = {k: counts[k] / steps for k in lm}
+    # the forward kernel runs again in the backward's recompute
+    want = {k: layers * (_fwd_runs(cfg) if k == pair[0] else 1)
+            if k in pair else 0 for k in lm}
     n = sum(p.numel() for p in tree_leaves(out["state"].params))
     B, S = LLAMA_TRAIN[:2]
     log(f"[lm_train] {arch} full width, {layers} of {cfg.num_layers} layers "
         f"({n / 1e9:.3f} B params, f32 params and moments, "
-        f"{cfg.compute_dtype} compute), batch {B}x{S}: rc {rc}, {steps} "
+        f"{cfg.compute_dtype} compute, {_remat_name(cfg)}), batch "
+        f"{B}x{S}: rc {rc}, {steps} "
         f"steps in {wall:.2f} s (weights drawn on the card included); step "
         f"ms median after the first {med:.2f} (first {ms[0]:.2f}, min "
         f"{min(ms[1:]):.2f}, max {max(ms[1:]):.2f}), {1e3 / med:.3f} "
@@ -5774,9 +5965,9 @@ def _train_run(dev, arch, steps, pair):
             f"loss")
     require(losses[-1] < losses[0], f"lm_train {arch}: the loss did not "
             f"fall")
-    require(all(per_step[k] == (layers if k in pair else 0) for k in lm),
-            f"lm_train {arch}: launches a step {per_step}, expected "
-            f"{' and '.join(pair)} once per layer ({layers}) and no other")
+    require(per_step == want, f"lm_train {arch}: launches a step "
+            f"{per_step}, expected {want} ({layers} layers, "
+            f"{_remat_name(cfg)})")
     cut = cfg if not LM_TRAIN_LAYERS else cfg.replace(
         num_layers=LM_TRAIN_LAYERS)
     _dry_prediction(f"{arch} ({layers} layers) train step {B} x {S}, "
@@ -5860,10 +6051,13 @@ def _train_moe(dev):
         f"a step: " + ", ".join(f"{k} {v:g}" for k, v in per_step.items()))
     require(all(map(math.isfinite, losses)), f"lm_train {arch}: non-finite "
             f"loss")
-    require(per_step == {"flash_attention": attn, "flash_attention_bwd": attn,
-                         "ssd_intra_chunk": mamba,
+    fwd = _fwd_runs(cfg)
+    require(per_step == {"flash_attention": fwd * attn,
+                         "flash_attention_bwd": attn,
+                         "ssd_intra_chunk": fwd * mamba,
                          "ssd_intra_chunk_bwd": mamba},
-            f"lm_train {arch}: launches a step {per_step}")
+            f"lm_train {arch}: launches a step {per_step} "
+            f"({_remat_name(cfg)})")
     _dry_prediction(f"{arch} ({layers} layer{'s' * (layers > 1)}, bf16 "
                     f"moments) train step {B} x {S}, median", cfg,
                     ShapeConfig("train", S, B, KIND_TRAIN), tcfg, med,
@@ -5873,23 +6067,183 @@ def _train_moe(dev):
     torch.cuda.empty_cache()
 
 
-def phase_lm_train(dev):
-    """This slice's main path: ``repro_torch.launch.train.main`` at full
-    width for llama3.2-3b (K7 and K7b once per attention layer a step) and
-    mamba2-780m (K8 and K8b once per SSM layer a step); dbrx-132b's MoE
-    training at full width and one layer (MOE_TRAIN); then the resume
-    check and the step parity with the CPU of llama, mamba and jamba.
-    Returns the launches of K7b (llama's run) and K8b (mamba's run)."""
+def _fwd_runs(cfg) -> int:
+    """How many times a training step runs a layer's forward kernel: once,
+    and again in the backward's recompute under remat."""
+    return 2 if cfg.remat else 1
+
+
+def _remat_name(cfg) -> str:
+    return f"remat {cfg.remat_policy}" if cfg.remat else "remat off"
+
+
+def _train_turn(arch, over, argv):
+    """``launch.train.main`` for ``arch`` at full width with ``over``
+    replacing config fields (the launcher's ``get_arch`` narrowed for
+    the call) and ``argv``; (rc, its ``out``, the launch counts)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_mod
+
+    cfg = get_arch(arch).replace(**over)
+    out: dict = {}
+    train_mod.get_arch = lambda a: cfg
+    try:
+        _zero_counts()
+        rc = train_mod.main(["--arch", arch] + argv, out=out)
+        counts = _counts()
+    finally:
+        train_mod.get_arch = get_arch
+    return rc, out, counts
+
+
+def _remat_turns(dev):
+    """REMAT_STEPS steps of each REMAT_ARCHS arch under each
+    REMAT_POLICIES entry: step ms (median after the first), peak, the
+    forward and backward kernels' launches a step (the forward twice a
+    layer under remat), the dry run's predicted peak beside the measured
+    (held as phase 13's); the largest difference between the policies'
+    losses and parameters' leaf sums (printed)."""
+    import statistics
+
     import torch
 
+    from repro_torch.config import KIND_TRAIN, ShapeConfig, TrainConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.optim.adamw import tree_leaves
+
+    B, S = LLAMA_TRAIN[:2]
+    for arch in REMAT_ARCHS:
+        pair = next(p for a, _, p in LM_TRAIN_RUNS if a == arch)
+        layers = get_arch(arch).num_layers
+        seen = {}
+        for name, over in REMAT_POLICIES:
+            torch.cuda.empty_cache()
+            rc, out, counts = _train_turn(
+                arch, over, ["--steps", str(REMAT_STEPS), "--log-every",
+                             str(REMAT_STEPS)])
+            torch.cuda.synchronize()
+            cfg = get_arch(arch).replace(**over)
+            ms = [r["ms"] for r in out["steps"]]
+            med = statistics.median(ms[1:])
+            peak = out["peak_bytes"] - out["base_bytes"]
+            losses = [float(r["loss"]) for r in out["steps"]]
+            sums = [float(p.double().sum())
+                    for p in tree_leaves(out["state"].params)]
+            per_step = {k: counts[k] / REMAT_STEPS for k in pair}
+            want = {pair[0]: _fwd_runs(cfg) * layers, pair[1]: layers}
+            log(f"[lm_train] remat turn {arch} ({layers} layers, "
+                f"{_remat_name(cfg)}), batch {B}x{S}, {REMAT_STEPS} steps: "
+                f"rc {rc}, step ms median after the first {med:.2f} (all "
+                f"{' '.join(f'{x:.2f}' for x in ms)}), peak "
+                f"{peak / 2**30:.3f} GiB, losses "
+                f"{' '.join(f'{x:.6f}' for x in losses)}; launches a step "
+                f"{per_step}")
+            require(rc == 0 and all(map(math.isfinite, losses)),
+                    f"lm_train remat {arch} {name}: rc {rc}, losses {losses}")
+            require(per_step == want, f"lm_train remat {arch} {name}: "
+                    f"launches a step {per_step}, expected {want}")
+            _dry_prediction(f"{arch} ({layers} layers, {_remat_name(cfg)}) "
+                            f"train step {B} x {S}, median", cfg,
+                            ShapeConfig("train", S, B, KIND_TRAIN),
+                            TrainConfig(learning_rate=3e-4, warmup_steps=20,
+                                        total_steps=REMAT_STEPS), med, peak)
+            seen[name] = (losses, sums)
+            del out
+        ref_l, ref_s = seen[REMAT_POLICIES[0][0]]
+        for name, (losses, sums) in seen.items():
+            dl = max(abs(a - b) for a, b in zip(losses, ref_l))
+            ds = max(abs(a - b) for a, b in zip(sums, ref_s))
+            log(f"[lm_train] remat turn {arch}: {name} vs "
+                f"{REMAT_POLICIES[0][0]}: largest loss difference {dl:.3e}, "
+                f"largest parameter leaf-sum difference {ds:.3e} after "
+                f"{REMAT_STEPS} steps")
+    torch.cuda.empty_cache()
+
+
+def _train_long(dev):
+    """llama3.2-3b at 8 x LONG_SEQ tokens, full width and depth, JAX's
+    default remat: LONG_STEPS finite steps through ``launch.train.main``,
+    K7 twice and K7b once a layer a step, the dry run's predicted peak
+    beside the measured (held as phase 13's); without remat the dry run
+    predicts more than the card holds (printed)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.config import KIND_TRAIN, ShapeConfig, TrainConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import lower_one
+    from repro_torch.launch.roofline import HBM_BYTES
+
+    arch = LM_TRAIN_RUNS[0][0]
+    cfg = get_arch(arch)
+    B = LLAMA_TRAIN[0]
+    shape = ShapeConfig("train", LONG_SEQ, B, KIND_TRAIN)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=20,
+                       total_steps=LONG_STEPS)
+    off = lower_one(cfg.replace(remat=False), shape, tcfg)["memory"]
+    off_b = off["argument_bytes_per_device"] + off["temp_bytes_per_device"]
+    log(f"[dryrun] {arch} train step {B} x {LONG_SEQ} without remat: "
+        f"predicted peak {off_b / 2**30:.3f} GiB against the roofline's "
+        f"{HBM_BYTES / 2**30:.1f} GiB card: fits {off['fits']} (not run)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc, out, counts = _train_turn(arch, {}, [
+        "--steps", str(LONG_STEPS), "--seq-len", str(LONG_SEQ),
+        "--log-every", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = [r["ms"] for r in out["steps"]]
+    med = statistics.median(ms[1:])
+    losses = [float(r["loss"]) for r in out["steps"]]
+    peak = out["peak_bytes"] - out["base_bytes"]
+    layers = cfg.num_layers
+    per_step = {k: counts[k] / LONG_STEPS for k in (
+        "flash_attention", "flash_attention_bwd")}
+    log(f"[lm_train] {arch} full width, {layers} layers, "
+        f"{_remat_name(cfg)}, batch {B}x{LONG_SEQ}: rc {rc}, {LONG_STEPS} "
+        f"steps in {wall:.2f} s, step ms {' '.join(f'{x:.2f}' for x in ms)}"
+        f" ({B * LONG_SEQ * 1e3 / med:.0f} tokens/s at the median after the "
+        f"first), peak {peak / 2**30:.3f} GiB, losses "
+        f"{' '.join(f'{x:.6f}' for x in losses)}; launches a step {per_step}")
+    require(rc == 0 and len(losses) == LONG_STEPS
+            and all(map(math.isfinite, losses)),
+            f"lm_train {arch} 8 x {LONG_SEQ}: rc {rc}, losses {losses}")
+    require(per_step == {"flash_attention": 2 * layers,
+                         "flash_attention_bwd": layers},
+            f"lm_train {arch} 8 x {LONG_SEQ}: launches a step {per_step}")
+    _dry_prediction(f"{arch} ({layers} layers, {_remat_name(cfg)}) train "
+                    f"step {B} x {LONG_SEQ}, median", cfg, shape, tcfg, med,
+                    peak)
+    del out
+    torch.cuda.empty_cache()
+
+
+def phase_lm_train(dev):
+    """This slice's main path: ``repro_torch.launch.train.main`` at full
+    width for llama3.2-3b (K7 twice and K7b once per attention layer a
+    step under JAX's default remat) and mamba2-780m (K8 twice and K8b
+    once per SSM layer a step); dbrx-132b's MoE training at full width and
+    one layer (MOE_TRAIN); the remat turns (REMAT_POLICIES) and llama at 8
+    x LONG_SEQ; then the resume check and the step parity with the CPU of
+    llama, mamba and jamba, all within LM_TRAIN_DEADLINE s.  Returns the
+    launches of K7b (llama's run) and K8b (mamba's run)."""
+    import torch
+
+    t0 = time.perf_counter()
     launches = {}
     for arch, steps, pair in LM_TRAIN_RUNS:
         launches[pair[1]] = _train_run(dev, arch, steps, pair)[pair[1]]
     _train_moe(dev)
+    _remat_turns(dev)
+    _train_long(dev)
     _train_resume(dev)
     torch.cuda.empty_cache()
     for arch, whole_step in PARITY_ARCHS:
         _train_parity(dev, arch, whole_step)
+    wall = time.perf_counter() - t0
+    require(wall <= LM_TRAIN_DEADLINE, f"lm_train took {wall:.1f} s > "
+            f"{LM_TRAIN_DEADLINE}")
     return launches
 
 

@@ -38,6 +38,9 @@ import ast
 from dataclasses import dataclass, field
 from typing import Optional
 
+#: the rematerialisation wrapper: ``checkpoint(fn, *args)`` calls ``fn``
+CHECKPOINT = "torch.utils.checkpoint.checkpoint"
+
 #: fully-qualified fids of the port's hot entries: every line of these runs
 #: once per fit step, Lloyd sweep, served dispatch, prefill, decode step or
 #: LM train step.  ``forward`` / ``backward`` of every
@@ -171,10 +174,11 @@ class ModuleIndex(ast.NodeVisitor):
         """Resolve a callee expression to a dotted string: either an
         external path ("torch.cuda.synchronize", "numpy.asarray") or a
         local id ("<module>:<qual>").  ``self.x`` resolves within the
-        enclosing class; ``functools.partial(f, ...)`` unwraps to ``f``."""
+        enclosing class; ``functools.partial(f, ...)`` and
+        ``torch.utils.checkpoint.checkpoint(f, ...)`` unwrap to ``f``."""
         if isinstance(node, ast.Call):
             inner = self.resolve(node.func)
-            if inner == "functools.partial" and node.args:
+            if inner in ("functools.partial", CHECKPOINT) and node.args:
                 return self.resolve(node.args[0])
             return None
         parts = dotted(node)
@@ -321,6 +325,12 @@ class ModuleIndex(ast.NodeVisitor):
                 if cls in self.autograd_classes:
                     self._add_call(self._fid(f"{cls}.forward"))
                     self._add_call(self._fid(f"{cls}.backward"))
+        # checkpoint(fn, ...) runs fn now (and again in the backward):
+        # the rematerialised block is a callee of the caller
+        if name == CHECKPOINT and self._fn:
+            target = self.resolve(node)
+            if target is not None:
+                self._add_call(target)
         # worker-pool hop: pool.submit(fn, ...) runs fn on an executor
         # thread; record the worker fn as a callee so the fixed points see
         # through the executor

@@ -11,7 +11,11 @@ the step runs on each rank's rows:
   built from ``all_reduce`` of a zero-filled buffer with each rank's
   slot written, as ``Group.gather`` is: bit-exact, no float addition);
   the block drops it when it is done (what autograd saved for the
-  backward stays).  A stacked leaf is gathered one block at a time.
+  backward stays).  A stacked leaf is gathered one block at a time,
+  inside the block's rematerialised region under ``cfg.remat`` (JAX's
+  default, as GSPMD's gathers sit inside the checkpointed scan body): the
+  backward's recompute gathers the block's leaves again and reruns its
+  forward sums, and no gathered leaf outlives its block.
 - **The tensor-parallel region** (Megatron's f and g).  Where ``spec_for``
   put the model axis on ``heads`` and the local heads are a multiple of
   the GQA group G, attention runs on each model rank's heads: ``wq`` /
@@ -68,10 +72,17 @@ added over the mesh in rank order.  AdamW and the error-feedback
 compression work on the blocks, element by element; the compression's
 per-leaf scale is the MAX of the blocks' amax over the mesh.
 
-``ShardPlan.collective_bytes`` counts, from the specs and this schedule,
-the bytes every collective of one step carries on a rank: it equals the
-groups' ``Group.bytes`` after a step, and the dry run's collective term
-reads it (``launch/roofline.collective_bytes``).
+With ``tcfg.microbatch`` n > 1 (``launch/steps.make_sharded_train_step``)
+each data rank takes its rows of each of JAX's n micro-batches of the
+global batch (``ShardPlan.local_batch(microbatch=n)``), and each
+micro-batch runs this step's forward and backward, its label count and
+expert fractions its own.
+
+``ShardPlan.collective_bytes`` counts, from the specs and this schedule
+(remat's re-gathers and the micro-batches included), the bytes every
+collective of one step carries on a rank: it equals the groups'
+``Group.bytes`` after a step, and the dry run's collective term reads it
+(``launch/roofline.collective_bytes``).
 
 **Serving** (``ModelParallel(serving=True)``, the steps of
 ``launch/steps.make_sharded_prefill_step`` / ``make_sharded_decode_step``)
@@ -160,11 +171,13 @@ class LeafPlan(NamedTuple):
 
 class SeqSpan(NamedTuple):
     """A serving rank's positions [lo, hi) of every attention layer's KV
-    cache, and whether the model axis splits the positions (JAX's
-    ``cache_seq``; else every model rank holds them all)."""
+    cache, whether the model axis splits the positions (JAX's
+    ``cache_seq``; else every model rank holds them all), and the caches'
+    whole length (JAX's ``decode_split`` reads its condition on it)."""
     lo: int
     hi: int
     split: bool
+    max_seq: int
 
 
 def _leaves(tree, prefix=()):
@@ -193,6 +206,10 @@ class ShardPlan:
     tensors): the dry run plans a 256-rank mesh without a group."""
 
     def __init__(self, cfg: ModelConfig, rules):
+        if rules.seq_shard:
+            raise ValueError("seq_shard: the port does not split the "
+                             "activations' seq dim over the model axis yet "
+                             "(sequence parallelism, ROADMAP A19)")
         self.cfg, self.rules, self.mesh = cfg, rules, rules.mesh
         self.model_size = rules.model_size
         self.data_size = rules.fsdp_size
@@ -312,18 +329,34 @@ class ShardPlan:
                                           self.mesh, c).contiguous().clone())
         return out
 
-    def local_batch(self, batch: dict, index: int) -> dict:
+    def local_batch(self, batch: dict, index: int, microbatch: int = 0
+                    ) -> dict:
         """Mesh rank ``index``'s rows of a whole batch (the batch split
-        evenly over the batch axes)."""
+        evenly over the batch axes).  With ``microbatch`` n > 1 the rows
+        are micro-batch-major: JAX's micro-batch i is the global rows
+        [i B / n, (i + 1) B / n), and data rank r takes its r-th
+        B / (n d) of each, so the rank's micro-batch i is its rows
+        [i B / (n d), (i + 1) B / (n d))."""
         bi = self.batch_index(self.coords(index))
+        d = self.data_size
+        n = microbatch if microbatch and microbatch > 1 else 1
         out = {}
         for k, v in batch.items():
             B = v.shape[0]
-            if B % self.data_size:
-                raise ValueError(f"batch {B} does not split over "
-                                 f"{self.data_size} data ranks")
-            n = B // self.data_size
-            out[k] = v[bi * n:(bi + 1) * n]
+            if n == 1:
+                if B % d:
+                    raise ValueError(f"batch {B} does not split over {d} "
+                                     f"data ranks")
+                w = B // d
+                out[k] = v[bi * w:(bi + 1) * w]
+                continue
+            if B % (n * d):
+                raise ValueError(f"batch {B} does not split into {n} "
+                                 f"micro-batches over {d} data ranks")
+            w = B // (n * d)
+            out[k] = torch.cat([v[i * (B // n) + bi * w:
+                                  i * (B // n) + (bi + 1) * w]
+                                for i in range(n)])
         return out
 
     # -- serving: the batch and the decode state by JAX's specs -------------
@@ -372,8 +405,9 @@ class ShardPlan:
             if path[-1] == "k":
                 r = ceil_region(shape, spec, self.mesh, c)[2]
                 return SeqSpan(r.start, r.stop, self.model_size > 1 and
-                               self.rules.model_axis in spec_axes(spec[2]))
-        return SeqSpan(0, 0, False)
+                               self.rules.model_axis in spec_axes(spec[2]),
+                               shape[2])
+        return SeqSpan(0, 0, False, 0)
 
     def decode_state(self, batch: int, max_seq: int, index: int = 0,
                      device=None, *, rank: int = 0) -> dict:
@@ -527,18 +561,26 @@ class ShardPlan:
                          kind: str = "train") -> dict:
         """The bytes each kind of collective carries on a rank in one step
         at global ``batch`` x ``seq`` tokens (``Group.bytes``: each
-        ``all_reduce``'s buffer once), and their total.  ``kind`` "train"
+        ``all_reduce``'s buffer once), and their total: in training,
+        ``tcfg.microbatch`` micro-batches' gathers and sums, and under
+        ``cfg.remat`` each block's gathers and forward sums twice (the
+        recompute).  ``kind`` "train"
         (the default), or "prefill" (a ``seq``-token prompt) and "decode"
         (one token against ``seq`` cache positions) with the greedy
         token's ``argmax``, on the compute params (``serve_param_bytes``)."""
         if kind != "train":
             return self._serve_bytes(batch, seq, kind)
         cfg, ds, ms, n = self.cfg, self.data_size, self.model_size, self.size
+        mb = tcfg.microbatch if tcfg is not None and tcfg.microbatch and \
+            tcfg.microbatch > 1 else 1
+        # remat runs each block's forward again in the backward: its
+        # gathers and forward sums twice a micro-batch
+        fwd = 2 if cfg.remat else 1
         pz = torch.empty((), dtype=self.param_dtype).element_size()
         cz = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
                          ).element_size()
         out = {"gather": 0, "grad_sum": 0, "tensor_parallel": 0, "scalars": 0}
-        for lf, _ in self.uses():
+        for lf, b in self.uses():
             kind = self.gather_kind(lf)
             pieces = math.prod(block_shape(lf.piece_shape, lf.piece_spec,
                                            self.mesh))
@@ -548,44 +590,49 @@ class ShardPlan:
                     _without(lf.piece_spec, lf.dim, self.rules.model_axis),
                     self.mesh))
             if self.kind_size(kind) > 1:
-                out["gather"] += self.kind_size(kind) * pieces * pz
+                out["gather"] += (mb * (fwd if b is not None else 1)
+                                  * self.kind_size(kind) * pieces * pz)
             used = math.prod(self.out_shape(lf))
             if lf.mode == "take":
-                out["grad_sum"] += n * used * pz
+                out["grad_sum"] += mb * n * used * pz
             elif ds > 1:
-                out["grad_sum"] += ds * used * pz
-        if batch % ds:
-            raise ValueError(f"batch {batch} does not split over {ds} data "
-                             f"ranks")
-        rows = (batch // ds) * seq            # a rank's tokens
+                out["grad_sum"] += mb * ds * used * pz
+        if batch % (ds * mb):
+            raise ValueError(f"batch {batch} does not split into {mb} "
+                             f"micro-batches over {ds} data ranks")
+        rows = (batch // (ds * mb)) * seq     # a rank's tokens a micro-batch
         act = rows * cfg.d_model * cz
         tp = 0
         for ls in cfg.layer_specs():
             if ls.mixer == MIXER_ATTN and self.split_attention:
-                tp += 2 * ms * act                  # copy_in, sum_out
+                tp += (1 + fwd) * ms * act          # copy_in, sum_out
             elif ls.mixer != MIXER_ATTN and self.split_ssm:
                 # copy_in of h and of (B, C); sum_out; the gated norm's
                 # float32 sum of squares, forward and backward
-                tp += (2 * ms * act + ms * rows * 2 * cfg.ssm_state * cz
-                       + 2 * ms * rows * 4)
+                tp += ((1 + fwd) * ms * act + ms * rows * 2 * cfg.ssm_state
+                       * cz + (1 + fwd) * ms * rows * 4)
             if ls.ffn == FFN_DENSE and self.split_mlp:
-                tp += 2 * ms * act
+                tp += (1 + fwd) * ms * act
             elif ls.ffn == FFN_MOE and self.split_moe:
-                tp += 2 * ms * act + ms * rows * cfg.top_k * cz  # + gates
+                tp += ((1 + fwd) * ms * act
+                       + ms * rows * cfg.top_k * cz)          # + gates
             if ls.ffn == FFN_MOE and ds > 1:
                 G = min(cfg.moe_seq_chunk, seq)
                 chunks = seq // G if seq > G and seq % G == 0 else 1
-                out["scalars"] += (cfg.num_blocks * chunks * ds
+                out["scalars"] += (mb * fwd * cfg.num_blocks * chunks * ds
                                    * cfg.num_experts * 4)
-        out["tensor_parallel"] = cfg.num_blocks * tp
+        out["tensor_parallel"] = mb * cfg.num_blocks * tp
         if self.split_vocab:
-            text = (batch // ds) * text_len(cfg, seq) * cfg.d_model * cz
+            text = (batch // (ds * mb)) * text_len(cfg, seq) * cfg.d_model \
+                * cz
             # the embedding's sum_out, the head's copy_in, and the loss's
             # float32 max and (sum of exps, gold) over a rank's tokens
-            out["tensor_parallel"] += (ms * text + ms * act
-                                       + (1 + 2 * ms) * rows * 4)
+            out["tensor_parallel"] += mb * (ms * text + ms * act
+                                            + (1 + 2 * ms) * rows * 4)
         if ds > 1:
-            out["scalars"] += ds * 4 + ds * 3 * 4   # label count, metrics
+            # a micro-batch's label count; the metrics (loss, ce, aux, or
+            # the micro-batches' losses)
+            out["scalars"] += mb * ds * 4 + ds * (3 if mb == 1 else mb) * 4
         if n > 1:
             out["scalars"] += n * 4                 # the global norm
             if tcfg is not None and tcfg.grad_compress:

@@ -26,6 +26,10 @@ reads:
 
 JAX's scan correction has no counterpart: XLA's cost analysis counts a
 ``lax.scan`` body once, while an eager ``meta`` run executes every layer.
+A training step runs under its config's remat (JAX's default: every
+block rematerialised): the temp bytes are the checkpointed step's, and
+the FLOPs and bytes count the recompute (K7 / K8 tallied twice a layer),
+as XLA's cost analysis of the rematerialised program does.
 Nothing is compiled (``compile_s`` and ``code_bytes`` are null), and the
 default mesh is the one card (``num_devices`` 1, no collective bytes).
 
@@ -274,18 +278,20 @@ def lower_one(cfg: ModelConfig, shape: ShapeConfig,
 
 def lower_mesh(cfg: ModelConfig, shape: ShapeConfig, *,
                multi_pod: bool = False,
-               tcfg: TrainConfig | None = None) -> dict:
+               tcfg: TrainConfig | None = None, rules_kw=None) -> dict:
     """The record of a cell on JAX's production mesh, from the specs
     alone: per-device params and optimizer bytes (train) or params, batch
     rows and decode state (prefill, decode), and the collective bytes of
-    one step.  Nothing is lowered and no card is needed."""
+    one step.  ``rules_kw`` replaces ``MeshRules`` fields (JAX's
+    ``make_rules(**rules_kw)``: ``fsdp``, the model-axis preferences;
+    ``seq_shard`` raises).  Nothing is lowered and no card is needed."""
     from repro_torch.distributed.model_parallel import ShardPlan
 
     tcfg = tcfg or _train_config(cfg)
     t0 = time.time()
     mesh = (rank_mesh(MULTIPOD_SHAPE, POD_AXES) if multi_pod
             else rank_mesh(POD_SHAPE))
-    rules = make_rules(mesh, multi_pod=multi_pod)
+    rules = make_rules(mesh, multi_pod=multi_pod, **(rules_kw or {}))
     plan = ShardPlan(cfg, rules)
     n = plan.block_numel()
     coll = collective_bytes(cfg, shape, rules, tcfg)
@@ -340,11 +346,12 @@ def lower_mesh(cfg: ModelConfig, shape: ShapeConfig, *,
 
 
 def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
-               pod: bool = False, cfg_kw=None):
+               pod: bool = False, rules_kw=None, cfg_kw=None):
     """The record of one (arch, shape) cell on the one card or, with
     ``pod`` / ``multi_pod``, on JAX's (16, 16) / (2, 16, 16) mesh of
-    ranks; ``cfg_kw`` replaces config fields (``num_layers`` cuts the
-    depth)."""
+    ranks under ``make_rules(**rules_kw)``; ``cfg_kw`` replaces config
+    fields (``num_layers`` cuts the depth, ``remat`` / ``remat_policy``
+    set the training step's rematerialisation)."""
     cfg = get_arch(arch_id)
     if cfg_kw:
         cfg = cfg.replace(**cfg_kw)
@@ -354,7 +361,7 @@ def lower_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
         return {"arch": arch_id, "shape": shape_name,
                 "multi_pod": multi_pod, "status": "skipped", "reason": why}
     if pod or multi_pod:
-        return lower_mesh(cfg, shape, multi_pod=multi_pod)
+        return lower_mesh(cfg, shape, multi_pod=multi_pod, rules_kw=rules_kw)
     return lower_one(cfg, shape)
 
 

@@ -21,7 +21,9 @@ On a (data, model) mesh of ranks, ``param_specs`` and
 (``distributed/sharding.py``) where JAX has a ``NamedSharding``: the step
 replicated, params, ``mu``, ``nu`` and ``compress_err`` under the param
 specs.  ``make_sharded_train_step(cfg, tcfg, rules, group)`` is the train
-step on this rank's blocks and rows (``distributed/model_parallel.py``);
+step on this rank's blocks and rows (``distributed/model_parallel.py``),
+with JAX's gradient accumulation over ``tcfg.microbatch`` micro-batches
+of the global batch;
 its ``info`` names the leaves the model axis splits in compute and
 each leaf's mode.  ``batch_specs_tree`` and ``decode_state_specs_tree``
 are JAX's ``batch_shardings`` / ``decode_state_shardings`` as specs
@@ -230,7 +232,15 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     batch)`` with ``state`` this rank's blocks (``plan.shard``, then
     ``adamw_init``) and ``batch`` its rows (``plan.local_batch``); the
     metrics are the whole batch's (the data ranks' shares summed in rank
-    order).  ``group`` is the ``Group`` the mesh is laid over (its mesh
+    order).  With ``tcfg.microbatch`` n > 1, ``batch`` is the rank's rows
+    of each micro-batch in turn (``plan.local_batch(batch, index,
+    microbatch=n)``): each micro-batch runs the sharded forward and
+    backward (its label count and MoE expert fractions its own, its
+    gradient summed over the data ranks), the rank's gradient blocks
+    add up in micro-batch order into float32 zeros and are divided by n,
+    and the metrics are JAX's ``{"loss"}``, the micro-batches' losses
+    summed over the data ranks, then in order.  ``group`` is the
+    ``Group`` the mesh is laid over (its mesh
     groups are built here: every rank of the job calls this, in the same
     order) or a rank's ``MeshGroups``.  The step carries ``plan``,
     ``groups`` and ``info`` ({"mesh", "split": the leaves the model axis
@@ -238,27 +248,53 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     "take"})."""
     from repro_torch.distributed.model_parallel import ModelParallel
 
-    if tcfg.microbatch and tcfg.microbatch > 1:
-        raise ValueError("microbatch: the sharded step takes the whole "
-                         "batch at once (its data axis splits it)")
     plan, groups = _mesh_plan(cfg, rules, group)
+    n = tcfg.microbatch if tcfg.microbatch and tcfg.microbatch > 1 else 1
+
+    def grads_of(params, batch):
+        """(scaled loss share, aux shares, gradients) of one (micro-)batch
+        of this rank's rows."""
+        mp = ModelParallel(plan, groups, params)
+        loss, aux = _scaled_lm_loss(cfg, params, batch, tcfg.loss_scale, mp)
+        grads = torch.autograd.grad(loss, tree_leaves(params),
+                                    allow_unused=True, materialize_grads=True)
+        return loss.detach(), aux, list(grads), mp
 
     def train_step(state: TrainState, batch: dict):
         leaves = tree_leaves(state.params)
         for p in leaves:
             p.requires_grad_(True)
-        mp = ModelParallel(plan, groups, state.params)
-        loss, aux = _scaled_lm_loss(cfg, state.params, batch,
-                                    tcfg.loss_scale, mp)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        grads = tree_unflatten(state.params, list(grads))
-        shares = torch.stack([loss.detach() / tcfg.loss_scale,
-                              aux["ce"].detach(), aux["aux"].detach()])
-        total = mp.data_sum(shares)
+        if n == 1:
+            loss, aux, grads, mp = grads_of(state.params, batch)
+            shares = torch.stack([loss / tcfg.loss_scale, aux["ce"].detach(),
+                                  aux["aux"].detach()])
+            total = mp.data_sum(shares)
+            metrics = {"ce": total[1], "aux": total[2], "loss": total[0]}
+        else:
+            # JAX's scan over micro-batches: the rank's rows come
+            # micro-batch-major (``plan.local_batch(microbatch=n)``)
+            B = next(iter(batch.values())).shape[0] // n
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves]
+            losses = []
+            for i in range(n):
+                loss, _, g, mp = grads_of(
+                    state.params,
+                    {k: v[i * B:(i + 1) * B] for k, v in batch.items()})
+                grads = [a + b for a, b in zip(grads, g)]
+                losses.append(loss)
+            grads = [a / n for a in grads]
+            # each micro-batch's loss summed over the data ranks, then
+            # over the micro-batches in order
+            per = mp.data_sum(torch.stack(losses))
+            loss_acc = torch.zeros((), dtype=torch.float32,
+                                   device=per.device)
+            for i in range(n):
+                loss_acc = loss_acc + per[i]
+            metrics = {"loss": loss_acc / (n * tcfg.loss_scale)}
+        grads = tree_unflatten(state.params, grads)
         new_state, opt_metrics = apply_gradients(
             state, grads, tcfg, norm=mp.global_norm, amax=mp.amax)
-        metrics = {"ce": total[1], "aux": total[2], "loss": total[0]}
         return new_state, dict(metrics, **opt_metrics)
 
     train_step.plan, train_step.groups = plan, groups

@@ -28,7 +28,9 @@ any mesh of ranks as ``main(argv, mesh=)`` (e.g.
 ``launch/mesh.make_debug_mesh(2, 2, group=)``).  On a mesh every rank
 draws the whole weights from the seed, keeps its blocks
 (``distributed/model_parallel.py``), reads its rows of each batch and
-runs ``steps.make_sharded_train_step``; checkpoints are saved whole by
+runs ``steps.make_sharded_train_step`` (``--microbatch`` n: its rows of
+each of JAX's n micro-batches, accumulated as on one card); checkpoints
+are saved whole by
 mesh rank 0 and restored onto any mesh, and only mesh rank 0 prints.
 """
 
@@ -191,7 +193,7 @@ def main(argv=None, out: dict | None = None, mesh=None) -> int:
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in data.next().items()}
         if sharded:
-            batch = plan.local_batch(batch, index)
+            batch = plan.local_batch(batch, index, tcfg.microbatch)
             carried = groups.bytes
         watchdog.step_start()
         state, metrics = step_fn(state, batch)

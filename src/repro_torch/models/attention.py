@@ -9,11 +9,15 @@ hand-written kernel, a CPU tensor takes its plain version.  There is no
 ``use_pallas``: the port always takes the kernel's path.
 
 ``decode_attention_forward`` has no kernel in the JAX package either
-(einsum, masked softmax, einsum) and stays in torch ops.  JAX's
-``decode_split`` (a flash-decoding split softmax over ``decode_split``
-chunks of the cache, which ``benchmarks/perf_iterations.py`` sets) is not
-carried over (ROADMAP A); a cache split over a mesh's model ranks merges
-the ranks' partials instead (``_decode_on_mesh``).  The KV cache is
+(einsum, masked softmax, einsum) and stays in torch ops.  With
+``cfg.decode_split`` nc > 0 dividing the cache length it is JAX's
+flash-decoding split softmax: the cache viewed as nc chunks, each
+chunk's float32 max, sum and P·V (the mask at -1e30, so a chunk with no
+valid position weighs exp(-1e30 - m) = 0 in the merge), merged in
+float32 over the chunks in order (``_split_partials``, ``_merge``);
+otherwise the full softmax.  On a mesh whose model ranks split the
+cache's positions the ranks' partials merge (``_decode_on_mesh``).  The
+KV cache is
 updated in place at ``cache_index`` (slice assignment into the caller's
 tensors) where JAX's ``dynamic_update_slice`` returns a copy; the returned
 cache dict holds the same tensors.
@@ -178,15 +182,62 @@ def decode_attention_forward(cfg: ModelConfig, p: dict, h: torch.Tensor,
     v_cache[:, cache_index] = v_new[:, 0].to(v_cache.dtype)
 
     qg = q.reshape(B, K, H // K, hd)
-    S_max = k_cache.shape[1]
-    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).float() * (
-        1.0 / math.sqrt(hd))
-    valid = torch.arange(S_max, device=h.device) <= cache_index
-    s = s.masked_fill(~valid, float("-inf"))
-    probs = torch.softmax(s, dim=-1).to(qg.dtype)
-    ctx = torch.einsum("bkgs,bskh->bkgh", probs, v_cache)
+    ctx = _decode_softmax(cfg, qg, k_cache, v_cache, cache_index)
     out = _out_proj(cfg, p, ctx.reshape(B, H, hd))
     return out[:, None, :], {"k": k_cache, "v": v_cache}
+
+
+def _splits(cfg: ModelConfig, S_max: int) -> int:
+    """JAX's chunk count of the split softmax for a cache of ``S_max``
+    positions, or 0 (the full softmax)."""
+    nc = cfg.decode_split
+    return nc if nc and S_max % nc == 0 else 0
+
+
+def _decode_softmax(cfg: ModelConfig, qg, k_cache, v_cache,
+                    cache_index: int) -> torch.Tensor:
+    """softmax(q k / sqrt(hd)) v over a whole cache's positions <=
+    ``cache_index``: (B, K, G, hd) in the compute dtype."""
+    B, S_max, K, hd = k_cache.shape
+    scale = 1.0 / math.sqrt(hd)
+    pos = torch.arange(S_max, device=qg.device)
+    nc = _splits(cfg, S_max)
+    if nc:
+        view = (B, nc, S_max // nc, K, hd)
+        m_c, l_c, acc_c = _split_partials(
+            qg, k_cache.view(view), v_cache.view(view),
+            pos.view(nc, -1) <= cache_index, scale)
+        return _merge(m_c, l_c, acc_c, m_c.amax(-1)).to(qg.dtype)
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).float() * scale
+    s = s.masked_fill(~(pos <= cache_index), float("-inf"))
+    probs = torch.softmax(s, dim=-1).to(qg.dtype)
+    return torch.einsum("bkgs,bskh->bkgh", probs, v_cache)
+
+
+def _split_partials(qg, kc, vc, valid, scale: float):
+    """Each chunk's float32 max ``m_c`` and sum ``l_c`` (B, K, G, c) and
+    P·V ``acc_c`` (B, K, G, c, hd) in the compute dtype, of the chunks
+    ``kc`` / ``vc`` (B, c, L, K, hd) whose positions ``valid`` (c, L)
+    marks (JAX's ``decode_split`` partials)."""
+    s = torch.einsum("bkgh,bcskh->bkgcs", qg, kc).float() * scale
+    s = s.masked_fill(~valid, -1e30)
+    m_c = s.amax(-1)
+    pr = torch.exp(s - m_c[..., None])
+    acc_c = torch.einsum("bkgcs,bcskh->bkgch", pr.to(qg.dtype), vc)
+    return m_c, pr.sum(-1), acc_c
+
+
+def _merge(m_c, l_c, acc_c, m) -> torch.Tensor:
+    """The chunks' partials weighed by exp(m_c - m) and summed over the
+    chunks in order, float32: sum(acc w) / max(sum(l w), 1e-20)."""
+    w = torch.exp(m_c - m[..., None])
+    num, den = _weighed(l_c, acc_c, w)
+    return num / torch.clamp(den, min=1e-20)[..., None]
+
+
+def _weighed(l_c, acc_c, w):
+    """(sum over chunks of acc_c w (B, K, G, hd), of l_c w (B, K, G))."""
+    return (acc_c.float() * w[..., None]).sum(-2), (l_c * w).sum(-1)
 
 
 def _decode_on_mesh(cfg: ModelConfig, p: dict, h: torch.Tensor,
@@ -196,16 +247,23 @@ def _decode_on_mesh(cfg: ModelConfig, p: dict, h: torch.Tensor,
     q: the rank's heads gathered over the model ranks in rank order
     where the heads split, else whole; the new k / v of every kv head
     (the whole ``wk`` / ``wv``), written by the rank whose range holds
-    ``cache_index``.  Where the cache splits over the model ranks each
-    rank takes the float32 max m, sum l and P·V acc over its valid
-    positions (p <= cache_index; m = -inf and l = acc = 0 where it has
-    none; P cast to the compute dtype before P·V, as JAX's
-    ``decode_split`` does), and the partials merge: M the max of m over
-    the model ranks, w = exp(m - M) (0 where m = -inf: rank 0 holds
-    position 0, so M is finite), l and acc scaled by w and summed in
-    rank order, acc / l cast to the compute dtype.  Then the rank's heads through ``wo``'s rows,
-    summed over the model ranks (or every head through the whole
-    ``wo``)."""
+    ``cache_index``.  A rank whose cache is not split over the model
+    ranks takes ``_decode_softmax`` alone.  Where the model ranks split
+    the positions, the softmax is JAX's split softmax in chunks of Sc
+    positions: S_max / nc with ``cfg.decode_split`` nc dividing the whole
+    cache length S_max (JAX reads the condition on it, ``mp.span``), else
+    one chunk of S_max.  A rank cuts its span at the chunk boundaries and
+    takes each piece's float32 max m, sum l and P·V acc (the mask at
+    -1e30; P cast to the compute dtype before P·V, as JAX's
+    ``decode_split`` does; a chunk that straddles two ranks' spans is
+    merged as a piece of its own on each, whose ``acc`` is rounded to the
+    compute dtype at its own max).  The pieces merge: M the max of m over
+    the model ranks (finite: rank 0 holds position 0), w = exp(m - M)
+    (0 for a piece with no valid position), ``acc w`` and ``l w`` summed
+    over the rank's pieces in order, then over the model ranks in rank
+    order, acc / l cast to the compute dtype.  Then the rank's heads
+    through ``wo``'s rows, summed over the model ranks (or every head
+    through the whole ``wo``)."""
     B = h.shape[0]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // K
@@ -220,35 +278,18 @@ def _decode_on_mesh(cfg: ModelConfig, p: dict, h: torch.Tensor,
         q, k_new, v_new = _project_qkv(cfg, p, h, positions)
         q = q[:, 0]
     k_cache, v_cache = cache["k"], cache["v"]
-    lo, hi, split = mp.span
+    lo, hi, split, S_max = mp.span
     if lo <= cache_index < hi:
         k_cache[:, cache_index - lo] = k_new[:, 0].to(k_cache.dtype)
         v_cache[:, cache_index - lo] = v_new[:, 0].to(v_cache.dtype)
 
     qg = q.reshape(B, K, G, hd)
-    n = k_cache.shape[1]
-    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache).float() * scale
-    valid = lo + torch.arange(n, device=h.device) <= cache_index
-    s = s.masked_fill(~valid, float("-inf"))
-    if split:
-        if n:
-            m = s.amax(-1)
-        else:
-            m = s.new_full((B, K, G), float("-inf"))
-        mine = torch.isfinite(m)
-        pr = torch.exp(s - torch.where(mine, m, 0.0)[..., None])
-        acc = torch.einsum("bkgs,bskh->bkgh", pr.to(qg.dtype),
-                           v_cache).float()
-        M = mp.model_max(m)
-        w = torch.where(mine, torch.exp(torch.where(mine, m, M) - M), 0.0)
-        parts = torch.cat([acc * w[..., None], (pr.sum(-1) * w)[..., None]],
-                          dim=-1)
-        tot = mp.model_sum(parts)
-        ctx = (tot[..., :hd] / torch.clamp(tot[..., hd:], min=1e-20)).to(
-            qg.dtype)
+    if not split:
+        ctx = _decode_softmax(cfg, qg, k_cache, v_cache, cache_index)
     else:
-        probs = torch.softmax(s, dim=-1).to(qg.dtype)
-        ctx = torch.einsum("bkgs,bskh->bkgh", probs, v_cache)
+        Sc = S_max // (_splits(cfg, S_max) or 1)
+        ctx = _split_on_mesh(qg, k_cache, v_cache, cache_index, lo, Sc,
+                             scale, mp)
     ctx = ctx.reshape(B, H, hd)
     if tp:
         h0, h1 = mp.head_range
@@ -256,3 +297,31 @@ def _decode_on_mesh(cfg: ModelConfig, p: dict, h: torch.Tensor,
     else:
         out = _out_proj(cfg, p, ctx)
     return out[:, None, :], {"k": k_cache, "v": v_cache}
+
+
+def _split_on_mesh(qg, k_cache, v_cache, cache_index, lo, Sc, scale, mp):
+    """JAX's split softmax over a cache whose positions the model ranks
+    split: this rank's pieces of the Sc-position chunks merged with the
+    other ranks' (``_decode_on_mesh``)."""
+    n, hd = k_cache.shape[1], k_cache.shape[3]
+    pos = lo + torch.arange(n, device=qg.device)
+    if n:
+        # the rank's span cut at the chunk boundaries inside it
+        cuts = [0] + [c * Sc - lo for c in range(lo // Sc + 1,
+                                                 -(-(lo + n) // Sc))] + [n]
+        parts = [_split_partials(
+            qg, k_cache[:, a:b, None].transpose(1, 2),
+            v_cache[:, a:b, None].transpose(1, 2),
+            (pos[a:b] <= cache_index)[None], scale)
+            for a, b in zip(cuts[:-1], cuts[1:])]
+        m_c, l_c, acc_c = (torch.cat(x, dim=3) for x in zip(*parts))
+        M = mp.model_max(m_c.amax(-1))
+        num, den = _weighed(l_c, acc_c, torch.exp(m_c - M[..., None]))
+    else:                                     # an empty span: no pieces
+        mp.model_max(qg.new_full(qg.shape[:3], float("-inf"),
+                                 dtype=torch.float32))
+        num = qg.new_zeros(qg.shape, dtype=torch.float32)
+        den = num[..., 0]
+    tot = mp.model_sum(torch.cat([num, den[..., None]], dim=-1))
+    return (tot[..., :hd] / torch.clamp(tot[..., hd:], min=1e-20)).to(
+        qg.dtype)

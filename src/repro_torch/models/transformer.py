@@ -10,8 +10,22 @@ stacked on a leading ``blocks`` axis, so ``flatten_tree``'s keys
 (``repro_torch.interop.lm_params_from_jax``).  Depth is a Python loop over
 the stacked leaves' ``unbind`` views (eager PyTorch has no ``scan``); in
 training, ``unbind``'s backward stacks each leaf's per-block gradients
-once.  Activations are kept for the backward (JAX's remat policy is not
-ported).  ``lm_loss`` is the training objective (``launch/steps.py``).
+once.  ``lm_loss`` is the training objective (``launch/steps.py``).
+
+In training each block is rematerialised as JAX's ``_stack_forward``
+does under ``cfg.remat`` (the default): the block runs inside a
+non-reentrant ``torch.utils.checkpoint``, so only its input ``h`` (and,
+under ``remat_policy == "dots"``, what the policy saves) stays alive until
+the backward, which runs the block's forward again before its own.
+``"dots"`` is JAX's ``dots_with_no_batch_dims_saveable``: the outputs of
+``aten.mm`` / ``aten.addmm`` (an activation by a weight: the
+projections, the FFN, the router) are kept, everything else (K7 / K8,
+the MoE experts' ``bmm``, norms, elementwise ops) is recomputed; any
+other policy is full remat.  The recompute runs the block whole (no
+early stop), so each forward collective of a block under ``mp`` runs
+twice a step (``ShardPlan.collective_bytes`` counts it), and it re-runs
+the same ops on the same inputs: the gradients equal those without
+remat, bit for bit.  Prefill and decode never rematerialise.
 
 Leaves are kept in ``cfg.param_dtype``; JAX casts each matmul weight to
 ``cfg.compute_dtype`` on every use, and ``compute_params`` makes that cast
@@ -41,9 +55,13 @@ and decode-state blocks; its vocabulary slice of the logits), and
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.config import FFN_MOE, FFN_NONE, MIXER_ATTN, ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -244,19 +262,52 @@ def _block_forward(cfg: ModelConfig, bp: dict, h: torch.Tensor, positions,
     return h, new_caches, aux
 
 
+#: the ops whose outputs ``remat_policy == "dots"`` keeps: the products
+#: of an activation by a weight with no batch dim
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_kw(cfg: ModelConfig) -> dict:
+    """``checkpoint``'s arguments for ``cfg.remat_policy`` (JAX's
+    ``jax.checkpoint(body, policy=...)``): non-reentrant, the whole block
+    recomputed (no early stop) and, the blocks drawing no random numbers,
+    no RNG state restored."""
+    kw = dict(use_reentrant=False, preserve_rng_state=False,
+              early_stop=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return kw
+
+
 def _stack_forward(cfg: ModelConfig, blocks: dict, h, positions, mode: str,
                    caches: Optional[dict] = None, cache_index=None, mp=None):
     """Blocks over depth.  Returns (h, new caches stacked over blocks, the
     MoE aux losses summed over blocks in order; None without MoE).  Under
-    ``mp`` each block's leaves are gathered just before it runs."""
+    ``mp`` each block's leaves are gathered just before it runs (inside
+    the rematerialised region in training: the recompute gathers them
+    again)."""
     per_block, aux = [], None
     views = None if mp else _tree_map(lambda x: x.unbind(0), blocks)
+
+    def run(h, b, cache):
+        bp = mp.block(b) if mp else _tree_map(lambda x: x[b], views)
+        return _block_forward(cfg, bp, h, positions, mode, cache,
+                              cache_index, mp)
+
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+    kw = _remat_kw(cfg) if remat else None
     for b in range(cfg.num_blocks):
         cache = None if caches is None else _block(caches, b)
-        bp = mp.block(b) if mp else _tree_map(lambda x: x[b], views)
-        h, nc, a = _block_forward(cfg, bp, h, positions, mode, cache,
-                                  cache_index, mp)
-        del bp
+        if remat:
+            h, nc, a = checkpoint(run, h, b, cache, **kw)
+        else:
+            h, nc, a = run(h, b, cache)
         per_block.append(nc)
         if a is not None:
             aux = a if aux is None else aux + a

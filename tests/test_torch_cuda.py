@@ -1194,8 +1194,9 @@ def test_backward_launchers_refuse_a_short_workspace(kernel, dtype):
 @pytest.mark.cuda
 def test_lm_training_gradients_never_bypass_a_kernel():
     """On the card a gradient through an SSM layer launches K8 then K8b
-    (never the plain backward), one each per mamba layer of a training
-    loss; attention layers train through K7 / K7b; jamba's block (one
+    (never the plain backward): K8b once per mamba layer of a training
+    loss, K8 once and again in the recompute of JAX's default remat;
+    attention layers train through K7 / K7b alike; jamba's block (one
     attention layer, seven mamba layers, four MoE FFNs) and dbrx's MoE
     layers launch the same kernels per mixer."""
     dev = _card()
@@ -1219,6 +1220,9 @@ def test_lm_training_gradients_never_bypass_a_kernel():
                 ("jamba-v0.1-52b", 8, [7, 7, 1, 1]),
                 ("dbrx-132b", 3, [0, 0, 3, 3])):
             cfg = smoke_arch(arch).replace(num_layers=layers)
+            fwd = 2 if cfg.remat else 1     # the forward and its recompute
+            want = [n * (fwd if i % 2 == 0 else 1)
+                    for i, n in enumerate(want)]
             params = tf.init_params(cfg, torch.Generator(device=dev)
                                     .manual_seed(0), device=dev)
             leaves = tree_leaves(params)

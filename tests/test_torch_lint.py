@@ -82,6 +82,7 @@ def repo_graph():
     ("R1", "r1_loop_bad.py", "r1_loop_good.py", TRAIN),
     ("R1", "r1_prefetch_bad.py", "r1_prefetch_good.py", TRAIN),
     ("R1", "r1_autograd_bad.py", "r1_autograd_good.py", None),
+    ("R1", "r1_remat_bad.py", "r1_remat_good.py", TRAIN),
     ("R2", "r2_bad.py", "r2_good.py", None),
     ("R3", "r3_bad.py", "r3_good.py", None),
     ("R4", "r4_bad.py", "r4_good.py", None),

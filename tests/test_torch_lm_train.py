@@ -579,10 +579,17 @@ OPTIONS = {"default": {}, "microbatch": {"microbatch": 2},
            "loss_scale": {"loss_scale": 128.0},
            "bf16_moments": {"opt_dtype": "bfloat16"},
            "grad_compress": {"grad_compress": True}}
+#: the model config's twin: JAX's remat fields (the default is remat
+#: on, policy "full"), given to both packages' configs
+MODEL_OPTIONS = {"remat_off": {"remat": False},
+                 "remat_full": {"remat": True, "remat_policy": "full"},
+                 "remat_dots": {"remat": True, "remat_policy": "dots"}}
 
 
 @pytest.mark.parametrize("option,arch", [
     *(pytest.param(o, "llama3.2-3b", id=o) for o in OPTIONS),
+    *(pytest.param(o, "llama3.2-3b", id=o) for o in ("remat_off",
+                                                      "remat_dots")),
     pytest.param("default", "mamba2-780m", id="mamba2-780m-default"),
     pytest.param("bf16_moments", "dbrx-132b", id="dbrx-132b-bf16_moments")])
 def test_three_train_steps_match_jax(option, arch):
@@ -594,11 +601,13 @@ def test_three_train_steps_match_jax(option, arch):
     quantum.  llama3.2-3b under each option; mamba2-780m (its SSD layers'
     backward through K8b's plain version) under the default; dbrx-132b
     (its MoE FFN's gather backwards) with bf16 moments, as the card trains
-    it."""
+    it; llama3.2-3b with remat off and under the "dots" policy, JAX built
+    with the same fields."""
     kw = dict(learning_rate=3e-3, warmup_steps=1, total_steps=10,
-              **OPTIONS[option])
+              **OPTIONS.get(option, {}))
     jtc, tc = JTrainConfig(**kw), TrainConfig(**kw)
-    jcfg, cfg, jp, tp = _carried(arch, seed=1)
+    jcfg, cfg, jp, tp = _carried(arch, seed=1,
+                                 **MODEL_OPTIONS.get(option, {}))
     jstate = j_adamw_init(jp, jtc)
     state = adamw_init(tp, tc)
     jstep = jax.jit(j_make_train_step(jcfg, jtc))
@@ -642,16 +651,19 @@ def test_three_train_steps_match_jax(option, arch):
 
 
 @pytest.mark.parametrize("option", ["default", "microbatch",
-                                    "grad_compress"])
+                                    "grad_compress", "remat_full",
+                                    "remat_dots"])
 def test_train_step_leaves_no_tensor_garbage(option):
     """Train steps leave no reference cycle holding tensors: a cycle that
     held a step's gradients would keep them allocated until the garbage
     collector runs, which card memory does not trigger (at dbrx-132b's
     width that is 17 GiB a step).  With the collector off, nothing two
-    steps made is garbage."""
-    cfg = smoke_arch("dbrx-132b").replace(num_layers=2)
+    steps made is garbage; nor under either remat policy (the
+    checkpoint's saved-tensor hooks and the policy's cache)."""
+    cfg = smoke_arch("dbrx-132b").replace(num_layers=2,
+                                          **MODEL_OPTIONS.get(option, {}))
     tc = TrainConfig(learning_rate=3e-3, warmup_steps=1, total_steps=10,
-                     **OPTIONS[option])
+                     **OPTIONS.get(option, {}))
     state = adamw_init(t_tf.init_params(cfg, torch.Generator().manual_seed(
         0), device="cpu"), tc)
     step = make_train_step(cfg, tc)

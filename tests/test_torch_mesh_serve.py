@@ -65,6 +65,26 @@ SHORT = {"llama_b1": ("llama3.2-3b", {"num_layers": 2}, (2, 2), 1, 8, 12,
                       21, 3),
          "mamba_13": ("mamba2-780m", {"num_layers": 2}, (1, 3), 2, 8, 12,
                       21, 4)}
+#: JAX's flash-decoding split softmax (``decode_split``), held to JAX's
+#: decode with the same field, laid out as SHORT; the decode feeds the
+#: seeded tokens of ``_feed`` (not the greedy ones, which bf16 rounding
+#: may move): a prompt of 4 and max_seq 21 with 3 chunks of 7 positions,
+#: so the first steps' indices (4-6) leave chunks 1 and 2 empty and
+#: index 7 opens chunk 1; on (2, 2) the ranks hold [0, 11) and [11, 21)
+#: and chunk 1, [7, 14), straddles them; on (1, 4) they hold 6, 6, 6 and
+#: 3 positions and chunks 0-2 each straddle two ranks
+SPLIT = {f"split_{dt}_{d}x{m}": (
+    "llama3.2-3b", {"num_layers": 2, "decode_split": 3,
+                    "compute_dtype": dt}, (d, m), 2, 4, 12, 21, 5)
+    for dt in ("float32", "bfloat16") for d, m in ((2, 2), (1, 4))}
+#: the bf16 split runs against JAX's bf16 decode, of the largest logit:
+#: chip_smoke's bf16 serving tolerance (SERVE_MP_TOL); a straddling
+#: chunk's pieces round their P·V to bf16 each at its own max, where JAX
+#: rounds the chunk's once
+SPLIT_BF16_TOL = 0.1
+#: llama_b1 with decode_split 4, which does not divide max_seq 21: the
+#: full softmax, bit for bit
+UNSPLIT = ("llama_b1", {"decode_split": 4})
 #: constant-initialized leaves, perturbed (test_torch_lm's PERTURB)
 PERTURB = ("scale", "norm", "dt_bias", "D_skip", "bq", "bk", "bv")
 #: the argmax ties: vocabularies split over 2 and 4 model ranks (509
@@ -84,10 +104,14 @@ def _fix_cfg(arch):
     return base.replace(num_layers=2 * base.block_size)
 
 
+def _spec_of(name):
+    return SHORT[name] if name in SHORT else SPLIT[name]
+
+
 def _short_weights(name):
     """(cfg, flat numpy params): the port's seeded draw, its constant
     leaves perturbed."""
-    arch, kw, _, _, _, _, _, seed = SHORT[name]
+    arch, kw, _, _, _, _, _, seed = _spec_of(name)
     cfg = smoke_arch(arch).replace(**kw)
     flat = lm_params_to_numpy(t_tf.init_params(
         cfg, torch.Generator().manual_seed(seed), device="cpu"))
@@ -100,9 +124,16 @@ def _short_weights(name):
 
 
 def _short_prompt(name, cfg):
-    _, _, _, B, P, _, _, seed = SHORT[name]
+    _, _, _, B, P, _, _, seed = _spec_of(name)
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, P)).astype(np.int32)
+
+
+def _feed(name, cfg):
+    """The (B, T) tokens a SPLIT run's decode steps take."""
+    _, _, _, B, _, T, _, seed = _spec_of(name)
+    return np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32)
 
 
 def _tie_logits(V, B=6):
@@ -124,8 +155,9 @@ def _tie_logits(V, B=6):
 # ---------------------------------------------------------------------------
 
 
-def _serve(cfg, params, prompts, tokens, max_seq, mesh, groups):
-    """Prefill then ``tokens`` greedy decode steps on this rank."""
+def _serve(cfg, params, prompts, tokens, max_seq, mesh, groups, feed=None):
+    """Prefill then ``tokens`` greedy decode steps on this rank (or steps
+    on the rank's rows of ``feed``'s tokens)."""
     rules = mesh_mod.make_rules(mesh)
     pf = t_steps.make_sharded_prefill_step(cfg, rules, groups)
     dc = t_steps.make_sharded_decode_step(cfg, rules, groups)
@@ -140,14 +172,20 @@ def _serve(cfg, params, prompts, tokens, max_seq, mesh, groups):
     logits, state = pf(pr, batch, state)
     tok = pf.argmax(logits)
     carried = [groups.bytes - b0]
-    out = {"logits": [logits.numpy().copy()], "tokens": [tok.numpy()],
+    out = {"logits": [logits.float().numpy().copy()],
+           "tokens": [tok.numpy()],
            "rows": batch["tokens"].shape[0]}
-    for _ in range(tokens):
+    if feed is not None:
+        feed = plan.serve_batch({"tokens": torch.from_numpy(feed)},
+                                idx)["tokens"]
+    for t in range(tokens):
+        if feed is not None:
+            tok = feed[:, t]
         b0 = groups.bytes
         logits, state = dc(pr, state, {"tokens": tok[:, None].int()})
         tok = dc.argmax(logits)
         carried.append(groups.bytes - b0)
-        out["logits"].append(logits.numpy().copy())
+        out["logits"].append(logits.float().numpy().copy())
         out["tokens"].append(tok.numpy())
     out.update(
         bytes=carried, shapes=shapes, span=tuple(state["span"]),
@@ -155,7 +193,7 @@ def _serve(cfg, params, prompts, tokens, max_seq, mesh, groups):
         counted={"prefill": plan.collective_bytes(B, P, kind="prefill"),
                  "decode": plan.collective_bytes(B, max_seq,
                                                  kind="decode")},
-        caches={k: v.numpy().copy() for k, v in
+        caches={k: v.float().numpy().copy() for k, v in
                 _flat(state["caches"]).items()})
     return out
 
@@ -196,6 +234,22 @@ def _rank_main(rank, world, tmp):
         out["short"][name] = _serve(cfg, lm_params_from_jax(flat, cfg),
                                     _short_prompt(name, cfg), T, S, mesh,
                                     groups)
+    out["split"] = {}
+    for name, (_, _, shape, _, _, T, S, _) in SPLIT.items():
+        mesh, groups = meshes[shape]
+        cfg, flat = _short_weights(name)
+        # the compute params, as ``serve.main`` holds them (the counted
+        # bytes assume them)
+        params = t_tf.compute_params(cfg, lm_params_from_jax(flat, cfg))
+        out["split"][name] = _serve(cfg, params,
+                                    _short_prompt(name, cfg), T, S, mesh,
+                                    groups, _feed(name, cfg))
+    name, kw = UNSPLIT
+    _, _, shape, _, _, T, S, _ = SHORT[name]
+    mesh, groups = meshes[shape]
+    cfg, flat = _short_weights(name)
+    out["unsplit"] = _serve(cfg.replace(**kw), lm_params_from_jax(flat, cfg),
+                            _short_prompt(name, cfg), T, S, mesh, groups)
     for V, shape in TIE_RUNS:
         mesh, groups = meshes[shape]
         cfg = smoke_arch("llama3.2-3b").replace(vocab_size=V)
@@ -235,8 +289,9 @@ def jax_short(spawned):
     from repro.sampling.store import unflatten_tree
 
     out = {}
-    for name, (arch, kw, _, B, _, T, S, _) in SHORT.items():
+    for name, (arch, kw, _, B, _, T, S, _) in {**SHORT, **SPLIT}.items():
         cfg, flat = _short_weights(name)
+        feed = _feed(name, cfg) if name in SPLIT else None
         jcfg = j_smoke_arch(arch).replace(**kw)
         params = jax.tree_util.tree_map(jnp.asarray, unflatten_tree(flat))
         logits, caches, idx = j_tf.prefill(
@@ -244,12 +299,14 @@ def jax_short(spawned):
         state = j_splice(jcfg, j_tf.init_decode_state(jcfg, B, S, int(idx)),
                          caches, int(idx))
         decode = jax.jit(lambda p, s, t, c=jcfg: j_tf.decode_step(c, p, s, t))
-        steps, greedy = [np.asarray(logits)], []
-        for _ in range(T):
+        steps, greedy = [np.asarray(logits, np.float32)], []
+        for t in range(T):
             tok = jnp.argmax(steps[-1], -1)[:, None].astype(jnp.int32)
+            if feed is not None:
+                tok = jnp.asarray(feed[:, t:t + 1])
             greedy.append(np.asarray(tok)[:, 0])
             lg, state = decode(params, state, tok)
-            steps.append(np.asarray(lg))
+            steps.append(np.asarray(lg, np.float32))
         greedy.append(np.argmax(steps[-1], -1))
         out[name] = {"logits": steps, "tokens": greedy,
                      "caches": jax.tree_util.tree_map(np.asarray,
@@ -438,7 +495,7 @@ def test_long_500k_batch_is_replicated_by_the_rules():
     S = SHAPES["long_500k"].seq_len
     st = plan.decode_state(1, S, device="meta", rank=3)
     assert st["caches"]["pos4"]["k"].shape == (1, 1, S // 2, 8, 128)
-    assert tuple(st["span"]) == (S // 2, S, True)
+    assert tuple(st["span"]) == (S // 2, S, True, S)
 
 
 def test_decode_state_blocks_follow_the_ceil_rule():
@@ -448,14 +505,14 @@ def test_decode_state_blocks_follow_the_ceil_rule():
     cfg = smoke_arch("llama3.2-3b").replace(num_layers=2)
     plan = ShardPlan(cfg, _rules((2, 2)))
     got = [plan.decode_state(4, 21, device="meta", rank=r) for r in range(4)]
-    assert [tuple(s["span"]) for s in got] == [(0, 11, True), (11, 21, True)
-                                               ] * 2
+    assert [tuple(s["span"]) for s in got] == [(0, 11, True, 21),
+                                               (11, 21, True, 21)] * 2
     assert got[1]["caches"]["pos0"]["k"].shape == (2, 2, 10, 2, 16)
     plan = ShardPlan(cfg, _rules((1, 4)))
     spans = [tuple(plan.decode_state(1, 21, device="meta", rank=r)["span"])
              for r in range(4)]
-    assert spans == [(0, 6, True), (6, 12, True), (12, 18, True),
-                     (18, 21, True)]
+    assert spans == [(0, 6, True, 21), (6, 12, True, 21),
+                     (12, 18, True, 21), (18, 21, True, 21)]
     assert plan.state_bytes(1, 21, rank=3) * 2 == plan.state_bytes(1, 21)
 
 
@@ -528,7 +585,8 @@ def test_a_rank_with_no_valid_position_and_the_crossing(ranks, jax_short):
     rows are zero until the decode writes position 11 into its block;
     every step's logits are JAX's (``test_short_runs_match_jax``)."""
     runs = _runs(ranks, "short", "llama_b1", (2, 2))
-    assert [o["span"] for o in runs] == [(0, 11, True), (11, 21, True)] * 2
+    assert [o["span"] for o in runs] == [(0, 11, True, 21),
+                                         (11, 21, True, 21)] * 2
     k = runs[1]["caches"][("pos0", "k")]
     assert k.shape == (2, 1, 10, 2, 16)
     assert np.abs(k[:, :, :9]).max() > 0          # positions 11-19
@@ -568,7 +626,7 @@ def test_a_rank_allocates_its_block_of_the_decode_state(ranks, arch, shape):
             assert shp[1] == FIX_B // d, (key, shp)
             if leaf in ("k", "v"):
                 assert shp[2] == min(w, S - c * w)
-                assert o["span"] == (c * w, min((c + 1) * w, S), True)
+                assert o["span"] == (c * w, min((c + 1) * w, S), True, S)
             elif leaf == "ssm":
                 assert shp[2] == cfg.ssm_heads // m
         assert o["info"]["mesh"] == shape
@@ -587,3 +645,94 @@ def test_argmax_breaks_ties_as_torch_argmax(ranks, V, shape):
         assert np.array_equal(rec["got"], want), (r, rec["got"], want)
         assert rec["bytes"] == m * 2 * len(want) * 8
     assert want[0] == -(-V // m) - 1 and want[2] == 0
+
+
+# ---------------------------------------------------------------------------
+# decode_split: JAX's flash-decoding split softmax
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT))
+def test_split_softmax_on_the_mesh_matches_jax(ranks, jax_short, name):
+    """``decode_split`` 3 over max_seq 21 on (2, 2) and (1, 4): the
+    prefill and every decode step's logits (the ranks' slices unsharded)
+    against JAX's decode with the same field, float32 at TOL and bf16 at
+    SPLIT_BF16_TOL of the largest logit; the collective bytes as
+    counted (the merge carries what the unsplit merge does)."""
+    arch, kw, shape, B, P, T, S, _ = SPLIT[name]
+    runs = _runs(ranks, "split", name, shape)
+    cfg = smoke_arch(arch).replace(**kw)
+    tol = TOL if kw["compute_dtype"] == "float32" else SPLIT_BF16_TOL
+    ref = jax_short[name]
+    for t in range(T + 1):
+        _close(_unshard_logits(runs, cfg, shape, B, t), ref["logits"][t],
+               tol)
+    for o in runs:
+        assert o["bytes"][0] == o["counted"]["prefill"]["total"]
+        assert set(o["bytes"][1:]) == {o["counted"]["decode"]["total"]}
+
+
+def test_split_that_does_not_divide_the_cache_is_the_full_softmax(ranks):
+    """``decode_split`` 4 does not divide max_seq 21: llama_b1's run with
+    it is the unsplit run, bit for bit (JAX reads the condition on the
+    whole cache length, not a rank's block)."""
+    shape = SHORT[UNSPLIT[0]][2]
+    for r in range(math.prod(shape)):
+        got, want = ranks[r]["unsplit"], ranks[r]["short"][UNSPLIT[0]]
+        assert all(np.array_equal(a, b) for a, b in zip(got["logits"],
+                                                       want["logits"]))
+        assert got["bytes"] == want["bytes"]
+
+
+#: one card: (decode_split, max_seq, cache_index): the index inside the
+#: first chunk (the later chunks empty), at a chunk boundary, in the
+#: last chunk, and a split that does not divide the cache
+ONE_CARD_SPLITS = [(4, 16, 2), (4, 16, 4), (4, 16, 15), (8, 32, 9),
+                   (5, 16, 7)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("split,S,index", ONE_CARD_SPLITS)
+def test_one_card_split_softmax_matches_jax(split, S, index, dtype):
+    """``decode_attention_forward`` with ``decode_split`` on one card
+    against JAX's on the same weights, hidden state and cache: float32
+    at TOL of the largest output, bf16 at 2e-2 (K7's bf16 tolerance in
+    ``test_torch_lm``); where the split does not divide the cache, the
+    port's output is the unsplit one bit for bit."""
+    import jax.numpy as jnp
+
+    from repro.configs import smoke_arch as j_smoke_arch
+    from repro.models import attention as j_attn
+
+    from repro_torch.models import attention as t_attn
+
+    kw = {"decode_split": split, "compute_dtype": dtype}
+    jcfg = j_smoke_arch("llama3.2-3b").replace(**kw)
+    cfg = smoke_arch("llama3.2-3b").replace(**kw)
+    D, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(split * 100 + index)
+    p = {n: (0.1 * rng.standard_normal(shp)).astype(np.float32) for n, shp in
+         (("wq", (D, H, hd)), ("wk", (D, K, hd)), ("wv", (D, K, hd)),
+          ("wo", (H, hd, D)))}
+    h = rng.standard_normal((2, 1, D)).astype(np.float32)
+    cache = {n: rng.standard_normal((2, S, K, hd)).astype(np.float32)
+             for n in ("k", "v")}
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want, _ = j_attn.decode_attention_forward(
+        jcfg, {k: jnp.asarray(v) for k, v in p.items()},
+        jnp.asarray(h).astype(jdt),
+        {k: jnp.asarray(v).astype(jdt) for k, v in cache.items()}, index)
+
+    def port(c):
+        out, _ = t_attn.decode_attention_forward(
+            c, {k: torch.from_numpy(v) for k, v in p.items()},
+            torch.from_numpy(h).to(tdt),
+            {k: torch.from_numpy(v).to(tdt) for k, v in cache.items()},
+            index)
+        return out.float().numpy()
+
+    got = port(cfg)
+    _close(got, np.asarray(want, np.float32),
+           TOL if dtype == "float32" else 2e-2)
+    if S % split:
+        assert np.array_equal(got, port(cfg.replace(decode_split=0)))

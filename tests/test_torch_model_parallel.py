@@ -96,6 +96,25 @@ JAMBA_PARAM_TOL = 1e-2
 #: the sharded sums' order, not the split
 GRANITE_PARAM_TOL = 2e-5
 TC = dict(learning_rate=3e-3, warmup_steps=1, total_steps=10)
+#: gradient accumulation on (2, 2): arch -> its smoke config's changes,
+#: trained STEPS steps with TC's microbatch 2 (each data rank a row of
+#: each micro-batch of 2); dbrx-132b at one layer is the MoE arch (its
+#: expert fractions a micro-batch's own)
+MB_ARCHS = {"llama3.2-3b": {"num_layers": 2},
+            "dbrx-132b": {"num_layers": 1}}
+TC_MB = dict(TC, microbatch=2)
+#: the train launcher with ``--microbatch 2`` (on the (2, 2) mesh through
+#: ``main(mesh=)``, and on one card)
+CLI_MB = ["--arch", "llama3.2-3b", "--smoke", "--device", "cpu",
+          "--num-layers", "2", "--steps", "2", "--batch", "4", "--seq-len",
+          "32", "--microbatch", "2", "--log-every", "1"]
+#: dbrx's parameters after three micro-batched steps against the one
+#: card's, of each leaf's norm: its first step's clipped gradients agree
+#: within 6e-7 of a leaf's norm, but a few elements of the embedding's
+#: gradient are near zero, where Adam's first updates g / (|g| + eps)
+#: turn the summation-order noise into +-lr steps (6.8e-5 of embed/tokens'
+#: norm after three steps; llama's largest gap is 3.8e-6)
+MB_PARAM_TOL = {"llama3.2-3b": TOL, "dbrx-132b": 1e-4}
 #: the faked JAX sizes of tests/test_sharding_rules.py, and the port's
 #: real rank meshes of the same sizes
 MESHES = {"2x2": ((2, 2), ("data", "model"), ("data",)),
@@ -148,7 +167,7 @@ def _run(cfg, tc, step, plan, groups, flat, batches, record):
     for i, b in enumerate(batches):
         carried = groups.bytes
         b = plan.local_batch({k: torch.from_numpy(v) for k, v in b.items()},
-                             idx)
+                             idx, tc.microbatch)
         state, m = step(state, b)
         out["bytes"].append(groups.bytes - carried)
         out["metrics"].append({k: float(v) for k, v in m.items()})
@@ -208,11 +227,47 @@ def _rank_main(rank, world, tmp):
             rec["predicted"] = step.plan.collective_bytes(
                 *inputs[arch]["batches"][0]["labels"].shape)
             out["mesh_1x4"] = rec
+            # remat off: the same program without the recompute; "dots":
+            # the mm outputs kept, the rest (the collectives included)
+            # recomputed under the selective checkpoint
+            for name, over in (("remat_off", dict(remat=False)),
+                               ("remat_dots", dict(remat_policy="dots"))):
+                c = cfg.replace(**over)
+                step = t_steps.make_sharded_train_step(c, tc, rules, g22)
+                state, rec = _run(c, tc, step, step.plan, g22,
+                                  inputs[arch]["flat"],
+                                  inputs[arch]["batches"][:STEPS], False)
+                rec["params"] = _flat(unshard_tree(step.plan, g22,
+                                                   state.params))
+                rec["predicted"] = step.plan.collective_bytes(
+                    *inputs[arch]["batches"][0]["labels"].shape)
+                out[name] = rec
+    tmb = TrainConfig(**TC_MB)
+    out["microbatch"] = {}
+    for arch, over in MB_ARCHS.items():
+        cfg = smoke_arch(arch).replace(**over)
+        step = t_steps.make_sharded_train_step(cfg, tmb, rules, g22)
+        state, rec = _run(cfg, tmb, step, step.plan, g22,
+                          inputs[arch]["flat"],
+                          inputs[arch]["batches"][:STEPS], True)
+        rec["params"] = _flat(unshard_tree(step.plan, g22, state.params))
+        rec["predicted"] = step.plan.collective_bytes(
+            *inputs[arch]["batches"][0]["labels"].shape, tmb)
+        rec["unsplit"] = step.plan.collective_bytes(
+            *inputs[arch]["batches"][0]["labels"].shape)
+        out["microbatch"][arch] = rec
     try:
         train_mod.main(["--arch", "llama3.2-3b", "--smoke", "--device",
                         "cpu", "--mesh", "pod"])
     except ValueError as e:
         out["pod_error"] = str(e)
+    cli = {}
+    train_mod.main(CLI_MB, out=cli, mesh=m22)
+    out["cli_microbatch"] = {
+        "losses": [float(r["loss"]) for r in cli["steps"]],
+        "bytes": cli["collective_bytes"],
+        "counted": cli["plan"].collective_bytes(
+            4, 32, TrainConfig(microbatch=2))["total"]}
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     torch.distributed.destroy_process_group()
@@ -280,8 +335,9 @@ def carried():
     from repro_torch.interop import lm_params_to_numpy
 
     out = {}
-    for i, arch in enumerate(ARCHS):
-        cfg = _cfg(arch)
+    for i, arch in enumerate({**ARCHS, **MB_ARCHS}):
+        cfg = (_cfg(arch) if arch in ARCHS
+               else smoke_arch(arch).replace(**MB_ARCHS[arch]))
         rng = np.random.default_rng(100 + i)
         flat = lm_params_to_numpy(t_tf.init_params(
             cfg, torch.Generator().manual_seed(i), device="cpu"))
@@ -310,7 +366,7 @@ def spawned(carried, tmp_path_factory):
                JAX_PLATFORMS="cpu")
     jax_proc = subprocess.Popen(
         [sys.executable, "-c", JAX_STEPS, tmp,
-         json.dumps([ARCHS, STEPS, TC])],
+         json.dumps([ARCHS, STEPS, TC, MB_ARCHS, TC_MB])],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     yield ctx, tmp, jax_proc
     for proc in ctx.processes:
@@ -335,11 +391,13 @@ from repro.launch.steps import make_train_step
 from repro.optim import adamw_init
 from repro.sampling.store import flatten_tree, unflatten_tree
 
-tmp, (archs, steps, tc) = sys.argv[1], json.loads(sys.argv[2])
+tmp, (archs, steps, tc, mb_archs, tc_mb) = (sys.argv[1],
+                                            json.loads(sys.argv[2]))
 with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
     inputs = pickle.load(f)
-out = {}
-for arch, over in archs.items():
+
+
+def run(arch, over, tc):
     cfg = smoke_arch(arch).replace(**over)
     d = inputs[arch]
     state = adamw_init(jax.tree_util.tree_map(
@@ -349,9 +407,14 @@ for arch, over in archs.items():
     for b in d["batches"][:steps]:
         state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()})
         metrics.append({k: float(v) for k, v in m.items()})
-    out[arch] = {"jax": metrics, "jax_params": {
+    return {"jax": metrics, "jax_params": {
         k: np.asarray(v, np.float32)
         for k, v in flatten_tree(state.params).items()}}
+
+
+out = {arch: run(arch, over, tc) for arch, over in archs.items()}
+out["microbatch"] = {arch: run(arch, over, tc_mb)
+                     for arch, over in mb_archs.items()}
 with open(os.path.join(tmp, "jax.pkl"), "wb") as f:
     pickle.dump(out, f)
 print("JAX_STEPS_OK")
@@ -364,8 +427,24 @@ def references(spawned, carried):
     here while the ranks run, and JAX's one-device steps from the
     module's JAX subprocess."""
     ctx, tmp, jax_proc = spawned
-    out = {}
-    for arch, d in carried.items():
+    out = {"microbatch": {}}
+    for arch, over in MB_ARCHS.items():
+        cfg = smoke_arch(arch).replace(**over)
+        tc = TrainConfig(**TC_MB)
+        state = adamw_init(lm_params_from_jax(carried[arch]["flat"], cfg), tc)
+        step = t_steps.make_train_step(cfg, tc)
+        pm = []
+        for i, b in enumerate(carried[arch]["batches"][:STEPS]):
+            state, m = step(state, {k: torch.from_numpy(v)
+                                    for k, v in b.items()})
+            pm.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                mu1 = _flat(state.mu)
+        out["microbatch"][arch] = {"port": pm,
+                                   "port_params": _flat(state.params),
+                                   "port_mu1": mu1}
+    for arch in ARCHS:
+        d = carried[arch]
         cfg = _cfg(arch)
         tc = TrainConfig(**TC)
         state = adamw_init(lm_params_from_jax(d["flat"], cfg), tc)
@@ -383,7 +462,11 @@ def references(spawned, carried):
     assert "JAX_STEPS_OK" in stdout, stderr[-3000:]
     with open(os.path.join(tmp, "jax.pkl"), "rb") as f:
         for arch, d in pickle.load(f).items():
-            out[arch].update(d)
+            if arch == "microbatch":
+                for a, dd in d.items():
+                    out[arch][a].update(dd)
+            else:
+                out[arch].update(d)
     return out
 
 
@@ -906,3 +989,109 @@ def test_other_mesh_shapes_carry_their_counted_bytes(ranks, references):
 def test_pod_mesh_in_a_four_rank_group_raises_naming_256(ranks):
     for o in ranks:
         assert "256 ranks" in o["pod_error"], o.get("pod_error")
+
+
+# ---------------------------------------------------------------------------
+# remat and gradient accumulation on (2, 2)
+# ---------------------------------------------------------------------------
+
+
+def test_remat_on_and_off_are_bit_equal_on_the_mesh(ranks):
+    """llama3.2-3b's three (2, 2) steps under JAX's default remat (every
+    arch run above) and with ``remat=False``: every metric and parameter
+    the same bits on every rank; each carries its counted bytes, and the
+    recompute's gathers and forward sums are what remat adds."""
+    for o in ranks:
+        on, off = o["llama3.2-3b"], o["remat_off"]
+        assert off["metrics"] == on["metrics"]
+        for k, v in off["params"].items():
+            assert np.array_equal(v, on["params"][k]), k
+        assert off["bytes"] == [off["predicted"]["total"]] * STEPS
+        assert on["bytes"] == [on["predicted"]["total"]] * STEPS
+        p_on, p_off = on["predicted"], off["predicted"]
+        assert p_on["grad_sum"] == p_off["grad_sum"]
+        assert p_on["gather"] > p_off["gather"]
+        assert p_on["tensor_parallel"] > p_off["tensor_parallel"]
+
+
+def test_remat_dots_is_bit_equal_on_the_mesh(ranks):
+    """llama3.2-3b's three (2, 2) steps under ``remat_policy="dots"``
+    (each block's gathers, copies and sums inside the selective
+    checkpoint, run again in the recompute): every metric and parameter
+    the same bits as under full remat on every rank, and each step
+    carries the bytes ``collective_bytes`` counts, full remat's."""
+    for o in ranks:
+        on, dots = o["llama3.2-3b"], o["remat_dots"]
+        assert dots["metrics"] == on["metrics"]
+        for k, v in dots["params"].items():
+            assert np.array_equal(v, on["params"][k]), k
+        assert dots["predicted"] == on["predicted"]
+        assert dots["bytes"] == [dots["predicted"]["total"]] * STEPS
+
+
+@pytest.mark.parametrize("arch", list(MB_ARCHS))
+def test_microbatch_on_the_mesh_matches_one_card_and_jax(ranks, references,
+                                                         arch):
+    """``microbatch=2`` on (2, 2), three steps: the losses (JAX's
+    ``{"loss"}``) and grad norms 1e-5 relative to the port's one-card
+    micro-batched step, the first step's clipped gradient GRAD_TOL and
+    the parameters MB_PARAM_TOL of each leaf's norm; the losses at TOL
+    and the parameters JAX_PARAM_TOL against JAX's one-device
+    micro-batched step; every rank the same; ``Group.bytes`` the counted
+    bytes of two micro-batches."""
+    ref = references["microbatch"][arch]
+    rec = ranks[0]["microbatch"][arch]
+    for o in ranks[1:]:
+        assert o["microbatch"][arch]["metrics"] == rec["metrics"]
+    for got, want, jax_m in zip(rec["metrics"], ref["port"], ref["jax"]):
+        assert set(got) == set(want) == set(jax_m)
+        for k in ("loss", "grad_norm"):
+            assert _rel(got[k], want[k]) <= TOL, k
+        assert got["lr"] == want["lr"]
+        assert _rel(got["loss"], jax_m["loss"]) <= TOL
+    gaps = _norm_gap(rec["mu1"], ref["port_mu1"])
+    assert max(gaps.values()) <= GRAD_TOL, gaps
+    gaps = _norm_gap(rec["params"], ref["port_params"])
+    assert max(gaps.values()) <= MB_PARAM_TOL[arch], gaps
+    gaps = _norm_gap(rec["params"], ref["jax_params"])
+    assert max(gaps.values()) <= JAX_PARAM_TOL, gaps
+    for o in ranks:
+        r = o["microbatch"][arch]
+        assert r["bytes"] == [r["predicted"]["total"]] * STEPS
+        assert r["predicted"]["gather"] == 2 * r["unsplit"]["gather"]
+
+
+def test_microbatch_rows_are_jax_micro_batches():
+    """``local_batch(microbatch=n)``: data rank r takes rows i B / n + r B
+    / (n d) + [0, B / (n d)) of each micro-batch i, micro-batch-major, so
+    its micro-batch i is its rows [i B / (n d), (i + 1) B / (n d)); a
+    batch that n d does not divide is refused, naming B, n and d."""
+    plan = ShardPlan(_cfg("llama3.2-3b"), _rules("2x2"))
+    x = torch.arange(8)[:, None]
+    got = [plan.local_batch({"tokens": x}, r, microbatch=2)["tokens"][:, 0]
+           for r in range(4)]
+    assert [g.tolist() for g in got] == [[0, 1, 4, 5], [0, 1, 4, 5],
+                                        [2, 3, 6, 7], [2, 3, 6, 7]]
+    assert plan.local_batch({"tokens": x}, 2, microbatch=1)[
+        "tokens"][:, 0].tolist() == [4, 5, 6, 7]
+    with pytest.raises(ValueError, match="batch 6 does not split into 2 "
+                                         "micro-batches over 2 data ranks"):
+        plan.local_batch({"tokens": x[:6]}, 0, microbatch=2)
+
+
+def test_train_cli_microbatch_on_the_mesh(ranks, capsys):
+    """``launch.train.main(--microbatch 2, mesh=)`` on (2, 2): each rank
+    reads its rows of each micro-batch, the losses are the one-card
+    launcher's at 1e-5 and equal on every rank, and a step carries the
+    bytes the plan counts for two micro-batches."""
+    one = {}
+    assert train_mod.main(CLI_MB, out=one) == 0
+    want = [float(r["loss"]) for r in one["steps"]]
+    got = ranks[0]["cli_microbatch"]
+    assert len(got["losses"]) == len(want) == 2
+    for g, w in zip(got["losses"], want):
+        assert _rel(g, w) <= TOL
+    for o in ranks:
+        rec = o["cli_microbatch"]
+        assert rec["losses"] == got["losses"]
+        assert rec["bytes"] == rec["counted"]

@@ -310,12 +310,21 @@ def test_full_width_placements_split_on_a_2x2_mesh():
 def test_llama_counted_bytes_fall_with_the_vocabulary_split():
     """llama3.2-3b at its widths, 2 layers, (2, 2), JAX's CLI batch: the
     bytes a rank carries a step, counted from the plan, against the
-    6,162,714,672 of the table gathered whole."""
-    plan = _plan(get_arch("llama3.2-3b").replace(num_layers=2), (2, 2))
+    6,162,714,672 of the table gathered whole (both without remat); under
+    JAX's default remat the blocks' gathers and forward sums run again in
+    the recompute."""
+    llama = get_arch("llama3.2-3b").replace(num_layers=2)
+    plan = _plan(llama.replace(remat=False), (2, 2))
     got = plan.collective_bytes(8, 256)
     assert got["total"] == 3_823_886_384 < 6_162_714_672
     assert got["total"] == sum(v for k, v in got.items() if k != "total")
-    dbrx = _plan(get_arch("dbrx-132b").replace(num_layers=1), (1, 4))
-    assert dbrx.collective_bytes(8, 256)["total"] == 705_249_296
+    assert _plan(llama, (2, 2)).collective_bytes(8, 256)["total"] == \
+        4_352_466_992
+    dbrx = get_arch("dbrx-132b").replace(num_layers=1)
+    assert _plan(dbrx.replace(remat=False), (1, 4)).collective_bytes(
+        8, 256)["total"] == 705_249_296
+    assert _plan(dbrx, (1, 4)).collective_bytes(8, 256)["total"] == \
+        957_349_904
+    dbrx = _plan(dbrx, (1, 4))
     assert math.prod(dbrx.out_shape(dbrx.by_key["blocks/pos0/ffn/w1"])) == \
         16 * 6144 * 2688
